@@ -1,0 +1,85 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each kernel's `csrc/*.cu` exports a plain C interface. At first use it is
+compiled for Hopper into a shared library under `build/` at the repository
+root, named by a hash of its source and flags, so an edited source builds
+anew and an unchanged one is loaded as it is. Nothing here runs at import
+time: the CPU tests import every module on machines without nvcc.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES: Dict[str, Path] = {
+    "bsr_spmv": Path(__file__).parent / "bsr_spmv" / "csrc" / "bsr_spmv.cu",
+}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> str:
+    """Compile kernel `name` unless its library is current; return nvcc's
+    report (registers, shared memory and spills per kernel; empty when the
+    library was already built)."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def build_all() -> Dict[str, float]:
+    """Build every kernel, one nvcc per source, all started together.
+    Returns each kernel's wall seconds and prints nvcc's reports."""
+    def timed(name):
+        t0 = time.perf_counter()
+        log = build(name)
+        return time.perf_counter() - t0, log
+
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(timed, name) for name in SOURCES}
+        results = {name: f.result() for name, f in futures.items()}
+    for name, (_, log) in results.items():
+        if log:
+            print(f"[build] {name}:\n{log.rstrip()}")
+    return {name: secs for name, (secs, _) in results.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built at first use (callers keep the
+    handle: each kernel's wrapper loads once)."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

@@ -7,6 +7,8 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers",
+                            "gpu: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(scope="session")

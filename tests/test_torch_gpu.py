@@ -1,0 +1,181 @@
+"""The CUDA kernels of repro_torch against their plain PyTorch versions, on
+the card. Marked `gpu`; each test skips without a CUDA device. Run them on a
+machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
+                                          bsr_spmv_ref, build_bsr, pad_x)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    # the plain version is an einsum: hold it to full f32, not TF32, so it
+    # is a fair oracle for the kernel's f32 FMAs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def random_coo(rng, n_rows, n_cols, nnz):
+    rows = rng.integers(0, n_rows, nnz)
+    cols = rng.integers(0, n_cols, nnz)
+    vals = rng.standard_normal(nnz)
+    _, idx = np.unique(rows * n_cols + cols, return_index=True)
+    return rows[idx], cols[idx], vals[idx]
+
+
+def _operands(bsr, x, device):
+    return (torch.as_tensor(bsr.blocks, device=device),
+            torch.as_tensor(bsr.blk_cols, device=device),
+            torch.as_tensor(pad_x(x, bsr.n_cols, bsr.bn), device=device))
+
+
+@pytest.mark.parametrize("accum", ["f32", "kahan"])
+@pytest.mark.parametrize("n_rows,n_cols,nnz,bm,bn,nv", [
+    (100, 100, 500, 32, 32, 1),
+    (257, 130, 800, 64, 32, 4),
+    (512, 512, 4000, 128, 128, 8),
+    (64, 300, 600, 16, 64, 2),
+    (300, 300, 2000, 8, 8, 3),
+    (90, 90, 400, 6, 6, 5),        # bn % 4 != 0: the scalar-load path
+])
+def test_kernel_matches_plain(cuda, n_rows, n_cols, nnz, bm, bn, nv, accum):
+    rng = np.random.default_rng(nnz)
+    rows, cols, vals = random_coo(rng, n_rows, n_cols, nnz)
+    bsr = build_bsr(rows, cols, vals, n_rows, n_cols, bm=bm, bn=bn)
+    x = rng.standard_normal((n_cols, nv)).astype(np.float32)
+    blocks, blk_cols, xp = _operands(bsr, x, cuda)
+    before = LAUNCHES[accum]
+    y = bsr_spmv(blocks, blk_cols, xp, accum=accum)
+    torch.cuda.synchronize()
+    assert LAUNCHES[accum] == before + 1
+    y_ref = bsr_spmv_ref(blocks, blk_cols, xp, accum=accum)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("accum", ["f32", "kahan"])
+def test_kernel_half_x(cuda, accum):
+    rng = np.random.default_rng(0)
+    rows, cols, vals = random_coo(rng, 128, 128, 700)
+    bsr = build_bsr(rows, cols, vals, 128, 128, bm=32, bn=32)
+    x = rng.standard_normal((128, 2)).astype(np.float16)
+    blocks, blk_cols, xp = _operands(bsr, x, cuda)
+    y = bsr_spmv(blocks, blk_cols, xp, accum=accum)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(
+        y, bsr_spmv_ref(blocks, blk_cols, xp, accum=accum), rtol=2e-2,
+        atol=2e-2)
+
+
+def test_kernel_empty_block_rows(cuda):
+    bsr = build_bsr(np.array([0, 1, 300]), np.array([5, 200, 10]),
+                    np.array([1.0, 2.0, 3.0]), 400, 256, bm=64, bn=64)
+    blocks, blk_cols, xp = _operands(bsr, np.ones((256, 1), np.float32),
+                                     cuda)
+    y = bsr_spmv(blocks, blk_cols, xp).reshape(-1)[:400].cpu().numpy()
+    expect = np.zeros(400, np.float32)
+    expect[[0, 1, 300]] = [1.0, 2.0, 3.0]
+    np.testing.assert_array_equal(y, expect)
+
+
+def test_kahan_beats_f32_on_deep_k(cuda):
+    """On a 128-slot chain the compensated lane lands nearer the f64 plain
+    lane than the f32 lane does."""
+    rng = np.random.default_rng(42)
+    nbc, bm = 128, 8
+    rows = np.repeat(np.arange(bm), nbc)
+    cols = np.tile(np.arange(nbc), bm) * bm + rng.integers(0, bm, nbc * bm)
+    vals = rng.standard_normal(nbc * bm) * 10.0 ** rng.integers(
+        -3, 3, nbc * bm)
+    bsr = build_bsr(rows, cols, vals, bm, nbc * bm, bm=bm, bn=bm)
+    x = rng.standard_normal((bsr.n_cols, 2)).astype(np.float32)
+    blocks, blk_cols, xp = _operands(bsr, x, cuda)
+    ref64 = bsr_spmv_ref(blocks, blk_cols, xp.double(), accum="f64")
+    err32 = (bsr_spmv(blocks, blk_cols, xp).double() - ref64).abs().max()
+    errk = (bsr_spmv(blocks, blk_cols, xp, accum="kahan").double()
+            - ref64).abs().max()
+    assert errk <= err32
+    assert errk < 0.5 * err32, (errk, err32)
+
+
+def test_wrapper_refuses_bad_operands(cuda):
+    blocks = torch.zeros((2, 1, 8, 8), device=cuda)
+    cols = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    x = torch.zeros((2, 8, 1), device=cuda)
+    with pytest.raises(TypeError):
+        bsr_spmv(blocks, cols.long(), x)
+    with pytest.raises(TypeError):
+        bsr_spmv(blocks.double(), cols, x)
+    with pytest.raises(ValueError):
+        bsr_spmv(blocks, cols, x.cpu())
+    with pytest.raises(ValueError):
+        bsr_spmv(blocks, cols, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        bsr_spmv(blocks, cols[:1], x)
+
+
+def test_auto_dispatch_launches_kernel(cuda):
+    rng = np.random.default_rng(3)
+    rows, cols, vals = random_coo(rng, 64, 64, 300)
+    bsr = build_bsr(rows, cols, vals, 64, 64, bm=16, bn=16)
+    blocks, blk_cols, xp = _operands(
+        bsr, rng.standard_normal((64, 1)).astype(np.float32), cuda)
+    before = LAUNCHES["f32"]
+    y = bsr_matvec(blocks, blk_cols, xp)
+    assert LAUNCHES["f32"] == before + 1
+    torch.testing.assert_close(y, bsr_spmv_ref(blocks, blk_cols, xp),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("linear", [False, True])
+def test_bsr_solve_on_card_matches_cpu(cuda, linear):
+    from repro_torch.graph import powerlaw_webgraph, TransitionT
+    from repro_torch.graph import GoogleOperator
+    from repro_torch.core import solve_linear, solve_power
+    g = powerlaw_webgraph(n=2000, target_nnz=16000, n_dangling=10, seed=7)
+    op = GoogleOperator(pt=TransitionT.from_graph(g), alpha=0.85)
+    solve = solve_linear if linear else solve_power
+    before = LAUNCHES["f32"]
+    r_gpu = solve(op, tol=1e-6, backend="bsr", device=cuda)
+    assert LAUNCHES["f32"] == before + r_gpu.iters
+    r_cpu = solve(op, tol=1e-6, backend="bsr", device="cpu")
+    assert abs(r_gpu.iters - r_cpu.iters) <= 1
+    assert np.abs(r_gpu.x - r_cpu.x).max() < 1e-6
+
+
+def test_frozen_stack_and_f64_on_card_match_cpu(cuda):
+    """An 8-lane personalized stack (lane freezing, pow2 compaction through
+    the kernel) and the f64 segment-sum solve agree with the CPU path."""
+    from repro_torch.graph import powerlaw_webgraph, TransitionT
+    from repro_torch.graph import GoogleOperator
+    from repro_torch.core import BackendSpec, seed_stack, solve_power
+    g = powerlaw_webgraph(n=2000, target_nnz=16000, n_dangling=10, seed=7)
+    op = GoogleOperator(pt=TransitionT.from_graph(g), alpha=0.85)
+    rng = np.random.default_rng(17)
+    v = seed_stack(op.n, [rng.choice(op.n, 3, replace=False)
+                          for _ in range(8)])
+    tol = np.array([1e-6] * 4 + [1e-4] * 4)
+    bsr8 = BackendSpec(name="bsr", bm=8)
+    before = LAUNCHES["f32"]
+    r_gpu = solve_power(op, tol=tol, v=v, backend=bsr8, device=cuda)
+    assert LAUNCHES["f32"] == before + r_gpu.iters
+    r_cpu = solve_power(op, tol=tol, v=v, backend=bsr8, device="cpu")
+    # lanes freeze at chunk boundaries picked from observed residuals, so
+    # the counts may move by a chunk; the answers may not
+    assert r_gpu.lane_iters.min() < r_gpu.lane_iters.max()
+    assert np.abs(r_gpu.x - r_cpu.x).max() < 1e-6
+    assert np.all(r_gpu.resid_per_vec <= tol)
+    s_gpu = solve_power(op, tol=1e-12, device=cuda)
+    s_cpu = solve_power(op, tol=1e-12, device="cpu")
+    assert s_gpu.iters == s_cpu.iters
+    assert np.abs(s_gpu.x - s_cpu.x).max() <= 1e-12

@@ -1,0 +1,93 @@
+"""Guards on the port's boundaries: it imports neither JAX nor the JAX
+package, its entry points default to the CUDA card and never fall back to
+the CPU, and its kernels refuse CPU tensors."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_without_jax_or_reference():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.core.pagerank, repro_torch.interop\n"
+        "import repro_torch.kernels.bsr_spmv, repro_torch.kernels.build\n"
+        "import repro_torch.configs.pagerank\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.core import solve_linear, solve_power
+    from repro_torch.device import resolve_device
+    from repro_torch.graph import GoogleOperator, TransitionT, cycle_graph
+    from repro_torch.kernels.bsr_spmv import build_bsr, spmv
+    op = GoogleOperator(pt=TransitionT.from_graph(cycle_graph(16)))
+    bsr = build_bsr(np.arange(4), np.arange(4), np.ones(4), 4, 4, bm=4,
+                    bn=4)
+    x = np.ones((1, 4, 1), np.float32)
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda")
+        return
+    for call in (lambda: solve_power(op), lambda: solve_linear(op),
+                 lambda: solve_power(op, backend="bsr"),
+                 lambda: spmv(bsr, x), lambda: resolve_device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_impl_refuses_cpu_tensors():
+    from repro_torch.core import BackendSpec, solve_power
+    from repro_torch.graph import GoogleOperator, TransitionT, cycle_graph
+    op = GoogleOperator(pt=TransitionT.from_graph(cycle_graph(16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        solve_power(op, backend=BackendSpec(name="bsr", impl="cuda"),
+                    device="cpu")
+    with pytest.raises(ValueError, match="impl"):
+        solve_power(op, backend=BackendSpec(name="bsr", impl="pallas"),
+                    device="cpu")
+
+
+def test_cycle_graph_uniform_on_cpu():
+    from repro_torch.core import solve_linear, solve_power
+    from repro_torch.graph import GoogleOperator, TransitionT, cycle_graph
+    op = GoogleOperator(pt=TransitionT.from_graph(cycle_graph(37)))
+    for solve in (solve_power, solve_linear):
+        for backend in ("segment_sum", "bsr"):
+            r = solve(op, tol=1e-9 if backend == "bsr" else 1e-12,
+                      backend=backend, device="cpu")
+            np.testing.assert_allclose(r.x, 1.0 / 37, rtol=1e-6)
