@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py [--seed N]
+
 Phases, each printing its own lines and seconds:
   1. card   : the device's name and its nvidia-smi name and power limit;
   2. build  : nvcc builds every kernel from the sources in the checkout;
-  3. kernels: each kernel against its plain PyTorch version on the card;
-  4. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
+  3. kernels: the block-CSR SpMV against its plain PyTorch version;
+  4. flash  : the flash-attention kernel against its plain version;
+  5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
-  5. packing: its hub-split block-CSR layout at bm in {8, .., 128};
-  6. main   : the static PageRank solve through the port's entry points,
+  6. packing: its hub-split block-CSR layout at bm in {8, .., 128};
+  7. main   : the static PageRank solve through the port's entry points,
               held against the oracles, with the launch counts read around
               it;
-  7. timing : one apply timed with CUDA events at bm in {16, 32}: kernel,
-              plain version, one PyTorch sparse-BSR call, and the bound.
+  8. timing : one apply timed with CUDA events at bm in {16, 32}: kernel,
+              plain version, one PyTorch sparse-BSR call, and the bound;
+  9. main   : Yi-6B inference at full width (random weights from --seed,
+              bf16): the prefill forward through the flash kernel against
+              its plain version, ServeEngine prefill against the forward
+              (bf16, then a float32 copy), and greedy and sampled
+              generation, with the flash launch count read around it;
+ 10. timing : the flash kernel, its plain version, PyTorch's
+              scaled_dot_product_attention and the bound at the Yi-6B
+              shapes; forward and decode-step times.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without a CUDA device.
 """
+import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -30,13 +44,22 @@ from contextlib import contextmanager
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
-# the tensor cores (the kernel uses full-f32 FMAs on the CUDA cores)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside
+# the tensor cores (the SpMV kernel uses full-f32 FMAs on the CUDA cores),
+# and dense bf16 FLOP/s on the tensor cores (the attention bound)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 BSR_SOURCE = "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
-              "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50"}
+              "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
+              "flash": "src/repro/kernels/flash_attention/"
+                       "flash_attention.py:27"}
+# the Yi-6B runs: prompts of the main path, and the prefill shape timed
+YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
+YI_PREFILL = (1, 2048)
 
 
 @contextmanager
@@ -99,7 +122,334 @@ def library_bsr_call(blocks, blk_cols, x):
     return lambda: a @ xf
 
 
-def main():
+def attention_bound(q, k, v, causal):
+    """Least time (ms) for one attention call on these operands: q, k, v
+    read once and o written once at the HBM rate, against the work,
+    4 * H * D flops per allowed (query, key) pair (q k^T and p v), at the
+    dense bf16 tensor-core peak. Causal is top-left: row i sees
+    min(i + 1, T) keys."""
+    import numpy as np
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    pairs = (int(np.minimum(np.arange(1, S + 1), T).sum()) if causal
+             else S * T)
+    flops = 4.0 * B * H * D * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_breakdown(fn, label, smi):
+    """Run fn once under torch.profiler and print where the device time
+    went: kernel time by group (the flash kernel, matrix products, the
+    rest), the device's busy share of the profiled wall time, and the top
+    kernels. The profiler slows the host, so the wall time here is longer
+    than an unprofiled one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"  {label}: the profiler recorded no device events")
+        return
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name = {}
+    for e in kern:
+        us = e.time_range.elapsed_us()
+        name = e.name
+        g = ("flash" if "flash_fwd" in name else
+             "matmul" if any(w in name.lower() for w in
+                             ("gemm", "nvjet", "cutlass", "xmma", "gemv"))
+             else "other")
+        groups[g] += us
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {label} (profiled): wall {wall:.2f} ms, {len(kern)} kernels, "
+          f"device busy {busy / 1e3:.2f} ms ({100 * busy / 1e3 / wall:.1f}% "
+          f"of wall); flash {groups['flash'] / 1e3:.2f} ms, matmul "
+          f"{groups['matmul'] / 1e3:.2f} ms, other "
+          f"{groups['other'] / 1e3:.2f} ms [{smi}]")
+    for name, us in top:
+        print(f"    {us / 1e3:8.3f} ms  {name}")
+
+
+def free_cuda():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def top1_report(a, b):
+    """Positions whose top-1 token differs between logits a and b, and b's
+    top-2 margin at each of them (printed, for the record)."""
+    ta, tb = a.float().argmax(-1), b.float().argmax(-1)
+    bad = (ta != tb)
+    top2 = b.float().topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1])[bad]
+    return int(bad.sum()), int(bad.numel()), margins.tolist()
+
+
+def flash_against_plain(cuda):
+    """The flash kernel against its plain version on the card; returns the
+    largest |kernel - plain| seen."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, H, Hkv, S, T, D, causal, dtype)
+        (1, 1, 1, 128, 128, 64, True, f32),    # test_kernels_attention.py
+        (2, 4, 2, 256, 256, 64, True, f32),
+        (1, 8, 1, 128, 128, 128, False, f32),
+        (1, 2, 2, 384, 384, 32, True, f32),
+        (1, 2, 2, 128, 128, 64, True, bf16),
+        (1, 4, 2, 128, 256, 128, True, f32),   # causal S != T, top-left
+        (1, 4, 2, 256, 128, 128, True, f32),
+        (1, 4, 2, 96, 160, 128, False, f32),
+        (1, 8, 2, 40, 40, 128, True, f32),     # ragged S = T
+        (1, 8, 2, 1000, 1000, 128, True, f32),
+        (1, 8, 2, 1000, 1000, 128, True, bf16),
+        (YI_BATCH, 32, 4, YI_PROMPT, YI_PROMPT, 128, True, bf16),  # main
+        (1, 32, 4, 2048, 2048, 128, True, bf16),   # Yi-6B prefill
+    ]
+    worst = 0.0
+    for B, H, Hkv, S, T, D, causal, dt in cases:
+        g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + D)
+        q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
+        o = flash_attention(q, k, v, causal=causal)
+        r = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dt == f32 else 3e-2
+        diff = (o.float() - r.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= tol + tol * r.float().abs()).all())
+        check(ok and o.dtype == dt,
+              f"flash ({B},{H},{Hkv},S={S},T={T},D={D}) causal={causal} "
+              f"{str(dt)[6:]}: max |kernel - plain| = {err:.3g} "
+              f"(rtol = atol = {tol:g})")
+        worst = max(worst, err)
+    del q, k, v, o, r
+    return worst
+
+
+def yi_main_path(cuda, seed):
+    """Yi-6B inference at full width through the port's entry points.
+    Returns the flash launches counted over the run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Transformer, count_params, model_defs
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=cuda, seed=seed)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == count_params(model_defs(cfg)) == 6_061_035_520,
+          f"yi-6b at full width on the card: {n:,} parameters in "
+          f"{model.embed['tok'].dtype} "
+          f"({time.perf_counter() - t0:.2f} s to draw)")
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT)), device=cuda)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    logits, aux = model(prompts, impl="cuda")
+    torch.cuda.synchronize()
+    print(f"  forward B={YI_BATCH} S={YI_PROMPT}: "
+          f"{time.perf_counter() - t0:.3f} s (first call)")
+    check(LAUNCHES["fwd"] == cfg.n_layers,
+          f"forward launched the flash kernel {LAUNCHES['fwd']} times "
+          f"(n_layers = {cfg.n_layers})")
+    check(tuple(logits.shape) == (YI_BATCH, YI_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+          f"logits {tuple(logits.shape)} {logits.dtype}, finite")
+    ref, _ = model(prompts, impl="ref")
+    torch.cuda.synchronize()
+    rel = rel_err(logits, ref)
+    n_bad, n_pos, margins = top1_report(logits, ref)
+    print(f"  forward cuda vs ref (bf16): max|dlogits|/max|logits| = "
+          f"{rel:.3g}; top-1 differs at {n_bad} of {n_pos} positions "
+          f"(ref top-2 margins there: {margins})")
+    # bf16 tolerances as measured on the card (PERF.md §6): the logits
+    # are bf16, so the top two are often equal or one spacing apart at a
+    # 64,000-token vocabulary, and a rounding anywhere in 32 layers flips
+    # them; the strict top-1 check is the float32 one below
+    check(rel <= 3e-2 and n_bad <= 0.1 * n_pos,
+          f"forward impl=cuda against impl=ref in bf16: relative error "
+          f"{rel:.3g} <= 3e-2, top-1 agrees at {n_pos - n_bad} of {n_pos} "
+          f"positions (>= 90%)")
+
+    eng = ServeEngine(cfg, model, max_len=YI_PROMPT + YI_GEN + 1,
+                      device=cuda)
+    t0 = time.perf_counter()
+    last, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    print(f"  ServeEngine.prefill B={YI_BATCH} S={YI_PROMPT}: "
+          f"{time.perf_counter() - t0:.3f} s")
+    rel = rel_err(last, logits[:, -1])
+    n_bad, n_pos, margins = top1_report(last, logits[:, -1])
+    print(f"  prefill vs forward[:, -1] (bf16): top-1 differs at {n_bad} "
+          f"of {n_pos} (forward's top-2 margins there: {margins})")
+    check(cache["length"] == YI_PROMPT and rel <= 3e-2,
+          f"bf16 prefill logits against forward's last position: relative "
+          f"error {rel:.3g} <= 3e-2")
+    t0 = time.perf_counter()
+    greedy = [eng.generate(prompts, YI_GEN, temperature=0.0)
+              for _ in range(2)]
+    sampled = eng.generate(prompts, YI_GEN, temperature=1.0, seed=seed)
+    torch.cuda.synchronize()
+    print(f"  generate x3 ({YI_BATCH} x {YI_GEN} tokens each, prefill "
+          f"included): {time.perf_counter() - t0:.2f} s; greedy[0] "
+          f"{greedy[0][0, :12].tolist()}")
+    check(torch.equal(greedy[0], greedy[1])
+          and tuple(greedy[0].shape) == (YI_BATCH, YI_GEN),
+          "greedy generation repeats itself")
+    check(int(sampled.min()) >= 0 and int(sampled.max()) < cfg.vocab_size,
+          f"sampled tokens in [0, {cfg.vocab_size})")
+    del model, eng, cache, logits, ref, last
+    free_cuda()
+
+    # the float32 copy: the same draws, kept in float32, TF32 off
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model = Transformer(cfg32, device=cuda, seed=seed)
+    logits, _ = model(prompts)
+    ref, _ = model(prompts, impl="ref")
+    eng = ServeEngine(cfg32, model, max_len=YI_PROMPT + 1, device=cuda)
+    last, _ = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    for what, a, b in (("forward impl=cuda against impl=ref", logits, ref),
+                       ("prefill logits against forward's last position",
+                        last, logits[:, -1])):
+        rel = rel_err(a, b)
+        n_bad, n_pos, _ = top1_report(a, b)
+        check(rel <= 1e-4 and n_bad == 0,
+              f"f32 {what}: max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 "
+              f"agrees at all {n_pos} positions")
+    launches = LAUNCHES["fwd"]
+    check(launches == 2 * cfg.n_layers,
+          f"flash launches over the main path: {launches} "
+          f"(two forwards through the kernel)")
+    del model, eng, logits, ref, last
+    free_cuda()
+    return launches
+
+
+def yi_timing(cuda, seed, smi):
+    """Times at the Yi-6B shapes; returns the kernel row of the Yi prefill
+    shape for the JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.models import Transformer, decode_step
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("yi-6b")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    row = None
+    for B, S in (YI_PREFILL, (YI_BATCH, YI_PROMPT)):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        q = torch.randn((B, H, S, D), generator=g, device=cuda).bfloat16()
+        k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).bfloat16()
+        v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).bfloat16()
+        o = flash_attention(q, k, v, causal=True)
+        r = flash_attention_ref(q, k, v, causal=True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        err = float((o.float() - r.float()).abs().max())
+        sdpa_err = float((sdpa().float() - r.float()).abs().max())
+        t = {"kernel": cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                               20),
+             "plain": cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                          causal=True), 5),
+             "sdpa": cuda_ms(sdpa, 20)}
+        b_ms, b_by = attention_bound(q, k, v, True)
+        print(f"  flash B={B} H={H} Hkv={Hkv} S=T={S} D={D} causal bf16: "
+              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"sdpa {t['sdpa']:.4f} ms (|diff| {sdpa_err:.3g}), bound "
+              f"{b_ms:.4f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / t['kernel']:.1f}% of bound [{smi}]")
+        if (B, S) == YI_PREFILL:
+            row = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+        del q, k, v, o, r
+
+    model = Transformer(cfg, device=cuda, seed=seed)
+    rng = np.random.default_rng(seed)
+    for B, S in ((YI_BATCH, YI_PROMPT), YI_PREFILL):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device=cuda)
+        model(tokens)
+        torch.cuda.synchronize()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"  forward B={B} S={S}: {ms:.2f} ms, prefill "
+              f"{B * S / ms * 1e3:.0f} tokens/s [{smi}]")
+        device_breakdown(lambda: model(tokens), f"forward B={B} S={S}", smi)
+    eng = ServeEngine(cfg, model, max_len=YI_PROMPT + 18, device=cuda)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT + 17)),
+        device=cuda)
+    _, cache = eng.prefill(tokens[:, :YI_PROMPT])
+    decode_step(model, tokens[:, YI_PROMPT], cache)
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for i in range(steps):
+        decode_step(model, tokens[:, YI_PROMPT + 1 + i], cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"  decode_step B={YI_BATCH} at length {YI_PROMPT + 2}.."
+          f"{YI_PROMPT + steps + 1}: {ms:.2f} ms per step, "
+          f"{YI_BATCH / ms * 1e3:.1f} tokens/s [{smi}]")
+    device_breakdown(lambda: decode_step(model, tokens[:, -1], cache),
+                     f"decode_step B={YI_BATCH}", smi)
+    del model, eng, cache
+    free_cuda()
+    return row
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the Yi-6B weights and prompts")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -208,6 +558,9 @@ def main():
                       - ref64).abs().max())
         check(errk <= err32 and errk < 0.5 * err32,
               f"deep K: kahan err {errk:.3g} < 0.5 x f32 err {err32:.3g}")
+
+    with phase("flash attention against its plain version"):
+        flash_err = flash_against_plain(cuda)
 
     with phase("Stanford-Web graph and f64 oracles (host)"):
         t0 = time.perf_counter()
@@ -362,6 +715,16 @@ def main():
                   f"({dt * 1e3 / r.iters:.4f} ms/iter) "
                   f"[{smi}]")
 
+    del op, op8, y_kahan, y_f32    # the Stanford-Web layouts on the card
+    free_cuda()
+
+    with phase("main path: Yi-6B inference"):
+        flash_launches = yi_main_path(cuda, args.seed)
+
+    with phase("timing: Yi-6B"):
+        print(f"  card: {smi}")
+        flash_row = yi_timing(cuda, args.seed, smi)
+
     t, b_ms, b_by, errs = rows_out[(32, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
@@ -373,6 +736,13 @@ def main():
             "ms": t[accum], "plain_ms": t[f"plain_{accum}"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": TPU_KERNEL["flash"], "launches": flash_launches,
+        "max_abs_err": max(flash_err, flash_row["err"]),
+        "ms": flash_row["kernel"], "plain_ms": flash_row["plain"],
+        "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["sdpa"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

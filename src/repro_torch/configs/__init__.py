@@ -1,2 +1,38 @@
-"""Workload configs of the port."""
+"""Workload configs of the port: the PageRank graphs, and the registry of
+the model architectures ported so far (the dense decoders)."""
+from __future__ import annotations
+
+from typing import Dict
+
+from ..models.config import ModelConfig
+from . import minitron_4b, qwen1p5_4b, smollm_360m, yi_6b
 from .pagerank import SMALL, STANFORD, PageRankConfig
+
+_MODULES = [smollm_360m, qwen1p5_4b, minitron_4b, yi_6b]
+
+REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+SMOKE_REGISTRY: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.SMOKE for m in _MODULES}
+
+ARCH_NAMES = list(REGISTRY)
+
+# the JAX package's other architectures, which this port does not run yet
+NOT_PORTED = ("paligemma-3b", "recurrentgemma-2b", "mamba2-2.7b",
+              "qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base")
+
+
+def _lookup(name: str, registry: Dict[str, ModelConfig]) -> ModelConfig:
+    if name in registry:
+        return registry[name]
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet (see ROADMAP.md, "
+                       f"Queue 1 item 10); ported: {ARCH_NAMES}")
+    raise KeyError(f"unknown arch {name!r}; have {ARCH_NAMES}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _lookup(name, REGISTRY)
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _lookup(name, SMOKE_REGISTRY)

@@ -37,7 +37,8 @@ from ..device import DeviceLike, resolve_device
 from ..graph.csr import pt_matvec
 from ..graph.google import GoogleOperator
 from ..kernels.bsr_spmv.bsr_spmv import DEFAULT_BM
-from ..kernels.bsr_spmv.ops import IMPLS, hybrid_matvec, pad_x
+from ..kernels import IMPLS
+from ..kernels.bsr_spmv.ops import hybrid_matvec, pad_x
 
 BACKENDS = ("segment_sum", "bsr")
 ALIASES = {"bsr_pallas": "bsr"}

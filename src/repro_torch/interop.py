@@ -1,17 +1,22 @@
 """Carrying state across from the JAX package as plain numpy arrays.
 
 The port imports nothing of the JAX package; a caller that holds its
-operator or packed layout reads the arrays off it and hands them here.
+operator, packed layout or model parameters reads the arrays off it and
+hands them here.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from .graph.csr import TransitionT
 from .graph.google import GoogleOperator
 from .kernels.bsr_spmv.ops import BSRMatrix, HybridBSR
+from .models.config import ModelConfig
+from .models.param import match_defs
+from .models.transformer import model_defs, stack_plan
 
 OPERATOR_KEYS = ("n", "indptr", "src", "weight", "row_ids", "dangling",
                  "alpha", "v")
@@ -70,3 +75,55 @@ def bsr_from_arrays(d: Mapping) -> HybridBSR:
         hub_cols=np.asarray(d["hub_cols"], dtype=np.int32),
         hub_vals=np.asarray(d["hub_vals"], dtype=np.float32),
         hub_nnz_frac=float(d["hub_nnz_frac"]))
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy array -> CPU tensor; bfloat16 arrays (ml_dtypes, as JAX hands
+    them out) are reinterpreted bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
+    """The port's parameter tree (the shape of `models.model_defs(cfg)`,
+    CPU tensors) from the JAX package's LM parameter tree with numpy
+    leaves.
+
+    `decoder/stack/pos{j}` leaves carry a leading repeat axis: element r is
+    layer len(head) + r * len(pattern) + j of `stack_plan`.
+    `decoder/head/layer{i}` and `decoder/tail/layer{i}` are layer i;
+    `embed/tok`, `embed/out` and `final_norm` map as they are. Raises on a
+    leaf that is missing, left over or of the wrong shape."""
+    defs = model_defs(cfg)
+    plan = stack_plan(cfg, cfg.n_layers, cfg.first_dense_layers)
+    tree = dict(tree)
+    dec = dict(tree.pop("decoder"))
+    layers = [None] * cfg.n_layers
+    head, stack, tail = (dict(dec.pop(g, {})) for g in
+                         ("head", "stack", "tail"))
+    for i in plan.head + plan.tail:
+        layers[i] = (head if i in plan.head else tail).pop(f"layer{i}")
+    for j in plan.pattern:
+        stacked = stack.pop(f"pos{j}")
+        for r in range(plan.repeats):
+            layers[len(plan.head) + r * len(plan.pattern) + j] = _index(
+                stacked, r)
+    left = [f"decoder/{g}/{k}" for g, d in
+            (("head", head), ("stack", stack), ("tail", tail)) for k in d]
+    left += [f"decoder/{k}" for k in dec]
+    if left:
+        raise KeyError(f"parameters left over: {left}")
+    ours = {"embed": tree.pop("embed"), "layers": layers,
+            "final_norm": tree.pop("final_norm")}
+    if tree:
+        raise KeyError(f"parameters left over: {sorted(tree)}")
+    return match_defs(defs, ours, lambda d, a: _tensor(a))
+
+
+def _index(tree, r: int):
+    if isinstance(tree, Mapping):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]

@@ -5,7 +5,7 @@ The kernel replaces the JAX package's Pallas `_kernel` / `_kernel_kahan`
 (repro/kernels/bsr_spmv/bsr_spmv.py): one template, switched on the
 accumulation lane and on the type of x. The wrapper only launches; the
 dispatch between the kernel and its plain version (ref.py) is in
-`ops.resolve_impl`.
+`kernels.resolve_impl`.
 """
 from __future__ import annotations
 

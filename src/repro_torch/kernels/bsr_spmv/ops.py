@@ -27,6 +27,7 @@ import torch
 
 from ...device import DeviceLike, resolve_device
 from ...graph.csr import TransitionT
+from .. import resolve_impl
 from .bsr_spmv import DEFAULT_BM, DEFAULT_BN, bsr_spmv
 from .ref import bsr_spmv_ref
 
@@ -238,22 +239,6 @@ def unpad_y(y: np.ndarray, n_rows: int) -> np.ndarray:
     """(nbr, bm, nv) -> (n_rows, nv)."""
     nbr, bm, nv = y.shape
     return y.reshape(nbr * bm, nv)[:n_rows]
-
-
-IMPLS = ("auto", "cuda", "ref")
-
-
-def resolve_impl(impl: str, x: torch.Tensor) -> str:
-    """"auto" -> "cuda" for a CUDA tensor, "ref" for a CPU tensor; "cuda"
-    on a CPU tensor raises; "ref" runs the plain version where x lies."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    if impl == "auto":
-        return "cuda" if x.is_cuda else "ref"
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError("impl='cuda' needs CUDA tensors; x is on "
-                         f"{x.device}")
-    return impl
 
 
 def bsr_matvec(blocks, blk_cols, x, impl: str = "auto", accum: str = "f32",

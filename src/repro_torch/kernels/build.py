@@ -24,6 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES: Dict[str, Path] = {
     "bsr_spmv": Path(__file__).parent / "bsr_spmv" / "csrc" / "bsr_spmv.cu",
+    "flash_attention": (Path(__file__).parent / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 

@@ -179,3 +179,94 @@ def test_frozen_stack_and_f64_on_card_match_cpu(cuda):
     s_cpu = solve_power(op, tol=1e-12, device="cpu")
     assert s_gpu.iters == s_cpu.iters
     assert np.abs(s_gpu.x - s_cpu.x).max() <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+def _qkv(rng, B, H, Hkv, S, T, D, dtype, device):
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device=device)
+    return t(B, H, S, D), t(B, Hkv, T, D), t(B, Hkv, T, D)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,dtype", [
+    (1, 1, 1, 128, 128, 64, True, torch.float32),
+    (2, 4, 2, 256, 256, 64, True, torch.float32),
+    (1, 8, 1, 128, 128, 128, False, torch.float32),
+    (1, 2, 2, 384, 384, 32, True, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, torch.bfloat16),
+    (1, 4, 2, 128, 256, 64, True, torch.float32),     # causal S < T
+    (1, 4, 2, 256, 128, 64, True, torch.float32),     # causal S > T
+    (2, 4, 4, 96, 160, 64, False, torch.float32),
+    (1, 4, 1, 40, 40, 128, True, torch.float32),      # ragged S = T
+    (1, 4, 2, 1000, 1000, 128, True, torch.bfloat16),
+    (2, 3, 1, 37, 37, 20, True, torch.float32),       # smollm-smoke D
+    (2, 3, 1, 37, 37, 18, True, torch.float32),       # D % 4 != 0
+    (1, 2, 1, 33, 70, 12, True, torch.bfloat16),      # D % 8 != 0 in bf16
+])
+def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, T, D, causal,
+                                    dtype):
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(S * 1000 + T + D)
+    q, k, v = _qkv(rng, B, H, Hkv, S, T, D, dtype, cuda)
+    before = LAUNCHES["fwd"]
+    o = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwd"] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(
+        o.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        rtol=tol, atol=tol)
+
+
+def test_flash_wrapper_refuses_bad_operands(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    kv = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), kv, kv)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 3, 8, 16), device=cuda),
+                        torch.zeros((1, 3, 8, 16), device=cuda))
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 1, 8, 256), device=cuda)
+        flash_attention(big, big, big)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "smollm-360m", "qwen1.5-4b",
+                                  "minitron-4b"])
+def test_smoke_forward_through_kernel(cuda, arch):
+    """A smoke-size model's forward launches the kernel once per layer and
+    agrees with the plain version, and the engine's prefill agrees with the
+    forward's last position (f32, no TF32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config(arch)
+    model = Transformer(cfg, device=cuda, seed=0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 70)), device=cuda)
+    before = LAUNCHES["fwd"]
+    logits, _ = model(tokens)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwd"] == before + cfg.n_layers
+    ref, _ = model(tokens, impl="ref")
+    assert LAUNCHES["fwd"] == before + cfg.n_layers
+    torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-4)
+    eng = ServeEngine(cfg, model, max_len=80, device=cuda)
+    last, cache = eng.prefill(tokens)
+    torch.testing.assert_close(last, logits[:, -1], rtol=1e-4, atol=1e-4)
+    a = eng.generate(tokens[:, :8], 6, temperature=0.0)
+    assert torch.equal(a, eng.generate(tokens[:, :8], 6, temperature=0.0))

@@ -24,6 +24,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch, repro_torch.core.pagerank, repro_torch.interop\n"
         "import repro_torch.kernels.bsr_spmv, repro_torch.kernels.build\n"
         "import repro_torch.configs.pagerank\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.models\n"
+        "import repro_torch.models.decode, repro_torch.serving.engine\n"
+        "import repro_torch.launch.serve, repro_torch.configs\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -68,6 +71,43 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import attention
+    from repro_torch.models import Transformer, init_cache
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config("yi-6b")
+    if torch.cuda.is_available():
+        return
+    model = Transformer(cfg, device="cpu")
+    for call in (lambda: Transformer(cfg),
+                 lambda: ServeEngine(cfg, model),
+                 lambda: init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    q = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        model(np.zeros((1, 4), np.int64), impl="cuda")
+
+
+def test_lm_unported_paths_raise():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.attention import gqa_attention
+    from repro_torch.models import Transformer
+    cfg = get_smoke_config("yi-6b")
+    model = Transformer(cfg, device="cpu")
+    x = torch.zeros((1, 4, cfg.d_model))
+    pos = torch.arange(4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                      window=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                      prefix_len=2)
 
 
 def test_cuda_impl_refuses_cpu_tensors():
