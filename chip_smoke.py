@@ -9,7 +9,9 @@ Phases, each printing its own lines and seconds:
   1. card   : the device's name and its nvidia-smi name and power limit;
   2. build  : nvcc builds every kernel from the sources in the checkout;
   3. kernels: the block-CSR SpMV against its plain PyTorch version;
-  4. flash  : the flash-attention kernel against its plain version;
+  4. flash  : both flash-attention kernels (the tensor-core lane for bf16
+              at head dim 64 or 128, the CUDA-core lane for the rest)
+              against their plain version;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128};
@@ -19,13 +21,16 @@ Phases, each printing its own lines and seconds:
   8. timing : one apply timed with CUDA events at bm in {16, 32}: kernel,
               plain version, one PyTorch sparse-BSR call, and the bound;
   9. main   : Yi-6B inference at full width (random weights from --seed,
-              bf16): the prefill forward through the flash kernel against
-              its plain version, ServeEngine prefill against the forward
-              (bf16, then a float32 copy), and greedy and sampled
-              generation, with the flash launch count read around it;
- 10. timing : the flash kernel, its plain version, PyTorch's
+              bf16): the prefill forward through the tensor-core flash
+              kernel against its plain version, ServeEngine prefill against
+              the forward (bf16, then a float32 copy whose forward takes the
+              CUDA-core lane), and greedy and sampled generation, with the
+              launch counts of both lanes read around it;
+ 10. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
-              shapes; forward and decode-step times.
+              shapes (the tensor-core lane in bf16 at both, the CUDA-core
+              lane in float32 at the 2048-token one); forward and
+              decode-step times.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -51,8 +56,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 BSR_SOURCE = "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu"
-FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
-                "flash_attention.cu")
+FLASH_SOURCE = {
+    "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_wgmma.cu",
+    "f32": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
@@ -60,6 +67,10 @@ TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
 # the Yi-6B runs: prompts of the main path, and the prefill shape timed
 YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
 YI_PREFILL = (1, 2048)
+# flash against its plain version, max over rows of ||o - r|| / ||r||,
+# about twice (bf16) and ten times (float32) the largest reading of the
+# sound kernels, 4.6e-3 and 9.4e-7 (PERF.md §6)
+ROW_REL_LIMIT = {"bfloat16": 1e-2, "float32": 1e-5}
 
 
 @contextmanager
@@ -126,16 +137,18 @@ def attention_bound(q, k, v, causal):
     """Least time (ms) for one attention call on these operands: q, k, v
     read once and o written once at the HBM rate, against the work,
     4 * H * D flops per allowed (query, key) pair (q k^T and p v), at the
-    dense bf16 tensor-core peak. Causal is top-left: row i sees
-    min(i + 1, T) keys."""
+    peak for the operands' type: dense bf16 on the tensor cores, float32 on
+    the CUDA cores. Causal is top-left: row i sees min(i + 1, T) keys."""
     import numpy as np
+    import torch
     B, H, S, D = q.shape
     T = k.shape[2]
     pairs = (int(np.minimum(np.arange(1, S + 1), T).sum()) if causal
              else S * T)
     flops = 4.0 * B * H * D * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -200,6 +213,12 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / float(b.abs().max())
 
 
+def row_rel_err(o, r):
+    """max over rows of ||o - r|| / ||r||, each row one query's output."""
+    o, r = o.float(), r.float()
+    return float(((o - r).norm(dim=-1) / r.norm(dim=-1)).max())
+
+
 def top1_report(a, b):
     """Positions whose top-1 token differs between logits a and b, and b's
     top-2 margin at each of them (printed, for the record)."""
@@ -211,12 +230,13 @@ def top1_report(a, b):
 
 
 def flash_against_plain(cuda):
-    """The flash kernel against its plain version on the card; returns the
-    largest |kernel - plain| seen."""
-    import numpy as np
+    """Both flash kernels against their plain version on the card; returns
+    the largest |kernel - plain| seen per lane ("wgmma", "f32")."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (B, H, Hkv, S, T, D, causal, dtype)
         (1, 1, 1, 128, 128, 64, True, f32),    # test_kernels_attention.py
@@ -232,32 +252,62 @@ def flash_against_plain(cuda):
         (1, 8, 2, 1000, 1000, 128, True, bf16),
         (YI_BATCH, 32, 4, YI_PROMPT, YI_PROMPT, 128, True, bf16),  # main
         (1, 32, 4, 2048, 2048, 128, True, bf16),   # Yi-6B prefill
+        # the tensor-core lane: S = T in {64, 128, 1000, 2048}, D in
+        # {64, 128}, G in {1, 4, 8}, causal S != T, ragged 1/63/65/129, B = 2
+        (1, 4, 4, 64, 64, 64, False, bf16),
+        (1, 8, 2, 128, 128, 64, True, bf16),
+        (1, 8, 1, 1000, 1000, 64, True, bf16),
+        (1, 8, 2, 2048, 2048, 64, True, bf16),
+        (1, 4, 4, 64, 64, 128, True, bf16),
+        (1, 8, 2, 128, 128, 128, False, bf16),
+        (1, 8, 1, 1000, 1000, 128, False, bf16),
+        (1, 4, 2, 128, 256, 128, True, bf16),
+        (1, 4, 2, 256, 128, 128, True, bf16),
+        (1, 4, 2, 128, 256, 64, True, bf16),
+        (1, 4, 2, 256, 128, 64, True, bf16),
+        (1, 4, 1, 1, 1, 128, True, bf16),
+        (1, 4, 1, 63, 63, 64, True, bf16),
+        (1, 4, 1, 65, 65, 128, True, bf16),
+        (1, 4, 1, 129, 129, 64, False, bf16),
+        (2, 8, 1, 129, 129, 128, True, bf16),
+        (2, 4, 4, 1000, 1000, 64, True, bf16),
     ]
-    worst = 0.0
+    worst = {"wgmma": 0.0, "f32": 0.0}
+    worst_rel = dict(worst)
     for B, H, Hkv, S, T, D, causal, dt in cases:
         g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + D)
         q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dt)
         k = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
         v = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
+        lane = kernel_lane(dt, D)
+        before = LAUNCHES["wgmma"]
         o = flash_attention(q, k, v, causal=causal)
         r = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        on_lane = LAUNCHES["wgmma"] - before == (lane == "wgmma")
+        # bf16: the tensor-core lane rounds p to bf16 before p v
         tol = 1e-4 if dt == f32 else 3e-2
         diff = (o.float() - r.float()).abs()
         err = float(diff.max())
         ok = bool((diff <= tol + tol * r.float().abs()).all())
-        check(ok and o.dtype == dt,
-              f"flash ({B},{H},{Hkv},S={S},T={T},D={D}) causal={causal} "
-              f"{str(dt)[6:]}: max |kernel - plain| = {err:.3g} "
-              f"(rtol = atol = {tol:g})")
-        worst = max(worst, err)
+        # and at the output's own scale, row by row (|o| falls like
+        # T^-1/2, so at long T the elementwise bound is as large as o)
+        rel, lim = row_rel_err(o, r), ROW_REL_LIMIT[str(dt)[6:]]
+        check(ok and rel <= lim and on_lane and o.dtype == dt,
+              f"flash {lane} ({B},{H},{Hkv},S={S},T={T},D={D}) "
+              f"causal={causal} {str(dt)[6:]}: max |kernel - plain| = "
+              f"{err:.3g} (rtol = atol = {tol:g}), max row |kernel - "
+              f"plain| / |plain| = {rel:.3g} (<= {lim:g})")
+        worst[lane] = max(worst[lane], err)
+        worst_rel[lane] = max(worst_rel[lane], rel)
+    print(f"  largest row-relative error per lane: {worst_rel}")
     del q, k, v, o, r
     return worst
 
 
 def yi_main_path(cuda, seed):
     """Yi-6B inference at full width through the port's entry points.
-    Returns the flash launches counted over the run."""
+    Returns the launches of each flash lane counted over the run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -285,8 +335,10 @@ def yi_main_path(cuda, seed):
     torch.cuda.synchronize()
     print(f"  forward B={YI_BATCH} S={YI_PROMPT}: "
           f"{time.perf_counter() - t0:.3f} s (first call)")
-    check(LAUNCHES["fwd"] == cfg.n_layers,
-          f"forward launched the flash kernel {LAUNCHES['fwd']} times "
+    check(LAUNCHES["wgmma"] == LAUNCHES["fwd"] == cfg.n_layers,
+          f"bf16 forward launched the tensor-core flash kernel "
+          f"{LAUNCHES['wgmma']} times and the CUDA-core one "
+          f"{LAUNCHES['fwd'] - LAUNCHES['wgmma']} times "
           f"(n_layers = {cfg.n_layers})")
     check(tuple(logits.shape) == (YI_BATCH, YI_PROMPT, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
@@ -354,35 +406,42 @@ def yi_main_path(cuda, seed):
         check(rel <= 1e-4 and n_bad == 0,
               f"f32 {what}: max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 "
               f"agrees at all {n_pos} positions")
-    launches = LAUNCHES["fwd"]
-    check(launches == 2 * cfg.n_layers,
-          f"flash launches over the main path: {launches} "
-          f"(two forwards through the kernel)")
+    launches = {"wgmma": LAUNCHES["wgmma"],
+                "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"]}
+    check(launches == {"wgmma": cfg.n_layers, "f32": cfg.n_layers},
+          f"flash launches over the main path: {launches} (the bf16 "
+          f"forward on the tensor cores, the float32 one on the CUDA "
+          f"cores, {cfg.n_layers} layers each)")
     del model, eng, logits, ref, last
     free_cuda()
     return launches
 
 
 def yi_timing(cuda, seed, smi):
-    """Times at the Yi-6B shapes; returns the kernel row of the Yi prefill
-    shape for the JSON line."""
+    """Times at the Yi-6B shapes; returns each flash lane's row at the Yi
+    prefill shape for the JSON line (the tensor-core lane in bf16, the
+    CUDA-core lane in float32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     kernel_lane)
     from repro_torch.models import Transformer, decode_step
     from repro_torch.serving import ServeEngine
 
     cfg = get_config("yi-6b")
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    row = None
-    for B, S in (YI_PREFILL, (YI_BATCH, YI_PROMPT)):
+    rows = {}
+    for (B, S), dt in ((YI_PREFILL, torch.bfloat16),
+                       ((YI_BATCH, YI_PROMPT), torch.bfloat16),
+                       (YI_PREFILL, torch.float32)):
         g = torch.Generator(device=cuda).manual_seed(seed)
-        q = torch.randn((B, H, S, D), generator=g, device=cuda).bfloat16()
-        k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).bfloat16()
-        v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).bfloat16()
+        q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dt)
+        lane = kernel_lane(dt, D)
         o = flash_attention(q, k, v, causal=True)
         r = flash_attention_ref(q, k, v, causal=True)
 
@@ -397,13 +456,14 @@ def yi_timing(cuda, seed, smi):
                                                           causal=True), 5),
              "sdpa": cuda_ms(sdpa, 20)}
         b_ms, b_by = attention_bound(q, k, v, True)
-        print(f"  flash B={B} H={H} Hkv={Hkv} S=T={S} D={D} causal bf16: "
+        print(f"  flash {lane} lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
+              f"causal {str(dt)[6:]}: "
               f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"sdpa {t['sdpa']:.4f} ms (|diff| {sdpa_err:.3g}), bound "
               f"{b_ms:.4f} ms ({b_by}); kernel at "
               f"{100 * b_ms / t['kernel']:.1f}% of bound [{smi}]")
         if (B, S) == YI_PREFILL:
-            row = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+            rows[lane] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
         del q, k, v, o, r
 
     model = Transformer(cfg, device=cuda, seed=seed)
@@ -442,7 +502,7 @@ def yi_timing(cuda, seed, smi):
                      f"decode_step B={YI_BATCH}", smi)
     del model, eng, cache
     free_cuda()
-    return row
+    return rows
 
 
 def main(argv=None):
@@ -723,7 +783,7 @@ def main(argv=None):
 
     with phase("timing: Yi-6B"):
         print(f"  card: {smi}")
-        flash_row = yi_timing(cuda, args.seed, smi)
+        flash_rows = yi_timing(cuda, args.seed, smi)
 
     t, b_ms, b_by, errs = rows_out[(32, 1)]
     kernels = []
@@ -736,13 +796,16 @@ def main(argv=None):
             "ms": t[accum], "plain_ms": t[f"plain_{accum}"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
-    kernels.append({
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": TPU_KERNEL["flash"], "launches": flash_launches,
-        "max_abs_err": max(flash_err, flash_row["err"]),
-        "ms": flash_row["kernel"], "plain_ms": flash_row["plain"],
-        "bound_ms": flash_row["bound_ms"], "bound_by": flash_row["bound_by"],
-        "library_ms": flash_row["sdpa"]})
+    for lane, name in (("wgmma", "flash_attention"),
+                       ("f32", "flash_attention_f32")):
+        row = flash_rows[lane]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE[lane],
+            "replaces": TPU_KERNEL["flash"], "launches": flash_launches[lane],
+            "max_abs_err": max(flash_err[lane], row["err"]),
+            "ms": row["kernel"], "plain_ms": row["plain"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["sdpa"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each kernel's `csrc/*.cu` exports a plain C interface. At first use it is
-compiled for Hopper into a shared library under `build/` at the repository
-root, named by a hash of its source and flags, so an edited source builds
-anew and an unchanged one is loaded as it is. Nothing here runs at import
-time: the CPU tests import every module on machines without nvcc.
+Each build unit is one `.cu` file under a kernel's `csrc/` that exports a
+plain C interface. At first use it is compiled for Hopper into a shared
+library under `build/` at the repository root, named by a hash of every
+file under its `csrc/` (the `.cu` files and the headers they include) and
+the nvcc flags, so an edited source or header builds anew and an unchanged
+tree is loaded as it is. Nothing here runs at import time: the CPU tests
+import every module on machines without nvcc.
 """
 from __future__ import annotations
 
@@ -16,16 +18,21 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Mapping, Sequence
 
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_KERNELS = Path(__file__).parent
 SOURCES: Dict[str, Path] = {
-    "bsr_spmv": Path(__file__).parent / "bsr_spmv" / "csrc" / "bsr_spmv.cu",
-    "flash_attention": (Path(__file__).parent / "flash_attention" / "csrc"
+    "bsr_spmv": _KERNELS / "bsr_spmv" / "csrc" / "bsr_spmv.cu",
+    # the CUDA-core lane (float32, and bf16 at other head dims)
+    "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    # the tensor-core lane (bf16, head dim 64 or 128)
+    "flash_attention_wgmma": (_KERNELS / "flash_attention" / "csrc"
+                              / "flash_attention_wgmma.cu"),
 }
 
 
@@ -39,10 +46,19 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, sources: Mapping[str, Path] = SOURCES,
+                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """build/lib<name>-<hash>.so, the hash taken over every file under the
+    source's directory (path and bytes) and the flags, include paths among
+    them (the kernels need none beyond the toolkit's and their own
+    csrc/)."""
+    csrc = sources[name].parent
+    h = hashlib.sha256()
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:

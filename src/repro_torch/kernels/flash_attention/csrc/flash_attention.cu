@@ -1,6 +1,10 @@
-// Flash attention forward for Hopper (sm_90a), exported through a plain C
-// interface and bound to PyTorch with ctypes
-// (repro_torch/kernels/flash_attention/flash_attention.py).
+// Flash attention forward for Hopper (sm_90a) on the CUDA cores: the lane
+// for float32 inputs and for bf16 at head dims other than 64 and 128 (the
+// smoke configs' 12-20). bf16 at D = 64 or 128 goes to the tensor-core
+// kernel, flash_attention_wgmma.cu. Exported through a plain C interface
+// and bound to PyTorch with ctypes
+// (repro_torch/kernels/flash_attention/flash_attention.py, whose
+// kernel_lane picks the lane).
 //
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
 //   q (B, H, S, D), k and v (B, Hkv, T, D), float or bf16, contiguous;
@@ -28,13 +32,12 @@
 // in the TPU kernel, and a row whose denominator is 0 divides by 1.
 //
 // What bounds it: operations. At the Yi-6B prefill shape (B=1, H=32,
-// Hkv=4, S=T=2048, D=128, causal) the work is 34 GFLOP against 0.05 GB of
-// q, k, v and o; on the tensor cores in bf16 that is 0.035 ms, on the CUDA
-// cores in f32 (67 TFLOP/s) 0.5 ms. This kernel stays on the CUDA cores:
-// each thread holds a 4 x 8 block of scores and a 4 x (D/8) block of the
-// output, so that every 16-byte shared-memory load feeds 4 or 8 FMAs.
-// wgmma, TMA and bf16 p on the tensor cores (an FA3-style design) are
-// later work.
+// Hkv=4, S=T=2048, D=128, causal) the work is 34 GFLOP against 0.1 GB of
+// float32 q, k, v and o: 0.5 ms on the CUDA cores in f32 (67 TFLOP/s).
+// The arithmetic stays in f32 so that the float32 lane computes the
+// float32 function (no bf16 or TF32 rounding): each thread holds a 4 x 8
+// block of scores and a 4 x (D/8) block of the output, so that every
+// 16-byte shared-memory load feeds 4 or 8 FMAs.
 //
 // Tiles: BQ = BK = 64 rows, 128 threads (16 row groups x 8 column groups).
 // Thread (ty, tx) owns rows ty + 16 i (i < 4), score columns tx + 8 j

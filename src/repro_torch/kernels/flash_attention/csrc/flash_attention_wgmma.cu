@@ -1,0 +1,432 @@
+// Flash attention forward on Hopper's tensor cores (sm_90a): the bf16 lane
+// for head dims 64 and 128, exported through a plain C interface and bound
+// to PyTorch with ctypes (repro_torch/kernels/flash_attention/
+// flash_attention.py, which picks this lane or the CUDA-core one in
+// flash_attention.cu).
+//
+//   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
+//   q (B, H, S, D), k and v (B, Hkv, T, D), bf16, contiguous, 16-byte
+//   aligned; o (B, H, S, D) bf16; G = H / Hkv; D in {64, 128}.
+//
+// The same function as the CUDA-core lane and as the plain version: causal
+// masking aligned top-left (row i sees columns j <= i) for any S and T,
+// masked scores -1e30, a row whose denominator is 0 divides by 1.
+//
+// Replaces repro/kernels/flash_attention/flash_attention.py::_kernel, which
+// walks a sequential (B, H, nq, nk) grid and carries the running max,
+// denominator and accumulator in VMEM scratch from one kv step to the next.
+//
+// What bounds it: operations. At the Yi-6B prefill shape (B = 1, H = 32,
+// Hkv = 4, S = T = 2048, D = 128, causal) the work is 34.4 GFLOP (4 H D
+// per allowed query-key pair) against 0.05 GB of q, k, v and o: 0.0348 ms
+// at the 989 TFLOP/s of dense bf16 on the tensor cores, 0.016 ms of bytes
+// at 3.35 TB/s. So both products run on the tensor cores in bf16, and the
+// loads are taken off the threads that issue them:
+//
+// * One thread block per (b, h, 128-row q tile), 384 threads in three
+//   warpgroups. Warpgroup 0 is the producer: it gives up registers
+//   (setmaxnreg 24) and one of its threads issues every TMA copy. The two
+//   consumer warpgroups (setmaxnreg 240) own 64 query rows each.
+// * TMA with 3-D tensor maps, (D, S, B*H) for q and o and (D, T, B*Hkv)
+//   for k and v, so a box never crosses into another head: rows past S or
+//   T load as zeros and the store of o drops rows >= S. A bf16 row of
+//   D = 128 is 256 bytes, more than the 128-byte swizzle span, so every
+//   tile is loaded as D / 64 panels of 64 columns.
+// * A ring of 2 stages of 128 kv rows (K and V), each with a full barrier
+//   for K, one for V and an empty barrier: the producer runs up to two
+//   tiles ahead, and a consumer starts q k^T as soon as K has landed.
+//   Shared memory at D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+// * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   (K-major: D contiguous as stored), D / 16 k-steps. O += P V is wgmma
+//   m64nDk16 with P from registers: the f32 accumulator of S, rounded to
+//   bf16 and packed in pairs, is already the register layout of the next
+//   product's A operand. V is read MN-major (D contiguous) with the
+//   transpose bit set.
+// * The softmax stays in f32 registers: the 4 threads that share a row in
+//   the accumulator layout reduce its max and sum by shuffles; exp2f on
+//   scores pre-scaled by scale * log2(e); O is rescaled only when a row's
+//   max moves. The causal and column (j >= T) masks are applied only on
+//   tiles that cross the diagonal or the tail; causal blocks skip whole
+//   tiles past their last row and the longest tiles launch first.
+// * Epilogue: O / l in bf16 is staged, swizzled, over the warpgroup's own
+//   rows of the Q tile and written with one TMA store per panel.
+//
+// The tensor maps are encoded on the host at every call; the driver's
+// cuTensorMapEncodeTiled is taken through cudaGetDriverEntryPointByVersion,
+// so the library is not linked against libcuda.
+
+#include <cstdint>
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int kBQ = 128;       // q rows per block, 64 per consumer
+constexpr int kBK = 128;       // kv rows per ring stage
+constexpr int kPanel = 64;     // bf16 columns per 128-byte swizzled panel
+constexpr int kPanelRow = 128; // bytes per panel row
+constexpr int kStages = 2;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Errors that are not CUDA runtime errors.
+constexpr int kErrNoEncode = 100000;    // driver entry point not found
+constexpr int kErrEncode = 100001;      // + CUresult of the encode
+
+template <int D>
+struct Layout {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;  // one K or one V tile
+  // Q | K[kStages] | V[kStages] | barriers, each tile 1024-byte aligned;
+  // panel p of a tile of R rows starts at p * R * 128
+  static constexpr int kQOff = 0;
+  static constexpr int kKOff = kQOff + kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kBars = 1 + 3 * kStages;
+  static constexpr int kSmem = kBarOff + 8 * kBars + 1024;  // align slack
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db, 1);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o, int H,
+                       int Hkv, int S, int T, float scale_log2, int causal) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQOff;
+  const uint32_t sK = base + L::kKOff;
+  const uint32_t sV = base + L::kVOff;
+  const uint32_t q_full = base + L::kBarOff;
+  auto k_full = [&](int st) { return q_full + 8u * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8u * (1 + kStages + st); };
+  auto empty = [&](int st) { return q_full + 8u * (1 + 2 * kStages + st); };
+
+  const int nq = (S + kBQ - 1) / kBQ;
+  // causal q tiles near the end do the most work: launch them first
+  const int qt = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int bh = blockIdx.x;  // b * H + h; neighbours share a kv head
+  const int bhk = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int q0 = qt * kBQ;
+  const int nk = (T + kBK - 1) / kBK;
+  const int n_kv = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 2 * 128);  // every consumer thread releases
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load_3d(sQ + p * kBQ * kPanelRow, &tm_q, q_full, p * kPanel, q0,
+                    bh);
+      for (int kt = 0; kt < n_kv; ++kt) {
+        const int st = kt % kStages;
+        // the first round finds every stage empty (parity 1 passes)
+        mbar_wait(empty(st), ((kt / kStages) & 1) ^ 1);
+        const uint32_t k_dst = sK + st * L::kKVBytes;
+        const uint32_t v_dst = sV + st * L::kKVBytes;
+        mbar_expect_tx(k_full(st), L::kKVBytes);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(k_dst + p * kBK * kPanelRow, &tm_k, k_full(st),
+                      p * kPanel, kt * kBK, bhk);
+        mbar_expect_tx(v_full(st), L::kKVBytes);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load_3d(v_dst + p * kBK * kPanelRow, &tm_v, v_full(st),
+                      p * kPanel, kt * kBK, bhk);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<kConsumerRegs>();
+    const int c = wg - 1;  // this warpgroup's rows: q0 + 64 c + [0, 64)
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // accumulator layout: register r of a thread sits at row
+    // 16 warp + lane / 4 + 8 ((r % 4) / 2), column 8 (r / 4) + 2 (lane % 4)
+    // + r % 2 of the warpgroup's 64-row tile
+    const int row0 = q0 + 64 * c + 16 * warp + lane / 4;
+    const int col0 = 2 * (lane % 4);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+
+    const uint64_t dq = make_desc(sQ + 64 * c * kPanelRow, 16, 1024);
+    mbar_wait(q_full, 0);
+
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t parity = (kt / kStages) & 1;
+      const int k0 = kt * kBK;
+
+      // S = Q K^T: D / 16 k-steps, 4 per 64-column panel
+      float s[kBK / 2];
+      const uint64_t dk = make_desc(sK + st * L::kKVBytes, 16, 1024);
+      mbar_wait(k_full(st), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t qoff = (ks / 4) * kBQ * kPanelRow + (ks % 4) * 32;
+        const uint32_t koff = (ks / 4) * kBK * kPanelRow + (ks % 4) * 32;
+        wgmma_ss_n128(s, dq + (qoff >> 4), dk + (koff >> 4), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      // masks, only where a tile crosses the diagonal or the kv tail
+      if (k0 + kBK > T || (causal && k0 + kBK - 1 > q0 + 64 * c)) {
+#pragma unroll
+        for (int r = 0; r < kBK / 2; ++r) {
+          const int col = k0 + 8 * (r / 4) + col0 + (r % 2);
+          const int row = row0 + 8 * ((r % 4) / 2);
+          if (col >= T || (causal && col > row)) s[r] = kNegInf;
+        }
+      }
+
+      // online softmax; a row's 4 threads are lanes 4 (lane / 4) + [0, 4)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int r = 0; r < kBK / 2; ++r)
+        mx[(r % 4) / 2] = fmaxf(mx[(r % 4) / 2], s[r]);
+      float alpha[2], msc[2], rsum[2] = {0.f, 0.f};
+      bool moved = false;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f((m[h] - mx[h]) * scale_log2);
+        moved |= mx[h] != m[h];
+        m[h] = mx[h];
+        msc[h] = mx[h] * scale_log2;
+      }
+#pragma unroll
+      for (int r = 0; r < kBK / 2; ++r) {
+        const float p = exp2f(fmaf(s[r], scale_log2, -msc[(r % 4) / 2]));
+        s[r] = p;
+        rsum[(r % 4) / 2] += p;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rsum[h];
+      if (moved) {
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r % 4) / 2];
+      }
+
+      // P in bf16: k-step kk of P V takes accumulator columns
+      // [16 kk, 16 kk + 16), registers 8 kk .. 8 kk + 7
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+
+      // O += P V: kBK / 16 k-steps of 16 kv rows (2048 bytes) each; the
+      // D / 64 panels of V are kBK * 128 bytes apart (LBO)
+      const uint64_t dv =
+          make_desc(sV + st * L::kKVBytes, kBK * kPanelRow, 1024);
+      mbar_wait(v_full(st), parity);
+      wgmma_fence();
+      fence_operands(o);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv<D>(o, pa[kk], dv + ((kk * 16 * kPanelRow) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      mbar_arrive(empty(st));
+    }
+
+    // epilogue: O / l in bf16, staged 128B-swizzled over this warpgroup's
+    // rows of the Q tile (no other warpgroup reads them), one TMA store of
+    // a 64 x 64 box per panel
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
+    }
+    const uint32_t so = sQ + 64 * c * kPanelRow;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + col0;  // within D
+      const uint32_t panel = so + (col / kPanel) * kBQ * kPanelRow;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + lane / 4 + 8 * h;  // within the 64
+        const uint32_t chunk = ((col % kPanel) / 8) ^ (row % 8);
+        st_shared_u32(panel + row * kPanelRow + chunk * 16 + (col % 8) * 2,
+                      pack_bf16(o[4 * j + 2 * h] * inv[h],
+                                o[4 * j + 2 * h + 1] * inv[h]));
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + c, 128);
+    if (tid == 0 && q0 + 64 * c < S) {
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_store_3d(&tm_o, so + p * kBQ * kPanelRow, p * kPanel,
+                     q0 + 64 * c, bh);
+      tma_store_commit_and_wait();
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map (D, rows, heads) of a contiguous bf16 tensor, read and written
+// in boxes of 64 columns x box_rows rows of one head, 128B-swizzled.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
+           int rows, int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int H, int Hkv, int S, int T, float scale, bool causal,
+           cudaStream_t stream) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncode;
+  CUtensorMap tq, tk, tv, to;
+  int err = encode(fn, &tq, q, D, S, B * H, kBQ);
+  if (!err) err = encode(fn, &tk, k, D, T, B * Hkv, kBK);
+  if (!err) err = encode(fn, &tv, v, D, T, B * Hkv, kBK);
+  if (!err) err = encode(fn, &to, o, D, S, B * H, 64);
+  if (err) return err;
+  constexpr int smem = Layout<D>::kSmem;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, H, Hkv, S, T,
+                                           scale * kLog2e, causal ? 1 : 0);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, a cudaError_t after the launch, or an error of the
+// tensor-map encode (see flash_attention_wgmma_error_string). The caller
+// checks shapes, types and alignment: bf16, D in {64, 128}, H % Hkv == 0,
+// S, T >= 1, contiguous tensors on 16-byte boundaries.
+int flash_attention_wgmma_launch(const void* q, const void* k,
+                                 const void* v, void* o, int B, int H,
+                                 int Hkv, int S, int T, int D, float scale,
+                                 int causal, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || T < 1 ||
+      (S + kBQ - 1) / kBQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64>(q, k, v, o, B, H, Hkv, S, T, scale,
+                                 causal != 0, s);
+  if (D == 128) return launch<128>(q, k, v, o, B, H, Hkv, S, T, scale,
+                                   causal != 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* flash_attention_wgmma_error_string(int err) {
+  if (err == kErrNoEncode)
+    return "the driver has no cuTensorMapEncodeTiled entry point";
+  if (err >= kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

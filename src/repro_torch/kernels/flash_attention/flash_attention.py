@@ -1,11 +1,23 @@
-"""ctypes wrapper of the hand-written flash-attention CUDA kernel
-(csrc/flash_attention.cu), the prefill forward's attention.
+"""ctypes wrapper of the hand-written flash-attention CUDA kernels, the
+prefill forward's attention. Two lanes, both hand-written for sm_90a:
 
-The kernel replaces the JAX package's Pallas `_kernel`
+* "wgmma" (csrc/flash_attention_wgmma.cu): bf16 with head dim 64 or 128,
+  every full-width config the port serves. q k^T and p v run on the tensor
+  cores (wgmma, p rounded to bf16), k and v arrive by TMA into a
+  shared-memory ring, one producer and two consumer warpgroups.
+* "f32" (csrc/flash_attention.cu): float32, and bf16 at any other head dim
+  (the smoke configs' 12-20): the arithmetic in f32 on the CUDA cores.
+
+`kernel_lane` picks the lane from the dtype and the head dim alone. This is
+dispatch between two kernels, not a fallback: a bf16 tensor of head dim 64
+or 128 only ever goes to the tensor-core kernel, and a failed build or
+launch raises.
+
+The kernels replace the JAX package's Pallas `_kernel`
 (repro/kernels/flash_attention/flash_attention.py): online-softmax
 attention with GQA read in place and top-left causal masking, extended to
-any S and T. The wrapper only launches; the dispatch between the kernel and
-its plain version (ref.py) is in `ops.attention`.
+any S and T. The wrapper only launches; the dispatch between the kernels
+and their plain version (ref.py) is in `ops.attention`.
 """
 from __future__ import annotations
 
@@ -18,10 +30,29 @@ import torch
 from .. import build
 
 MAX_HEAD_DIM = 128
+WGMMA_HEAD_DIMS = (64, 128)
 
-# Launches of the forward kernel: one added where it is launched, and
-# nowhere else (chip_smoke.py reads it to show the model ran here).
-LAUNCHES = {"fwd": 0}
+# Launches: "fwd" counts every forward launch of either lane, "wgmma" those
+# of the tensor-core lane; one added where a kernel is launched, and
+# nowhere else (chip_smoke.py reads them to show the model ran here).
+LAUNCHES = {"fwd": 0, "wgmma": 0}
+
+
+def kernel_lane(dtype: torch.dtype, head_dim: int) -> str:
+    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS, else "f32"."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "f32"
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """The tensor-core lane reads and writes through TMA, which needs every
+    base address on a 16-byte boundary; raise for one that is not."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             f"the tensor-core lane (address "
+                             f"{t.data_ptr():#x})")
 
 
 @functools.cache
@@ -36,6 +67,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _wgmma_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_wgmma")
+    lib.flash_attention_wgmma_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] + [ctypes.c_void_p])
+    lib.flash_attention_wgmma_launch.restype = ctypes.c_int
+    lib.flash_attention_wgmma_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -44,7 +87,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, H, S, D); k, v: (B, Hkv, T, D) with H % Hkv == 0, all float32 or
     all bfloat16, contiguous, on one CUDA device; 1 <= D <= 128, any S and T.
     causal masks top-left (row i sees columns j <= i). scale defaults to
-    D ** -0.5. Returns (B, H, S, D) in q's dtype.
+    D ** -0.5. Returns (B, H, S, D) in q's dtype. The lane is
+    `kernel_lane(q.dtype, D)`; the tensor-core lane also needs q, k and v
+    on 16-byte boundaries.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -68,24 +113,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
+    lane = kernel_lane(q.dtype, D)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     if T == 0:
         return o.zero_()
-    vec_elems = 16 // q.element_size()
-    vec = D % vec_elems == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (q, k, v, o))
-    lib = _lib()
+    scale = D ** -0.5 if scale is None else float(scale)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv,
-            S, T, D, D ** -0.5 if scale is None else float(scale),
-            int(causal), int(q.dtype == torch.bfloat16), int(vec), stream)
+        if lane == "wgmma":
+            check_aligned(q=q, k=k, v=v, o=o)
+            lib = _wgmma_lib()
+            err = lib.flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+                Hkv, S, T, D, scale, int(causal), stream)
+            error_string = lib.flash_attention_wgmma_error_string
+        else:
+            vec_elems = 16 // q.element_size()
+            vec = D % vec_elems == 0 and all(
+                t.data_ptr() % 16 == 0 for t in (q, k, v, o))
+            lib = _lib()
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+                Hkv, S, T, D, scale, int(causal),
+                int(q.dtype == torch.bfloat16), int(vec), stream)
+            error_string = lib.flash_attention_error_string
     if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise RuntimeError(f"flash_attention ({lane} lane) launch failed: "
+                           f"error {err} ({error_string(err).decode()})")
     LAUNCHES["fwd"] += 1
+    if lane == "wgmma":
+        LAUNCHES["wgmma"] += 1
     return o

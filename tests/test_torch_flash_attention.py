@@ -84,3 +84,31 @@ def test_impl_dispatch_on_cpu():
         attention(q, k, v, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         attention(q, k, v, impl="pallas")
+
+
+@pytest.mark.parametrize("dtype,head_dim,lane", [
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 12, "f32"),
+    (torch.bfloat16, 32, "f32"),
+    (torch.bfloat16, 96, "f32"),
+    (torch.float32, 64, "f32"),
+    (torch.float32, 128, "f32"),
+    (torch.float32, 20, "f32"),
+])
+def test_kernel_lane_by_dtype_and_head_dim(dtype, head_dim, lane):
+    from repro_torch.kernels.flash_attention import kernel_lane
+    assert kernel_lane(dtype, head_dim) == lane
+
+
+def test_tensor_core_lane_refuses_unaligned_pointers():
+    from repro_torch.kernels.flash_attention import check_aligned
+    flat = torch.zeros(2 * 64 + 8, dtype=torch.bfloat16)
+    aligned = flat[:128].view(1, 1, 2, 64)
+    assert aligned.data_ptr() % 16 == 0
+    check_aligned(q=aligned, k=aligned, v=aligned)
+    shifted = flat[1:129].view(1, 1, 2, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="k must start on a 16-byte "
+                                         "boundary for the tensor-core lane"):
+        check_aligned(q=aligned, k=shifted, v=aligned)

@@ -191,6 +191,12 @@ def _qkv(rng, B, H, Hkv, S, T, D, dtype, device):
     return t(B, H, S, D), t(B, Hkv, T, D), t(B, Hkv, T, D)
 
 
+BF16 = torch.bfloat16
+# flash against its plain version: max over rows of ||o - r|| / ||r||
+# (the sound kernels read at most 4.6e-3 in bf16, 9.4e-7 in float32)
+ROW_REL_LIMIT = {torch.float32: 1e-5, BF16: 1e-2}
+
+
 @pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,dtype", [
     (1, 1, 1, 128, 128, 64, True, torch.float32),
     (2, 4, 2, 256, 256, 64, True, torch.float32),
@@ -205,23 +211,54 @@ def _qkv(rng, B, H, Hkv, S, T, D, dtype, device):
     (2, 3, 1, 37, 37, 20, True, torch.float32),       # smollm-smoke D
     (2, 3, 1, 37, 37, 18, True, torch.float32),       # D % 4 != 0
     (1, 2, 1, 33, 70, 12, True, torch.bfloat16),      # D % 8 != 0 in bf16
+    # the tensor-core lane: bf16 at D in {64, 128}
+    (1, 4, 4, 64, 64, 64, False, BF16),               # G = 1
+    (1, 4, 4, 64, 64, 128, True, BF16),
+    (1, 8, 2, 128, 128, 64, True, BF16),              # G = 4
+    (1, 8, 2, 128, 128, 128, False, BF16),
+    (1, 8, 1, 1000, 1000, 64, True, BF16),            # G = 8
+    (1, 8, 1, 1000, 1000, 128, False, BF16),
+    (1, 8, 2, 2048, 2048, 64, True, BF16),
+    (1, 8, 2, 2048, 2048, 128, True, BF16),
+    (1, 4, 2, 128, 256, 128, True, BF16),             # causal S < T
+    (1, 4, 2, 256, 128, 128, True, BF16),             # causal S > T
+    (1, 4, 2, 128, 256, 64, True, BF16),
+    (1, 4, 2, 256, 128, 64, True, BF16),
+    (1, 4, 1, 1, 1, 128, True, BF16),                 # ragged 1
+    (1, 4, 1, 63, 63, 64, True, BF16),                # ragged 63
+    (1, 4, 1, 65, 65, 128, True, BF16),               # ragged 65
+    (1, 4, 1, 129, 129, 64, False, BF16),             # ragged 129
+    (2, 8, 1, 129, 129, 128, True, BF16),             # B = 2, G = 8
+    (2, 4, 4, 1000, 1000, 64, True, BF16),            # B = 2, G = 1
+    (2, 32, 4, 128, 128, 128, True, BF16),            # yi-6b, B = 2
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, T, D, causal,
                                     dtype):
     from repro_torch.kernels.flash_attention import (LAUNCHES,
                                                      flash_attention,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     kernel_lane)
     rng = np.random.default_rng(S * 1000 + T + D)
     q, k, v = _qkv(rng, B, H, Hkv, S, T, D, dtype, cuda)
-    before = LAUNCHES["fwd"]
+    before = dict(LAUNCHES)
     o = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert LAUNCHES["fwd"] == before + 1
+    assert LAUNCHES["fwd"] == before["fwd"] + 1
+    tensor_cores = kernel_lane(dtype, D) == "wgmma"
+    assert tensor_cores == (dtype == BF16 and D in (64, 128))
+    assert LAUNCHES["wgmma"] == before["wgmma"] + int(tensor_cores)
     assert o.dtype == dtype and o.shape == q.shape
+    # bf16: q, k, v and o are rounded to bf16, and the tensor-core lane
+    # also rounds p to bf16 before p v, against the f32 math of the plain
+    # version; float32: the f32 lane differs only in summation order
     tol = 1e-4 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(
-        o.float(), flash_attention_ref(q, k, v, causal=causal).float(),
-        rtol=tol, atol=tol)
+    r = flash_attention_ref(q, k, v, causal=causal).float()
+    torch.testing.assert_close(o.float(), r, rtol=tol, atol=tol)
+    # and at the output's own scale, row by row: |o| falls like T^-1/2, so
+    # at long T the elementwise bound is as large as o (PERF.md §6)
+    rel = float(((o.float() - r).norm(dim=-1) / r.norm(dim=-1)).max())
+    assert rel <= ROW_REL_LIMIT[dtype], (
+        f"max row |kernel - plain| / |plain| = {rel:.3g}")
 
 
 def test_flash_wrapper_refuses_bad_operands(cuda):
@@ -249,21 +286,24 @@ def test_flash_wrapper_refuses_bad_operands(cuda):
 def test_smoke_forward_through_kernel(cuda, arch):
     """A smoke-size model's forward launches the kernel once per layer and
     agrees with the plain version, and the engine's prefill agrees with the
-    forward's last position (f32, no TF32)."""
+    forward's last position (f32, no TF32). A float32 model takes the
+    CUDA-core lane: the tensor-core kernel is never launched."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.flash_attention import LAUNCHES, kernel_lane
     from repro_torch.models import Transformer
     from repro_torch.serving import ServeEngine
     cfg = get_smoke_config(arch)
     model = Transformer(cfg, device=cuda, seed=0)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 70)), device=cuda)
-    before = LAUNCHES["fwd"]
+    assert kernel_lane(cfg.dtype(), cfg.head_dim_) == "f32"
+    before = dict(LAUNCHES)
     logits, _ = model(tokens)
     torch.cuda.synchronize()
-    assert LAUNCHES["fwd"] == before + cfg.n_layers
+    assert LAUNCHES["fwd"] == before["fwd"] + cfg.n_layers
+    assert LAUNCHES["wgmma"] == before["wgmma"]
     ref, _ = model(tokens, impl="ref")
-    assert LAUNCHES["fwd"] == before + cfg.n_layers
+    assert LAUNCHES["fwd"] == before["fwd"] + cfg.n_layers
     torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-4)
     eng = ServeEngine(cfg, model, max_len=80, device=cuda)
     last, cache = eng.prefill(tokens)
