@@ -8,18 +8,23 @@
 Phases, each printing its own lines and seconds:
   1. card   : the device's name and its nvidia-smi name and power limit;
   2. build  : nvcc builds every kernel from the sources in the checkout;
-  3. kernels: the block-CSR SpMV against its plain PyTorch version;
+  3. kernels: the block-CSR SpMV against its plain PyTorch version, with
+              and without the per-row count of real slots;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
               at head dim 64 or 128, the CUDA-core lane for the rest)
               against their plain version;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
-  6. packing: its hub-split block-CSR layout at bm in {8, .., 128};
+  6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
+              the bytes of its real slots beside the padded layout's;
   7. main   : the static PageRank solve through the port's entry points,
               held against the oracles, with the launch counts read around
               it;
-  8. timing : one apply timed with CUDA events at bm in {16, 32}: kernel,
-              plain version, one PyTorch sparse-BSR call, and the bound;
+  8. timing : one apply timed with CUDA events at bm in {8, 16, 32, 64}
+              and nv in {1, 8}: kernel (real slots, and all K), plain
+              version, two PyTorch sparse-BSR calls (padded layout, real
+              slots only), google_apply, and the bound over the real
+              slots beside the layout's;
   9. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
@@ -60,6 +65,9 @@ FLASH_SOURCE = {
     "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention_wgmma.cu",
     "f32": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
+# block edges and lane counts timed at Stanford-Web scale
+TIMED_BM = (8, 16, 32, 64)
+TIMED_NV = (1, 8)
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
@@ -103,34 +111,81 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(blocks, blk_cols, x, y):
-    """Least time (ms) for one block product on these operands: each input
-    read once and the output written once at the HBM rate, against the
-    f32 FMAs at the CUDA-core peak."""
+def bound(blocks, blk_count, x, y):
+    """Least time (ms) for one block product on these operands, over what
+    they need: the real slots' blocks and block columns, the counts, x and
+    y, each moved once at the HBM rate, against the real slots' f32 FMAs at
+    the CUDA-core peak. Returns (ms, bound_by, real bytes, layout bytes);
+    layout bytes count the padded (nbr, K) blocks and block columns
+    instead, all a kernel without the counts would read."""
     nbr, K, bm, bn = blocks.shape
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (blocks, blk_cols, x, y))
-    flops = 2.0 * nbr * K * bm * bn * x.shape[2]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    real = int(blk_count.sum())
+    xy = x.numel() * x.element_size() + y.numel() * y.element_size()
+    real_bytes = real * (bm * bn * 4 + 4) + nbr * 4 + xy
+    layout_bytes = nbr * K * (bm * bn * 4 + 4) + xy
+    flops = 2.0 * real * bm * bn * x.shape[2]
+    t_bytes, t_ops = real_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", real_bytes,
+            layout_bytes)
 
 
-def library_bsr_call(blocks, blk_cols, x):
-    """One PyTorch call computing the same f32 product: the padded layout
-    viewed as a sparse BSR tensor (each block-row holds K blocks, padded
-    slots are zero blocks at column 0) times the dense iterate."""
+def library_bsr_call(blocks, blk_cols, x, blk_count=None):
+    """One PyTorch call computing the same f32 product: the layout viewed
+    as a sparse BSR tensor times the dense iterate. Without counts it holds
+    the padded layout (K blocks per block-row, padded slots zero blocks at
+    column 0); with them, a compacted copy of the real slots only."""
     import torch
     nbr, K, bm, bn = blocks.shape
     nbc, _, nv = x.shape
-    crow = torch.arange(0, nbr * K + 1, K, dtype=torch.int32,
-                        device=blocks.device)
-    a = torch.sparse_bsr_tensor(crow, blk_cols.reshape(-1),
-                                blocks.reshape(nbr * K, bm, bn),
-                                size=(nbr * bm, nbc * bn),
+    if blk_count is None:
+        crow = torch.arange(0, nbr * K + 1, K, dtype=torch.int32,
+                            device=blocks.device)
+        cols, vals = blk_cols.reshape(-1), blocks.reshape(nbr * K, bm, bn)
+    else:
+        real = (torch.arange(K, device=blocks.device)[None, :]
+                < blk_count[:, None])
+        crow = torch.cat([blk_count.new_zeros(1),
+                          blk_count.cumsum(0, dtype=torch.int32)])
+        cols, vals = blk_cols[real], blocks[real]
+    a = torch.sparse_bsr_tensor(crow, cols, vals, size=(nbr * bm, nbc * bn),
                                 check_invariants=False)
     xf = x.reshape(nbc * bn, nv)
     return lambda: a @ xf
+
+
+def kahan_replay_layout(n_rows=16, bm=8, real=4, pad=3, seed=0):
+    """A packed layout on which Kahan's zero-product steps past the real
+    slots move the sum (tests/test_torch_gpu.py has the same): one nonzero
+    per block row at its diagonal, x all ones, so each slot's product is
+    exact; the sequences whose float32 Kahan sum over all slots differs
+    from the one over the real slots fill the first elements. Returns
+    numpy (blocks, blk_cols, x, counts)."""
+    import numpy as np
+
+    def kahan32(prods):
+        acc = np.zeros(prods.shape[:-1], np.float32)
+        comp = np.zeros_like(acc)
+        for k in range(prods.shape[-1]):
+            y = prods[..., k] - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+        return acc
+
+    rng = np.random.default_rng(seed)
+    cand = (rng.standard_normal((4096, real))
+            * 10.0 ** rng.integers(-4, 5, (4096, real))).astype(np.float32)
+    moved = kahan32(np.pad(cand, ((0, 0), (0, pad)))) != kahan32(cand)
+    seqs = np.concatenate([cand[moved], cand[~moved]])[:n_rows * bm]
+    blocks = np.zeros((n_rows, real + pad, bm, bm), np.float32)
+    diag = np.arange(bm)
+    blocks[:, :real, diag, diag] = seqs.reshape(n_rows, bm, real).transpose(
+        0, 2, 1)
+    blk_cols = np.zeros((n_rows, real + pad), np.int32)
+    blk_cols[:, :real] = np.arange(real)
+    counts = np.full(n_rows, real, np.int32)
+    return blocks, blk_cols, np.ones((real, bm, 1), np.float32), counts
 
 
 def attention_bound(q, k, v, causal):
@@ -522,9 +577,10 @@ def main(argv=None):
                                            solve_power)
     from repro_torch.graph.google import GoogleOperator, exact_pagerank
     from repro_torch.kernels import build
-    from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_spmv,
-                                              bsr_spmv_ref, build_bsr,
-                                              hybrid_matvec, pad_x)
+    from repro_torch.kernels.bsr_spmv import (DEFAULT_BM, LAUNCHES,
+                                              bsr_spmv, bsr_spmv_ref,
+                                              build_bsr, hybrid_matvec,
+                                              kernel_path, pad_x)
 
     # the plain version is an einsum: full f32, not TF32, so that it is a
     # fair oracle for the kernel's f32 FMAs
@@ -547,58 +603,85 @@ def main(argv=None):
             print(f"  {name}: {secs:.2f} s")
 
     max_err = {"f32": 0.0, "kahan": 0.0}
+    paths = {"ring": 0, "generic": 0}
 
-    def against_plain(blocks, blk_cols, x, tol, what):
+    def against_plain(blocks, blk_cols, x, counts, tol, what):
+        """Both lanes against the plain version over all K, the kernel
+        reading all K and reading only the real slots (`counts`)."""
+        count = torch.as_tensor(counts, device=cuda)
+        path = kernel_path(blocks, x)
+        paths[path] += 1
+        errs = []
         for accum in ("f32", "kahan"):
-            y = bsr_spmv(blocks, blk_cols, x, accum=accum)
             y_ref = bsr_spmv_ref(blocks, blk_cols, x, accum=accum)
-            torch.cuda.synchronize()
-            err = float((y - y_ref).abs().max()) if y.numel() else 0.0
-            scale = float(y_ref.abs().max()) if y.numel() else 0.0
-            check(err <= tol * (1.0 + scale),
-                  f"{what} accum={accum}: max |kernel - plain| = {err:.3g}")
-            max_err[accum] = max(max_err[accum], err)
+            scale = float(y_ref.abs().max())
+            for blk_count in (None, count):
+                y = bsr_spmv(blocks, blk_cols, x, accum=accum,
+                             blk_count=blk_count)
+                torch.cuda.synchronize()
+                err = float((y - y_ref).abs().max())
+                errs.append(err <= tol * (1.0 + scale))
+                max_err[accum] = max(max_err[accum], err)
+        check(all(errs), f"{what} ({path}): both lanes, all K and real "
+              f"slots, max |kernel - plain| <= {tol:g} x (1 + max|y|)")
 
     def operands(bsr, x):
         return (torch.as_tensor(bsr.blocks, device=cuda),
                 torch.as_tensor(bsr.blk_cols, device=cuda),
                 torch.as_tensor(pad_x(x, bsr.n_cols, bsr.bn), device=cuda))
 
+    def coo(rng, n_rows, n_cols, nnz):
+        rows = rng.integers(0, n_rows, nnz)
+        cols = rng.integers(0, n_cols, nnz)
+        vals = rng.standard_normal(nnz)
+        _, keep = np.unique(rows * n_cols + cols, return_index=True)
+        return rows[keep], cols[keep], vals[keep]
+
     with phase("kernels against their plain version"):
         shapes = [(100, 100, 500), (257, 130, 800), (512, 512, 4000),
-                  (64, 300, 600)]
+                  (64, 300, 600), (1000, 1000, 9000), (3000, 3000, 60000)]
         for n_rows, n_cols, nnz in shapes:
             rng = np.random.default_rng(nnz)
-            rows = rng.integers(0, n_rows, nnz)
-            cols = rng.integers(0, n_cols, nnz)
-            vals = rng.standard_normal(nnz)
-            _, keep = np.unique(rows * n_cols + cols, return_index=True)
-            rows, cols, vals = rows[keep], cols[keep], vals[keep]
+            rows, cols, vals = coo(rng, n_rows, n_cols, nnz)
             for bm in (8, 16, 32, 64):
                 bsr = build_bsr(rows, cols, vals, n_rows, n_cols, bm=bm,
                                 bn=bm)
-                for nv in (1, 4, 8):
+                for nv in (1, 2, 4, 8):
                     x = rng.standard_normal((n_cols, nv)).astype(np.float32)
-                    against_plain(*operands(bsr, x), 1e-5,
+                    against_plain(*operands(bsr, x), bsr.counts, 1e-5,
                                   f"{n_rows}x{n_cols} nnz={nnz} bm={bm} "
                                   f"nv={nv}")
+        # the generic path's shapes: bm = 6 (bn % 4 != 0), bm = 128, bm != bn
+        for n_rows, n_cols, nnz, bm, bn, nv in [
+                (90, 90, 400, 6, 6, 5), (512, 512, 4000, 128, 128, 8),
+                (257, 130, 800, 64, 32, 4), (64, 300, 600, 16, 64, 2),
+                (300, 300, 2000, 8, 8, 3)]:
+            rng = np.random.default_rng(nnz)
+            bsr = build_bsr(*coo(rng, n_rows, n_cols, nnz), n_rows, n_cols,
+                            bm=bm, bn=bn)
+            x = rng.standard_normal((n_cols, nv)).astype(np.float32)
+            against_plain(*operands(bsr, x), bsr.counts, 1e-5,
+                          f"{n_rows}x{n_cols} bm={bm} bn={bn} nv={nv}")
+        # K = 1: one diagonal block per block-row
+        bsr = build_bsr(np.arange(512), np.arange(512),
+                        np.random.default_rng(1).standard_normal(512), 512,
+                        512, bm=8, bn=8)
+        check(bsr.K == 1, "diagonal layout has K = 1")
+        against_plain(*operands(bsr, np.ones((512, 1), np.float32)),
+                      bsr.counts, 1e-5, "K = 1")
         rng = np.random.default_rng(0)
-        rows, cols = rng.integers(0, 128, 700), rng.integers(0, 128, 700)
-        _, keep = np.unique(rows * 128 + cols, return_index=True)
-        bsr = build_bsr(rows[keep], cols[keep],
-                        rng.standard_normal(700)[keep], 128, 128, bm=32,
-                        bn=32)
-        blocks, blk_cols, x16 = operands(
-            bsr, rng.standard_normal((128, 2)).astype(np.float16))
-        for accum in ("f32", "kahan"):
-            err = float((bsr_spmv(blocks, blk_cols, x16, accum=accum)
-                         - bsr_spmv_ref(blocks, blk_cols, x16,
-                                        accum=accum)).abs().max())
-            check(err <= 2e-2, f"f16 x accum={accum}: max err {err:.3g}")
+        bsr = build_bsr(*coo(rng, 128, 128, 700), 128, 128, bm=32, bn=32)
+        for nv in (1, 2, 8):
+            blocks, blk_cols, x16 = operands(
+                bsr, rng.standard_normal((128, nv)).astype(np.float16))
+            against_plain(blocks, blk_cols, x16, bsr.counts, 2e-2,
+                          f"f16 x nv={nv}")
         bsr = build_bsr(np.array([0, 1, 300]), np.array([5, 200, 10]),
-                        np.array([1.0, 2.0, 3.0]), 400, 256, bm=64, bn=64)
-        against_plain(*operands(bsr, np.ones((256, 1), np.float32)), 0.0,
-                      "fully empty block-rows")
+                        np.array([1.0, 2.0, 3.0]), 4000, 256, bm=64, bn=64)
+        check(int((bsr.counts == 0).sum()) == bsr.nbr - 2,
+              f"{bsr.nbr - 2} of {bsr.nbr} block-rows hold no real slot")
+        against_plain(*operands(bsr, np.ones((256, 1), np.float32)),
+                      bsr.counts, 0.0, "fully empty block-rows")
         # deep K (test_kernels_spmv.py:88-126): the compensated lane beats
         # the f32 lane against the f64 plain lane
         rng = np.random.default_rng(42)
@@ -611,13 +694,33 @@ def main(argv=None):
         bsr = build_bsr(rows, cols, vals, bm, nbc * bm, bm=bm, bn=bm)
         blocks, blk_cols, xp = operands(
             bsr, rng.standard_normal((nbc * bm, 2)).astype(np.float32))
+        count = torch.as_tensor(bsr.counts, device=cuda)
         ref64 = bsr_spmv_ref(blocks, blk_cols, xp.double(), accum="f64")
-        err32 = float((bsr_spmv(blocks, blk_cols, xp).double()
-                       - ref64).abs().max())
-        errk = float((bsr_spmv(blocks, blk_cols, xp, accum="kahan").double()
+        err32 = float((bsr_spmv(blocks, blk_cols, xp, blk_count=count)
+                       .double() - ref64).abs().max())
+        errk = float((bsr_spmv(blocks, blk_cols, xp, accum="kahan",
+                               blk_count=count).double()
                       - ref64).abs().max())
         check(errk <= err32 and errk < 0.5 * err32,
               f"deep K: kahan err {errk:.3g} < 0.5 x f32 err {err32:.3g}")
+        # the zero-product steps past the count move a Kahan sum: the
+        # kernel replays them, reading nothing
+        blocks, blk_cols, x1, counts = (
+            torch.as_tensor(a, device=cuda) for a in kahan_replay_layout())
+        y = bsr_spmv(blocks, blk_cols, x1, accum="kahan", blk_count=counts)
+        full = bsr_spmv_ref(blocks, blk_cols, x1, accum="kahan")
+        real = int(counts[0])
+        stop = bsr_spmv_ref(blocks[:, :real].contiguous(),
+                            blk_cols[:, :real].contiguous(), x1,
+                            accum="kahan")
+        moved = stop != full
+        rel = float((y - full).abs().max() / full.abs().max())
+        check(bool(moved.any()) and torch.equal(y[moved], full[moved])
+              and rel <= 1e-6,
+              f"kahan replay: {int(moved.sum())} sums that stopping at the "
+              f"count would change match the plain lane over all K "
+              f"exactly; max rel err {rel:.3g} <= 1e-6")
+        print(f"  cases per path: {paths}")
 
     with phase("flash attention against its plain version"):
         flash_err = flash_against_plain(cuda)
@@ -656,12 +759,18 @@ def main(argv=None):
                 check(bm == 128, f"bm={bm}: refused ({e})")
                 continue
             b = h.bsr
-            print(f"  bm={bm}: nbr={b.nbr} K={b.K} blocks="
-                  f"{b.blocks.nbytes / 1e9:.3f} GB fill={b.fill_ratio:.4f} "
-                  f"hub nnz={h.hub_rows.size} ({h.hub_nnz_frac:.4f}) "
-                  f"({time.perf_counter() - t0:.2f} s)")
-            if bm not in (16, 32):      # keep only the layouts timed below
-                op._cache().pop(("hybrid", bm, bm, 0.99))
+            t_pack = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            real = int(b.counts.sum())
+            t_count = time.perf_counter() - t0
+            blk_bytes = b.bm * b.bn * 4
+            print(f"  bm={bm}: nbr={b.nbr} K={b.K} real slots {real:,} of "
+                  f"{b.nbr * b.K:,} ({real / (b.nbr * b.K):.3f}): blocks "
+                  f"{real * blk_bytes / 1e9:.3f} GB real, "
+                  f"{b.blocks.nbytes / 1e9:.3f} GB layout; fill="
+                  f"{b.fill_ratio:.4f} hub nnz={h.hub_rows.size} "
+                  f"({h.hub_nnz_frac:.4f}) ({t_pack:.2f} s packing, "
+                  f"{t_count:.2f} s slot_counts)")
 
     with phase("main path: Stanford-Web static solve"):
         for k in LAUNCHES:
@@ -720,51 +829,76 @@ def main(argv=None):
     rows_out = {}
     with phase("timing at Stanford-Web scale"):
         print(f"  card: {smi}")
-        for bm in (16, 32):
+        for bm in TIMED_BM:
             spec = as_spec(BackendSpec(name="bsr", bm=bm), cuda)
-            for nv, v in ((1, None), (8, v8)):
-                dev, meta, x = prepare(op, spec, torch.float32, v=v)
+            for nv in TIMED_NV:
+                dev, meta, x = prepare(op, spec, torch.float32,
+                                       v=None if nv == 1 else v8)
+                check(x.shape[2] == nv, f"bm={bm}: {nv} lanes")
                 blocks, blk_cols = dev["blocks"], dev["blk_cols"]
+                count = dev["blk_count"]
+                path = kernel_path(blocks, x)
                 errs = {}
                 for accum in ("f32", "kahan"):
-                    y = bsr_spmv(blocks, blk_cols, x, accum=accum)
+                    y = bsr_spmv(blocks, blk_cols, x, accum=accum,
+                                 blk_count=count)
                     y_ref = bsr_spmv_ref(blocks, blk_cols, x, accum=accum)
                     errs[accum] = float((y - y_ref).abs().max())
                     check(errs[accum] <= 1e-5 * float(y_ref.abs().max()),
-                          f"bm={bm} nv={nv} accum={accum}: kernel against "
-                          f"plain {errs[accum]:.3g}")
-                lib = library_bsr_call(blocks, blk_cols, x)
-                lib_err = float((lib().reshape(y.shape)
-                                 - bsr_spmv_ref(blocks, blk_cols, x)
-                                 ).abs().max())
+                          f"bm={bm} nv={nv} accum={accum} ({path}): kernel "
+                          f"against plain {errs[accum]:.3g}")
+                y_plain = bsr_spmv_ref(blocks, blk_cols, x)
+                libs = {"library_layout": library_bsr_call(blocks, blk_cols,
+                                                           x),
+                        "library_real": library_bsr_call(blocks, blk_cols, x,
+                                                         count)}
+                lib_err = max(float((f().reshape(y.shape) - y_plain).abs()
+                                    .max()) for f in libs.values())
                 t = {
-                    "f32": cuda_ms(lambda: bsr_spmv(blocks, blk_cols, x), 20),
-                    "kahan": cuda_ms(lambda: bsr_spmv(blocks, blk_cols, x,
-                                                      accum="kahan"), 20),
+                    "f32": cuda_ms(lambda: bsr_spmv(blocks, blk_cols, x,
+                                                    blk_count=count), 20),
+                    "f32_all_k": cuda_ms(lambda: bsr_spmv(blocks, blk_cols,
+                                                          x), 20),
+                    "kahan": cuda_ms(lambda: bsr_spmv(
+                        blocks, blk_cols, x, accum="kahan", blk_count=count),
+                        20),
                     "plain_f32": cuda_ms(lambda: bsr_spmv_ref(
                         blocks, blk_cols, x), 5),
                     "plain_kahan": cuda_ms(lambda: bsr_spmv_ref(
                         blocks, blk_cols, x, accum="kahan"), 3),
-                    "library": cuda_ms(lib, 20),
+                    **{k: cuda_ms(f, 20) for k, f in libs.items()},
                     "apply": cuda_ms(lambda: google_apply(meta, dev, x,
                                                           False), 20),
                 }
-                b_ms, b_by = bound(blocks, blk_cols, x, y)
+                t["library"] = min(t["library_layout"], t["library_real"])
+                b_ms, b_by, real_bytes, layout_bytes = bound(blocks, count,
+                                                             x, y)
                 print(f"  bm={bm} nv={nv} nbr={blocks.shape[0]} "
-                      f"K={blocks.shape[1]} blocks="
-                      f"{blocks.numel() * 4 / 1e9:.3f} GB: "
-                      f"kernel f32 {t['f32']:.4f} ms, kahan "
-                      f"{t['kahan']:.4f} ms, plain f32 "
+                      f"K={blocks.shape[1]} ({path}): real bytes "
+                      f"{real_bytes / 1e9:.4f} GB, layout bytes "
+                      f"{layout_bytes / 1e9:.4f} GB; kernel f32 "
+                      f"{t['f32']:.4f} ms (all K {t['f32_all_k']:.4f}), "
+                      f"kahan {t['kahan']:.4f} ms, plain f32 "
                       f"{t['plain_f32']:.4f} ms, plain kahan "
-                      f"{t['plain_kahan']:.4f} ms, "
-                      f"sparse-BSR call {t['library']:.4f} ms "
+                      f"{t['plain_kahan']:.4f} ms, sparse-BSR call "
+                      f"{t['library_layout']:.4f} ms (layout) / "
+                      f"{t['library_real']:.4f} ms (real slots) "
                       f"(|diff| {lib_err:.3g}), google_apply "
-                      f"{t['apply']:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-                      f" [{smi}]")
+                      f"{t['apply']:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+                      f"layout {layout_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+                      f"ms): kernel at {100 * b_ms / t['f32']:.1f}% "
+                      f"(kahan {100 * b_ms / t['kahan']:.1f}%) of bound "
+                      f"[{smi}]")
                 rows_out[(bm, nv)] = (t, b_ms, b_by, errs)
-                del dev, blocks, blk_cols, x
-            if bm != 32:    # keep the main path's layout for warm solves
+                del dev, blocks, blk_cols, count, x, libs
+            if bm != DEFAULT_BM:    # keep the main path's layout
                 op._cache().pop(("bsr_dev", bm, spec.hub_quantile, cuda))
+            free_cuda()
+        fastest = min(TIMED_BM, key=lambda b: rows_out[(b, 1)][0]["apply"])
+        print(f"  fastest warm google_apply at nv=1: bm={fastest} "
+              f"({rows_out[(fastest, 1)][0]['apply']:.4f} ms); the CUDA "
+              f"default is bm={DEFAULT_BM} "
+              f"({rows_out[(DEFAULT_BM, 1)][0]['apply']:.4f} ms) [{smi}]")
         for name, fn in (("power bsr", solve_power),
                          ("linear bsr", solve_linear)):
             t0 = time.perf_counter()
@@ -772,7 +906,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             print(f"  warm {name}: {dt * 1e3:.2f} ms for {r.iters} applies "
-                  f"({dt * 1e3 / r.iters:.4f} ms/iter) "
+                  f"({dt * 1e3 / r.iters:.4f} ms/iter) at bm={DEFAULT_BM} "
                   f"[{smi}]")
 
     del op, op8, y_kahan, y_f32    # the Stanford-Web layouts on the card
@@ -785,7 +919,7 @@ def main(argv=None):
         print(f"  card: {smi}")
         flash_rows = yi_timing(cuda, args.seed, smi)
 
-    t, b_ms, b_by, errs = rows_out[(32, 1)]
+    t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
         kernels.append({

@@ -43,20 +43,22 @@ from ..kernels.bsr_spmv.ops import hybrid_matvec, pad_x
 BACKENDS = ("segment_sum", "bsr")
 ALIASES = {"bsr_pallas": "bsr"}
 
-# Auto block edge on CUDA: DEFAULT_BM = 32. Dense-block bytes of the
-# Stanford-Web replica (281,903 pages, 2,312,497 links) after the
-# 99th-percentile hub split (packed by chip_smoke.py):
+# Auto block edge on CUDA: DEFAULT_BM = 8. The Stanford-Web replica
+# (281,903 pages, 2,312,497 links) after the 99th-percentile hub split,
+# with the block kernel's and one warm google_apply's time at nv = 1
+# (chip_smoke.py packing and timing phases, NVIDIA H100 80GB HBM3, 700 W):
 #
-#   bm = bn   nbr      K    blocks
-#   8         35,238   42   379 MB
-#   16        17,619   33   595 MB
-#   32         8,810   33   1.19 GB
-#   64         4,405   44   3.18 GB
+#   bm = bn   nbr      K    real slots   blocks real / layout   kernel   apply
+#   8         35,238   42   1,031,630    264 MB / 379 MB        0.094    0.307
+#   16        17,619   33     385,698    395 MB / 595 MB        0.141    0.356
+#   32         8,810   33     173,677    711 MB / 1.19 GB       0.250    0.465
+#   64         4,405   44     118,964    1.95 GB / 3.18 GB      0.642    0.864
 #   128        -       70   refused by build_bsr (10.1 GB)
 #
-# The TPU's 128 cannot pack this graph at all. 32 is the widest edge that
-# packs it under 1.2 GB, and a tensor-core-friendly edge for later kernels.
-# The CPU keeps 8, the JAX package's CPU choice, so the port's CPU path
+# (ms.) The kernel reads only the real slots and is bound by their bytes,
+# so the smallest edge, with the fewest bytes of zeros inside its blocks,
+# is the fastest; the TPU's 128 cannot pack this graph at all. The CPU
+# keeps 8 as well, the JAX package's CPU choice, so the port's CPU path
 # packs the same layout as the reference.
 CPU_BM = 8
 
@@ -66,7 +68,7 @@ class BackendSpec:
     """Hashable backend selector."""
     name: str = "segment_sum"
     impl: str = "auto"          # bsr only: auto | cuda | ref
-    bm: int = 0                 # block edge; 0 = auto (32 on CUDA, 8 on CPU)
+    bm: int = 0                 # block edge; 0 = auto (DEFAULT_BM or CPU_BM)
     hub_quantile: float = 0.99  # rows above this row-nnz quantile bypass BSR
 
     def resolved(self, device: torch.device) -> "BackendSpec":

@@ -55,7 +55,8 @@ def bsr_from_arrays(d: Mapping) -> HybridBSR:
     """HybridBSR from its packed arrays (`n_rows`, `n_cols`, `bm`, `bn`,
     `blocks`, `blk_cols`, `fill_ratio`, `hub_rows`, `hub_cols`, `hub_vals`,
     `hub_nnz_frac`). Block columns are checked against the column count,
-    since the kernel trusts them."""
+    and the padding against `slot_counts`' rule, since the kernel trusts
+    both."""
     _check_keys(d, HYBRID_KEYS, "hybrid BSR")
     bsr = BSRMatrix(
         n_rows=int(d["n_rows"]), n_cols=int(d["n_cols"]), bm=int(d["bm"]),
@@ -69,6 +70,9 @@ def bsr_from_arrays(d: Mapping) -> HybridBSR:
     if bsr.blk_cols.size and (bsr.blk_cols.min() < 0
                               or bsr.blk_cols.max() >= bsr.nbc):
         raise ValueError(f"blk_cols outside [0, {bsr.nbc})")
+    # the kernel stops at each block-row's real slots: derive and check
+    # them now (ValueError where the padding rule is broken)
+    bsr.counts
     return HybridBSR(
         bsr=bsr,
         hub_rows=np.asarray(d["hub_rows"], dtype=np.int32),

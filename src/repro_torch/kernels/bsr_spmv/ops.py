@@ -3,7 +3,9 @@
 Two host containers (numpy, packed exactly as the JAX package packs them):
 
   * BSRMatrix   — the kernel's fixed-budget block-CSR layout (every block-row
-                  padded to K nonzero blocks).
+                  padded to K slots: its real blocks at strictly ascending
+                  block columns, then all-zero blocks at column 0, which
+                  the CUDA kernel skips by `slot_counts`).
   * HybridBSR   — solve-grade layout for real web graphs: rows whose in-links
                   span many block columns ("hub" pages, the in-degree tail)
                   are split out into a COO side structure evaluated with
@@ -20,6 +22,7 @@ picks "cuda" for CUDA tensors and "ref" for CPU tensors. A CUDA tensor under
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,10 +58,59 @@ class BSRMatrix:
     def K(self) -> int:
         return self.blocks.shape[1]
 
+    @functools.cached_property
+    def counts(self) -> np.ndarray:
+        """(nbr,) int32 real slots per block-row (`slot_counts`), derived
+        and checked once per layout."""
+        return slot_counts(self.blk_cols, self.blocks)
+
     def device(self, device: torch.device
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(blocks, blk_cols, blk_count) on `device`."""
         return (torch.as_tensor(self.blocks, device=device),
-                torch.as_tensor(self.blk_cols, device=device))
+                torch.as_tensor(self.blk_cols, device=device),
+                torch.as_tensor(self.counts, device=device))
+
+
+def slot_counts(blk_cols: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    """The real slots of each block-row, from the packing rule.
+
+    `build_bsr` puts a row's real blocks first, at strictly ascending block
+    columns (`np.unique` keys in stable slots), and pads the rest of the K
+    slots with all-zero blocks at column 0. So the count is the length of
+    the strictly ascending prefix of `blk_cols[i]`, less one where that
+    prefix is a lone all-zero block at column 0 (an empty row). Every slot
+    at or past the count is checked to be such padding, and a layout that
+    breaks the rule raises ValueError: the kernel stops at the count, so a
+    real block past it would be dropped from the sum. Returns int32 (nbr,).
+    """
+    blk_cols = np.asarray(blk_cols)
+    blocks = np.asarray(blocks)
+    nbr, K = blk_cols.shape
+    if blocks.shape[:2] != (nbr, K):
+        raise ValueError(f"blocks {blocks.shape} do not match blk_cols "
+                         f"{blk_cols.shape}")
+    if K == 0:
+        return np.zeros(nbr, np.int32)
+    # length of the strictly ascending prefix: one past the first step
+    # that does not ascend (a sentinel step closes every row at K)
+    steps = np.concatenate([np.diff(blk_cols.astype(np.int64), axis=1) > 0,
+                            np.zeros((nbr, 1), bool)], axis=1)
+    prefix = np.argmin(steps, axis=1) + 1
+    nonzero = np.any(blocks.reshape(nbr, K, -1), axis=2)
+    empty = (prefix == 1) & (blk_cols[:, 0] == 0) & ~nonzero[:, 0]
+    counts = np.where(empty, 0, prefix)
+    past = np.arange(K)[None, :] >= counts[:, None]
+    bad = past & ((blk_cols != 0) | nonzero)
+    if bad.any():
+        i, k = np.argwhere(bad)[0]
+        raise ValueError(
+            f"block-row {i} slot {k} lies past the row's {counts[i]} real "
+            f"slots but is not padding (column {blk_cols[i, k]}, "
+            f"{'nonzero' if nonzero[i, k] else 'zero'} block): real block "
+            f"columns must ascend strictly, padding is all-zero blocks at "
+            f"column 0")
+    return counts.astype(np.int32)
 
 
 def _ravel_index(blocks, ub_row, slot, inv, rows, cols, bm, bn):
@@ -166,8 +218,8 @@ class HybridBSR:
         return self.bsr.n_cols
 
     def device(self, device: torch.device) -> dict:
-        blocks, blk_cols = self.bsr.device(device)
-        return dict(blocks=blocks, blk_cols=blk_cols,
+        blocks, blk_cols, blk_count = self.bsr.device(device)
+        return dict(blocks=blocks, blk_cols=blk_cols, blk_count=blk_count,
                     hub_rows=torch.as_tensor(self.hub_rows, device=device),
                     hub_cols=torch.as_tensor(self.hub_cols, device=device),
                     hub_vals=torch.as_tensor(self.hub_vals, device=device))
@@ -242,21 +294,26 @@ def unpad_y(y: np.ndarray, n_rows: int) -> np.ndarray:
 
 
 def bsr_matvec(blocks, blk_cols, x, impl: str = "auto", accum: str = "f32",
-               device: DeviceLike = None) -> torch.Tensor:
+               device: DeviceLike = None, blk_count=None) -> torch.Tensor:
     """Dispatch the block multiply to the CUDA kernel or its plain version.
 
     Inputs (tensors or numpy arrays) are moved to `device` (None = the CUDA
     card). `accum` is "f32", "kahan", "f64" or "kahan_limit" (see
     `bsr_spmv_ref`); the kernel renders every lane but "f32" as "kahan",
-    having no f64 arithmetic on its path.
+    having no f64 arithmetic on its path. `blk_count` (`slot_counts`) lets
+    the kernel skip the padded slots; the plain version sums all K, which
+    gives the same result.
     """
     dev = resolve_device(device)
     blocks = torch.as_tensor(blocks, device=dev)
     blk_cols = torch.as_tensor(blk_cols, device=dev)
     x = torch.as_tensor(x, device=dev)
     if resolve_impl(impl, x) == "cuda":
+        if blk_count is not None:
+            blk_count = torch.as_tensor(blk_count, device=dev)
         return bsr_spmv(blocks, blk_cols, x,
-                        accum="f32" if accum == "f32" else "kahan")
+                        accum="f32" if accum == "f32" else "kahan",
+                        blk_count=blk_count)
     return bsr_spmv_ref(blocks, blk_cols, x, accum=accum)
 
 
@@ -274,7 +331,8 @@ def hybrid_matvec(dev: dict, x: torch.Tensor, impl: str = "auto",
     the block side's lane.
     """
     y = bsr_matvec(dev["blocks"], dev["blk_cols"], x, impl=impl,
-                   accum=accum, device=x.device)
+                   accum=accum, device=x.device,
+                   blk_count=dev["blk_count"])
     nbr, bm, nv = y.shape
     xf = x.reshape(-1, nv).double()
     contrib = dev["hub_vals"].double()[:, None] * xf.index_select(
@@ -288,6 +346,6 @@ def spmv(bsr: BSRMatrix, x, impl: str = "auto", accum: str = "f32",
          device: DeviceLike = None) -> torch.Tensor:
     """y = PT @ x in the padded block layout, from the host container."""
     dev = resolve_device(device)
-    blocks, blk_cols = bsr.device(dev)
+    blocks, blk_cols, blk_count = bsr.device(dev)
     return bsr_matvec(blocks, blk_cols, x, impl=impl, accum=accum,
-                      device=dev)
+                      device=dev, blk_count=blk_count)

@@ -4,7 +4,11 @@ the CPU.
 Packing is numpy on both sides and must give equal arrays. The port's plain
 PyTorch version is held against the JAX package's plain version and its
 Pallas kernel in interpret mode over every case of test_kernels_spmv.py:
-rtol/atol 1e-5 in f32 (summation order differs), 2e-2 with f16 x.
+rtol/atol 1e-5 in f32 (summation order differs), 2e-2 with f16 x. The
+count of real slots per block-row (`slot_counts`, where the CUDA kernel
+stops) is held to the packing, and the plain lanes are shown to give the
+same sums when the slots past it are skipped (f32) or replayed as zero
+products (Kahan), exactly.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from repro.graph.generate import powerlaw_webgraph
 from repro_torch.interop import bsr_from_arrays, operator_from_arrays
 
 from _torch_parity import hybrid_arrays, op_arrays, x64
+from test_torch_gpu import kahan_replay_layout
 
 CPU = torch.device("cpu")
 SHAPES = [
@@ -283,3 +288,144 @@ def test_hub_side_keeps_tiny_in_links():
     expect = 0.04 + n_tiny * float(np.float32(1e-10))
     # the tiny in-links are 2.5e-4 of the row; sequential f32 adds drop all
     assert y[0, 0, 0].item() == pytest.approx(expect, rel=1e-7)
+
+
+# --------------------------------------------------------------------------
+# Real slots per block-row: the CUDA kernel reads no slot past the count
+# --------------------------------------------------------------------------
+LAYOUTS = ["shape0", "shape1", "shape2", "shape3", "hybrid8", "hybrid16",
+           "interop8"]
+
+
+def _layout(request, case):
+    """(packed layout, expected count): the count is np.bincount of the
+    block-rows of the unique (block-row, block-column) pairs the packing
+    was given."""
+    kind = case.rstrip("0123456789")
+    num = int(case[len(kind):])
+    if kind == "shape":
+        n_rows, n_cols, nnz, bm, bn, _ = SHAPES[num]
+        rows, cols, vals = random_coo(np.random.default_rng(nnz), n_rows,
+                                      n_cols, nnz)
+        b = jk.build_bsr(rows, cols, vals, n_rows, n_cols, bm, bn)
+    else:
+        small_op = request.getfixturevalue("small_op")
+        h = small_op.hybrid_bsr(bm=num, bn=num)
+        if kind == "interop":
+            h = bsr_from_arrays(hybrid_arrays(h))
+        b = h.bsr
+        # the hub rows' edges went to the COO side, the rest were blocked
+        keep = ~np.isin(small_op.pt.row_ids, h.hub_rows)
+        rows, cols = small_op.pt.row_ids[keep], small_op.pt.src[keep]
+    nbc = -(-b.n_cols // b.bn)
+    pairs = np.unique(rows.astype(np.int64) // b.bm * nbc + cols // b.bn)
+    return b, np.bincount(pairs // nbc, minlength=b.nbr)
+
+
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_slot_counts_match_packing(request, case):
+    b, expect = _layout(request, case)
+    got = tk.slot_counts(b.blk_cols, b.blocks)
+    assert got.dtype == np.int32 and got.shape == (b.nbr,)
+    np.testing.assert_array_equal(got, expect)
+    assert got.max() == b.K
+    if isinstance(b, tk.BSRMatrix):
+        # the port's container uploads the same count beside its blocks
+        np.testing.assert_array_equal(b.counts, expect)
+        blocks, blk_cols, blk_count = b.device(CPU)
+        assert blk_count.dtype == torch.int32
+        np.testing.assert_array_equal(blk_count.numpy(), expect)
+
+
+@pytest.mark.parametrize("fault", ["nonzero_past_count", "not_ascending"])
+def test_slot_counts_refuse_broken_padding(fault):
+    rng = np.random.default_rng(3)
+    rows, cols, vals = random_coo(rng, 100, 100, 500)
+    b = tk.build_bsr(rows, cols, vals, 100, 100, bm=16, bn=16)
+    counts = tk.slot_counts(b.blk_cols, b.blocks)
+    i = int(np.flatnonzero((counts >= 2) & (counts < b.K))[0])
+    blocks, blk_cols = b.blocks.copy(), b.blk_cols.copy()
+    if fault == "nonzero_past_count":
+        blocks[i, counts[i], 3, 5] = 1.0
+    else:
+        blocks[i, [0, 1]] = blocks[i, [1, 0]]
+        blk_cols[i, [0, 1]] = blk_cols[i, [1, 0]]
+    with pytest.raises(ValueError, match=f"block-row {i} .*past the row"):
+        tk.slot_counts(blk_cols, blocks)
+    d = dict(n_rows=100, n_cols=100, bm=16, bn=16, blocks=blocks,
+             blk_cols=blk_cols, fill_ratio=b.fill_ratio,
+             hub_rows=np.zeros(0, np.int32), hub_cols=np.zeros(0, np.int32),
+             hub_vals=np.zeros(0, np.float32), hub_nnz_frac=0.0)
+    with pytest.raises(ValueError, match="past the row"):
+        bsr_from_arrays(d)
+
+
+def _counted_plain(blocks, blk_cols, x, counts, accum, replay=True):
+    """The sum the CUDA kernel forms, slot by slot in plain PyTorch: each
+    row's real slots only (f32), or its real slots then, with `replay`,
+    the zero-product Kahan steps of the slots past them (kahan)."""
+    xg = x[blk_cols.long()]
+    acc = blocks.new_zeros(blocks.shape[0], blocks.shape[2], x.shape[2])
+    comp = torch.zeros_like(acc)
+    for k in range(blocks.shape[1]):
+        real = (k < counts)[:, None, None]
+        prod = torch.bmm(blocks[:, k], xg[:, k])
+        if accum == "f32":
+            acc = torch.where(real, acc + prod, acc)
+            continue
+        prod = torch.where(real, prod, 0.0)
+        y = prod - comp
+        t = acc + y
+        step = real | replay
+        comp = torch.where(step, (t - acc) - y, comp)
+        acc = torch.where(step, t, acc)
+    return acc
+
+
+@pytest.mark.parametrize("accum", ["f32", "kahan"])
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_plain_unchanged_past_count(request, case, accum):
+    """The plain version with every slot past the count zeroed equals
+    itself over all K exactly; the kernel's schedule (skip the padding in
+    f32, replay it as zero products in Kahan) gives the sums of a slot
+    loop over all K exactly."""
+    b, _ = _layout(request, case)
+    counts = tk.slot_counts(b.blk_cols, b.blocks)
+    past = np.arange(b.K)[None, :] >= counts[:, None]
+    blocks, blk_cols = b.blocks.copy(), b.blk_cols.copy()
+    blocks[past] = 0.0
+    blk_cols[past] = 0
+    rng = np.random.default_rng(b.nbr)
+    x = torch.as_tensor(jk.pad_x(
+        rng.standard_normal((b.n_cols, 2)).astype(np.float32), b.n_cols,
+        b.bn))
+    full = (torch.as_tensor(b.blocks), torch.as_tensor(b.blk_cols))
+    y = tk.bsr_spmv_ref(*full, x, accum=accum)
+    zeroed = tk.bsr_spmv_ref(torch.as_tensor(blocks),
+                             torch.as_tensor(blk_cols), x, accum=accum)
+    assert torch.equal(zeroed, y)
+    t_counts = torch.as_tensor(counts)
+    all_k = torch.full_like(t_counts, b.K)
+    counted = _counted_plain(*full, x, t_counts, accum)
+    loop = (y if accum == "kahan"
+            else _counted_plain(*full, x, all_k, accum))
+    assert torch.equal(counted, loop)
+
+
+def test_kahan_zero_steps_move_the_sum():
+    """A Kahan step on a zero product folds the compensation into the sum,
+    so stopping at the count is not the reference's function: the Pallas
+    kahan kernel and the plain lane step through every padded slot. The
+    replay of those steps gives their sums exactly."""
+    blocks, blk_cols, x, counts = kahan_replay_layout()
+    np.testing.assert_array_equal(tk.slot_counts(blk_cols, blocks), counts)
+    b, c, xt, n = (torch.as_tensor(a) for a in (blocks, blk_cols, x, counts))
+    full = tk.bsr_spmv_ref(b, c, xt, accum="kahan")
+    stop = _counted_plain(b, c, xt, n, "kahan", replay=False)
+    moved = stop != full
+    assert moved.sum() >= 8
+    assert torch.equal(_counted_plain(b, c, xt, n, "kahan"), full)
+    pallas = np.asarray(jk.bsr_spmv(jnp.asarray(blocks),
+                                    jnp.asarray(blk_cols), jnp.asarray(x),
+                                    interpret=True, accum="kahan"))
+    np.testing.assert_array_equal(pallas, full.numpy())

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
-                                          bsr_spmv_ref, build_bsr, pad_x)
+                                          bsr_spmv_ref, build_bsr,
+                                          kernel_path, pad_x)
 
 pytestmark = pytest.mark.gpu
 
@@ -40,37 +41,123 @@ def _operands(bsr, x, device):
             torch.as_tensor(pad_x(x, bsr.n_cols, bsr.bn), device=device))
 
 
+def _kahan32(prods):
+    """float32 Kahan sum over the last axis, step by step in numpy."""
+    acc = np.zeros(prods.shape[:-1], np.float32)
+    comp = np.zeros_like(acc)
+    for k in range(prods.shape[-1]):
+        y = prods[..., k] - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc
+
+
+def kahan_replay_layout(n_rows=16, bm=8, real=4, pad=3, seed=0):
+    """A packed layout on which Kahan's zero-product steps past the real
+    slots move the sum: every block-row has `real` real slots (columns
+    0..real-1) and `pad` padded ones. Block (i, k) holds one nonzero per
+    row m, at column m, and x is all ones, so slot k's product at (i, m) is
+    that entry exactly, whatever order a dot sums in. The entries span nine
+    decades; the sequences whose float32 Kahan sum over all slots differs
+    from the sum over the real slots alone (about 1 in 100) fill the first
+    elements. Returns numpy (blocks, blk_cols, x, counts)."""
+    rng = np.random.default_rng(seed)
+    cand = (rng.standard_normal((4096, real))
+            * 10.0 ** rng.integers(-4, 5, (4096, real))).astype(np.float32)
+    moved = _kahan32(np.pad(cand, ((0, 0), (0, pad)))) != _kahan32(cand)
+    seqs = np.concatenate([cand[moved], cand[~moved]])[:n_rows * bm]
+    K = real + pad
+    blocks = np.zeros((n_rows, K, bm, bm), np.float32)
+    diag = np.arange(bm)
+    blocks[:, :real, diag, diag] = seqs.reshape(n_rows, bm, real).transpose(
+        0, 2, 1)
+    blk_cols = np.zeros((n_rows, K), np.int32)
+    blk_cols[:, :real] = np.arange(real)
+    counts = np.full(n_rows, real, np.int32)
+    return blocks, blk_cols, np.ones((real, bm, 1), np.float32), counts
+
+
+@pytest.mark.parametrize("counted", [False, True])
 @pytest.mark.parametrize("accum", ["f32", "kahan"])
 @pytest.mark.parametrize("n_rows,n_cols,nnz,bm,bn,nv", [
     (100, 100, 500, 32, 32, 1),
     (257, 130, 800, 64, 32, 4),
-    (512, 512, 4000, 128, 128, 8),
+    (512, 512, 4000, 128, 128, 8),   # bm = 128: the generic path
     (64, 300, 600, 16, 64, 2),
     (300, 300, 2000, 8, 8, 3),
-    (90, 90, 400, 6, 6, 5),        # bn % 4 != 0: the scalar-load path
+    (90, 90, 400, 6, 6, 5),        # bn % 4 != 0: the generic path
+    # the ring path: bm = bn in {8, 16, 32, 64}, nv in {1, 2, 4, 8}
+    (1000, 1000, 9000, 8, 8, 1),
+    (1000, 1000, 9000, 16, 16, 8),
+    (1000, 1000, 9000, 32, 32, 2),
+    (1000, 1000, 9000, 64, 64, 4),
+    (3000, 3000, 60000, 32, 32, 8),  # more block-rows than one wave
+    (4000, 256, 30, 64, 64, 1),    # rows with 0 real slots
+    (512, 512, 512, 8, 8, 1),      # K = 1 (one block per row)
 ])
-def test_kernel_matches_plain(cuda, n_rows, n_cols, nnz, bm, bn, nv, accum):
+def test_kernel_matches_plain(cuda, n_rows, n_cols, nnz, bm, bn, nv, accum,
+                              counted):
+    """Against the plain version over all K slots; with `counted`, the
+    kernel reads only each row's real slots (`slot_counts`: rows with
+    none, rows full to K)."""
     rng = np.random.default_rng(nnz)
     rows, cols, vals = random_coo(rng, n_rows, n_cols, nnz)
+    if nnz == n_rows == n_cols:
+        rows = cols = np.arange(n_rows)
+        vals = rng.standard_normal(n_rows)
     bsr = build_bsr(rows, cols, vals, n_rows, n_cols, bm=bm, bn=bn)
     x = rng.standard_normal((n_cols, nv)).astype(np.float32)
     blocks, blk_cols, xp = _operands(bsr, x, cuda)
+    count = torch.as_tensor(bsr.counts, device=cuda) if counted else None
+    if nnz == 30:
+        assert (bsr.counts == 0).any() and (bsr.counts == bsr.K).any()
+    if nnz == n_rows:
+        assert bsr.K == 1
     before = LAUNCHES[accum]
-    y = bsr_spmv(blocks, blk_cols, xp, accum=accum)
+    y = bsr_spmv(blocks, blk_cols, xp, accum=accum, blk_count=count)
     torch.cuda.synchronize()
     assert LAUNCHES[accum] == before + 1
     y_ref = bsr_spmv_ref(blocks, blk_cols, xp, accum=accum)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
 
 
+def test_kahan_replays_padded_slots(cuda):
+    """With counts, the Kahan lane reads only the real slots yet matches
+    the plain lane over all K, which also steps through the padded
+    (zero-product) slots; a plain loop that stops at the count differs."""
+    blocks, blk_cols, x, counts = kahan_replay_layout()
+    b, c, xt, n = (torch.as_tensor(a, device=cuda)
+                   for a in (blocks, blk_cols, x, counts))
+    assert kernel_path(b, xt) == "ring"
+    y = bsr_spmv(b, c, xt, accum="kahan", blk_count=n)
+    full = bsr_spmv_ref(b, c, xt, accum="kahan")
+    real = counts[0]
+    stop = bsr_spmv_ref(b[:, :real].contiguous(), c[:, :real].contiguous(),
+                        xt, accum="kahan")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, full, rtol=1e-6, atol=0)
+    moved = stop != full
+    assert moved.any()
+    assert torch.equal(y[moved], full[moved])
+    # the generic path replays the same steps
+    y6 = bsr_spmv(b[..., :6, :6].contiguous(), c, xt[:, :6].contiguous(),
+                  accum="kahan", blk_count=n)
+    full6 = bsr_spmv_ref(b[..., :6, :6].contiguous(), c,
+                         xt[:, :6].contiguous(), accum="kahan")
+    torch.testing.assert_close(y6, full6, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("nv", [1, 2, 8])
 @pytest.mark.parametrize("accum", ["f32", "kahan"])
-def test_kernel_half_x(cuda, accum):
+def test_kernel_half_x(cuda, accum, nv):
     rng = np.random.default_rng(0)
     rows, cols, vals = random_coo(rng, 128, 128, 700)
     bsr = build_bsr(rows, cols, vals, 128, 128, bm=32, bn=32)
-    x = rng.standard_normal((128, 2)).astype(np.float16)
+    x = rng.standard_normal((128, nv)).astype(np.float16)
     blocks, blk_cols, xp = _operands(bsr, x, cuda)
-    y = bsr_spmv(blocks, blk_cols, xp, accum=accum)
+    y = bsr_spmv(blocks, blk_cols, xp, accum=accum,
+                 blk_count=torch.as_tensor(bsr.counts, device=cuda))
     assert y.dtype == torch.float32
     torch.testing.assert_close(
         y, bsr_spmv_ref(blocks, blk_cols, xp, accum=accum), rtol=2e-2,
@@ -82,10 +169,12 @@ def test_kernel_empty_block_rows(cuda):
                     np.array([1.0, 2.0, 3.0]), 400, 256, bm=64, bn=64)
     blocks, blk_cols, xp = _operands(bsr, np.ones((256, 1), np.float32),
                                      cuda)
-    y = bsr_spmv(blocks, blk_cols, xp).reshape(-1)[:400].cpu().numpy()
     expect = np.zeros(400, np.float32)
     expect[[0, 1, 300]] = [1.0, 2.0, 3.0]
-    np.testing.assert_array_equal(y, expect)
+    for count in (None, torch.as_tensor(bsr.counts, device=cuda)):
+        y = bsr_spmv(blocks, blk_cols, xp, blk_count=count)
+        np.testing.assert_array_equal(y.reshape(-1)[:400].cpu().numpy(),
+                                      expect)
 
 
 def test_kahan_beats_f32_on_deep_k(cuda):
@@ -122,6 +211,13 @@ def test_wrapper_refuses_bad_operands(cuda):
         bsr_spmv(blocks, cols, x.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError):
         bsr_spmv(blocks, cols[:1], x)
+    count = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="blk_count"):
+        bsr_spmv(blocks, cols, x, blk_count=count.long())
+    with pytest.raises(ValueError, match="blk_count"):
+        bsr_spmv(blocks, cols, x, blk_count=count[:1])
+    with pytest.raises(ValueError, match="blk_count"):
+        bsr_spmv(blocks, cols, x, blk_count=count.cpu())
 
 
 def test_auto_dispatch_launches_kernel(cuda):
