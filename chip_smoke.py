@@ -12,7 +12,8 @@ Phases, each printing its own lines and seconds:
               and without the per-row count of real slots;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
               at head dim 64 or 128, the CUDA-core lane for the rest)
-              against their plain version;
+              against their plain version, and the CUDA-core lane's
+              resident warps per SM, registers and spills;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -33,8 +34,9 @@ Phases, each printing its own lines and seconds:
               launch counts of both lanes read around it;
  10. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
-              shapes (the tensor-core lane in bf16 at both, the CUDA-core
-              lane in float32 at the 2048-token one); forward and
+              shapes (the tensor-core lane in bf16, the CUDA-core lane in
+              float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
+              CUDA-core lane in bf16 at head dim 96); forward and
               decode-step times.
 
 It prints a JSON line describing every kernel, then, as its last line,
@@ -76,8 +78,8 @@ TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
 YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
 YI_PREFILL = (1, 2048)
 # flash against its plain version, max over rows of ||o - r|| / ||r||,
-# about twice (bf16) and ten times (float32) the largest reading of the
-# sound kernels, 4.6e-3 and 9.4e-7 (PERF.md §6)
+# about twice (bf16) and seven times (float32) the largest reading of the
+# sound kernels, 4.6e-3 and 1.4e-6 (PERF.md §6)
 ROW_REL_LIMIT = {"bfloat16": 1e-2, "float32": 1e-5}
 
 
@@ -188,19 +190,25 @@ def kahan_replay_layout(n_rows=16, bm=8, real=4, pad=3, seed=0):
     return blocks, blk_cols, np.ones((real, bm, 1), np.float32), counts
 
 
-def attention_bound(q, k, v, causal):
-    """Least time (ms) for one attention call on these operands: q, k, v
-    read once and o written once at the HBM rate, against the work,
-    4 * H * D flops per allowed (query, key) pair (q k^T and p v), at the
-    peak for the operands' type: dense bf16 on the tensor cores, float32 on
-    the CUDA cores. Causal is top-left: row i sees min(i + 1, T) keys."""
+def attention_flops(q, k, causal):
+    """The work of one attention call: 4 * D flops per allowed (query, key)
+    pair and head (q k^T and p v). Causal is top-left: row i sees
+    min(i + 1, T) keys."""
     import numpy as np
-    import torch
     B, H, S, D = q.shape
     T = k.shape[2]
     pairs = (int(np.minimum(np.arange(1, S + 1), T).sum()) if causal
              else S * T)
-    flops = 4.0 * B * H * D * pairs
+    return 4.0 * B * H * D * pairs
+
+
+def attention_bound(q, k, v, causal):
+    """Least time (ms) for one attention call on these operands: q, k, v
+    read once and o written once at the HBM rate, against the work
+    (`attention_flops`) at the peak for the operands' type: dense bf16 on
+    the tensor cores, float32 on the CUDA cores."""
+    import torch
+    flops = attention_flops(q, k, causal)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
@@ -291,8 +299,19 @@ def flash_against_plain(cuda):
     from repro_torch.kernels.flash_attention import (LAUNCHES,
                                                      flash_attention,
                                                      flash_attention_ref,
+                                                     kernel_info,
                                                      kernel_lane)
     f32, bf16 = torch.float32, torch.bfloat16
+    # the CUDA-core lane as compiled: resident warps per SM and spills
+    for D, dt in ((128, f32), (64, f32), (96, bf16), (32, bf16)):
+        info = kernel_info(D, dt)
+        warps = info["blocks_per_sm"] * info["threads"] // 32
+        check(info["local_bytes"] == 0 and (warps >= 8 or D != 128),
+              f"flash f32 lane D={D} {str(dt)[6:]}: "
+              f"{info['blocks_per_sm']} block(s) x {info['threads']} "
+              f"threads = {warps} warps per SM, {info['registers']} "
+              f"registers, {info['local_bytes']} spill bytes, "
+              f"{info['smem_bytes']:,} B of shared memory a block")
     cases = [  # (B, H, Hkv, S, T, D, causal, dtype)
         (1, 1, 1, 128, 128, 64, True, f32),    # test_kernels_attention.py
         (2, 4, 2, 256, 256, 64, True, f32),
@@ -326,20 +345,58 @@ def flash_against_plain(cuda):
         (1, 4, 1, 129, 129, 64, False, bf16),
         (2, 8, 1, 129, 129, 128, True, bf16),
         (2, 4, 4, 1000, 1000, 64, True, bf16),
+        # the CUDA-core lane (q tile 128 rows, kv tile 64): G = 8 over many
+        # kv tiles, ragged 1/31/33/127/129/1000 S and T, causal S != T,
+        # G in {1, 4, 8} at B = 2, D in {18, .., 96}, bf16 at other D
+        (1, 8, 1, 2048, 2048, 128, True, f32),
+        (1, 4, 1, 1, 1, 128, True, f32),
+        (1, 4, 2, 31, 31, 128, True, f32),
+        (1, 4, 2, 33, 33, 64, False, f32),
+        (1, 4, 2, 127, 127, 128, True, f32),
+        (1, 4, 2, 129, 129, 128, False, f32),
+        (1, 4, 1, 1000, 1000, 64, True, f32),
+        (1, 4, 2, 31, 129, 128, False, f32),
+        (1, 4, 2, 1000, 33, 128, False, f32),
+        (1, 4, 2, 128, 320, 128, True, f32),
+        (1, 4, 2, 320, 128, 128, True, f32),
+        (1, 4, 2, 129, 1000, 64, True, f32),
+        (1, 4, 2, 1000, 127, 128, True, f32),
+        (2, 4, 4, 200, 200, 128, True, f32),
+        (2, 8, 2, 200, 200, 128, True, f32),
+        (2, 8, 1, 129, 129, 128, False, f32),
+        (1, 4, 2, 150, 150, 18, True, f32),
+        (1, 4, 2, 150, 150, 20, True, f32),
+        (1, 4, 2, 150, 150, 32, True, f32),
+        (1, 4, 2, 150, 150, 64, True, f32),
+        (1, 4, 2, 150, 150, 96, True, f32),
+        (1, 4, 2, 150, 150, 20, True, bf16),
+        (1, 4, 2, 300, 300, 32, True, bf16),
+        (1, 8, 2, 1000, 1000, 96, True, bf16),
+        # one element off a 16-byte boundary: the synchronous loads
+        (1, 4, 2, 200, 200, 128, True, f32, "offset"),
+        (1, 4, 2, 200, 200, 96, True, bf16, "offset"),
     ]
     worst = {"wgmma": 0.0, "f32": 0.0}
     worst_rel = dict(worst)
-    for B, H, Hkv, S, T, D, causal, dt in cases:
+    for B, H, Hkv, S, T, D, causal, dt, *offset in cases:
         g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + D)
-        q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dt)
-        k = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
-        v = torch.randn((B, Hkv, T, D), generator=g, device=cuda).to(dt)
+
+        def draw(*shape):
+            t = torch.randn(shape, generator=g, device=cuda).to(dt)
+            if not offset:
+                return t
+            flat = torch.empty(t.numel() + 1, dtype=dt, device=cuda)
+            flat[1:] = t.reshape(-1)
+            return flat[1:].view(shape)
+        q, k, v = draw(B, H, S, D), draw(B, Hkv, T, D), draw(B, Hkv, T, D)
         lane = kernel_lane(dt, D)
-        before = LAUNCHES["wgmma"]
+        before = dict(LAUNCHES)
         o = flash_attention(q, k, v, causal=causal)
         r = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        on_lane = LAUNCHES["wgmma"] - before == (lane == "wgmma")
+        on_lane = (LAUNCHES["wgmma"] - before["wgmma"] == (lane == "wgmma")
+                   and LAUNCHES["fwd"] - before["fwd"] == 1
+                   and bool(offset) == (q.data_ptr() % 16 != 0))
         # bf16: the tensor-core lane rounds p to bf16 before p v
         tol = 1e-4 if dt == f32 else 3e-2
         diff = (o.float() - r.float()).abs()
@@ -350,7 +407,8 @@ def flash_against_plain(cuda):
         rel, lim = row_rel_err(o, r), ROW_REL_LIMIT[str(dt)[6:]]
         check(ok and rel <= lim and on_lane and o.dtype == dt,
               f"flash {lane} ({B},{H},{Hkv},S={S},T={T},D={D}) "
-              f"causal={causal} {str(dt)[6:]}: max |kernel - plain| = "
+              f"causal={causal} {str(dt)[6:]}{' unaligned' if offset else ''}"
+              f": max |kernel - plain| = "
               f"{err:.3g} (rtol = atol = {tol:g}), max row |kernel - "
               f"plain| / |plain| = {rel:.3g} (<= {lim:g})")
         worst[lane] = max(worst[lane], err)
@@ -475,7 +533,8 @@ def yi_main_path(cuda, seed):
 def yi_timing(cuda, seed, smi):
     """Times at the Yi-6B shapes; returns each flash lane's row at the Yi
     prefill shape for the JSON line (the tensor-core lane in bf16, the
-    CUDA-core lane in float32)."""
+    CUDA-core lane in float32). The CUDA-core lane is also timed at B = 4,
+    S = 128 in float32 and in bf16 at head dim 96, which takes it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -487,11 +546,14 @@ def yi_timing(cuda, seed, smi):
     from repro_torch.serving import ServeEngine
 
     cfg = get_config("yi-6b")
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
     rows = {}
-    for (B, S), dt in ((YI_PREFILL, torch.bfloat16),
-                       ((YI_BATCH, YI_PROMPT), torch.bfloat16),
-                       (YI_PREFILL, torch.float32)):
+    for (B, S), D, dt in (
+            (YI_PREFILL, cfg.head_dim_, torch.bfloat16),
+            ((YI_BATCH, YI_PROMPT), cfg.head_dim_, torch.bfloat16),
+            (YI_PREFILL, cfg.head_dim_, torch.float32),
+            ((YI_BATCH, YI_PROMPT), cfg.head_dim_, torch.float32),
+            (YI_PREFILL, 96, torch.bfloat16)):
         g = torch.Generator(device=cuda).manual_seed(seed)
         q = torch.randn((B, H, S, D), generator=g, device=cuda).to(dt)
         k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(dt)
@@ -511,14 +573,31 @@ def yi_timing(cuda, seed, smi):
                                                           causal=True), 5),
              "sdpa": cuda_ms(sdpa, 20)}
         b_ms, b_by = attention_bound(q, k, v, True)
+        f32_share = ""
+        if lane == "f32":  # the CUDA-core lane's FMAs against their peak
+            rate = attention_flops(q, k, True) / (t["kernel"] * 1e-3)
+            f32_share = f"{100 * rate / PEAK_F32_FLOPS:.1f}% of the f32 peak, "
         print(f"  flash {lane} lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
               f"causal {str(dt)[6:]}: "
               f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"sdpa {t['sdpa']:.4f} ms (|diff| {sdpa_err:.3g}), bound "
               f"{b_ms:.4f} ms ({b_by}); kernel at "
-              f"{100 * b_ms / t['kernel']:.1f}% of bound [{smi}]")
-        if (B, S) == YI_PREFILL:
+              f"{100 * b_ms / t['kernel']:.1f}% of bound, {f32_share}"
+              f"{t['sdpa'] / t['kernel']:.2f}x SDPA's speed [{smi}]")
+        if (B, S) == YI_PREFILL and D == cfg.head_dim_:
             rows[lane] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+            if lane == "f32":
+                # the SM clock and the power drawn while the FMA-bound lane
+                # runs (queued launches keep the card busy for ~1 s)
+                for _ in range(int(1000 / t["kernel"])):
+                    flash_attention(q, k, v, causal=True)
+                load = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                     "power.draw", "--format=csv,noheader"],
+                    capture_output=True, text=True, check=True).stdout
+                torch.cuda.synchronize()
+                print(f"  under the f32 lane's load: clocks.sm, "
+                      f"clocks.max.sm, power.draw = {load.strip()}")
         del q, k, v, o, r
 
     model = Transformer(cfg, device=cuda, seed=seed)

@@ -24,115 +24,164 @@
 // that lie wholly past their last row, as the TPU kernel's pl.when does,
 // and are scheduled longest first.
 //
-// Arithmetic: every tile is widened to float32 in shared memory; the scores
-// q k^T and the product p v are f32 FMAs on the CUDA cores, and the running
-// max, denominator and accumulator stay in f32 registers. The softmax uses
+// Arithmetic: q k^T and p v are f32 FMAs on the CUDA cores (no mma, wgmma
+// or TF32: this lane computes the float32 function), and the running max,
+// denominator and accumulator stay in f32 registers. The softmax uses
 // exp2f on scores pre-multiplied by scale * log2(e) (the same function as
 // exp on the unscaled scores, up to rounding). Masked scores are -1e30, as
 // in the TPU kernel, and a row whose denominator is 0 divides by 1.
 //
 // What bounds it: operations. At the Yi-6B prefill shape (B=1, H=32,
 // Hkv=4, S=T=2048, D=128, causal) the work is 34 GFLOP against 0.1 GB of
-// float32 q, k, v and o: 0.5 ms on the CUDA cores in f32 (67 TFLOP/s).
-// The arithmetic stays in f32 so that the float32 lane computes the
-// float32 function (no bf16 or TF32 rounding): each thread holds a 4 x 8
-// block of scores and a 4 x (D/8) block of the output, so that every
-// 16-byte shared-memory load feeds 4 or 8 FMAs.
+// float32 q, k, v and o: 0.51 ms at the CUDA cores' 67 TFLOP/s. So the
+// design is about keeping the FMA pipe fed:
 //
-// Tiles: BQ = BK = 64 rows, 128 threads (16 row groups x 8 column groups).
-// Thread (ty, tx) owns rows ty + 16 i (i < 4), score columns tx + 8 j
-// (j < 8), and output columns tx * 4 + 32 c + e (c < D/32, e < 4). Shared
-// memory holds the q, k and v tiles (row stride D + 4 floats: conflict-free
-// 16-byte loads) and the tile of probabilities p (row stride BK + 8).
-// D is padded up to DPAD in {32, 64, 128} with zeros.
+// * Geometry: one block of 256 threads (8 warps, 2 per SM scheduler) per
+//   128-row q tile, kv tiles of 128 keys; at D = 128 in float32 the block
+//   takes 227,328 bytes of shared memory, so one block is resident per SM,
+//   with up to 255 registers a thread. Blocks are launched longest first
+//   across all heads (the q tile is blockIdx.y, the head blockIdx.x).
+// * Shared memory: the q tile (128 x DPAD: 67,584 bytes), a ring of two
+//   chunk buffers (34,816 bytes each), the tile of probabilities p
+//   (128 x 144 floats: 73,728 bytes) and each thread's running max and
+//   share of the denominator for its 8 rows (16,384 bytes), kept out of
+//   the registers that the 8 x 8 score and output tiles fill. D is padded
+//   up to DPAD in {64, 128} with zeros; tiles keep the inputs' type with
+//   rows 16 bytes longer than their data (16-byte reads of 8 neighbouring
+//   rows fall in distinct banks).
+// * Chunks: each kv tile streams through the ring as DPAD / 64 k chunks
+//   (128 keys x 64 of d) and two v chunks (64 keys x DPAD), 32 KB each in
+//   float32: q k^T sums over the k chunks, p v over the v chunks.
+// * Copies: chunks go from global to shared memory by 16-byte cp.async
+//   (.cg, zero-filled past the tensor's edge) one chunk ahead of their use:
+//   chunk n + 1 lands while chunk n is computed on. bf16 chunks are copied
+//   raw and widened to f32 when read into registers. Unaligned operands (D
+//   not a multiple of 16 bytes, or a pointer off a 16-byte boundary) take
+//   the same loop with synchronous loads.
+// * Barriers: one block-wide barrier per chunk (chunk n has landed and
+//   everyone is done with chunk n - 1's buffer): 4 per 128 keys at
+//   DPAD = 128. The rows of p a thread reads are written by its own
+//   half-warp, so p needs only __syncwarp. The loop over a tile's chunks
+//   is unrolled, so the scores are dead while p v runs.
+// * Register tiles: thread (ty, tx), ty = tid / 16 and tx = tid % 16, owns
+//   rows ty + 16 i (i < 8). In q k^T it holds 8 x 8 scores (keys
+//   tx + 16 j), 16 16-byte shared-memory reads for 256 FMAs per 4-wide d
+//   step; in p v 8 x DPAD/16 outputs (columns 4 tx + 64 c + e), 16 reads
+//   for 256 FMAs per 4 keys at DPAD = 128. The 8 q and p reads of a step
+//   are broadcasts: a warp reads 2 distinct rows. Shared memory delivers
+//   128 bytes a cycle to an SM, so a warp's 16-byte read holds it for up
+//   to 4 cycles, and a step's 16 reads hold it about as long as its 256
+//   FMAs hold the SM's four FMA pipes: the two have to overlap, and the
+//   8 x 8 tile (255 registers with the output's) is as large as fits.
+// * The output rescale runs only for a row whose max moved, and the causal
+//   and tail masks only on the tiles that cross the diagonal or the tail.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kLDP = kBK + 8;
+constexpr int kThreads = 256;
+constexpr int kBQ = 128;             // q rows per block
+constexpr int kBK = 128;             // keys per kv tile
+constexpr int kChunk = 64;           // d columns of a k chunk, keys of a v chunk
+constexpr int kRows = kBQ / 16;      // rows per thread: 8
+constexpr int kCols = kBK / 16;      // scores per thread and row: 8
+constexpr int kLDP = kBK + 16;       // p's row stride: rows ty, ty + 1 of a
+                                     // warp write disjoint banks
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DPAD>
-constexpr int smem_floats() {
-  return kBQ * (DPAD + 4) + 2 * kBK * (DPAD + 4) + kBQ * kLDP;
+// Row strides in elements: the data plus 16 bytes.
+template <typename T, int COLS>
+__host__ __device__ constexpr int ld() {
+  return COLS + 16 / (int)sizeof(T);
 }
 
-__device__ __forceinline__ float4 widen4(const float* p) {
+// Elements of one ring buffer: a k chunk (kBK x kChunk) or a v chunk
+// (kChunk x DPAD), whichever is larger.
+template <typename T, int DPAD>
+__host__ __device__ constexpr int chunk_elems() {
+  return kBK * ld<T, kChunk>() > kChunk * ld<T, DPAD>()
+             ? kBK * ld<T, kChunk>() : kChunk * ld<T, DPAD>();
+}
+
+template <typename T, int DPAD>
+constexpr int smem_bytes() {
+  return (kBQ * ld<T, DPAD>() + 2 * chunk_elems<T, DPAD>()) * (int)sizeof(T) +
+         (kBQ * kLDP + 2 * kRows * kThreads) * (int)sizeof(float);
+}
+
+// Four neighbouring elements of a shared-memory tile, widened to f32.
+__device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Load rows [row0, row0 + ROWS) of a (n, D) matrix into a (ROWS, DPAD)
-// f32 tile of row stride LD, zero outside the matrix. vec: D is a multiple
-// of the 16-byte vector and the matrix is 16-byte aligned.
-template <int ROWS, int DPAD>
-__device__ __forceinline__ void load_tile(float* tile, const float* src,
-                                          int row0, int n, int D, bool vec) {
-  constexpr int LD = DPAD + 4;
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Copy the block [row0, row0 + ROWS) x [col0, col0 + COLS) of an (n, D)
+// matrix into a (ROWS, COLS) tile of row stride LD, zero outside the
+// matrix. vec (D a multiple of 16 bytes, the matrix on a 16-byte
+// boundary): 16-byte cp.async chunks, which the caller commits and waits
+// for; else synchronous element loads.
+template <int ROWS, int COLS, int LD, typename T>
+__device__ __forceinline__ void copy_block(T* tile, const T* src, int row0,
+                                           int n, int col0, int D,
+                                           bool vec) {
   if (vec) {
-    constexpr int CH = DPAD / 4;
+    constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
+    constexpr int CH = COLS / EPC;            // 16-byte chunks per row
     for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-      const int r = idx / CH, c = (idx % CH) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < n && c < D)
-        val = *reinterpret_cast<const float4*>(
-            src + (long long)(row0 + r) * D + c);
-      *reinterpret_cast<float4*>(tile + r * LD + c) = val;
+      const int r = idx / CH, c = (idx % CH) * EPC;
+      const bool ok = row0 + r < n && col0 + c < D;
+      const T* from = ok ? src + (long long)(row0 + r) * D + col0 + c : src;
+      hopper::cp_async16(hopper::smem_addr(tile + r * LD + c), from,
+                         ok ? 16u : 0u);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * DPAD; idx += kThreads) {
-      const int r = idx / DPAD, c = idx % DPAD;
-      tile[r * LD + c] = (row0 + r < n && c < D)
-                             ? src[(long long)(row0 + r) * D + c] : 0.f;
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += kThreads) {
+      const int r = idx / COLS, c = idx % COLS;
+      tile[r * LD + c] = (row0 + r < n && col0 + c < D)
+                             ? src[(long long)(row0 + r) * D + col0 + c]
+                             : from_float<T>(0.f);
     }
   }
 }
 
-template <int ROWS, int DPAD>
-__device__ __forceinline__ void load_tile(float* tile,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, int D, bool vec) {
-  constexpr int LD = DPAD + 4;
-  if (vec) {
-    constexpr int CH = DPAD / 8;
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
-      const int r = idx / CH, c = (idx % CH) * 8;
-      float out[8];
-      if (row0 + r < n && c < D) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            src + (long long)(row0 + r) * D + c);
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          out[2 * e] = f.x;
-          out[2 * e + 1] = f.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) out[e] = 0.f;
-      }
-      *reinterpret_cast<float4*>(tile + r * LD + c) =
-          make_float4(out[0], out[1], out[2], out[3]);
-      *reinterpret_cast<float4*>(tile + r * LD + c + 4) =
-          make_float4(out[4], out[5], out[6], out[7]);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * DPAD; idx += kThreads) {
-      const int r = idx / DPAD, c = idx % DPAD;
-      tile[r * LD + c] =
-          (row0 + r < n && c < D)
-              ? __bfloat162float(src[(long long)(row0 + r) * D + c]) : 0.f;
-    }
-  }
+// Issue the copy of chunk `ph` of kv tile `kt` into `buf`: k chunks
+// ph < DPAD / kChunk (all kBK keys, d columns [ph * kChunk, + kChunk)),
+// then v chunks (kChunk keys, all d).
+template <int DPAD, typename T>
+__device__ __forceinline__ void copy_chunk(T* buf, const T* kg, const T* vg,
+                                           int kt, int ph, int Tk, int D,
+                                           bool vec) {
+  constexpr int NKC = DPAD / kChunk;
+  if (ph < NKC)
+    copy_block<kBK, kChunk, ld<T, kChunk>()>(buf, kg, kt * kBK, Tk,
+                                             ph * kChunk, D, vec);
+  else
+    copy_block<kChunk, DPAD, ld<T, DPAD>()>(
+        buf, vg, kt * kBK + (ph - NKC) * kChunk, Tk, 0, D, vec);
 }
 
 // Store the first n (<= 4) of v; the loops are unrolled so that v stays in
@@ -161,152 +210,207 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst,
   }
 }
 
+// One kv tile's online softmax for the thread's rows: scale (and, where
+// MASK, mask) the scores, move the running max, rescale the output and
+// denominator of a row whose max moved, and write p to the thread's slots
+// of the shared p tile. The running max and the thread's share of the
+// denominator of row i are ms[i * kThreads] and ls[i * kThreads]: they
+// wait in shared memory, not in registers, while q k^T runs.
+template <bool MASK, int NO>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kRows][kCols], float* ms, float* ls, float (&acc)[kRows][NO],
+    float* ps, int ty, int tx, int q0, int k0, int Tk, bool causal,
+    float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    float m = ms[i * kThreads], l = ls[i * kThreads];
+    const int row = q0 + ty + 16 * i;
+    float mt = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = k0 + tx + 16 * j;
+      const bool ok = !MASK || (col < Tk && (!causal || col <= row));
+      s[i][j] = ok ? s[i][j] * scale_log2 : kNegInf;
+      mt = fmaxf(mt, s[i][j]);
+    }
+    // the 16 threads of a row are the 16 lanes of a half-warp
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+    if (mt > m) {
+      const float alpha = exp2f(m - mt);
+      m = mt;
+      l *= alpha;
+#pragma unroll
+      for (int c = 0; c < NO; ++c) acc[i][c] *= alpha;
+    }
+    float rowsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float p = exp2f(s[i][j] - m);
+      ps[(ty + 16 * i) * kLDP + tx + 16 * j] = p;
+      rowsum += p;
+    }
+    // l is this thread's share of the denominator (its 8 keys of each
+    // tile); the shares are summed across the half-warp at the end
+    ms[i * kThreads] = m;
+    ls[i * kThreads] = l + rowsum;
+  }
+}
+
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
                  int S, int Tk, int D, float scale_log2, bool causal,
                  bool vec) {
-  constexpr int LD = DPAD + 4;
-  constexpr int NC = DPAD / 32;  // float4 output groups per thread
+  constexpr int LDQ = ld<T, DPAD>();    // q tile and v chunks
+  constexpr int LDK = ld<T, kChunk>();  // k chunks
+  constexpr int NKC = DPAD / kChunk;    // k chunks per kv tile
+  constexpr int NP = NKC + kBK / kChunk;  // chunks per kv tile
+  constexpr int NC = DPAD / 64;  // float4 output groups per thread and row
+  constexpr int NO = 4 * NC;     // outputs per thread and row
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kBQ * LD;
-  float* vs = ks + kBK * LD;
-  float* ps = vs + kBK * LD;
+  T* qs = reinterpret_cast<T*>(smem4);
+  T* const ring = qs + kBQ * LDQ;  // chunk n is in ring + slot(n)
+  auto slot = [](int n) { return (n & 1) * chunk_elems<T, DPAD>(); };
+  float* ps = reinterpret_cast<float*>(qs + kBQ * LDQ +
+                                       2 * chunk_elems<T, DPAD>());
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float* ms = ps + kBQ * kLDP + tid;  // this thread's running max, and
+  float* ls = ms + kRows * kThreads;  // share of the denominator, per row
 
   const int nq = (S + kBQ - 1) / kBQ;
-  // causal q tiles near the end do the most work: launch them first
-  const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // causal q tiles near the end do the most work: blockIdx.y is the
+  // slower grid axis, so every head's longest tile launches first
+  const int qt = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = qt * kBQ;
-  const long long q_off = ((long long)b * H + h) * S * D;
+  const long long q_off = (long long)bh * S * D;
   const long long kv_off = ((long long)b * Hkv + hk) * Tk * D;
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-
-  load_tile<kBQ, DPAD>(qs, q + q_off, q0, S, D, vec);
-
-  float acc[4][NC * 4];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.f;
-  }
+  const T* kg = k + kv_off;
+  const T* vg = v + kv_off;
 
   int n_kv = (Tk + kBK - 1) / kBK;
   if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);
 
+  copy_block<kBQ, DPAD, LDQ>(qs, q + q_off, q0, S, 0, D, vec);
+  copy_chunk<DPAD>(ring, kg, vg, 0, 0, Tk, D, vec);
+  hopper::cp_async_commit();
+
+  float acc[kRows][NO];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    ms[i * kThreads] = kNegInf;
+    ls[i * kThreads] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) acc[i][c] = 0.f;
+  }
+
+  int n = 0;  // chunks consumed
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // every thread is done with the previous k, v, p
-    load_tile<kBK, DPAD>(ks, k + kv_off, k0, Tk, D, vec);
-    load_tile<kBK, DPAD>(vs, v + kv_off, k0, Tk, D, vec);
-    __syncthreads();
+    float s[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 
-    // scores s[i][j] = q[row i] . k[col j]
-    float s[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int ph = 0; ph < NP; ++ph, ++n) {
+      // chunk n has landed (and, at n = 0, q); every thread is done with
+      // chunk n - 1, whose buffer the next copy fills
+      hopper::cp_async_wait_all();
+      __syncthreads();
+      if (ph + 1 < NP)
+        copy_chunk<DPAD>(ring + slot(n + 1), kg, vg, kt, ph + 1, Tk, D, vec);
+      else if (kt + 1 < n_kv)
+        copy_chunk<DPAD>(ring + slot(n + 1), kg, vg, kt + 1, 0, Tk, D, vec);
+      hopper::cp_async_commit();
+      const T* buf = ring + slot(n);
+
+      if (ph < NKC) {
+        // s[i][j] += q[row ty + 16 i, d] . k[key tx + 16 j, d] over this
+        // chunk's 64 d
+        const T* qc = qs + ph * kChunk;
 #pragma unroll 2
-    for (int d = 0; d < DPAD; d += 4) {
-      float4 a[4];
+        for (int d = 0; d < kChunk; d += 4) {
+          float4 a[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = widen4(qs + (ty + 16 * i) * LD + d);
+          for (int i = 0; i < kRows; ++i)
+            a[i] = load4(qc + (ty + 16 * i) * LDQ + d);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 bk = widen4(ks + (tx + 8 * j) * LD + d);
+          for (int j = 0; j < kCols; ++j) {
+            const float4 bk = load4(buf + (tx + 16 * j) * LDK + d);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(a[i].x, bk.x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bk.y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bk.z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bk.w, s[i][j]);
+            for (int i = 0; i < kRows; ++i) {
+              s[i][j] = fmaf(a[i].x, bk.x, s[i][j]);
+              s[i][j] = fmaf(a[i].y, bk.y, s[i][j]);
+              s[i][j] = fmaf(a[i].z, bk.z, s[i][j]);
+              s[i][j] = fmaf(a[i].w, bk.w, s[i][j]);
+            }
+          }
         }
-      }
-    }
-
-    // online softmax over this tile; the 8 threads of a row group share
-    // their row maxima by shuffles (they are 8 neighbouring lanes)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tx + 8 * j;
-        const bool ok = col < Tk && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale_log2 : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
-      const float m_new = fmaxf(m[i], mt);
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        ps[(ty + 16 * i) * kLDP + tx + 8 * j] = p;
-        rowsum += p;
-      }
-      // l[i] is this thread's share of the denominator (its 8 columns);
-      // the shares are summed across the row group at the end
-      l[i] = l[i] * alpha + rowsum;
-#pragma unroll
-      for (int c = 0; c < NC * 4; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += p v
+        if (ph + 1 == NKC) {
+          // masks only where the tile crosses the tail or the diagonal
+          const bool mask = k0 + kBK > Tk || (causal && k0 + kBK - 1 > q0);
+          if (mask)
+            softmax_tile<true>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
+                               causal, scale_log2);
+          else
+            softmax_tile<false>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
+                                causal, scale_log2);
+          __syncwarp();  // p's rows of this half-warp are written
+        }
+      } else {
+        // acc += p v over this chunk's 64 keys
+        const float* pc = ps + (ph - NKC) * kChunk;
 #pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 p4[4];
+        for (int kk = 0; kk < kChunk; kk += 4) {
+          float4 p4[kRows];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = widen4(ps + (ty + 16 * i) * kLDP + kk);
+          for (int i = 0; i < kRows; ++i)
+            p4[i] = load4(pc + (ty + 16 * i) * kLDP + kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* vrow = vs + (kk + e) * LD + tx * 4;
+          for (int e = 0; e < 4; ++e) {
+            const T* vrow = buf + (kk + e) * LDQ + tx * 4;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv = widen4(vrow + 32 * c);
+            for (int c = 0; c < NC; ++c) {
+              const float4 vv = load4(vrow + 64 * c);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pe = e == 0 ? p4[i].x : e == 1 ? p4[i].y
-                           : e == 2 ? p4[i].z : p4[i].w;
-            acc[i][4 * c + 0] = fmaf(pe, vv.x, acc[i][4 * c + 0]);
-            acc[i][4 * c + 1] = fmaf(pe, vv.y, acc[i][4 * c + 1]);
-            acc[i][4 * c + 2] = fmaf(pe, vv.z, acc[i][4 * c + 2]);
-            acc[i][4 * c + 3] = fmaf(pe, vv.w, acc[i][4 * c + 3]);
+              for (int i = 0; i < kRows; ++i) {
+                const float pe = e == 0 ? p4[i].x : e == 1 ? p4[i].y
+                               : e == 2 ? p4[i].z : p4[i].w;
+                acc[i][4 * c + 0] = fmaf(pe, vv.x, acc[i][4 * c + 0]);
+                acc[i][4 * c + 1] = fmaf(pe, vv.y, acc[i][4 * c + 1]);
+                acc[i][4 * c + 2] = fmaf(pe, vv.z, acc[i][4 * c + 2]);
+                acc[i][4 * c + 3] = fmaf(pe, vv.w, acc[i][4 * c + 3]);
+              }
+            }
           }
         }
       }
     }
+    __syncwarp();  // p's rows are read before the next tile writes them
   }
 
   // normalise and write rows < S, columns < D
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float li = l[i];
+  for (int i = 0; i < kRows; ++i) {
+    float li = ls[i * kThreads];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     li += __shfl_xor_sync(0xffffffffu, li, 4);
+    li += __shfl_xor_sync(0xffffffffu, li, 8);
     if (li == 0.f) li = 1.f;
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
     T* orow = o + q_off + (long long)row * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int col = tx * 4 + 32 * c;
+      const int col = tx * 4 + 64 * c;
       if (col >= D) continue;
       float out[4];
 #pragma unroll
@@ -317,16 +421,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DPAD>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(flash_fwd_kernel<T, DPAD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<T, DPAD>());
+}
+
+template <typename T, int DPAD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Hkv, int S, int Tk, int D, float scale,
                    bool causal, bool vec, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats<DPAD>();
-  auto kernel = flash_fwd_kernel<T, DPAD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = prepare<T, DPAD>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const int nq = (S + kBQ - 1) / kBQ;
+  if (nq > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * H, nq);
+  flash_fwd_kernel<T, DPAD><<<grid, kThreads, smem_bytes<T, DPAD>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Tk, D,
       scale * kLog2e, causal, vec);
@@ -338,14 +448,30 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Hkv, int S, int Tk, int D,
                        float scale, bool causal, bool vec,
                        cudaStream_t stream) {
-  if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal, vec,
-                         stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal, vec,
                          stream);
   return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal, vec,
                         stream);
+}
+
+template <typename T, int DPAD>
+cudaError_t info(int* out) {
+  cudaError_t err = prepare<T, DPAD>();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<T, DPAD>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_kernel<T, DPAD>, kThreads, smem_bytes<T, DPAD>());
+  if (err != cudaSuccess) return err;
+  out[0] = blocks;
+  out[1] = kThreads;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = smem_bytes<T, DPAD>();
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -369,6 +495,21 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                                        causal != 0, vec != 0, s)
            : dispatch_d<float>(q, k, v, o, B, H, Hkv, S, T, D, scale,
                                causal != 0, vec != 0, s);
+  return (int)err;
+}
+
+// The kernel that head dim D and the type take, as compiled and placed on
+// the current device: out[0] resident blocks per SM, out[1] threads per
+// block, out[2] registers per thread, out[3] local (spill) bytes per
+// thread, out[4] dynamic shared memory per block. Returns a cudaError_t.
+int flash_attention_kernel_info(int D, int bf16, int* out) {
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (bf16)
+    err = D <= 64 ? info<__nv_bfloat16, 64>(out)
+                  : info<__nv_bfloat16, 128>(out);
+  else
+    err = D <= 64 ? info<float, 64>(out) : info<float, 128>(out);
   return (int)err;
 }
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks in inline PTX for the tensor-core
-// flash-attention kernel (flash_attention_wgmma.cu): mbarriers, TMA tile
-// copies, wgmma shared-memory descriptors and the wgmma instructions, and
-// warpgroup register reallocation.
+// Hopper (sm_90a) building blocks in inline PTX for the flash-attention
+// kernels: mbarriers, TMA tile copies, wgmma shared-memory descriptors and
+// the wgmma instructions, and warpgroup register reallocation for the
+// tensor-core kernel (flash_attention_wgmma.cu); 16-byte cp.async copies
+// for the CUDA-core kernel (flash_attention.cu).
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
 // a row of 64 bf16 (128 bytes) per line, the 16-byte chunk c of row r
@@ -97,6 +98,30 @@ __device__ __forceinline__ void tma_store_commit_and_wait() {
 // async-proxy (TMA) reads of them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ cp.async --
+// Copy 16 bytes from global to shared memory without passing through
+// registers, bypassing L1 (.cg). Only the first `src_bytes` (0 or 16) are
+// read; the rest of the 16 are zero-filled, so a chunk past a tensor's edge
+// is copied with src_bytes = 0 from any valid address.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Close the group of this thread's cp.async copies issued since the last
+// commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until every cp.async group this thread committed has landed. The
+// copies are then visible to this thread; a barrier makes them visible to
+// the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Barrier over `count` threads (a multiple of 32) on hardware barrier id.

@@ -6,7 +6,14 @@ prefill forward's attention. Two lanes, both hand-written for sm_90a:
   cores (wgmma, p rounded to bf16), k and v arrive by TMA into a
   shared-memory ring, one producer and two consumer warpgroups.
 * "f32" (csrc/flash_attention.cu): float32, and bf16 at any other head dim
-  (the smoke configs' 12-20): the arithmetic in f32 on the CUDA cores.
+  (the smoke configs' 12-20): the arithmetic in f32 FMAs on the CUDA cores.
+  One block of 256 threads (8 warps) per 128-row q tile, kv tiles of 128
+  keys streamed as 32 KB chunks (k in 64-column slices, then v in 64-key
+  slices) through a two-buffer ring by 16-byte cp.async, each chunk copied
+  while the one before is computed on; one block barrier per chunk; 8 x 8
+  scores and outputs per thread, p in shared memory per half-warp. 227,328
+  bytes of shared memory at D = 128 in float32: one block per SM.
+  `kernel_info` reports its occupancy, registers and spills as compiled.
 
 `kernel_lane` picks the lane from the dtype and the head dim alone. This is
 dispatch between two kernels, not a fallback: a bf16 tensor of head dim 64
@@ -39,7 +46,9 @@ LAUNCHES = {"fwd": 0, "wgmma": 0}
 
 
 def kernel_lane(dtype: torch.dtype, head_dim: int) -> str:
-    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS, else "f32"."""
+    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS (the tensor-core
+    kernel), else "f32" (the CUDA-core kernel: 256 threads per 128-row q
+    tile, k and v by cp.async, f32 FMAs)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "f32"
@@ -62,9 +71,33 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_kernel_info.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_kernel_info.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
+    """The CUDA-core lane's kernel for this head dim and dtype, as compiled
+    and placed on the current CUDA device: resident blocks per SM, threads
+    per block, registers per thread, local (spill) bytes per thread and
+    dynamic shared memory per block."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"float32 or bfloat16, got {dtype}")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} outside [1, {MAX_HEAD_DIM}]")
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.flash_attention_kernel_info(
+        head_dim, int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_kernel_info failed: error {err} "
+                           f"({lib.flash_attention_error_string(err).decode()})")
+    keys = ("blocks_per_sm", "threads", "registers", "local_bytes",
+            "smem_bytes")
+    return dict(zip(keys, out))
 
 
 @functools.cache

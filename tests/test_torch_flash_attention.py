@@ -112,3 +112,16 @@ def test_tensor_core_lane_refuses_unaligned_pointers():
     with pytest.raises(ValueError, match="k must start on a 16-byte "
                                          "boundary for the tensor-core lane"):
         check_aligned(q=aligned, k=shifted, v=aligned)
+
+
+@pytest.mark.parametrize("head_dim,dtype,error", [
+    (0, torch.float32, ValueError),
+    (129, torch.bfloat16, ValueError),
+    (64, torch.float16, TypeError),
+])
+def test_kernel_info_refuses_bad_arguments(head_dim, dtype, error):
+    """The CUDA-core lane's occupancy query checks its arguments before it
+    builds or loads anything."""
+    from repro_torch.kernels.flash_attention import kernel_info
+    with pytest.raises(error):
+        kernel_info(head_dim, dtype)

@@ -289,8 +289,38 @@ def _qkv(rng, B, H, Hkv, S, T, D, dtype, device):
 
 BF16 = torch.bfloat16
 # flash against its plain version: max over rows of ||o - r|| / ||r||
-# (the sound kernels read at most 4.6e-3 in bf16, 9.4e-7 in float32)
+# (the sound kernels read at most 4.6e-3 in bf16, 1.4e-6 in float32)
 ROW_REL_LIMIT = {torch.float32: 1e-5, BF16: 1e-2}
+
+
+F32 = torch.float32
+# the CUDA-core lane's edges: its q tile is 128 rows and its kv tile 64
+F32_LANE_CASES = [
+    (1, 8, 1, 2048, 2048, 128, True, F32),            # G = 8, many kv tiles
+    (1, 4, 1, 1, 1, 128, True, F32),                  # ragged 1
+    (1, 4, 2, 31, 31, 128, True, F32),                # ragged 31
+    (1, 4, 2, 33, 33, 64, False, F32),                # ragged 33
+    (1, 4, 2, 127, 127, 128, True, F32),              # ragged 127
+    (1, 4, 2, 129, 129, 128, False, F32),             # ragged 129
+    (1, 4, 1, 1000, 1000, 64, True, F32),             # ragged 1000
+    (1, 4, 2, 31, 129, 128, False, F32),              # S != T, ragged
+    (1, 4, 2, 1000, 33, 128, False, F32),
+    (1, 4, 2, 128, 320, 128, True, F32),              # causal S < T
+    (1, 4, 2, 320, 128, 128, True, F32),              # causal S > T
+    (1, 4, 2, 129, 1000, 64, True, F32),              # causal S < T, ragged
+    (1, 4, 2, 1000, 127, 128, True, F32),             # causal S > T, ragged
+    (2, 4, 4, 200, 200, 128, True, F32),              # B = 2, G = 1
+    (2, 8, 2, 200, 200, 128, True, F32),              # B = 2, G = 4
+    (2, 8, 1, 129, 129, 128, False, F32),             # B = 2, G = 8
+    (1, 4, 2, 150, 150, 18, True, F32),               # D in {18, .., 96}
+    (1, 4, 2, 150, 150, 20, True, F32),
+    (1, 4, 2, 150, 150, 32, True, F32),
+    (1, 4, 2, 150, 150, 64, True, F32),
+    (1, 4, 2, 150, 150, 96, True, F32),
+    (1, 4, 2, 150, 150, 20, True, BF16),              # bf16, other D
+    (1, 4, 2, 300, 300, 32, True, BF16),
+    (1, 8, 2, 1000, 1000, 96, True, BF16),
+]
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,dtype", [
@@ -327,6 +357,7 @@ ROW_REL_LIMIT = {torch.float32: 1e-5, BF16: 1e-2}
     (2, 8, 1, 129, 129, 128, True, BF16),             # B = 2, G = 8
     (2, 4, 4, 1000, 1000, 64, True, BF16),            # B = 2, G = 1
     (2, 32, 4, 128, 128, 128, True, BF16),            # yi-6b, B = 2
+    *F32_LANE_CASES,
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, T, D, causal,
                                     dtype):
@@ -355,6 +386,48 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, T, D, causal,
     rel = float(((o.float() - r).norm(dim=-1) / r.norm(dim=-1)).max())
     assert rel <= ROW_REL_LIMIT[dtype], (
         f"max row |kernel - plain| / |plain| = {rel:.3g}")
+
+
+@pytest.mark.parametrize("D,dtype", [(128, F32), (96, BF16)])
+def test_flash_f32_lane_unaligned(cuda, D, dtype):
+    """Operands one element off a 16-byte boundary take the CUDA-core
+    lane's synchronous loads and agree with the plain version."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(D)
+
+    def off_by_one(*shape):
+        n = int(np.prod(shape))
+        flat = torch.empty(n + 1, dtype=dtype, device=cuda)
+        flat[1:] = torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                   device=cuda)
+        return flat[1:].view(shape)
+    B, H, Hkv, S, T = 1, 4, 2, 200, 200
+    q = off_by_one(B, H, S, D)
+    k, v = off_by_one(B, Hkv, T, D), off_by_one(B, Hkv, T, D)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = dict(LAUNCHES)
+    o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwd"] == before["fwd"] + 1
+    assert LAUNCHES["wgmma"] == before["wgmma"]
+    tol = 1e-4 if dtype == F32 else 3e-2
+    r = flash_attention_ref(q, k, v, causal=True).float()
+    torch.testing.assert_close(o.float(), r, rtol=tol, atol=tol)
+    rel = float(((o.float() - r).norm(dim=-1) / r.norm(dim=-1)).max())
+    assert rel <= ROW_REL_LIMIT[dtype], (
+        f"max row |kernel - plain| / |plain| = {rel:.3g}")
+
+
+@pytest.mark.parametrize("D,dtype", [(128, F32), (64, F32), (96, BF16)])
+def test_flash_f32_lane_occupancy(cuda, D, dtype):
+    """The CUDA-core lane keeps 8 warps resident per SM and spills
+    nothing."""
+    from repro_torch.kernels.flash_attention import kernel_info
+    info = kernel_info(D, dtype)
+    assert info["blocks_per_sm"] * info["threads"] // 32 >= 8, info
+    assert info["local_bytes"] == 0, info
 
 
 def test_flash_wrapper_refuses_bad_operands(cuda):
