@@ -9,7 +9,9 @@ Phases, each printing its own lines and seconds:
   1. card   : the device's name and its nvidia-smi name and power limit;
   2. build  : nvcc builds every kernel from the sources in the checkout;
   3. kernels: the block-CSR SpMV against its plain PyTorch version, with
-              and without the per-row count of real slots;
+              and without the per-row count of real slots; the CSR
+              segment-sum kernel against its plain version, run to run and
+              lane by lane;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
               at head dim 64 or 128, the CUDA-core lane for the rest)
               against their plain version, and the CUDA-core lane's
@@ -26,13 +28,25 @@ Phases, each printing its own lines and seconds:
               version, two PyTorch sparse-BSR calls (padded layout, real
               slots only), google_apply, and the bound over the real
               slots beside the layout's;
-  9. main   : Yi-6B inference at full width (random weights from --seed,
+  9. main   : the bulk-synchronous shard program on Stanford-Web, p = 4
+              shards on one card: the four exchange schedules on the bsr
+              backend, 8 personalized lanes with freezing and compaction,
+              and the segment-sum backend run twice (the same bits), each
+              held against the float64 oracles, with the launch counts of
+              the block and CSR kernels read around it (one launch per
+              superstep for all shards);
+ 10. timing : the CSR segment-sum kernel at Stanford-Web (float32 and
+              float64, nv in {1, 8}; the hub row alone and the rest), its
+              plain version, PyTorch's sparse CSR product and the bound; the
+              folded block launch of the shard program against four
+              per-shard launches;
+ 11. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
               the forward (bf16, then a float32 copy whose forward takes the
               CUDA-core lane), and greedy and sampled generation, with the
               launch counts of both lanes read around it;
- 10. timing : each flash lane, its plain version, PyTorch's
+ 12. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
@@ -62,6 +76,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F64_FLOPS = 34e12      # float64 outside the tensor cores
 BSR_SOURCE = "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu"
 FLASH_SOURCE = {
     "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -70,7 +85,21 @@ FLASH_SOURCE = {
 # block edges and lane counts timed at Stanford-Web scale
 TIMED_BM = (8, 16, 32, 64)
 TIMED_NV = (1, 8)
+CSR_SOURCE = "src/repro_torch/kernels/csr_spmv/csrc/csr_spmv.cu"
+# the shard program on Stanford-Web: shards, and the margin of each run's
+# inf-norm tolerance over the float32 spacing of the largest rank it holds
+# (a looser tol misses the L1 gate: the timing phase's sweep prints it)
+SPMD_P = 4
+SPMD_TOL_MARGIN = 1.07
+# the lanes' monitor persistence (Fig. 1's pcMax): four consecutive
+# all-converged supersteps before a lane stops (with one, an inf-norm stop
+# at that tol leaves a personalized lane above the L1 gate; the sweep
+# prints it)
+SPMD_LANE_PC_MAX = 4
+SPMD_SCHEDULES = ("allgather", "allgather_k", "ring", "sparsified")
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
+              "csr": "src/repro/graph/csr.py:152 (no TPU kernel: an XLA "
+                     "gather + segment_sum)",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:27"}
@@ -188,6 +217,330 @@ def kahan_replay_layout(n_rows=16, bm=8, real=4, pad=3, seed=0):
     blk_cols[:, :real] = np.arange(real)
     counts = np.full(n_rows, real, np.int32)
     return blocks, blk_cols, np.ones((real, bm, 1), np.float32), counts
+
+
+def random_csr(rng, n_rows, n_cols, mean_deg, long_row=0):
+    """Row-sorted edges with an indptr (Poisson row lengths, so many empty
+    rows at a small mean) and one row of `long_row` edges (a hub). Returns
+    numpy (indptr, src, weights, row ids)."""
+    import numpy as np
+    deg = rng.poisson(mean_deg, n_rows)
+    if long_row:
+        deg[n_rows // 3] = long_row
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    nnz = int(indptr[-1])
+    src = rng.integers(0, n_cols, nnz).astype(np.int32)
+    w = rng.random(nnz) / np.maximum(1, rng.integers(1, 50, nnz))
+    return indptr, src, w, np.repeat(np.arange(n_rows), deg).astype(np.int32)
+
+
+def csr_against_plain(cuda):
+    """The CSR segment-sum kernel against its plain version on the card,
+    run to run and lane by lane; returns the largest |kernel - plain| per
+    dtype ("f32", "f64")."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
+    worst = {"f32": 0.0, "f64": 0.0}
+    for n_rows, n_cols, deg, hub in [(1, 1, 0.0, 0), (33, 50, 3.0, 0),
+                                     (4000, 3000, 0.7, 0),
+                                     (2000, 5000, 8.0, 79_727),
+                                     (281_903, 281_903, 8.2, 0)]:
+        rng = np.random.default_rng(n_rows)
+        indptr_np, src_np, w_np, rows_np = random_csr(rng, n_rows, n_cols,
+                                                      deg, hub)
+        indptr = torch.as_tensor(indptr_np, device=cuda)
+        src = torch.as_tensor(src_np, device=cuda)
+        rows = torch.as_tensor(rows_np, device=cuda)
+        nnz_r = torch.as_tensor(np.diff(indptr_np), device=cuda)[:, None]
+        for dt, lane in ((torch.float32, "f32"), (torch.float64, "f64")):
+            w = torch.as_tensor(w_np, device=cuda).to(dt)
+            x8 = torch.as_tensor(rng.random((n_cols, 8)), device=cuda).to(dt)
+            for nv in (1, 3, 8, 16):
+                x = (x8[:, :nv].contiguous() if nv <= 8 else
+                     torch.cat([x8, x8.flip(1)], 1).contiguous())
+                y = csr_spmv(indptr, src, w, x, n_rows)
+                y_ref = csr_spmv_ref(rows, src, w, x, n_rows)
+                diff = (y.double() - y_ref.double()).abs()
+                if dt == torch.float64:
+                    ok = float(diff.max()) <= 1e-12 * max(
+                        1.0, float(y_ref.abs().max()))
+                else:
+                    # two float32 sums of the same terms in two orders
+                    absum = csr_spmv_ref(rows, src, w.double().abs(),
+                                         x.double().abs(), n_rows)
+                    ok = bool((diff <= 4 * nnz_r * 2.0 ** -24 * absum).all())
+                same = torch.equal(y, csr_spmv(indptr, src, w, x, n_rows))
+                lanes = all(torch.equal(
+                    csr_spmv(indptr, src, w, x[:, j].contiguous(), n_rows),
+                    y[:, j]) for j in range(nv))
+                torch.cuda.synchronize()
+                worst[lane] = max(worst[lane], float(diff.max()))
+                check(ok and same and lanes,
+                      f"csr {n_rows}x{n_cols} nnz={len(src_np)} "
+                      f"{lane} nv={nv}: max |kernel - plain| = "
+                      f"{float(diff.max()):.3g} ("
+                      f"{'1e-12 relative' if lane == 'f64' else 'the per-row float32 reorder bound'}), "
+                      f"two runs identical, each lane = its 1-wide call")
+    return worst
+
+
+def csr_bound(dev, x, y, n_rows):
+    """Least time (ms) for one CSR product: indptr, src, weights, x and y
+    each moved once at the HBM rate, against 2 flops per edge and lane at
+    the CUDA-core peak of x's type. Returns (ms, bound_by)."""
+    import torch
+    nv = 1 if x.ndim == 1 else x.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (dev["indptr"], dev["src"], dev["weight"], x, y))
+    flops = 2.0 * dev["src"].numel() * nv
+    peak = PEAK_F64_FLOPS if x.dtype == torch.float64 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_csr_call(dev, x, n_rows):
+    """One PyTorch call computing the same product: the edge list as a
+    sparse CSR tensor times the dense x (a yardstick, never the port's
+    path)."""
+    import torch
+    a = torch.sparse_csr_tensor(dev["indptr"], dev["src"].long(),
+                                dev["weight"], size=(n_rows, x.shape[0]),
+                                check_invariants=False)
+    xm = x if x.ndim == 2 else x[:, None]
+    return lambda: a @ xm
+
+
+def spmd_main_path(op, exact, exact8, v8, smi):
+    """The shard program on Stanford-Web through `solve_spmd`, p = 4 shards
+    on one card. Returns (results by run, launches of each kernel over the
+    phase)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SPMDConfig, kendall_tau_topk, solve_spmd
+    from repro_torch.kernels.bsr_spmv import LAUNCHES
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+
+    tols = {}
+    for what, ref in (("global", exact), ("lanes", exact8)):
+        rank = float(ref.max())
+        gap = float(np.spacing(np.float32(rank)))
+        tols[what] = SPMD_TOL_MARGIN * gap
+        print(f"  {what}: largest rank {rank:.6g} at page "
+              f"{int(ref.argmax()) % op.n}, float32 spacing {gap:.4g}: "
+              f"inf-norm tol {tols[what]:.4g}")
+
+    def held(x, ref, what):
+        l1 = float(np.abs(x - ref).sum())
+        tau = kendall_tau_topk(x, ref, k=100)
+        check(l1 <= 1e-5 and tau >= 0.999,
+              f"{what}: L1 err {l1:.3g} <= 1e-5, top-100 tau {tau:.6f} >= "
+              f"0.999")
+
+    def report(name, r):
+        c = r.chunk_log
+        steps = sum(x["steps"] for x in c)
+        per = {k: sum(x[f"{k}_ms"] for x in c) / steps
+               for k in ("wall", "apply", "exchange", "protocol", "gap")}
+        print(f"  {name}: {r.supersteps} supersteps, "
+              f"{per['wall']:.4f} ms per superstep (apply "
+              f"{per['apply']:.4f}, exchange {per['exchange']:.4f}, "
+              f"protocol {per['protocol']:.4f}, host gap {per['gap']:.4f}; "
+              f"CUDA-event spans), comm_bytes_total {r.comm_bytes_total:,}, "
+              f"rows_sent {r.rows_sent:,}, chunks {r.lane_chunks} [{smi}]")
+        return per
+
+    for counts in (LAUNCHES, CSR_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    out = {}
+    for sched in SPMD_SCHEDULES:
+        cfg = SPMDConfig(p=SPMD_P, schedule=sched, backend="bsr",
+                         tol=tols["global"], max_supersteps=3000)
+        before = LAUNCHES["f32"]
+        t0 = time.perf_counter()
+        r = solve_spmd(op, cfg, observe=True)
+        torch.cuda.synchronize()
+        print(f"  {sched}: {time.perf_counter() - t0:.2f} s (first use "
+              f"packs the shards)")
+        per = report(f"bsr {sched}", r)
+        check(LAUNCHES["f32"] - before == r.supersteps + 1
+              and r.supersteps < 3000,
+              f"bsr {sched}: the block kernel launched "
+              f"{LAUNCHES['f32'] - before} times = {r.supersteps} supersteps "
+              f"+ 1 final residual, one launch for all {SPMD_P} shards")
+        held(r.x, exact, f"bsr {sched}")
+        out[sched] = (r, per)
+    cfg = SPMDConfig(p=SPMD_P, schedule="allgather", backend="bsr",
+                     tol=tols["lanes"], max_supersteps=2000,
+                     pc_max_monitor=SPMD_LANE_PC_MAX, freeze_lanes=True,
+                     compact_lanes=True)
+    before = LAUNCHES["f32"]
+    r = solve_spmd(op, cfg, v=v8, observe=True)
+    per = report(f"bsr allgather, 8 lanes, freeze + compact, monitor "
+                 f"pcMax {SPMD_LANE_PC_MAX}", r)
+    print(f"    lane_supersteps {r.lane_supersteps.tolist()}, chunk lanes "
+          f"{[c['lanes'] for c in r.chunk_log]}")
+    check(LAUNCHES["f32"] - before == r.supersteps + r.lane_chunks,
+          f"lanes: {LAUNCHES['f32'] - before} block launches = "
+          f"{r.supersteps} supersteps + {r.lane_chunks} chunk residuals")
+    for j in range(v8.shape[1]):
+        held(r.x[:, j], exact8[:, j], f"lane {j}")
+    out["lanes"] = (r, per)
+    runs = []
+    for k in range(2):
+        cfg = SPMDConfig(p=SPMD_P, schedule="allgather",
+                         backend="segment_sum", tol=tols["global"],
+                         max_supersteps=3000)
+        before = CSR_LAUNCHES["f32"]
+        r = solve_spmd(op, cfg, observe=True)
+        per = report(f"segment_sum allgather f32, run {k + 1}", r)
+        check(CSR_LAUNCHES["f32"] - before == r.supersteps + 1,
+              f"segment_sum: the CSR kernel launched "
+              f"{CSR_LAUNCHES['f32'] - before} times = {r.supersteps} "
+              f"supersteps + 1")
+        held(r.x, exact, f"segment_sum run {k + 1}")
+        runs.append(r)
+    out["segment_sum"] = (runs[0], per)
+    check(runs[0].supersteps == runs[1].supersteps
+          and np.array_equal(runs[0].x, runs[1].x),
+          f"segment_sum float32, two runs: {runs[0].supersteps} supersteps "
+          f"each, x identical bit for bit")
+    launches = {"bsr_f32": LAUNCHES["f32"], "csr_f32": CSR_LAUNCHES["f32"]}
+    print(f"  shard program launches: {launches}")
+    out["tol"] = tols["global"]
+    return out, launches
+
+
+def csr_timing(op, cuda, smi):
+    """The CSR segment-sum kernel at Stanford-Web against its plain
+    version, PyTorch's sparse CSR product and the bound, in float32 and
+    float64 at nv in {1, 8}; then the hub row alone and the rest. Returns
+    {(lane, nv): row}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
+    n = op.n
+    rows = {}
+    for dt, lane in ((torch.float32, "f32"), (torch.float64, "f64")):
+        dev = op.pt.device_arrays(dt, cuda)
+        g = torch.Generator(device=cuda).manual_seed(7)
+        for nv in (1, 8):
+            x = torch.rand((n, nv), generator=g, device=cuda, dtype=dt)
+            x = x[:, 0].contiguous() if nv == 1 else x
+            args = (dev["indptr"], dev["src"], dev["weight"], x, n)
+            y = csr_spmv(*args)
+            y_ref = csr_spmv_ref(dev["row_ids"], dev["src"], dev["weight"],
+                                 x, n)
+            lib = library_csr_call(dev, x, n)
+            err = float((y - y_ref).abs().max())
+            lib_err = float((lib().reshape(y.shape) - y_ref).abs().max())
+            t = {"kernel": cuda_ms(lambda: csr_spmv(*args), 20),
+                 "plain": cuda_ms(lambda: csr_spmv_ref(
+                     dev["row_ids"], dev["src"], dev["weight"], x, n), 20),
+                 "library": cuda_ms(lib, 20)}
+            b_ms, b_by = csr_bound(dev, x, y, n)
+            print(f"  csr {lane} nv={nv} (n={n}, nnz={dev['src'].numel()}): "
+                  f"kernel {t['kernel']:.4f} ms, plain index_add_ "
+                  f"{t['plain']:.4f} ms, sparse CSR call {t['library']:.4f} "
+                  f"ms (|diff| {lib_err:.3g}), bound {b_ms:.4f} ms "
+                  f"({b_by}); kernel at {100 * b_ms / t['kernel']:.1f}% of "
+                  f"bound, max |kernel - plain| {err:.3g} [{smi}]")
+            rows[(lane, nv)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+    # the serial hub row against the rest of the rows
+    pt = op.pt
+    deg = np.diff(pt.indptr)
+    hub = int(deg.argmax())
+    lo, hi = int(pt.indptr[hub]), int(pt.indptr[hub + 1])
+    dev = op.pt.device_arrays(torch.float32, cuda)
+    x = torch.rand(n, device=cuda)
+    hub_args = (torch.tensor([0, hi - lo], device=cuda),
+                dev["src"][lo:hi].contiguous(),
+                dev["weight"][lo:hi].contiguous(), x, 1)
+    keep = np.ones(pt.nnz, bool)
+    keep[lo:hi] = False
+    rest_ptr = pt.indptr.copy()
+    rest_ptr[hub + 1:] -= hi - lo
+    rest_args = (torch.as_tensor(rest_ptr, device=cuda),
+                 dev["src"][torch.as_tensor(keep, device=cuda)],
+                 dev["weight"][torch.as_tensor(keep, device=cuda)], x, n)
+    t_hub = cuda_ms(lambda: csr_spmv(*hub_args), 20)
+    t_rest = cuda_ms(lambda: csr_spmv(*rest_args), 20)
+    print(f"  csr f32 nv=1: hub row {hub} alone ({hi - lo:,} in-links, one "
+          f"warp) {t_hub:.4f} ms; every other row (its in-links removed) "
+          f"{t_rest:.4f} ms [{smi}]")
+    return rows
+
+
+def folded_timing(op, cuda, smi):
+    """The shard program's one block launch over the p shards' folded
+    block rows against p per-shard launches, at nv in {1, 8}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SPMDConfig
+    from repro_torch.core.partition import block_rows
+    from repro_torch.core.spmd import _pack_structure
+    from repro_torch.kernels.bsr_spmv import DEFAULT_BM, bsr_spmv
+    bm = DEFAULT_BM
+    packed = _pack_structure(op, block_rows(op.n, SPMD_P),
+                             SPMDConfig(p=SPMD_P, backend="bsr"),
+                             np.dtype("float32"), bm)
+    bsize, n_pad = packed["bsize"], packed["n_pad"]
+    blocks = torch.as_tensor(packed["blocks"], device=cuda)
+    cols = torch.as_tensor(packed["blk_cols"], device=cuda)
+    count = torch.as_tensor(packed["blk_count"], device=cuda)
+    nbr_l, nbc_l = bsize // bm, n_pad // bm
+    out = {}
+    for nv in (1, 8):
+        views = torch.rand((SPMD_P * nbc_l, bm, nv), device=cuda)
+        y = bsr_spmv(blocks, cols, views, blk_count=count)
+        shards = [(blocks[i * nbr_l:(i + 1) * nbr_l],
+                   (cols[i * nbr_l:(i + 1) * nbr_l] - i * nbc_l).contiguous(),
+                   views[i * nbc_l:(i + 1) * nbc_l],
+                   count[i * nbr_l:(i + 1) * nbr_l])
+                  for i in range(SPMD_P)]
+        same = all(torch.equal(y[i * nbr_l:(i + 1) * nbr_l],
+                               bsr_spmv(b, c, v, blk_count=k))
+                   for i, (b, c, v, k) in enumerate(shards))
+        t_fold = cuda_ms(lambda: bsr_spmv(blocks, cols, views,
+                                          blk_count=count), 20)
+
+        def per_shard():
+            for b, c, v, k in shards:
+                bsr_spmv(b, c, v, blk_count=k)
+        t_sep = cuda_ms(per_shard, 20)
+        b_ms, b_by, _, _ = bound(blocks, count, views, y)
+        check(same, f"folded launch at nv={nv}: every shard's rows equal "
+              f"its own launch bit for bit")
+        print(f"  folded block launch p={SPMD_P} nv={nv} ({blocks.shape[0]} "
+              f"block rows, K={blocks.shape[1]}): {t_fold:.4f} ms, "
+              f"{SPMD_P} per-shard launches {t_sep:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) [{smi}]")
+        out[nv] = (t_fold, t_sep, b_ms)
+    return out
+
+
+def spmd_tol_sweep(op, exact, exact8, v8, tol, smi):
+    """Why the main path's tolerances: allgather at a looser inf-norm tol
+    and the lanes without the monitor's persistence, held to nothing,
+    their L1 errors printed beside the main path's settings."""
+    import numpy as np
+    from repro_torch.core import SPMDConfig, solve_spmd
+    for t in (1e-8, tol):
+        r = solve_spmd(op, SPMDConfig(p=SPMD_P, backend="bsr", tol=t))
+        print(f"  bsr allgather at tol {t:.4g}: {r.supersteps} supersteps, "
+              f"L1 err {np.abs(r.x - exact).sum():.3g} [{smi}]")
+    for pc in (1, SPMD_LANE_PC_MAX):
+        r = solve_spmd(op, SPMDConfig(
+            p=SPMD_P, backend="bsr", tol=SPMD_TOL_MARGIN * float(
+                np.spacing(np.float32(exact8.max()))),
+            pc_max_monitor=pc, freeze_lanes=True, compact_lanes=True), v=v8)
+        l1 = np.abs(r.x - exact8).sum(axis=0)
+        print(f"  8 lanes, monitor pcMax {pc}: {r.supersteps} supersteps, "
+              f"L1 err per lane max {l1.max():.3g} (lane {int(l1.argmax())})"
+              f" [{smi}]")
 
 
 def attention_flops(q, k, causal):
@@ -654,12 +1007,14 @@ def main(argv=None):
                                           google_apply, prepare, seed_stack)
     from repro_torch.core.pagerank import (kendall_tau_topk, solve_linear,
                                            solve_power)
+    from repro_torch.core.spmd import SPMDConfig, solve_spmd
     from repro_torch.graph.google import GoogleOperator, exact_pagerank
     from repro_torch.kernels import build
     from repro_torch.kernels.bsr_spmv import (DEFAULT_BM, LAUNCHES,
                                               bsr_spmv, bsr_spmv_ref,
                                               build_bsr, hybrid_matvec,
                                               kernel_path, pad_x)
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
 
     # the plain version is an einsum: full f32, not TF32, so that it is a
     # fair oracle for the kernel's f32 FMAs
@@ -800,6 +1155,7 @@ def main(argv=None):
               f"count would change match the plain lane over all K "
               f"exactly; max rel err {rel:.3g} <= 1e-6")
         print(f"  cases per path: {paths}")
+        csr_err = csr_against_plain(cuda)
 
     with phase("flash attention against its plain version"):
         flash_err = flash_against_plain(cuda)
@@ -852,8 +1208,9 @@ def main(argv=None):
                   f"{t_count:.2f} s slot_counts)")
 
     with phase("main path: Stanford-Web static solve"):
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, CSR_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
         solves = {}
         t_main = time.perf_counter()
         for name, fn, kw in [
@@ -877,8 +1234,13 @@ def main(argv=None):
         y_kahan = hybrid_matvec(dev, x0, accum="kahan")
         torch.cuda.synchronize()
         main_launches = dict(LAUNCHES)
+        main_csr = dict(CSR_LAUNCHES)
         print(f"  main path: {time.perf_counter() - t_main:.2f} s, "
-              f"launches {main_launches}")
+              f"launches {main_launches}, CSR kernel {main_csr}")
+        check(main_csr == {"f32": 0,
+                           "f64": solves["power segment_sum f64"].iters},
+              f"f64 CSR kernel launched once per segment_sum apply "
+              f"({solves['power segment_sum f64'].iters})")
         bsr_applies = sum(solves[k].iters for k in
                           ("power bsr", "linear bsr", "power bsr nv=8"))
         check(main_launches["f32"] == bsr_applies,
@@ -988,6 +1350,21 @@ def main(argv=None):
                   f"({dt * 1e3 / r.iters:.4f} ms/iter) at bm={DEFAULT_BM} "
                   f"[{smi}]")
 
+    with phase(f"main path: Stanford-Web SPMD (p = {SPMD_P} shards on one "
+               f"card)"):
+        print(f"  card: {smi}")
+        spmd_runs, spmd_launches = spmd_main_path(op, exact, exact8, v8, smi)
+
+    with phase("timing: CSR segment-sum kernel and the folded block launch"):
+        print(f"  card: {smi}")
+        csr_rows = csr_timing(op, cuda, smi)
+        folded_timing(op, cuda, smi)
+        spmd_tol_sweep(op, exact, exact8, v8, spmd_runs["tol"], smi)
+        device_breakdown(lambda: solve_spmd(op, SPMDConfig(
+            p=SPMD_P, backend="bsr", tol=spmd_runs["tol"])),
+            f"solve_spmd bsr allgather p={SPMD_P} "
+            f"({spmd_runs['allgather'][0].supersteps} supersteps)", smi)
+
     del op, op8, y_kahan, y_f32    # the Stanford-Web layouts on the card
     free_cuda()
 
@@ -1004,11 +1381,22 @@ def main(argv=None):
         kernels.append({
             "name": f"bsr_spmv_{accum}", "route": "cuda",
             "source": BSR_SOURCE, "replaces": TPU_KERNEL[accum],
-            "launches": main_launches[accum],
+            "launches": main_launches[accum] + (
+                spmd_launches["bsr_f32"] if accum == "f32" else 0),
             "max_abs_err": max(max_err[accum], errs[accum]),
             "ms": t[accum], "plain_ms": t[f"plain_{accum}"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
+    for lane, launches in (("f32", spmd_launches["csr_f32"]),
+                           ("f64", main_csr["f64"])):
+        row = csr_rows[(lane, 1)]
+        kernels.append({
+            "name": f"csr_spmv_{lane}", "route": "cuda", "source": CSR_SOURCE,
+            "replaces": TPU_KERNEL["csr"], "launches": launches,
+            "max_abs_err": max(csr_err[lane], row["err"]),
+            "ms": row["kernel"], "plain_ms": row["plain"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library"]})
     for lane, name in (("wgmma", "flash_attention"),
                        ("f32", "flash_attention_f32")):
         row = flash_rows[lane]

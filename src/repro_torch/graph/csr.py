@@ -4,8 +4,10 @@ The adjacency matrix A (A[i, j] = 1 iff page i links to page j) is stored in
 CSR over *rows* (out-links). PageRank iterates with P^T (in-links weighted by
 1/outdeg), so the transpose is materialized in CSR form once. Both
 containers stay numpy on the host; `TransitionT.device_arrays` uploads the
-edge arrays as torch tensors, and the per-iteration matvec is a gather
-(`index_select`) plus a scatter-add (`index_add_`).
+edge arrays as torch tensors. The per-iteration matvec runs the CSR
+segment-sum kernel (kernels/csr_spmv) on CUDA tensors, in a fixed order, and
+its plain version, a gather (`index_select`) plus a scatter-add
+(`index_add_`), on CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import dataclasses
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ..kernels import resolve_impl
+from ..kernels.csr_spmv import csr_spmv, csr_spmv_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,8 +123,9 @@ class TransitionT:
                       device: torch.device) -> dict:
         """Edge tensors for `pt_matvec`, memoized per (dtype, device) so
         repeated solves reuse the uploaded buffers (TransitionT is
-        immutable). Index tensors stay int32, which `index_select` and
-        `index_add_` take as they are."""
+        immutable). Edge index tensors stay int32, which `index_select`,
+        `index_add_` and the kernel take as they are; `indptr` (int64) is
+        the kernel's row bounds."""
         key = (dtype, torch.device(device))
         cache = self.__dict__.get("_dev_cache")
         if cache is None:
@@ -128,6 +134,7 @@ class TransitionT:
         hit = cache.get(key)
         if hit is None:
             hit = dict(
+                indptr=torch.as_tensor(self.indptr, device=device),
                 src=torch.as_tensor(self.src, device=device),
                 weight=torch.as_tensor(self.weight, device=device).to(dtype),
                 row_ids=torch.as_tensor(self.row_ids, device=device),
@@ -136,26 +143,37 @@ class TransitionT:
         return dict(hit)
 
 
-def pt_matvec(dev: dict, x: torch.Tensor, n: int) -> torch.Tensor:
-    """y = P^T x as gather + scatter-add.
+def pt_matvec(dev: dict, x: torch.Tensor, n: int,
+              impl: str = "auto") -> torch.Tensor:
+    """y = P^T x: the CSR segment-sum kernel on CUDA tensors, the gather +
+    scatter-add plain version on CPU tensors (`impl` as in
+    `kernels.resolve_impl`).
 
     x may be a single vector (n,) or an (n, nv) stack of iterates (nv
     personalized PageRank problems sharing every edge gather).
     dev comes from `TransitionT.device_arrays`.
     """
-    w = dev["weight"] if x.ndim == 1 else dev["weight"][:, None]
-    contrib = w * x.index_select(0, dev["src"])
-    y = x.new_zeros((n,) + tuple(x.shape[1:]))
-    return y.index_add_(0, dev["row_ids"], contrib)
+    if resolve_impl(impl, x) == "cuda":
+        return csr_spmv(dev["indptr"], dev["src"], dev["weight"], x, n)
+    return csr_spmv_ref(dev["row_ids"], dev["src"], dev["weight"], x, n)
 
 
 def pt_matvec_block(dev_block: dict, x: torch.Tensor, block_size: int,
-                    row_offset: int) -> torch.Tensor:
+                    row_offset: int, impl: str = "auto") -> torch.Tensor:
     """(P^T x) restricted to rows [row_offset, row_offset + block_size).
 
     dev_block holds the edge slice for those rows with row_ids already
-    rebased to the block.
+    rebased to the block; its `indptr`, where absent, is found from the
+    sorted row_ids.
     """
-    contrib = dev_block["weight"] * x.index_select(0, dev_block["src"])
-    y = x.new_zeros((block_size,) + tuple(x.shape[1:]))
-    return y.index_add_(0, dev_block["row_ids"], contrib)
+    if resolve_impl(impl, x) == "cuda":
+        indptr = dev_block.get("indptr")
+        if indptr is None:
+            rows = dev_block["row_ids"]
+            indptr = torch.searchsorted(
+                rows, torch.arange(block_size + 1, dtype=rows.dtype,
+                                   device=rows.device))
+        return csr_spmv(indptr, dev_block["src"], dev_block["weight"], x,
+                        block_size)
+    return csr_spmv_ref(dev_block["row_ids"], dev_block["src"],
+                        dev_block["weight"], x, block_size)

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
-PyTorch version: bsr_spmv (the paper's SpMV) and flash_attention (the LM
+PyTorch version: bsr_spmv (the paper's block SpMV), csr_spmv (the
+segment-sum backend's SpMV, in a fixed order) and flash_attention (the LM
 prefill's attention). Built by `kernels.build` at first use."""
 import torch
 

@@ -27,6 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _KERNELS = Path(__file__).parent
 SOURCES: Dict[str, Path] = {
     "bsr_spmv": _KERNELS / "bsr_spmv" / "csrc" / "bsr_spmv.cu",
+    # the segment-sum backend's P^T x, in a fixed order
+    "csr_spmv": _KERNELS / "csr_spmv" / "csrc" / "csr_spmv.cu",
     # the CUDA-core lane (float32, and bf16 at other head dims)
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),

@@ -479,3 +479,228 @@ def test_smoke_forward_through_kernel(cuda, arch):
     torch.testing.assert_close(last, logits[:, -1], rtol=1e-4, atol=1e-4)
     a = eng.generate(tokens[:, :8], 6, temperature=0.0)
     assert torch.equal(a, eng.generate(tokens[:, :8], 6, temperature=0.0))
+
+
+# ---------------------------------------------------------------------------
+# CSR segment sum and the shard program
+# ---------------------------------------------------------------------------
+def random_csr(rng, n_rows, n_cols, mean_deg, long_row=0):
+    """Row-sorted edges with an indptr: Poisson row lengths (many empty
+    rows at a small mean), plus one row of `long_row` edges (a hub)."""
+    deg = rng.poisson(mean_deg, n_rows)
+    if long_row:
+        deg[n_rows // 3] = long_row
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    nnz = int(indptr[-1])
+    src = rng.integers(0, n_cols, nnz).astype(np.int32)
+    w = rng.random(nnz) / np.maximum(1, rng.integers(1, 50, nnz))
+    rows = np.repeat(np.arange(n_rows), deg).astype(np.int32)
+    return indptr, src, w, rows
+
+
+def _csr_dev(arrays, dtype, device):
+    indptr, src, w, rows = arrays
+    return (torch.as_tensor(indptr, device=device),
+            torch.as_tensor(src, device=device),
+            torch.as_tensor(w, device=device).to(dtype),
+            torch.as_tensor(rows, device=device))
+
+
+CSR_CASES = [  # (n_rows, n_cols, mean in-degree, hub row length)
+    (1, 1, 0.0, 0), (33, 50, 3.0, 0), (1000, 1000, 8.0, 0),
+    (4000, 3000, 0.7, 0), (2000, 5000, 8.0, 79_727), (70_000, 70_000, 8.0, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nv", [1, 3, 8, 16])
+@pytest.mark.parametrize("case", CSR_CASES)
+def test_csr_kernel_matches_plain(cuda, case, nv, dtype):
+    """The kernel against its plain version. float64: 1e-12 relative to
+    the largest |y|. float32: each row within the bound of two float32
+    sums of the same terms in two orders, 4 * nnz_r * 2^-24 * sum|w x|
+    (each recursive sum errs by at most ~nnz_r units of roundoff)."""
+    from repro_torch.kernels.csr_spmv import LAUNCHES, csr_spmv, csr_spmv_ref
+    n_rows, n_cols, deg, hub = case
+    rng = np.random.default_rng(n_rows + nv)
+    arrays = random_csr(rng, n_rows, n_cols, deg, hub)
+    indptr, src, w, rows = _csr_dev(arrays, dtype, cuda)
+    x = torch.as_tensor(rng.random((n_cols, nv)), device=cuda).to(dtype)
+    before = dict(LAUNCHES)
+    y = csr_spmv(indptr, src, w, x, n_rows)
+    lane = "f32" if dtype == torch.float32 else "f64"
+    assert LAUNCHES[lane] == before[lane] + 1
+    y_ref = csr_spmv_ref(rows, src, w, x, n_rows)
+    torch.cuda.synchronize()
+    assert y.shape == (n_rows, nv) and y.dtype == dtype
+    diff = (y.double() - y_ref.double()).abs()
+    if dtype == torch.float64:
+        assert float(diff.max()) <= 1e-12 * max(1.0, float(y_ref.abs().max()))
+    else:
+        absum = csr_spmv_ref(rows, src, w.double().abs(), x.double().abs(),
+                             n_rows)
+        nnz_r = torch.as_tensor(np.diff(arrays[0]), device=cuda)[:, None]
+        assert bool((diff <= 4 * nnz_r * 2.0 ** -24 * absum).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_kernel_fixed_order(cuda, dtype):
+    """Two runs give the same bits, and lane j of an nv-wide call gives the
+    bits of the 1-wide call on lane j (the kernel's order depends on the
+    edge positions alone); the plain version's index_add_ promises
+    neither on the card."""
+    from repro_torch.kernels.csr_spmv import csr_spmv
+    rng = np.random.default_rng(5)
+    arrays = random_csr(rng, 20_000, 20_000, 8.0, 30_000)
+    indptr, src, w, _ = _csr_dev(arrays, dtype, cuda)
+    for nv in (1, 2, 3, 8, 11, 16):
+        x = torch.as_tensor(rng.random((20_000, nv)), device=cuda).to(dtype)
+        y = csr_spmv(indptr, src, w, x, 20_000)
+        assert torch.equal(y, csr_spmv(indptr, src, w, x, 20_000))
+        for j in range(nv):
+            y1 = csr_spmv(indptr, src, w, x[:, j].contiguous(), 20_000)
+            assert torch.equal(y1, y[:, j]), (nv, j)
+
+
+def test_csr_wrapper_refuses_bad_operands(cuda):
+    from repro_torch.kernels.csr_spmv import csr_spmv
+    indptr = torch.tensor([0, 1, 2], device=cuda)
+    src = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    w = torch.ones(2, device=cuda)
+    x = torch.ones((2, 1), device=cuda)
+    with pytest.raises(TypeError):
+        csr_spmv(indptr, src, w.double(), x, 2)
+    with pytest.raises(TypeError):
+        csr_spmv(indptr, src.long(), w, x, 2)
+    with pytest.raises(TypeError):
+        csr_spmv(indptr.int(), src, w, x, 2)
+    with pytest.raises(TypeError):
+        csr_spmv(indptr, src, w.half(), x.half(), 2)
+    with pytest.raises(ValueError):
+        csr_spmv(indptr, src, w, x.cpu(), 2)
+    with pytest.raises(ValueError):
+        csr_spmv(indptr, src, w, x, 3)
+    with pytest.raises(ValueError):
+        csr_spmv(indptr, src, w, torch.ones((2, 2), device=cuda).t(), 2)
+    assert csr_spmv(indptr, src, w, x, 2).tolist() == [[1.0], [1.0]]
+
+
+def test_pt_matvec_dispatches_to_csr_kernel(cuda):
+    from repro_torch.graph import GoogleOperator, TransitionT
+    from repro_torch.graph import powerlaw_webgraph
+    from repro_torch.graph.csr import pt_matvec, pt_matvec_block
+    from repro_torch.kernels.csr_spmv import LAUNCHES
+    g = powerlaw_webgraph(n=2000, target_nnz=16000, n_dangling=10, seed=7)
+    op = GoogleOperator(pt=TransitionT.from_graph(g), alpha=0.85)
+    x = torch.rand((2000, 3), dtype=torch.float64, device=cuda)
+    dev = op.pt.device_arrays(torch.float64, cuda)
+    before = LAUNCHES["f64"]
+    y = pt_matvec(dev, x, 2000)
+    assert LAUNCHES["f64"] == before + 1
+    y_ref = pt_matvec(dev, x, 2000, impl="ref")
+    torch.testing.assert_close(y, y_ref, rtol=1e-12, atol=1e-15)
+    pt = op.pt
+    lo, hi = 300, 700
+    e0, e1 = pt.indptr[lo], pt.indptr[hi]
+    block = dict(src=torch.as_tensor(pt.src[e0:e1], device=cuda),
+                 weight=torch.as_tensor(pt.weight[e0:e1], device=cuda),
+                 row_ids=torch.as_tensor(pt.row_ids[e0:e1] - lo,
+                                         device=cuda))
+    yb = pt_matvec_block(block, x, hi - lo, lo)
+    assert LAUNCHES["f64"] == before + 2
+    torch.testing.assert_close(yb, y[lo:hi], rtol=1e-12, atol=1e-15)
+
+
+def _spmd_graph(n=5000, nnz=40000, dangling=20, seed=9):
+    from repro_torch.graph import (GoogleOperator, TransitionT,
+                                   powerlaw_webgraph)
+    g = powerlaw_webgraph(n=n, target_nnz=nnz, n_dangling=dangling,
+                          seed=seed)
+    return GoogleOperator(pt=TransitionT.from_graph(g), alpha=0.85)
+
+
+@pytest.mark.parametrize("nv", [1, 8])
+def test_folded_block_launch_equals_per_shard(cuda, nv):
+    """The shard program's one launch over the shards' folded block rows
+    gives every shard the bits of its own launch."""
+    from repro_torch.core.partition import block_rows
+    from repro_torch.core.spmd import SPMDConfig, _pack_structure
+    op = _spmd_graph()
+    p = 4
+    packed = _pack_structure(op, block_rows(op.n, p),
+                             SPMDConfig(p=p, backend="bsr"),
+                             np.dtype("float32"), 8)
+    bsize, n_pad = packed["bsize"], packed["n_pad"]
+    blocks = torch.as_tensor(packed["blocks"], device=cuda)
+    cols = torch.as_tensor(packed["blk_cols"], device=cuda)
+    count = torch.as_tensor(packed["blk_count"], device=cuda)
+    views = torch.rand((p * n_pad // 8, 8, nv), device=cuda)
+    before = LAUNCHES["f32"]
+    y = bsr_spmv(blocks, cols, views, blk_count=count)
+    assert LAUNCHES["f32"] == before + 1
+    nbr_l, nbc_l = bsize // 8, n_pad // 8
+    for i in range(p):
+        rows = slice(i * nbr_l, (i + 1) * nbr_l)
+        yi = bsr_spmv(blocks[rows], (cols[rows] - i * nbc_l).contiguous(),
+                      views[i * nbc_l:(i + 1) * nbc_l].contiguous(),
+                      blk_count=count[rows].contiguous())
+        assert torch.equal(y[rows], yi), i
+    torch.testing.assert_close(y, bsr_spmv_ref(blocks, cols, views),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_spmd_on_card_matches_cpu(cuda):
+    """float64 segment sum: the card's supersteps and x are the CPU's; the
+    CSR kernel runs once per superstep for all shards, plus the final
+    residual's apply. float32: two runs on the card give the same bits."""
+    from repro_torch.core import SPMDConfig, solve_spmd
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    op = _spmd_graph()
+    for sched, q in (("allgather", 1.0), ("ring", 0.7), ("sparsified", 1.0)):
+        cfg = SPMDConfig(p=4, schedule=sched, delivery_prob=q, tol=1e-10,
+                         dtype="float64", seed=9, max_supersteps=3000)
+        before = CSR["f64"]
+        a = solve_spmd(op, cfg, device=cuda)
+        assert CSR["f64"] == before + a.supersteps + 1
+        b = solve_spmd(op, cfg, device="cpu")
+        assert a.supersteps == b.supersteps, sched
+        assert a.rows_sent == b.rows_sent
+        assert np.abs(a.x - b.x).max() <= 1e-12
+    cfg = SPMDConfig(p=4, schedule="allgather", tol=1e-7, seed=9)
+    a, b = (solve_spmd(op, cfg, device=cuda) for _ in range(2))
+    assert a.supersteps == b.supersteps
+    np.testing.assert_array_equal(a.x, b.x)
+
+
+@pytest.mark.parametrize("backend", ["segment_sum", "bsr"])
+def test_spmd_lanes_on_card(cuda, backend):
+    """Eight float32 lanes with freezing: the block kernel launches once
+    per superstep for all shards; compaction gives the masked run's bits on
+    the segment-sum backend (the CSR kernel's and the lane sums' order
+    ignores the lane count), and on the bsr backend agrees to 1e-6 (the
+    block kernel stages its lanes by nv)."""
+    import dataclasses
+    from repro_torch.core import SPMDConfig, solve_spmd
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    op = _spmd_graph(800, 6000, 5, 3)
+    V = np.abs(np.random.default_rng(0).random((op.n, 8)))
+    V /= V.sum(0)
+    cfg = SPMDConfig(p=4, schedule="allgather", tol=1e-8, max_supersteps=600,
+                     freeze_lanes=True, backend=backend)
+    counter = LAUNCHES if backend == "bsr" else CSR
+    before = counter["f32"]
+    masked = solve_spmd(op, cfg, v=V, device=cuda)
+    assert counter["f32"] == before + masked.supersteps + 1
+    before = counter["f32"]
+    compact = solve_spmd(op, dataclasses.replace(cfg, compact_lanes=True),
+                         v=V, device=cuda)
+    assert counter["f32"] == (before + compact.supersteps
+                              + compact.lane_chunks)
+    if backend == "segment_sum":
+        np.testing.assert_array_equal(masked.lane_supersteps,
+                                      compact.lane_supersteps)
+        assert np.abs(masked.x - compact.x).max() == 0.0
+    else:
+        assert np.abs(masked.lane_supersteps
+                      - compact.lane_supersteps).max() <= 3
+        assert np.abs(masked.x - compact.x).max() <= 1e-6

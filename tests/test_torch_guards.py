@@ -27,6 +27,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.kernels.flash_attention, repro_torch.models\n"
         "import repro_torch.models.decode, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve, repro_torch.configs\n"
+        "import repro_torch.core.spmd, repro_torch.core.engine\n"
+        "import repro_torch.core.partition, repro_torch.core.termination\n"
+        "import repro_torch.runtime, repro_torch.kernels.csr_spmv\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -71,6 +74,29 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_spmd_entry_points_default_to_cuda():
+    from repro_torch.core import AsyncFixedPoint, SPMDConfig, solve_spmd
+    from repro_torch.graph import GoogleOperator, TransitionT, cycle_graph
+    from repro_torch.graph.csr import pt_matvec
+    op = GoogleOperator(pt=TransitionT.from_graph(cycle_graph(16)))
+    cfg = SPMDConfig(p=2, tol=1e-9)
+    if torch.cuda.is_available():
+        return
+    afp = AsyncFixedPoint(op)
+    for call in (lambda: solve_spmd(op, cfg),
+                 lambda: solve_spmd(op, SPMDConfig(p=2, backend="bsr")),
+                 lambda: afp.solve_spmd(cfg),
+                 lambda: afp.solve_sync()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for r in (solve_spmd(op, cfg, device="cpu"),
+              afp.solve_spmd(cfg, device="cpu")):
+        np.testing.assert_allclose(r.x, 1.0 / 16, rtol=1e-6)
+    dev = op.pt.device_arrays(torch.float32, torch.device("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        pt_matvec(dev, torch.ones(16), 16, impl="cuda")
 
 
 def test_lm_entry_points_default_to_cuda():

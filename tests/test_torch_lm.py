@@ -215,3 +215,35 @@ def test_unported_archs_raise(arch):
     cfg = ModelConfig(**dataclasses.asdict(J_SMOKE[arch]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transformer(cfg, device=CPU)
+
+
+def test_full_kv_cache_raises(pairs):
+    """The two packages part at a full KV cache, so parity stays inside
+    max_len. The port raises at position >= t_max and leaves the cache as
+    it was; the JAX package's dynamic_update_slice clamps the write into
+    the last slot, overwriting position t_max - 1 with position t_max."""
+    pr = pairs("smollm-360m")
+    t_max = 6
+    jeng = JServeEngine(pr.jcfg, pr.jparams, max_len=t_max)
+    eng = ServeEngine(pr.cfg, pr.model, max_len=t_max, device=CPU)
+    tokens = pr.prompts(2, t_max + 1, seed=4)
+    jcache, cache = jeng.new_cache(2), eng.new_cache(2)
+    for t in range(t_max):
+        ref, jcache = jeng._step(pr.jparams, jnp.asarray(tokens[:, t]),
+                                 jcache)
+        logits, cache = decode_step(pr.model, torch.from_numpy(tokens[:, t]),
+                                    cache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref), **TOL)
+    keys = [layer["k"].clone() for layer in cache["layers"]]
+    with pytest.raises(ValueError, match="KV cache full"):
+        decode_step(pr.model, torch.from_numpy(tokens[:, t_max]), cache)
+    assert cache["length"] == t_max
+    for layer, k in zip(cache["layers"], keys):
+        assert torch.equal(layer["k"], k)
+        assert layer["slot_pos"].tolist() == list(range(t_max))
+    _, jcache = jeng._step(pr.jparams, jnp.asarray(tokens[:, t_max]), jcache)
+    assert int(jcache["length"]) == t_max + 1
+    # (stacked layers, t_max) slot positions: the last slot now holds t_max
+    slot_pos = np.asarray(jcache["stack"]["pos0"]["slot_pos"])
+    assert (slot_pos[:, -1] == t_max).all()
+    assert (slot_pos[:, :-1] == np.arange(t_max - 1)).all()
