@@ -57,7 +57,6 @@ from .backend import BackendSpec
 from .partition import Partition, block_rows, slice_transition
 
 SPMD_BACKENDS = ("segment_sum", "bsr_pallas", "bsr")
-HUB_ACCUMS = {"f64": torch.float64, "f32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -77,9 +76,6 @@ class SPMDConfig:
     bsr_bm: int = 0               # block edge; 0 = auto (8 on CUDA and CPU)
     bsr_impl: str = "auto"        # auto | cuda | ref (kernels.resolve_impl)
     hub_quantile: float = 0.99    # rows above this row-nnz quantile -> COO
-    hub_accum: str = "f64"        # the hub rows' sum: f64 (the port's) or
-    #                             # f32 (the JAX package's arithmetic, whose
-    #                             # rounding sets its superstep counts)
     freeze_lanes: bool = False    # freeze lanes whose monitor counter fired
     compact_lanes: bool = False   # pow2 lane compaction between chunks
     #                             # (requires freeze_lanes): exit the loop
@@ -328,10 +324,6 @@ def solve_spmd(op: GoogleOperator, cfg: SPMDConfig,
                          f"operator has {n}")
     nv = v_stack.shape[1]
 
-    if cfg.hub_accum not in HUB_ACCUMS:
-        raise ValueError(f"unknown hub_accum {cfg.hub_accum!r}; expected "
-                         f"one of {tuple(HUB_ACCUMS)}")
-    hub_dtype = HUB_ACCUMS[cfg.hub_accum]
     use_bsr = cfg.backend != "segment_sum"
     bm, impl = _resolve_bsr(cfg, device) if use_bsr else (0, "auto")
     # uniform blocks (the paper's ceil(n/p) scheme) padded to p * bsize
@@ -368,7 +360,7 @@ def solve_spmd(op: GoogleOperator, cfg: SPMDConfig,
         x0 = torch.as_tensor(np.ascontiguousarray(x0_np), device=device)
         pt_apply = _runtime_step.shard_pt_apply(
             dev["op_dev"], use_bsr=use_bsr, bsize=bsize, nv=nv_c,
-            n_pad=n_pad, bm=bm, impl=impl, hub_dtype=hub_dtype)
+            n_pad=n_pad, bm=bm, impl=impl)
         local_update = _runtime_step.shard_local_update(
             pt_apply, alpha=alpha, linear=linear, n=n, vb=vb,
             val=dev["valid"], dang=dev["dang"])

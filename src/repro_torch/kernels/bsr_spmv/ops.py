@@ -318,8 +318,7 @@ def bsr_matvec(blocks, blk_cols, x, impl: str = "auto", accum: str = "f32",
 
 
 def hybrid_matvec(dev: dict, x: torch.Tensor, impl: str = "auto",
-                  accum: str = "f32",
-                  hub_dtype: torch.dtype = torch.float64) -> torch.Tensor:
+                  accum: str = "f32") -> torch.Tensor:
     """y = PT @ x in the padded block layout for a `HybridBSR.device` dict,
     on the device where x lies.
 
@@ -329,16 +328,14 @@ def hybrid_matvec(dev: dict, x: torch.Tensor, impl: str = "auto",
     under a personalized teleport most of them are far below half an ulp
     of the row's f32 sum, so an f32 scatter-add drops them — about 5e-6 of
     mass per apply, which stalls f32 solves above tol 1e-6. `accum` selects
-    the block side's lane. `hub_dtype=torch.float32` sums the hub side as
-    the JAX package does (its parity lane; on the card its `index_add_`
-    adds in atomic order).
+    the block side's lane.
     """
     y = bsr_matvec(dev["blocks"], dev["blk_cols"], x, impl=impl,
                    accum=accum, device=x.device,
                    blk_count=dev["blk_count"])
     nbr, bm, nv = y.shape
-    xf = x.reshape(-1, nv).to(hub_dtype)
-    contrib = dev["hub_vals"].to(hub_dtype)[:, None] * xf.index_select(
+    xf = x.reshape(-1, nv).double()
+    contrib = dev["hub_vals"].double()[:, None] * xf.index_select(
         0, dev["hub_cols"])
     hub = contrib.new_zeros((nbr * bm, nv)).index_add_(
         0, dev["hub_rows"], contrib)

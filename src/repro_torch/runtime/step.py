@@ -57,7 +57,7 @@ def hash_uniform(seed: int, step, lane) -> np.ndarray:
 
 def shard_pt_apply(op_dev: dict, *, use_bsr: bool, bsize: int, nv: int,
                    n_pad: int = 0, bm: int = 0, impl: str = "auto",
-                   accum: str = "f32", hub_dtype=torch.float64):
+                   accum: str = "f32"):
     """Every shard's P^T apply over its operator slice, as one launch.
 
     op_dev for the BSR backend: the shards' block rows folded into one
@@ -65,8 +65,8 @@ def shard_pt_apply(op_dev: dict, *, use_bsr: bool, bsize: int, nv: int,
     columns offset by i * n_pad / bm for shard i, `blk_count`, and the hub
     rows' COO side offset likewise), read against the stacked views as
     (p * n_pad / bm, bm, nv); with accum "f32" the views are cast to
-    float32 on entry, and the hub rows sum in `hub_dtype` (float64, the
-    port's; float32 is the JAX package's arithmetic). For the segment-sum
+    float32 on entry, and the hub rows sum in float64 (`hybrid_matvec`;
+    the JAX package sums them in float32). For the segment-sum
     backend: one CSR over the p * bsize packed rows (`indptr`, `src` offset
     by i * n_pad into the stacked views, `weight`, `row_ids`). Returns
     pt_apply(view) -> (p, bsize, nv) in the views' dtype.
@@ -76,8 +76,7 @@ def shard_pt_apply(op_dev: dict, *, use_bsr: bool, bsize: int, nv: int,
             p = view.shape[0]
             cast = view.float() if accum == "f32" else view
             xb = cast.reshape(p * n_pad // bm, bm, nv)
-            y = hybrid_matvec(op_dev, xb, impl=impl, accum=accum,
-                              hub_dtype=hub_dtype)
+            y = hybrid_matvec(op_dev, xb, impl=impl, accum=accum)
             return y.reshape(p, bsize, nv).to(view.dtype)
         return pt_apply
 
