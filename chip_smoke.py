@@ -10,8 +10,10 @@ Phases, each printing its own lines and seconds:
   2. build  : nvcc builds every kernel from the sources in the checkout;
   3. kernels: the block-CSR SpMV against its plain PyTorch version, with
               and without the per-row count of real slots; the CSR
-              segment-sum kernel against its plain version, run to run and
-              lane by lane;
+              segment-sum kernel (float32, float64, and its hub lane:
+              float64 sums added into y in place) against its plain
+              version on random cases and cases built round its chunks of
+              2,048 edges, run to run and lane by lane;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
               at head dim 64 or 128, the CUDA-core lane for the rest)
               against their plain version, and the CUDA-core lane's
@@ -22,7 +24,8 @@ Phases, each printing its own lines and seconds:
               the bytes of its real slots beside the padded layout's;
   7. main   : the static PageRank solve through the port's entry points,
               held against the oracles, with the launch counts read around
-              it;
+              it (the block kernel and the CSR kernel's hub lane once per
+              bsr apply);
   8. timing : one apply timed with CUDA events at bm in {8, 16, 32, 64}
               and nv in {1, 8}: kernel (real slots, and all K), plain
               version, two PyTorch sparse-BSR calls (padded layout, real
@@ -37,9 +40,12 @@ Phases, each printing its own lines and seconds:
               superstep for all shards);
  10. timing : the CSR segment-sum kernel at Stanford-Web (float32 and
               float64, nv in {1, 8}; the hub row alone and the rest), its
-              plain version, PyTorch's sparse CSR product and the bound; the
+              plain version, PyTorch's sparse CSR product, the bound and the
+              wrapper's host time a call; its hub lane at Stanford-Web's
+              hub rows against the float64 COO side it replaced; the
               folded block launch of the shard program against four
-              per-shard launches;
+              per-shard launches; the 8-lane bsr run repeated, each repeat
+              the main path's bits;
  11. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
@@ -77,6 +83,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F64_FLOPS = 34e12      # float64 outside the tensor cores
+# cuda_ms's device sleep before its timed calls: ~20 ms at the H100's
+# 1.98 GHz boost clock
+SLEEP_CYCLES = 40_000_000
 BSR_SOURCE = "src/repro_torch/kernels/bsr_spmv/csrc/bsr_spmv.cu"
 FLASH_SOURCE = {
     "wgmma": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -102,6 +111,8 @@ SPMD_SCHEDULES = ("allgather", "allgather_k", "ring", "sparsified")
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "csr": "src/repro/graph/csr.py:152 (no TPU kernel: an XLA "
                      "gather + segment_sum)",
+              "hub": "src/repro/kernels/bsr_spmv/ops.py:309 (no TPU "
+                     "kernel: hybrid_matvec's hub gather + segment_sum)",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:27"}
@@ -130,18 +141,39 @@ def check(cond, what):
 
 def cuda_ms(fn, reps):
     """Mean device milliseconds of fn() over `reps` calls after a warm-up,
-    from CUDA events."""
+    from CUDA events. The calls are queued behind a 20 ms device sleep, so
+    the card runs them back to back even where a call's host time exceeds
+    its device time (a kernel of ~0.02 ms behind a wrapper of ~0.03 ms
+    would otherwise read the host's rate)."""
     import torch
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls=200):
+    """Host microseconds a call of fn() over `calls` back-to-back calls
+    (perf_counter; the card runs behind, and `calls` stays well inside the
+    launch queue, so the host never waits on it)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def bound(blocks, blk_count, x, y):
@@ -221,14 +253,14 @@ def kahan_replay_layout(n_rows=16, bm=8, real=4, pad=3, seed=0):
     return blocks, blk_cols, np.ones((real, bm, 1), np.float32), counts
 
 
-def random_csr(rng, n_rows, n_cols, mean_deg, long_row=0):
+def random_csr(rng, n_rows, n_cols, mean_deg, long_rows=()):
     """Row-sorted edges with an indptr (Poisson row lengths, so many empty
-    rows at a small mean) and one row of `long_row` edges (a hub). Returns
-    numpy (indptr, src, weights, row ids)."""
+    rows at a small mean), then each (row, length) of `long_rows` set.
+    Returns numpy (indptr, src, weights, row ids)."""
     import numpy as np
     deg = rng.poisson(mean_deg, n_rows)
-    if long_row:
-        deg[n_rows // 3] = long_row
+    for r, length in long_rows:
+        deg[r] = length
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(deg, out=indptr[1:])
     nnz = int(indptr[-1])
@@ -255,21 +287,69 @@ def csr_within_bound(y, y_ref, rows, src, w, x, nnz_r):
     return ok, float(diff.max())
 
 
+def ulps_apart(a, b):
+    """|a - b| in units of the float32 spacing at max(|a|, |b|)."""
+    import torch
+    m = torch.maximum(a.abs(), b.abs())
+    return (a - b).abs() / (torch.nextafter(m, torch.full_like(
+        m, float("inf"))) - m)
+
+
+def hub_lane_against_plain(indptr, src, w, x, row_map, y0):
+    """The CSR kernel's hub lane (float64 sums added into y[row_map] in
+    place) against its plain version (the float64 sum rounded to float32
+    and added): (float32 ulps apart at most, max |kernel - plain|, same
+    bits run to run, lane j = its 1-wide call, rows outside row_map
+    untouched)."""
+    import torch
+    from repro_torch.kernels.csr_spmv import (csr_spmv_hub_add,
+                                              csr_spmv_hub_add_ref)
+    y = csr_spmv_hub_add(indptr, src, w, x, row_map, y0.clone())
+    ref = csr_spmv_hub_add_ref(indptr, src, w, x, row_map, y0.clone())
+    same = torch.equal(y, csr_spmv_hub_add(indptr, src, w, x, row_map,
+                                           y0.clone()))
+    lanes = all(torch.equal(csr_spmv_hub_add(
+        indptr, src, w, x[:, j:j + 1].contiguous(), row_map,
+        y0[:, j:j + 1].contiguous())[:, 0], y[:, j])
+        for j in range(x.shape[1]))
+    keep = torch.ones(y0.shape[0], dtype=torch.bool, device=y0.device)
+    keep[row_map.long()] = False
+    torch.cuda.synchronize()
+    return (float(ulps_apart(y, ref).max()), float((y - ref).abs().max()),
+            same, lanes, torch.equal(y[keep], y0[keep]))
+
+
+# edges a block of the CSR kernel owns (csr_spmv.cu's kChunk)
+CSR_E = 2048
+CSR_CASES = [  # (n_rows, n_cols, mean in-degree, (row, length) overrides)
+    (1, 1, 0.0, ()), (33, 50, 3.0, ()), (4000, 3000, 0.7, ()),
+    (2000, 5000, 8.0, ((666, 79_727),)), (281_903, 281_903, 8.2, ()),
+    # rows of exactly E edges and E - 1, E + 1 on chunk boundaries, an
+    # empty row at a chunk's edge, empty rows at the end
+    (12, 300, 0.0, ((0, CSR_E), (1, CSR_E - 1), (2, 1), (3, CSR_E + 1),
+                    (4, CSR_E - 1), (6, CSR_E), (7, 2))),
+    # rows spanning 1, 2 and 101 chunks among short ones
+    (5000, 5000, 8.0, ((100, 100 * CSR_E + 17), (2000, CSR_E + 500),
+                       (3000, CSR_E))),
+    # an empty row at every chunk edge and at the end
+    (100, 700, 0.0, tuple((r, 256) for r in range(0, 100, 2))),
+    (10, 10, 0.0, ()),                                  # nnz = 0
+]
+
+
 def csr_against_plain(cuda):
     """The CSR segment-sum kernel against its plain version on the card,
-    run to run and lane by lane; returns the largest |kernel - plain| per
-    dtype ("f32", "f64")."""
+    run to run and lane by lane, on random cases and on cases built round
+    its chunks of CSR_E edges; then its hub lane on the same cases. Returns
+    the largest |kernel - plain| per lane ("f32", "f64", "hub")."""
     import numpy as np
     import torch
     from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
-    worst = {"f32": 0.0, "f64": 0.0}
-    for n_rows, n_cols, deg, hub in [(1, 1, 0.0, 0), (33, 50, 3.0, 0),
-                                     (4000, 3000, 0.7, 0),
-                                     (2000, 5000, 8.0, 79_727),
-                                     (281_903, 281_903, 8.2, 0)]:
+    worst = {"f32": 0.0, "f64": 0.0, "hub": 0.0}
+    for n_rows, n_cols, deg, long_rows in CSR_CASES:
         rng = np.random.default_rng(n_rows)
         indptr_np, src_np, w_np, rows_np = random_csr(rng, n_rows, n_cols,
-                                                      deg, hub)
+                                                      deg, long_rows)
         indptr = torch.as_tensor(indptr_np, device=cuda)
         src = torch.as_tensor(src_np, device=cuda)
         rows = torch.as_tensor(rows_np, device=cuda)
@@ -295,6 +375,23 @@ def csr_against_plain(cuda):
                       f"{err:.3g} ("
                       f"{'1e-12 relative' if lane == 'f64' else 'the per-row float32 reorder bound'}), "
                       f"two runs identical, each lane = its 1-wide call")
+        # the hub lane: these rows added into distinct rows of a wider y
+        w = torch.as_tensor(w_np, device=cuda).float()
+        row_map = torch.as_tensor(np.sort(rng.choice(
+            3 * n_rows + 5, n_rows, replace=False)).astype(np.int32),
+            device=cuda)
+        for nv in (1, 3, 8):
+            x = torch.as_tensor(rng.random((n_cols, nv)), device=cuda).float()
+            y0 = torch.as_tensor(rng.random((3 * n_rows + 5, nv)),
+                                 device=cuda).float()
+            ulps, err, same, lanes, kept = hub_lane_against_plain(
+                indptr, src, w, x, row_map, y0)
+            worst["hub"] = max(worst["hub"], err)
+            check(ulps <= 1.0 and same and lanes and kept,
+                  f"csr hub lane {n_rows}x{n_cols} nnz={len(src_np)} "
+                  f"nv={nv}: {ulps:.3g} float32 ulps from the float64 plain "
+                  f"sum (<= 1), two runs identical, each lane = its 1-wide "
+                  f"call, other rows untouched")
     return worst
 
 
@@ -371,7 +468,7 @@ def spmd_main_path(op, exact, exact8, v8, smi):
     for sched in SPMD_SCHEDULES:
         cfg = SPMDConfig(p=SPMD_P, schedule=sched, backend="bsr",
                          tol=tols["global"], max_supersteps=3000)
-        before = LAUNCHES["f32"]
+        before, hub_before = LAUNCHES["f32"], CSR_LAUNCHES["hub"]
         t0 = time.perf_counter()
         r = solve_spmd(op, cfg, observe=True)
         torch.cuda.synchronize()
@@ -379,10 +476,12 @@ def spmd_main_path(op, exact, exact8, v8, smi):
               f"packs the shards)")
         per = report(f"bsr {sched}", r)
         check(LAUNCHES["f32"] - before == r.supersteps + 1
+              == CSR_LAUNCHES["hub"] - hub_before
               and r.supersteps < 3000,
-              f"bsr {sched}: the block kernel launched "
-              f"{LAUNCHES['f32'] - before} times = {r.supersteps} supersteps "
-              f"+ 1 final residual, one launch for all {SPMD_P} shards")
+              f"bsr {sched}: the block kernel and the CSR kernel's hub lane "
+              f"launched {LAUNCHES['f32'] - before} times each = "
+              f"{r.supersteps} supersteps + 1 final residual, one launch "
+              f"for all {SPMD_P} shards")
         held(r.x, exact, f"bsr {sched}")
         out[sched] = (r, per)
     cfg = SPMDConfig(p=SPMD_P, schedule="allgather", backend="bsr",
@@ -420,20 +519,26 @@ def spmd_main_path(op, exact, exact8, v8, smi):
           and np.array_equal(runs[0].x, runs[1].x),
           f"segment_sum float32, two runs: {runs[0].supersteps} supersteps "
           f"each, x identical bit for bit")
-    launches = {"bsr_f32": LAUNCHES["f32"], "csr_f32": CSR_LAUNCHES["f32"]}
+    launches = {"bsr_f32": LAUNCHES["f32"], "csr_f32": CSR_LAUNCHES["f32"],
+                "csr_hub": CSR_LAUNCHES["hub"]}
     print(f"  shard program launches: {launches}")
     out["tol"] = tols["global"]
     return out, launches
 
 
-def csr_timing(op, cuda, smi):
+def csr_timing(op, cuda, smi, hub_dev):
     """The CSR segment-sum kernel at Stanford-Web against its plain
     version, PyTorch's sparse CSR product and the bound, in float32 and
-    float64 at nv in {1, 8}; then the hub row alone and the rest. Returns
-    {(lane, nv): row}."""
+    float64 at nv in {1, 8}, with the wrapper's host time a call; then the
+    hub row alone and the rest; then the hub lane at the main path's hub
+    rows (`hub_dev`, the bm = 8 layout on the card) against the COO side it
+    replaced. Returns {(lane, nv): row} and the hub lane's row under
+    ("hub", 1)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
+    from repro_torch.kernels.csr_spmv import (csr_spmv, csr_spmv_hub_add,
+                                              csr_spmv_hub_add_ref,
+                                              csr_spmv_ref)
     n = op.n
     rows = {}
     nnz_r = torch.as_tensor(np.diff(op.pt.indptr), device=cuda)
@@ -450,24 +555,28 @@ def csr_timing(op, cuda, smi):
             lib = library_csr_call(dev, x, n)
             ok, err = csr_within_bound(y, y_ref, dev["row_ids"], dev["src"],
                                        dev["weight"], x, nnz_r)
-            check(ok, f"csr {lane} nv={nv} at Stanford-Web: max |kernel - "
-                  f"plain| = {err:.3g} (" + ("1e-12 relative)" if lane == "f64"
-                                            else "the per-row float32 "
-                                            "reorder bound)"))
+            check(ok and torch.equal(y, csr_spmv(*args)),
+                  f"csr {lane} nv={nv} at Stanford-Web: max |kernel - "
+                  f"plain| = {err:.3g} (" + ("1e-12 relative" if lane == "f64"
+                                             else "the per-row float32 "
+                                             "reorder bound") +
+                  "), two runs identical")
             lib_err = float((lib().reshape(y.shape) - y_ref).abs().max())
             t = {"kernel": cuda_ms(lambda: csr_spmv(*args), 20),
                  "plain": cuda_ms(lambda: csr_spmv_ref(
                      dev["row_ids"], dev["src"], dev["weight"], x, n), 20),
-                 "library": cuda_ms(lib, 20)}
+                 "library": cuda_ms(lib, 20),
+                 "host_us": host_us(lambda: csr_spmv(*args))}
             b_ms, b_by = csr_bound(dev, x, y, n)
             print(f"  csr {lane} nv={nv} (n={n}, nnz={dev['src'].numel()}): "
                   f"kernel {t['kernel']:.4f} ms, plain index_add_ "
                   f"{t['plain']:.4f} ms, sparse CSR call {t['library']:.4f} "
                   f"ms (|diff| {lib_err:.3g}), bound {b_ms:.4f} ms "
                   f"({b_by}); kernel at {100 * b_ms / t['kernel']:.1f}% of "
-                  f"bound, max |kernel - plain| {err:.3g} [{smi}]")
+                  f"bound, max |kernel - plain| {err:.3g}; wrapper host "
+                  f"{t['host_us']:.2f} us a call [{smi}]")
             rows[(lane, nv)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
-    # the serial hub row against the rest of the rows
+    # the hub row (79,727 in-links, 39 chunks) against the rest of the rows
     pt = op.pt
     deg = np.diff(pt.indptr)
     hub = int(deg.argmax())
@@ -486,9 +595,72 @@ def csr_timing(op, cuda, smi):
                  dev["weight"][torch.as_tensor(keep, device=cuda)], x, n)
     t_hub = cuda_ms(lambda: csr_spmv(*hub_args), 20)
     t_rest = cuda_ms(lambda: csr_spmv(*rest_args), 20)
-    print(f"  csr f32 nv=1: hub row {hub} alone ({hi - lo:,} in-links, one "
-          f"warp) {t_hub:.4f} ms; every other row (its in-links removed) "
-          f"{t_rest:.4f} ms [{smi}]")
+    print(f"  csr f32 nv=1: hub row {hub} alone ({hi - lo:,} in-links, "
+          f"{-(-(hi - lo) // CSR_E)} chunks) {t_hub:.4f} ms; every other row "
+          f"(its in-links removed) {t_rest:.4f} ms [{smi}]")
+    # the block backend's hub rows: the hub lane against the old COO side
+    n_hub = hub_dev["hub_map"].numel()
+    nnz_h = hub_dev["hub_cols"].numel()
+    nbr, _, bm, bn = hub_dev["blocks"].shape
+    out_rows = in_rows = nbr * bm     # P^T is square, and bm = bn
+    # the old COO side's destination row of each edge, and the rows of x
+    # the lane reads (the bound counts those, not all of x)
+    hub_rows = torch.repeat_interleave(
+        hub_dev["hub_map"], torch.diff(hub_dev["hub_indptr"]))
+    n_src = int(torch.unique(hub_dev["hub_cols"]).numel())
+
+    def old_side(x3, y3):
+        """The hub side before the hub lane: float64 products gathered by
+        column, an `index_add_` over the padded row space (atomic order
+        on the card), the sums rounded to float32 and added."""
+        k = y3.shape[-1]
+        contrib = hub_dev["hub_vals"].double()[:, None] * x3.reshape(
+            -1, k).double().index_select(0, hub_dev["hub_cols"])
+        hub = contrib.new_zeros((out_rows, k)).index_add_(0, hub_rows,
+                                                          contrib)
+        return y3 + hub.reshape(y3.shape).to(y3.dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for nv in (1, 8):
+        x = torch.rand((in_rows, nv), generator=g, device=cuda)
+        y0 = torch.rand((out_rows, nv), generator=g, device=cuda)
+        args = (hub_dev["hub_indptr"], hub_dev["hub_cols"],
+                hub_dev["hub_vals"], x)
+        ulps, err, same, lanes, kept = hub_lane_against_plain(
+            *args, hub_dev["hub_map"], y0)
+        check(ulps <= 1.0 and same and lanes and kept,
+              f"csr hub lane nv={nv} at Stanford-Web's {n_hub:,} hub rows "
+              f"({nnz_h:,} in-links): {ulps:.3g} float32 ulps from the "
+              f"float64 plain sum (<= 1), two runs identical, each lane = "
+              f"its 1-wide call, other rows untouched")
+        y = y0.clone()
+        x3 = x.reshape(-1, bn, nv)
+        y3 = y0.reshape(-1, bm, nv)
+        t = {"kernel": cuda_ms(lambda: csr_spmv_hub_add(
+                 *args, hub_dev["hub_map"], y), 20),
+             "plain": cuda_ms(lambda: csr_spmv_hub_add_ref(
+                 *args, hub_dev["hub_map"], y), 20),
+             "old_side": cuda_ms(lambda: old_side(x3, y3), 20),
+             "host_us": host_us(lambda: csr_spmv_hub_add(
+                 *args, hub_dev["hub_map"], y))}
+        # indptr, cols, vals and row_map once, the rows of x the hub rows
+        # name once, y's hub rows read and written
+        nbytes = (sum(a.numel() * a.element_size() for a in
+                      (*args[:3], hub_dev["hub_map"]))
+                  + n_src * nv * x.element_size()
+                  + 2 * n_hub * nv * y.element_size())
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 2.0 * nnz_h * nv / PEAK_F64_FLOPS
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  csr hub lane nv={nv} ({n_hub:,} rows, {nnz_h:,} in-links "
+              f"from {n_src:,} distinct rows of x, "
+              f"f32 in, f64 sum, into y in place): kernel {t['kernel']:.4f} "
+              f"ms, plain CSR index_add_ {t['plain']:.4f} ms, the old COO "
+              f"side (f64 index_select + index_add_ over the padded rows, "
+              f"cast and add) {t['old_side']:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); wrapper host {t['host_us']:.2f} us a call; "
+              f"{ulps:.3g} ulps [{smi}]")
+        rows[("hub", nv)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
     return rows
 
 
@@ -566,14 +738,14 @@ def spmd_tol_sweep(op, exact, exact8, v8, tol, lanes_x, smi):
                 pc_max_monitor=pc, freeze_lanes=True, compact_lanes=True),
                 v=v8)
             l1 = np.abs(r.x - exact8).sum(axis=0)
-            same = ""
-            if pc == SPMD_LANE_PC_MAX:
-                same = (", x identical to the main path's"
-                        if np.array_equal(r.x, lanes_x)
-                        else ", x differs from the main path's")
             print(f"  8 lanes, monitor pcMax {pc}, run {k + 1}: "
                   f"{r.supersteps} supersteps, L1 err per lane max "
-                  f"{l1.max():.4g} (lane {int(l1.argmax())}){same} [{smi}]")
+                  f"{l1.max():.4g} (lane {int(l1.argmax())}) [{smi}]")
+            if pc == SPMD_LANE_PC_MAX:
+                check(np.array_equal(r.x, lanes_x),
+                      f"8 lanes, run {k + 1}: x identical to the main "
+                      f"path's bit for bit (no atomic order left on the "
+                      f"bsr path)")
 
 
 def attention_flops(q, k, causal):
@@ -1270,12 +1442,14 @@ def main(argv=None):
         main_csr = dict(CSR_LAUNCHES)
         print(f"  main path: {time.perf_counter() - t_main:.2f} s, "
               f"launches {main_launches}, CSR kernel {main_csr}")
-        check(main_csr == {"f32": 0,
-                           "f64": solves["power segment_sum f64"].iters},
-              f"f64 CSR kernel launched once per segment_sum apply "
-              f"({solves['power segment_sum f64'].iters})")
         bsr_applies = sum(solves[k].iters for k in
                           ("power bsr", "linear bsr", "power bsr nv=8"))
+        check(main_csr == {"f32": 0,
+                           "f64": solves["power segment_sum f64"].iters,
+                           "hub": bsr_applies + 1},
+              f"f64 CSR kernel launched once per segment_sum apply "
+              f"({solves['power segment_sum f64'].iters}), its hub lane "
+              f"once per BSR apply and the kahan apply ({bsr_applies + 1})")
         check(main_launches["f32"] == bsr_applies,
               f"f32 kernel launched once per BSR apply ({bsr_applies})")
         check(main_launches["kahan"] == 1, "kahan kernel launched once")
@@ -1382,6 +1556,13 @@ def main(argv=None):
             print(f"  warm {name}: {dt * 1e3:.2f} ms for {r.iters} applies "
                   f"({dt * 1e3 / r.iters:.4f} ms/iter) at bm={DEFAULT_BM} "
                   f"[{smi}]")
+        # where a static solve's time goes: the float64 segment-sum solve
+        # (one CSR kernel launch an apply) and the bsr power solve
+        device_breakdown(lambda: solve_power(
+            op, backend="segment_sum", dtype=torch.float64, tol=1e-10),
+            "static power segment_sum f64 solve", smi)
+        device_breakdown(lambda: solve_power(op, backend="bsr", tol=1e-6),
+                         "static power bsr solve", smi)
 
     with phase(f"main path: Stanford-Web SPMD (p = {SPMD_P} shards on one "
                f"card)"):
@@ -1390,7 +1571,9 @@ def main(argv=None):
 
     with phase("timing: CSR segment-sum kernel and the folded block launch"):
         print(f"  card: {smi}")
-        csr_rows = csr_timing(op, cuda, smi)
+        hub_dev, _, _ = prepare(op, as_spec("bsr", cuda), torch.float32)
+        csr_rows = csr_timing(op, cuda, smi, hub_dev)
+        del hub_dev
         folded = folded_timing(op, cuda, smi)
         spmd_tol_sweep(op, exact, exact8, v8, spmd_runs["tol"],
                        spmd_runs["lanes"][0].x, smi)
@@ -1432,6 +1615,14 @@ def main(argv=None):
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library"]})
+    row = csr_rows[("hub", 1)]
+    kernels.append({
+        "name": "csr_spmv_hub", "route": "cuda", "source": CSR_SOURCE,
+        "replaces": TPU_KERNEL["hub"],
+        "launches": main_csr["hub"] + spmd_launches["csr_hub"],
+        "max_abs_err": max(csr_err["hub"], row["err"]), "ms": row["kernel"],
+        "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None})
     for lane, name in (("wgmma", "flash_attention"),
                        ("f32", "flash_attention_f32")):
         row = flash_rows[lane]

@@ -50,7 +50,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..graph.google import GoogleOperator
-from ..kernels.bsr_spmv.ops import build_bsr, slot_counts
+from ..kernels.bsr_spmv.ops import build_bsr, hub_csr, slot_counts
 from ..runtime import step as _runtime_step
 from ..runtime.exchange import spmd_exchange
 from .backend import BackendSpec
@@ -136,7 +136,9 @@ def _pack_structure(op: GoogleOperator, part: Partition, cfg: SPMDConfig,
                   i * n_pad / bm, each shard's real-slot counts from
                   `slot_counts` on its own packing, and the hub COO sides
                   concatenated with rows offset by i * bsize and columns by
-                  i * n_pad.
+                  i * n_pad, in CSR form (`hub_csr`: `hub_indptr`,
+                  `hub_map`, `hub_cols`, `hub_vals`) for the CSR kernel's
+                  hub lane.
     segment_sum : the shards' edge slices as one CSR over the p * bsize
                   packed rows (padding rows hold no edge), sources offset
                   by i * n_pad into the stacked views; no padded edges.
@@ -210,13 +212,12 @@ def _pack_structure(op: GoogleOperator, part: Partition, cfg: SPMDConfig,
             blocks=blk.reshape(p * nbr_l, K, bm, bm),
             blk_cols=bcols.reshape(p * nbr_l, K),
             blk_count=counts.reshape(-1),
-            hub_rows=np.concatenate(
-                [sh["h_rows"] + i * bsize for i, sh in enumerate(shard)]
-            ).astype(np.int32),
-            hub_cols=np.concatenate(
-                [sh["h_cols"] + i * n_pad for i, sh in enumerate(shard)]
-            ).astype(np.int32),
-            hub_vals=np.concatenate([sh["h_vals"] for sh in shard]),
+            **hub_csr(
+                np.concatenate([sh["h_rows"] + i * bsize
+                                for i, sh in enumerate(shard)]),
+                np.concatenate([sh["h_cols"] + i * n_pad
+                                for i, sh in enumerate(shard)]),
+                np.concatenate([sh["h_vals"] for sh in shard])),
             K=K, bm=bm, fill_ratio=float(np.mean(fills)))
     else:
         indptr = np.zeros(p * bsize + 1, dtype=np.int64)
@@ -275,8 +276,8 @@ def _device_structure(op: GoogleOperator, packed: dict, use_bsr: bool,
     cache = op._cache()
     if key in cache:
         return cache[key]
-    names = (("blocks", "blk_cols", "blk_count", "hub_rows", "hub_cols",
-              "hub_vals") if use_bsr else
+    names = (("blocks", "blk_cols", "blk_count", "hub_indptr", "hub_map",
+              "hub_cols", "hub_vals") if use_bsr else
              ("indptr", "src", "weight", "row_ids"))
     dev = dict(op_dev={k: torch.as_tensor(packed[k], device=device)
                        for k in names},

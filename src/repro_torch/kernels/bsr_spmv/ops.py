@@ -8,11 +8,14 @@ Two host containers (numpy, packed exactly as the JAX package packs them):
                   the CUDA kernel skips by `slot_counts`).
   * HybridBSR   — solve-grade layout for real web graphs: rows whose in-links
                   span many block columns ("hub" pages, the in-degree tail)
-                  are split out into a COO side structure evaluated with
-                  gather + scatter-add, and only the site-local remainder is
-                  blocked. Without the split one hub row drives K up to the
-                  full number of block columns and the dense-block array
-                  explodes.
+                  are split out into a side structure (COO on the host,
+                  CSR over the hub rows on the device: `hub_csr`),
+                  and only the site-local remainder is blocked. Without the
+                  split one hub row drives K up to the full number of block
+                  columns and the dense-block array explodes. On the card
+                  the hub rows run through the CSR kernel's hub lane
+                  (float64 sums in a fixed order); on the CPU the plain
+                  version is a gather + scatter-add.
 
 Kernel dispatch (`impl`): "cuda" launches the hand-written kernel and needs
 CUDA tensors; "ref" runs the plain PyTorch version on any device; "auto"
@@ -31,6 +34,7 @@ import torch
 from ...device import DeviceLike, resolve_device
 from ...graph.csr import TransitionT
 from .. import resolve_impl
+from ..csr_spmv import csr_spmv_hub_add, csr_spmv_hub_add_ref
 from .bsr_spmv import DEFAULT_BM, DEFAULT_BN, bsr_spmv
 from .ref import bsr_spmv_ref
 
@@ -199,9 +203,8 @@ def build_bsr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 class HybridBSR:
     """BSR over site-local mass + COO over hub rows (in-degree tail).
 
-    The COO side is evaluated as gather + scatter-add over the *padded* row
-    space, so a fused Google-apply stays entirely in the kernel's
-    (n_blocks, block, nv) layout.
+    The hub side adds into the *padded* row space, so a fused Google-apply
+    stays entirely in the kernel's (n_blocks, block, nv) layout.
     """
     bsr: BSRMatrix
     hub_rows: np.ndarray      # int32 (hub_nnz,) destination row of each edge
@@ -218,11 +221,37 @@ class HybridBSR:
         return self.bsr.n_cols
 
     def device(self, device: torch.device) -> dict:
+        """The block layout and the hub side in CSR form (`hub_csr`) on
+        `device`."""
         blocks, blk_cols, blk_count = self.bsr.device(device)
+        hub = hub_csr(self.hub_rows, self.hub_cols, self.hub_vals)
         return dict(blocks=blocks, blk_cols=blk_cols, blk_count=blk_count,
-                    hub_rows=torch.as_tensor(self.hub_rows, device=device),
-                    hub_cols=torch.as_tensor(self.hub_cols, device=device),
-                    hub_vals=torch.as_tensor(self.hub_vals, device=device))
+                    **{k: torch.as_tensor(v, device=device)
+                       for k, v in hub.items()})
+
+
+def hub_csr(hub_rows: np.ndarray, hub_cols: np.ndarray,
+            hub_vals: np.ndarray) -> dict:
+    """The hub side's COO arrays as CSR over its own rows, for the CSR
+    kernel's hub lane (`csr_spmv_hub_add`), built once on the host.
+
+    Returns numpy `hub_indptr` (n_hub + 1,) int64 over the distinct rows,
+    `hub_map` (n_hub,) int32, the padded-space row each CSR row adds into,
+    and `hub_cols`, `hub_vals` sorted by row (a stable sort, so each row
+    keeps the order of its edges; the packers leave them sorted already,
+    and then they come back as they are).
+    """
+    rows = np.asarray(hub_rows, dtype=np.int32)
+    cols = np.asarray(hub_cols, dtype=np.int32)
+    vals = np.asarray(hub_vals, dtype=np.float32)
+    if np.any(rows[1:] < rows[:-1]):
+        order = np.argsort(rows, kind="stable")
+        rows, cols, vals = rows[order], cols[order], vals[order]
+    row_map, counts = np.unique(rows, return_counts=True)
+    indptr = np.zeros(len(row_map) + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return dict(hub_indptr=indptr, hub_map=row_map.astype(np.int32),
+                hub_cols=cols, hub_vals=vals)
 
 
 def build_hybrid_bsr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -322,24 +351,29 @@ def hybrid_matvec(dev: dict, x: torch.Tensor, impl: str = "auto",
     """y = PT @ x in the padded block layout for a `HybridBSR.device` dict,
     on the device where x lies.
 
-    x: (nbc, bn, nv) -> y: (nbr, bm, nv). The hub COO side is a gather +
-    scatter-add over the padded row space, accumulated in float64 for every
-    lane: a hub row sums up to ~1e5 in-links (Stanford-Web replica), and
-    under a personalized teleport most of them are far below half an ulp
-    of the row's f32 sum, so an f32 scatter-add drops them — about 5e-6 of
-    mass per apply, which stalls f32 solves above tol 1e-6. `accum` selects
-    the block side's lane.
+    x: (nbc, bn, nv) -> y: (nbr, bm, nv). The hub rows are summed in
+    float64 for every lane: a hub row sums up to ~1e5 in-links
+    (Stanford-Web replica), and under a personalized teleport most of them
+    are far below half an ulp of the row's f32 sum, so an f32 scatter-add
+    drops them — about 5e-6 of mass per apply, which stalls f32 solves
+    above tol 1e-6. `accum` selects the block side's lane.
+
+    The block side's y is followed by the hub rows' float64 sums, each
+    rounded once and added into y in place. On the card (float32 x) that is
+    the CSR kernel's hub lane, which sums in a fixed order: two hand
+    kernels and nothing else. Elsewhere it is the lane's plain version
+    (`csr_spmv_hub_add_ref`, a gather + scatter-add in edge order).
     """
     y = bsr_matvec(dev["blocks"], dev["blk_cols"], x, impl=impl,
                    accum=accum, device=x.device,
                    blk_count=dev["blk_count"])
     nbr, bm, nv = y.shape
-    xf = x.reshape(-1, nv).double()
-    contrib = dev["hub_vals"].double()[:, None] * xf.index_select(
-        0, dev["hub_cols"])
-    hub = contrib.new_zeros((nbr * bm, nv)).index_add_(
-        0, dev["hub_rows"], contrib)
-    return y + hub.reshape(nbr, bm, nv).to(y.dtype)
+    yf = y.reshape(-1, nv)
+    add = (csr_spmv_hub_add if resolve_impl(impl, x) == "cuda"
+           else csr_spmv_hub_add_ref)
+    add(dev["hub_indptr"], dev["hub_cols"], dev["hub_vals"],
+        x.reshape(-1, nv), dev["hub_map"], yf)
+    return yf.reshape(nbr, bm, nv)
 
 
 def spmv(bsr: BSRMatrix, x, impl: str = "auto", accum: str = "f32",

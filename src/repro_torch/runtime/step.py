@@ -63,10 +63,11 @@ def shard_pt_apply(op_dev: dict, *, use_bsr: bool, bsize: int, nv: int,
     op_dev for the BSR backend: the shards' block rows folded into one
     `HybridBSR.device`-style dict (`blocks` (p * nbr_l, K, bm, bm), block
     columns offset by i * n_pad / bm for shard i, `blk_count`, and the hub
-    rows' COO side offset likewise), read against the stacked views as
-    (p * n_pad / bm, bm, nv); with accum "f32" the views are cast to
-    float32 on entry, and the hub rows sum in float64 (`hybrid_matvec`;
-    the JAX package sums them in float32). For the segment-sum
+    rows' side offset likewise, in CSR form), read against the
+    stacked views as (p * n_pad / bm, bm, nv); with accum "f32" the views
+    are cast to float32 on entry, and the hub rows sum in float64
+    (`hybrid_matvec`: on the card the CSR kernel's hub lane, in a fixed
+    order; the JAX package sums them in float32). For the segment-sum
     backend: one CSR over the p * bsize packed rows (`indptr`, `src` offset
     by i * n_pad into the stacked views, `weight`, `row_ids`). Returns
     pt_apply(view) -> (p, bsize, nv) in the views' dtype.

@@ -429,3 +429,156 @@ def test_kahan_zero_steps_move_the_sum():
                                     jnp.asarray(blk_cols), jnp.asarray(x),
                                     interpret=True, accum="kahan"))
     np.testing.assert_array_equal(pallas, full.numpy())
+
+
+# --------------------------------------------------------------------------
+# The hub side's CSR form, which the CSR kernel's hub lane reads on the card
+# --------------------------------------------------------------------------
+HUB_FORMS = ["hybrid", "shuffled", "spmd"]
+
+
+def _coo_hub_side(coo, x, y):
+    """The hub side as the port computed it before its CSR form, over the
+    COO arrays: float64 products gathered by `hub_cols`, an `index_add_`
+    over the padded row space by `hub_rows` (edge order on the CPU), and
+    the sums rounded to y's dtype and added: y + hub. x (nbc, bn, nv), y
+    (nbr, bm, nv)."""
+    nbr, bm, nv = y.shape
+    coo = {k: torch.as_tensor(v) for k, v in coo.items()}
+    contrib = coo["hub_vals"].double()[:, None] * x.reshape(
+        -1, nv).double().index_select(0, coo["hub_cols"])
+    hub = contrib.new_zeros((nbr * bm, nv)).index_add_(
+        0, coo["hub_rows"], contrib)
+    return y + hub.reshape(nbr, bm, nv).to(y.dtype)
+
+
+def _in_links(rows, cols, vals):
+    """{row: (its cols, its vals) in the order the arrays give them}."""
+    return {int(r): (cols[rows == r], vals[rows == r])
+            for r in np.unique(rows)}
+
+
+def _hub_form(small_op, which):
+    """(the hub side's device dict on the CPU, the same side as the COO
+    arrays it was built from, {padded row: its in-links in input order},
+    padded rows, padded columns) for a HybridBSR, the same with its COO
+    arrays shuffled, or the shard program's folded dict (p = 4)."""
+    op = operator_from_arrays(op_arrays(small_op))
+    pt = op.pt
+    if which == "spmd":
+        from repro_torch.core.partition import block_rows
+        from repro_torch.core.spmd import (SPMDConfig, _pack_structure,
+                                           col_map_seg)
+        part = block_rows(op.n, 4)
+        packed = _pack_structure(op, part, SPMDConfig(p=4, backend="bsr"),
+                                 np.dtype("float32"), 8)
+        bsize, n_pad = packed["bsize"], packed["n_pad"]
+        hub = {k: packed[k] for k in ("hub_cols", "hub_vals",
+                                      "hub_indptr", "hub_map")}
+        # each hub row's in-links in the operator's edge order
+        expect = {}
+        for i in range(4):
+            s, t = part.block(i)
+            for g in range(s, t):
+                e0, e1 = pt.indptr[g], pt.indptr[g + 1]
+                r = i * bsize + g - s
+                if r in set(hub["hub_map"].tolist()):
+                    expect[r] = (col_map_seg(part, bsize, pt.src[e0:e1])
+                                 + i * n_pad,
+                                 np.asarray(pt.weight[e0:e1], np.float32))
+        # the packer concatenates the shards' hub rows in order, so the COO
+        # arrays it held are the CSR form's rows repeated by their counts
+        coo = dict(hub_rows=np.repeat(hub["hub_map"],
+                                      np.diff(hub["hub_indptr"])),
+                   hub_cols=hub["hub_cols"], hub_vals=hub["hub_vals"])
+        return ({k: torch.as_tensor(v) for k, v in hub.items()}, coo, expect,
+                4 * bsize, 4 * n_pad)
+    h = op.hybrid_bsr(bm=8, bn=8)
+    coo = dict(hub_rows=h.hub_rows, hub_cols=h.hub_cols,
+               hub_vals=h.hub_vals)
+    if which == "shuffled":
+        order = np.random.default_rng(3).permutation(h.hub_rows.size)
+        coo = {k: v[order] for k, v in coo.items()}
+        h = h.__class__(bsr=h.bsr, hub_nnz_frac=h.hub_nnz_frac, **coo)
+    expect = _in_links(coo["hub_rows"], coo["hub_cols"], coo["hub_vals"])
+    dev = h.device(CPU)
+    return (dev, coo, expect, h.bsr.nbr * 8, h.bsr.nbc * 8)
+
+
+@pytest.mark.parametrize("which", HUB_FORMS)
+def test_hub_csr_form_covers_every_edge_in_order(small_op, which):
+    """`hub_csr` (built in `HybridBSR.device` and the shard program's
+    packing): the CSR rows are the hub rows, distinct and ascending; each
+    holds all its in-links once, in the order its input gave them (a
+    stable sort where the COO arrays were not sorted by row)."""
+    dev, coo, expect, _, _ = _hub_form(small_op, which)
+    indptr = dev["hub_indptr"].numpy()
+    hub_map = dev["hub_map"].numpy()
+    cols, vals = dev["hub_cols"].numpy(), dev["hub_vals"].numpy()
+    assert dev["hub_indptr"].dtype == torch.int64
+    assert dev["hub_map"].dtype == dev["hub_cols"].dtype == torch.int32
+    assert hub_map.size > 0 and np.all(np.diff(hub_map) > 0)
+    assert indptr[0] == 0 and indptr[-1] == cols.size == coo["hub_cols"].size
+    assert np.all(np.diff(indptr) > 0)
+    assert set(dev) >= {"hub_indptr", "hub_map", "hub_cols", "hub_vals"}
+    assert "hub_rows" not in dev
+    assert sorted(expect) == hub_map.tolist()
+    for i, r in enumerate(hub_map):
+        np.testing.assert_array_equal(cols[indptr[i]:indptr[i + 1]],
+                                      expect[r][0])
+        np.testing.assert_array_equal(vals[indptr[i]:indptr[i + 1]],
+                                      expect[r][1])
+
+
+@pytest.mark.parametrize("nv", [1, 3])
+@pytest.mark.parametrize("which", HUB_FORMS)
+def test_hub_csr_plain_equals_coo(small_op, which, nv):
+    """The hub lane's plain version through the CSR form gives, bit for
+    bit, what the COO gather + scatter-add gives over the arrays as they
+    came (float64 sums in each row's edge order on the CPU, rounded to
+    float32 and added to y)."""
+    from repro_torch.kernels.csr_spmv import csr_spmv_hub_add_ref
+    dev, coo, _, n_rows, n_cols = _hub_form(small_op, which)
+    rng = np.random.default_rng(nv)
+    x = torch.as_tensor(rng.random((n_cols // 8, 8, nv)).astype(np.float32))
+    y0 = torch.as_tensor(rng.random((n_rows // 8, 8, nv)).astype(np.float32))
+    want = _coo_hub_side(coo, x, y0)
+    got = csr_spmv_hub_add_ref(dev["hub_indptr"], dev["hub_cols"],
+                               dev["hub_vals"], x.reshape(-1, nv),
+                               dev["hub_map"], y0.clone().reshape(-1, nv))
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1, nv).numpy())
+    # and hybrid_matvec's CPU path is that COO side after the block side
+    if which == "hybrid":
+        h = operator_from_arrays(op_arrays(small_op)).hybrid_bsr(bm=8, bn=8)
+        y = tk.hybrid_matvec(h.device(CPU), x)
+        blk = tk.bsr_spmv_ref(*(torch.as_tensor(a) for a in
+                                (h.bsr.blocks, h.bsr.blk_cols)), x)
+        np.testing.assert_array_equal(y.numpy(),
+                                      _coo_hub_side(coo, x, blk).numpy())
+
+
+@pytest.mark.parametrize("rows,order", [
+    ([], []),
+    ([5], [0]),
+    ([7, 7, 7, 7], [0, 1, 2, 3]),
+    ([2, 2, 4, 9, 9, 9], [0, 1, 2, 3, 4, 5]),
+    ([9, 2, 4, 2, 9, 9, 0], [6, 1, 3, 2, 0, 4, 5]),
+], ids=["empty", "one-edge", "one-row", "sorted", "unsorted-ties"])
+def test_hub_csr_of_hand_made_arrays(rows, order):
+    """`hub_csr` alone: rows sorted stably (ties keep their input order),
+    indptr over the distinct rows, `hub_map` those rows; sorted input comes
+    back as it was."""
+    rows = np.asarray(rows, np.int32)
+    cols = np.arange(rows.size, dtype=np.int32) * 3 + 1
+    vals = np.arange(rows.size, dtype=np.float32) / 8
+    hub = tk.hub_csr(rows, cols, vals)
+    assert sorted(hub) == ["hub_cols", "hub_indptr", "hub_map", "hub_vals"]
+    np.testing.assert_array_equal(hub["hub_cols"], cols[order])
+    np.testing.assert_array_equal(hub["hub_vals"], vals[order])
+    distinct, counts = np.unique(rows, return_counts=True)
+    np.testing.assert_array_equal(hub["hub_map"], distinct)
+    np.testing.assert_array_equal(hub["hub_indptr"],
+                                  np.concatenate([[0], np.cumsum(counts)]))
+    assert hub["hub_indptr"].dtype == np.int64
+    assert hub["hub_map"].dtype == hub["hub_cols"].dtype == np.int32
+    assert hub["hub_vals"].dtype == np.float32

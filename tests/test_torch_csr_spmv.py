@@ -86,3 +86,60 @@ def test_kernel_refuses_cpu_tensors(port_op):
         tcsr.pt_matvec(dev, x, port_op.n, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         tcsr.pt_matvec(dev, x, port_op.n, impl="pallas")
+
+
+def test_hub_lane_refuses_cpu_and_mistyped_operands():
+    """The hub lane's wrapper launches on CUDA tensors only, and refuses
+    operands of another type before it looks at their device."""
+    from repro_torch.kernels.csr_spmv import csr_spmv_hub_add
+    indptr = torch.tensor([0, 1, 2])
+    src = torch.tensor([0, 1], dtype=torch.int32)
+    w, x = torch.ones(2), torch.ones((2, 1))
+    row_map = torch.tensor([1, 3], dtype=torch.int32)
+    y = torch.zeros((4, 1))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        csr_spmv_hub_add(indptr, src, w, x, row_map, y)
+    for bad in [(indptr, src, w.double(), x, row_map, y),
+                (indptr, src, w, x.double(), row_map, y),
+                (indptr, src, w, x, row_map, y.double()),
+                (indptr, src, w, x, row_map.long(), y),
+                (indptr, src.long(), w, x, row_map, y),
+                (indptr.int(), src, w, x, row_map, y)]:
+        with pytest.raises(TypeError):
+            csr_spmv_hub_add(*bad)
+    with pytest.raises(ValueError, match="shape"):
+        csr_spmv_hub_add(indptr, src, w, x, row_map[:1], y)
+    assert LAUNCHES == before and y.abs().sum() == 0
+
+
+@pytest.mark.parametrize("nv", [1, 2, 5])
+@pytest.mark.parametrize("lengths", [(1,), (3, 1, 40), (0,)],
+                         ids=["one-edge", "three-rows", "no-rows"])
+def test_hub_add_plain_rounds_float64_sum_once(lengths, nv):
+    """The hub lane's plain version adds float32(the float64 sum of each
+    row's float64 products) into y[row_map] in place, and leaves y's other
+    rows as they were."""
+    from repro_torch.kernels.csr_spmv import csr_spmv_hub_add_ref
+    lengths = [n for n in lengths if n]
+    rng = np.random.default_rng(len(lengths) * 10 + nv)
+    n_cols, n_out = 50, 12
+    indptr = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=indptr[1:])
+    src = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    w = rng.random(indptr[-1]).astype(np.float32)
+    x = rng.random((n_cols, nv)).astype(np.float32)
+    row_map = np.sort(rng.choice(n_out, len(lengths),
+                                 replace=False)).astype(np.int32)
+    y0 = rng.random((n_out, nv)).astype(np.float32)
+    expect = y0.copy()
+    for i, r in enumerate(row_map):
+        acc = np.zeros(nv)
+        for e in range(indptr[i], indptr[i + 1]):
+            acc += np.float64(w[e]) * x[src[e]].astype(np.float64)
+        expect[r] = y0[r] + acc.astype(np.float32)
+    y = torch.as_tensor(y0.copy())
+    out = csr_spmv_hub_add_ref(*(torch.as_tensor(a) for a in
+                                 (indptr, src, w, x, row_map)), y)
+    assert out is y
+    np.testing.assert_array_equal(y.numpy(), expect)

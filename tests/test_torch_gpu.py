@@ -484,12 +484,12 @@ def test_smoke_forward_through_kernel(cuda, arch):
 # ---------------------------------------------------------------------------
 # CSR segment sum and the shard program
 # ---------------------------------------------------------------------------
-def random_csr(rng, n_rows, n_cols, mean_deg, long_row=0):
+def random_csr(rng, n_rows, n_cols, mean_deg, long_rows=()):
     """Row-sorted edges with an indptr: Poisson row lengths (many empty
-    rows at a small mean), plus one row of `long_row` edges (a hub)."""
+    rows at a small mean), then each (row, length) of `long_rows` set."""
     deg = rng.poisson(mean_deg, n_rows)
-    if long_row:
-        deg[n_rows // 3] = long_row
+    for r, length in long_rows:
+        deg[r] = length
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(deg, out=indptr[1:])
     nnz = int(indptr[-1])
@@ -507,25 +507,43 @@ def _csr_dev(arrays, dtype, device):
             torch.as_tensor(rows, device=device))
 
 
-CSR_CASES = [  # (n_rows, n_cols, mean in-degree, hub row length)
-    (1, 1, 0.0, 0), (33, 50, 3.0, 0), (1000, 1000, 8.0, 0),
-    (4000, 3000, 0.7, 0), (2000, 5000, 8.0, 79_727), (70_000, 70_000, 8.0, 0)]
+E = 2048    # edges a block of the kernel owns (csr_spmv.cu's kChunk)
+CSR_CASES = [  # (n_rows, n_cols, mean in-degree, (row, length) overrides)
+    (1, 1, 0.0, ()), (33, 50, 3.0, ()), (1000, 1000, 8.0, ()),
+    (4000, 3000, 0.7, ()), (2000, 5000, 8.0, ((666, 79_727),)),
+    (70_000, 70_000, 8.0, ()),
+    # rows of exactly E edges and of E - 1, E + 1 on chunk boundaries, an
+    # empty row at a chunk's edge, empty rows at the end
+    (12, 300, 0.0, ((0, E), (1, E - 1), (2, 1), (3, E + 1), (4, E - 1),
+                    (6, E), (7, 2))),
+    # rows spanning 1, 2 and 101 chunks among short ones
+    (5000, 5000, 8.0, ((100, 100 * E + 17), (2000, E + 500), (3000, E))),
+    # an empty row at every chunk edge and at the end
+    (100, 700, 0.0, tuple((r, 256) for r in range(0, 100, 2))),
+    (10, 10, 0.0, ()),                                  # nnz = 0
+]
+
+
+def _csr_case(case, nv, dtype, device):
+    n_rows, n_cols, deg, long_rows = case
+    rng = np.random.default_rng(n_rows + nv)
+    arrays = random_csr(rng, n_rows, n_cols, deg, long_rows)
+    x = torch.as_tensor(rng.random((n_cols, nv)), device=device).to(dtype)
+    return arrays, _csr_dev(arrays, dtype, device), x
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nv", [1, 3, 8, 16])
+@pytest.mark.parametrize("nv", [1, 2, 3, 5, 8, 16])
 @pytest.mark.parametrize("case", CSR_CASES)
 def test_csr_kernel_matches_plain(cuda, case, nv, dtype):
     """The kernel against its plain version. float64: 1e-12 relative to
     the largest |y|. float32: each row within the bound of two float32
     sums of the same terms in two orders, 4 * nnz_r * 2^-24 * sum|w x|
-    (each recursive sum errs by at most ~nnz_r units of roundoff)."""
+    (each recursive sum errs by at most ~nnz_r units of roundoff). Two runs
+    give the same bits, and each lane the bits of its 1-wide call."""
     from repro_torch.kernels.csr_spmv import LAUNCHES, csr_spmv, csr_spmv_ref
-    n_rows, n_cols, deg, hub = case
-    rng = np.random.default_rng(n_rows + nv)
-    arrays = random_csr(rng, n_rows, n_cols, deg, hub)
-    indptr, src, w, rows = _csr_dev(arrays, dtype, cuda)
-    x = torch.as_tensor(rng.random((n_cols, nv)), device=cuda).to(dtype)
+    n_rows = case[0]
+    arrays, (indptr, src, w, rows), x = _csr_case(case, nv, dtype, cuda)
     before = dict(LAUNCHES)
     y = csr_spmv(indptr, src, w, x, n_rows)
     lane = "f32" if dtype == torch.float32 else "f64"
@@ -541,6 +559,10 @@ def test_csr_kernel_matches_plain(cuda, case, nv, dtype):
                              n_rows)
         nnz_r = torch.as_tensor(np.diff(arrays[0]), device=cuda)[:, None]
         assert bool((diff <= 4 * nnz_r * 2.0 ** -24 * absum).all())
+    assert torch.equal(y, csr_spmv(indptr, src, w, x, n_rows))
+    for j in range(nv):
+        y1 = csr_spmv(indptr, src, w, x[:, j].contiguous(), n_rows)
+        assert torch.equal(y1, y[:, j]), j
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -551,7 +573,7 @@ def test_csr_kernel_fixed_order(cuda, dtype):
     neither on the card."""
     from repro_torch.kernels.csr_spmv import csr_spmv
     rng = np.random.default_rng(5)
-    arrays = random_csr(rng, 20_000, 20_000, 8.0, 30_000)
+    arrays = random_csr(rng, 20_000, 20_000, 8.0, ((6666, 30_000),))
     indptr, src, w, _ = _csr_dev(arrays, dtype, cuda)
     for nv in (1, 2, 3, 8, 11, 16):
         x = torch.as_tensor(rng.random((20_000, nv)), device=cuda).to(dtype)
@@ -560,6 +582,100 @@ def test_csr_kernel_fixed_order(cuda, dtype):
         for j in range(nv):
             y1 = csr_spmv(indptr, src, w, x[:, j].contiguous(), 20_000)
             assert torch.equal(y1, y[:, j]), (nv, j)
+
+
+def _ulps_apart(a, b):
+    """|a - b| in units of the float32 spacing at max(|a|, |b|)."""
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
+    return (a - b).abs() / ulp
+
+
+@pytest.mark.parametrize("nv", [1, 3, 8])
+@pytest.mark.parametrize("case", CSR_CASES[1:])
+def test_csr_hub_lane_within_one_ulp(cuda, case, nv):
+    """The hub lane (float32 operands, float64 products and sum, added
+    into y[row_map] in place) against its plain version, the float64 sum
+    rounded to float32 and added: within 1 float32 ulp per element (the two
+    float64 sums differ by ~1e-16 relative, so their roundings are at most
+    one apart), rows outside row_map untouched, the same bits run to run
+    and lane by lane."""
+    from repro_torch.kernels.csr_spmv import (LAUNCHES, csr_spmv_hub_add,
+                                              csr_spmv_hub_add_ref)
+    n_rows = case[0]
+    _, (indptr, src, w, _), x = _csr_case(case, nv, torch.float32, cuda)
+    rng = np.random.default_rng(nv)
+    n_out = 3 * n_rows + 5
+    row_map = torch.as_tensor(np.sort(rng.choice(n_out, n_rows, False))
+                              .astype(np.int32), device=cuda)
+    y0 = torch.as_tensor(rng.random((n_out, nv)), device=cuda).float()
+    before = LAUNCHES["hub"]
+    y = csr_spmv_hub_add(indptr, src, w, x, row_map, y0.clone())
+    assert LAUNCHES["hub"] == before + 1
+    ref = csr_spmv_hub_add_ref(indptr, src, w, x, row_map, y0.clone())
+    torch.cuda.synchronize()
+    assert float(_ulps_apart(y, ref).max()) <= 1.0
+    untouched = torch.ones(n_out, dtype=torch.bool, device=cuda)
+    untouched[row_map.long()] = False
+    assert torch.equal(y[untouched], y0[untouched])
+    assert torch.equal(y, csr_spmv_hub_add(indptr, src, w, x, row_map,
+                                           y0.clone()))
+    for j in range(nv):
+        y1 = csr_spmv_hub_add(indptr, src, w, x[:, j:j + 1].contiguous(),
+                              row_map, y0[:, j:j + 1].contiguous())
+        assert torch.equal(y1[:, 0], y[:, j]), j
+
+
+def test_csr_hub_lane_refuses_bad_operands(cuda):
+    from repro_torch.kernels.csr_spmv import csr_spmv_hub_add
+    indptr = torch.tensor([0, 1, 2], device=cuda)
+    src = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    w = torch.ones(2, device=cuda)
+    x = torch.ones((2, 1), device=cuda)
+    row_map = torch.tensor([1, 3], dtype=torch.int32, device=cuda)
+    y = torch.zeros((4, 1), device=cuda)
+    with pytest.raises(TypeError):
+        csr_spmv_hub_add(indptr, src, w.double(), x.double(), row_map, y)
+    with pytest.raises(TypeError):
+        csr_spmv_hub_add(indptr, src, w, x, row_map, y.double())
+    with pytest.raises(TypeError):
+        csr_spmv_hub_add(indptr, src, w, x, row_map.long(), y)
+    with pytest.raises(ValueError):
+        csr_spmv_hub_add(indptr, src, w, x, row_map, y.cpu())
+    with pytest.raises(ValueError):
+        csr_spmv_hub_add(indptr, src, w, x, row_map[:1], y)
+    with pytest.raises(ValueError):
+        csr_spmv_hub_add(indptr, src, w, torch.ones((2, 2), device=cuda),
+                         row_map, torch.zeros((2, 4), device=cuda).t())
+    csr_spmv_hub_add(indptr, src, w, x, row_map, y)
+    assert y[:, 0].tolist() == [0.0, 1.0, 0.0, 1.0]
+
+
+def test_hybrid_matvec_on_card_matches_cpu(cuda):
+    """`hybrid_matvec` on CUDA tensors launches the block kernel and the
+    CSR kernel's hub lane, once each and nothing else for the edge sums,
+    and agrees with its CPU plain version (the block side within 1e-5
+    relative, the hub rows within a float32 ulp); two runs give the same
+    bits, the hub's float64 sum being in a fixed order."""
+    from repro_torch.kernels.bsr_spmv import hybrid_matvec
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    op = _spmd_graph(n=20_000, nnz=200_000, dangling=20, seed=4)
+    h = op.hybrid_bsr(bm=8, bn=8)
+    assert h.hub_rows.size > 0
+    x = np.random.default_rng(0).random((op.n, 3)).astype(np.float32)
+    xp = torch.as_tensor(pad_x(x, op.n, 8))
+    dev_cuda, dev_cpu = h.device(cuda), h.device(torch.device("cpu"))
+    before, hub_before = dict(LAUNCHES), CSR["hub"]
+    y = hybrid_matvec(dev_cuda, xp.to(cuda))
+    assert LAUNCHES["f32"] == before["f32"] + 1
+    assert CSR["hub"] == hub_before + 1
+    y_cpu = hybrid_matvec(dev_cpu, xp)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, hybrid_matvec(dev_cuda, xp.to(cuda)))
+    # the hub rows alone (the block side's rows there are zero)
+    rows = torch.as_tensor(np.unique(h.hub_rows).astype(np.int64))
+    yh, yh_cpu = y.reshape(-1, 3).cpu()[rows], y_cpu.reshape(-1, 3)[rows]
+    assert float(_ulps_apart(yh, yh_cpu).max()) <= 1.0
 
 
 def test_csr_wrapper_refuses_bad_operands(cuda):

@@ -260,6 +260,8 @@ def test_f64_lanes_exact(ref, g5, run):
 def f32_hub(monkeypatch):
     """The bsr hub rows summed in float32, as the JAX package sums them
     (the port sums them in float64)."""
+    import torch
+
     from repro_torch.kernels.bsr_spmv.ops import bsr_matvec
     from repro_torch.runtime import step
 
@@ -270,8 +272,10 @@ def f32_hub(monkeypatch):
         nbr, bm, nv = y.shape
         contrib = dev["hub_vals"].float()[:, None] * x.reshape(
             -1, nv).index_select(0, dev["hub_cols"])
+        rows = torch.repeat_interleave(dev["hub_map"].long(),
+                                       torch.diff(dev["hub_indptr"]))
         return y + contrib.new_zeros((nbr * bm, nv)).index_add_(
-            0, dev["hub_rows"], contrib).reshape(nbr, bm, nv)
+            0, rows, contrib).reshape(nbr, bm, nv)
 
     monkeypatch.setattr(step, "hybrid_matvec", f32_hub_matvec)
 
