@@ -46,13 +46,25 @@ Phases, each printing its own lines and seconds:
               folded block launch of the shard program against four
               per-shard launches; the 8-lane bsr run repeated, each repeat
               the main path's bits;
- 11. main   : Yi-6B inference at full width (random weights from --seed,
+ 11. main   : the paper's experiment as a discrete-event simulation on
+              Stanford-Web (Tables 1-2): `solve_des_sync` and `solve_des`
+              at p in {2, 4, 6} on the card, every block update one call
+              of the CSR kernel's float64 lane, printed beside the paper's
+              values, each x held to top-100 tau >= 0.999 against the
+              float64 oracle, and the p = 4 run on the CPU's plain path
+              beside the card's;
+ 12. main   : the device shard transport on Stanford-Web, p = 4 shard
+              programs on the card: four drains of the linear form
+              (float64 segment sum; block float32 with the f32 and the
+              Kahan lane; block float64), each certified by a host float64
+              residual, with the launch counts read around them;
+ 13. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
               the forward (bf16, then a float32 copy whose forward takes the
               CUDA-core lane), and greedy and sampled generation, with the
               launch counts of both lanes read around it;
- 12. timing : each flash lane, its plain version, PyTorch's
+ 14. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
@@ -108,6 +120,38 @@ SPMD_LANE_PC_MAX = 4
 # repeats of the lane run in the timing phase (the spread of its L1 error)
 SPMD_LANE_REPEATS = 4
 SPMD_SCHEDULES = ("allgather", "allgather_k", "ring", "sparsified")
+# the paper's experiment in the DES (Tables 1-2): the configuration of
+# benchmarks/paper_tables.py (des_cfg, :35-36) and the paper's values
+# (PAPER_TABLE1, :19-27; Table 2's completed imports, :77), copied, since
+# that module imports the JAX package
+DES_PROCS = (2, 4, 6)
+DES_CFG = dict(tol=1e-6, norm="l2", barrier_overhead=0.5, seed=7)
+PAPER_TABLE1 = {
+    2: dict(sync_iters=44, sync_t=179.2, async_iters=(68, 69),
+            async_t=(86.3, 94.5), speedup=1.98),
+    4: dict(sync_iters=44, sync_t=331.4, async_iters=(82, 111),
+            async_t=(139.2, 153.1), speedup=2.27),
+    6: dict(sync_iters=44, sync_t=402.8, async_iters=(129, 148),
+            async_t=(141.7, 160.6), speedup=2.66),
+}
+PAPER_TABLE2_PCT = [29, 28, 41, 45]
+# the device transport's drains of the linear form from the uniform start,
+# p = 4 shard programs on the card: (name, DeviceShardTransport fields, the
+# L1 target of the all-reduced fragment delta, the bound on the host
+# float64 residual that certifies the result). The float64 segment sum
+# drains to 1e-9; the block lanes read float32 views on the card (the
+# float64 one too: its "f64" lane is the Kahan kernel over the views
+# rounded to float32), so they drain to 1e-6, and their blocks' float32
+# weights floor the residual against the float64 operator near 1e-7
+TRANSPORT_P = 4
+TRANSPORT_LANES = [
+    ("float64 segment_sum, sparsified", dict(), 1e-9, 1e-8),
+    ("bsr float32, accum f32, sparsified",
+     dict(dtype="float32", backend="bsr", accum="f32"), 1e-6, 3e-6),
+    ("bsr float32, accum kahan, sparsified",
+     dict(dtype="float32", backend="bsr", accum="kahan"), 1e-6, 3e-6),
+    ("bsr float64, accum f64, sparsified", dict(backend="bsr"), 1e-6, 3e-6),
+]
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "csr": "src/repro/graph/csr.py:152 (no TPU kernel: an XLA "
                      "gather + segment_sum)",
@@ -748,6 +792,204 @@ def spmd_tol_sweep(op, exact, exact8, v8, tol, lanes_x, smi):
                       f"bsr path)")
 
 
+def reset_launches():
+    """Every kernel's launch counts set to 0 (before a main path)."""
+    from repro_torch.kernels.bsr_spmv import LAUNCHES
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+    for counts in (LAUNCHES, CSR_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def des_main_path(op, exact, smi):
+    """The paper's experiment (Tables 1-2): the discrete-event simulation on
+    Stanford-Web through `AsyncFixedPoint.solve_des_sync` / `solve_des` at
+    p in DES_PROCS, every block update on the card (the CSR kernel's
+    float64 lane), beside the paper's values; at p = 4 the port's CPU run
+    of the same configuration beside the card's. Returns the CSR kernel's
+    float64 launches over the card's runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (AsyncDES, AsyncFixedPoint, DESConfig,
+                                  PageRankBlockOperator, kendall_tau_topk)
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+
+    afp = AsyncFixedPoint(op, kind="power")
+    print(f"  DESConfig({DES_CFG}), kind power, block partition [{smi}]")
+
+    def tau_ok(x, what):
+        tau = kendall_tau_topk(x, exact, k=100)
+        l1 = float(np.abs(x - exact).sum())
+        check(tau >= 0.999, f"{what}: top-100 tau {tau:.6f} >= 0.999 "
+              f"(L1 err {l1:.3g})")
+
+    reset_launches()
+    runs = {}
+    for p in DES_PROCS:
+        before = CSR_LAUNCHES["f64"]
+        t0 = time.perf_counter()
+        s = afp.solve_des_sync(p, DESConfig(**DES_CFG))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n_sync = CSR_LAUNCHES["f64"] - before
+        check(n_sync == s.iters * p,
+              f"p={p} sync: the CSR kernel launched {n_sync} times = "
+              f"{s.iters} iterations x {p} block updates")
+        before = CSR_LAUNCHES["f64"]
+        t0 = time.perf_counter()
+        a = afp.solve_des(p, DESConfig(**DES_CFG))
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        n_async = CSR_LAUNCHES["f64"] - before
+        updates = int(a.iters.sum())
+        check(n_async == updates,
+              f"p={p} async: the CSR kernel launched {n_async} times = "
+              f"{updates} block updates (iter events)")
+        speedup = s.time / max(float(a.local_conv_time.max()), 1e-9)
+        paper = PAPER_TABLE1[p]
+        print(f"  p={p}: sync {s.iters} iters, {s.time:.1f} sim s "
+              f"(paper {paper['sync_iters']}, {paper['sync_t']}) | async "
+              f"iters {int(a.iters.min())}-{int(a.iters.max())} (paper "
+              f"{paper['async_iters'][0]}-{paper['async_iters'][1]}), local "
+              f"convergence {a.local_conv_time.min():.1f}-"
+              f"{a.local_conv_time.max():.1f} sim s (paper "
+              f"{paper['async_t'][0]}-{paper['async_t'][1]}) | speedup "
+              f"{speedup:.2f} (paper {paper['speedup']}) | completed "
+              f"imports {np.round(a.completed_import_pct).astype(int).tolist()}"
+              f" % | global resid inf {a.global_resid_inf:.3g}")
+        print(f"    wall: sync {wall_s:.3f} s ({s.iters * p / wall_s:.1f} "
+              f"block updates/s), async {wall_a:.3f} s "
+              f"({updates / wall_a:.1f} block updates/s, {updates} updates, "
+              f"stop at {a.stop_time:.1f} sim s) [{smi}]")
+        tau_ok(s.x, f"p={p} sync")
+        tau_ok(a.x, f"p={p} async")
+        runs[p] = dict(sync=s, asyn=a, wall_sync=wall_s, wall_async=wall_a)
+    launches = CSR_LAUNCHES["f64"]
+    print(f"  DES launches on the card: {dict(CSR_LAUNCHES)}")
+
+    a = runs[4]["asyn"]
+    mat = a.imports.copy()
+    np.fill_diagonal(mat, a.iters)
+    print("  Table 2, p=4 (imports; diagonal = local iterations):")
+    for r in mat:
+        print("    " + " ".join(f"{v:5d}" for v in r))
+    print(f"  completed imports % {np.round(a.completed_import_pct, 1).tolist()}"
+          f" (paper {PAPER_TABLE2_PCT})")
+
+    t0 = time.perf_counter()
+    c = afp.solve_des(4, DESConfig(**DES_CFG), device="cpu")
+    wall_c = time.perf_counter() - t0
+    l1 = float(np.abs(a.x - c.x).sum())
+    print(f"  p=4 card vs CPU (plain path, {wall_c:.2f} s): iters "
+          f"{a.iters.tolist()} / {c.iters.tolist()}, imports "
+          f"{int(a.imports.sum())} / {int(c.imports.sum())}, attempts "
+          f"{int(a.attempts.sum())} / {int(c.attempts.sum())}, stop "
+          f"{a.stop_time:.6f} / {c.stop_time:.6f} sim s, L1(x_card, x_cpu) "
+          f"{l1:.3g}")
+    check(l1 <= 1e-6, f"p=4: L1(x_card, x_cpu) {l1:.3g} <= 1e-6")
+
+    # the event loop alone, warm: the block operator built (and its edge
+    # slices uploaded) once, and no host residual check at the end
+    part = afp.make_partition(4)
+    t0 = time.perf_counter()
+    opr = PageRankBlockOperator(op, part, kind="power")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    des = lambda: AsyncDES(opr, part, DESConfig(**DES_CFG)).run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = des()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    updates = int(r.iters.sum())
+    check(r.iters.tolist() == a.iters.tolist(),
+          f"p=4 warm event loop: the main path's iters {r.iters.tolist()}")
+    print(f"  p=4 warm event loop (operator set-up {setup:.3f} s once): "
+          f"{[round(w, 4) for w in walls]} s for {updates} block updates, "
+          f"{updates / min(walls):.1f} updates/s at best [{smi}]")
+    stats = device_breakdown(des, "AsyncDES.run p=4, warm", smi)
+    if stats is not None:
+        kernels, busy, wall = stats
+        print(f"    {kernels / updates:.1f} kernels per block update "
+              f"({updates} updates), card busy {100 * busy / wall:.1f}% "
+              f"of the profiled wall")
+    return launches, runs
+
+
+def transport_main_path(op, smi):
+    """ROADMAP Queue 1 item 6.1: `DeviceShardTransport.run` on Stanford-Web,
+    p = 4 shard programs on the card, draining the linear form from the
+    uniform start in four lanes, each certified by a host float64 residual
+    ||x - (alpha (P^T x + w d^T x) + (1 - alpha) v)||_1. Returns the
+    launches of each kernel over the drains."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.bsr_spmv import LAUNCHES
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+    from repro_torch.runtime import DeviceShardTransport
+
+    x0 = np.full(op.n, 1.0 / op.n)
+    reset_launches()
+    out = {}
+    for name, kw, target, cert in TRANSPORT_LANES:
+        before = {**{f"bsr_{k}": v for k, v in LAUNCHES.items()},
+                  **{f"csr_{k}": v for k, v in CSR_LAUNCHES.items()}}
+        t0 = time.perf_counter()
+        r = DeviceShardTransport(TRANSPORT_P, **kw).run(
+            op, x0, target=target, max_supersteps=3000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = {**{f"bsr_{k}": v for k, v in LAUNCHES.items()},
+                 **{f"csr_{k}": v for k, v in CSR_LAUNCHES.items()}}
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        resid = float(np.abs(op.apply_linear_numpy(r.x) - r.x).sum())
+        print(f"  {name}: {r.supersteps} supersteps, rows_sent "
+              f"{r.rows_sent:,}, fulls {r.fulls}, comm_bytes_total "
+              f"{r.comm_bytes_total:,}, device resid {r.device_resid:.3g}, "
+              f"{wall:.3f} s (host clock; a dtype's first drain packs the "
+              f"shards), launches {ran} [{smi}]")
+        check(r.converged and resid <= cert,
+              f"{name}: converged at target {target:g}, host float64 "
+              f"residual {resid:.3g} <= {cert:g}")
+        lanes = (("csr_f64",) if kw.get("backend") is None else
+                 ("bsr_f32" if kw.get("accum") == "f32" else "bsr_kahan",
+                  "csr_hub"))
+        check(all(ran.get(k, 0) == r.supersteps + 1 for k in lanes)
+              and set(ran) == set(lanes),
+              f"{name}: {' and '.join(lanes)} launched "
+              f"{[ran.get(k, 0) for k in lanes]} times = {r.supersteps} "
+              f"supersteps + 1 final residual, one launch for all "
+              f"{TRANSPORT_P} shards, and no other kernel")
+        out[name] = (r, wall)
+    launches = {"bsr_f32": LAUNCHES["f32"], "bsr_kahan": LAUNCHES["kahan"],
+                "csr_f64": CSR_LAUNCHES["f64"], "csr_hub": CSR_LAUNCHES["hub"]}
+    print(f"  device transport launches: {launches}")
+    # warm: the shards packed and uploaded by the runs above
+    for name, kw, target, _ in TRANSPORT_LANES:
+        run = lambda: DeviceShardTransport(TRANSPORT_P, **kw).run(
+            op, x0, target=target, max_supersteps=3000)
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        steps = r.supersteps
+        check(steps == out[name][0].supersteps,
+              f"{name}, warm: {steps} supersteps, as on the main path")
+        print(f"  {name}, warm: {[round(1e3 * w / steps, 4) for w in walls]}"
+              f" ms per superstep (host clock) [{smi}]")
+        if name == TRANSPORT_LANES[0][0]:
+            stats = device_breakdown(run, f"device transport, {name}", smi)
+            if stats is not None:
+                kernels, busy, wall = stats
+                print(f"    {kernels / steps:.1f} kernels per superstep, "
+                      f"card busy {100 * busy / wall:.1f}% of the profiled "
+                      f"wall")
+    return launches, out
+
+
 def attention_flops(q, k, causal):
     """The work of one attention call: 4 * D flops per allowed (query, key)
     pair and head (q k^T and p v). Causal is top-left: row i sees
@@ -779,7 +1021,8 @@ def device_breakdown(fn, label, smi):
     went: kernel time by group (the flash kernel, matrix products, the
     rest), the device's busy share of the profiled wall time, and the top
     kernels. The profiler slows the host, so the wall time here is longer
-    than an unprofiled one."""
+    than an unprofiled one. Returns (kernels, device busy ms, wall ms), or
+    None where the profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -820,6 +1063,7 @@ def device_breakdown(fn, label, smi):
           f"{groups['other'] / 1e3:.2f} ms [{smi}]")
     for name, us in top:
         print(f"    {us / 1e3:8.3f} ms  {name}")
+    return len(kern), busy / 1e3, wall
 
 
 def free_cuda():
@@ -1582,6 +1826,13 @@ def main(argv=None):
             f"solve_spmd bsr allgather p={SPMD_P} "
             f"({spmd_runs['allgather'][0].supersteps} supersteps)", smi)
 
+    with phase("main path: Stanford-Web DES (paper Tables 1-2)"):
+        des_launches, _ = des_main_path(op, exact, smi)
+
+    with phase(f"main path: Stanford-Web device transport (p = "
+               f"{TRANSPORT_P})"):
+        drain_launches, _ = transport_main_path(op, smi)
+
     del op, op8, y_kahan, y_f32    # the Stanford-Web layouts on the card
     free_cuda()
 
@@ -1599,14 +1850,16 @@ def main(argv=None):
             "name": f"bsr_spmv_{accum}", "route": "cuda",
             "source": BSR_SOURCE, "replaces": TPU_KERNEL[accum],
             "launches": main_launches[accum] + (
-                spmd_launches["bsr_f32"] if accum == "f32" else 0),
+                spmd_launches["bsr_f32"] if accum == "f32" else 0)
+            + drain_launches[f"bsr_{accum}"],
             "max_abs_err": max(max_err[accum], errs[accum], *(
                 f[3] for f in folded.values() if accum == "f32")),
             "ms": t[accum], "plain_ms": t[f"plain_{accum}"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
     for lane, launches in (("f32", spmd_launches["csr_f32"]),
-                           ("f64", main_csr["f64"])):
+                           ("f64", main_csr["f64"] + des_launches
+                            + drain_launches["csr_f64"])):
         row = csr_rows[(lane, 1)]
         kernels.append({
             "name": f"csr_spmv_{lane}", "route": "cuda", "source": CSR_SOURCE,
@@ -1619,7 +1872,8 @@ def main(argv=None):
     kernels.append({
         "name": "csr_spmv_hub", "route": "cuda", "source": CSR_SOURCE,
         "replaces": TPU_KERNEL["hub"],
-        "launches": main_csr["hub"] + spmd_launches["csr_hub"],
+        "launches": main_csr["hub"] + spmd_launches["csr_hub"]
+        + drain_launches["csr_hub"],
         "max_abs_err": max(csr_err["hub"], row["err"]), "ms": row["kernel"],
         "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None})

@@ -8,24 +8,24 @@ One object, three execution flavors in the JAX package:
   solve_spmd()  : the bounded-staleness shard program with sparsified
                   exchange schedules (the deployable form).
 
-The port runs solve_sync and solve_spmd; the discrete-event simulation
-(core/des.py and the host runtime under it) is ROADMAP Queue 1 item 5.2,
-and solve_des / solve_des_sync raise until it is ported.
+The port runs all three. solve_des and solve_des_sync keep the event
+logic on the host and the fragments on the device (`device=None`: the
+CUDA card, where every block update is the CSR kernel's float64 lane).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..graph.google import GoogleOperator
+from .des import (AsyncDES, AsyncResult, DESConfig, PageRankBlockOperator,
+                  SyncResult)
 from .pagerank import SolveResult, solve_linear, solve_power
 from .partition import Partition, balanced_nnz, block_rows
 from .spmd import SPMDConfig, SPMDResult, solve_spmd
-
-_DES = ("the discrete-event simulation (core/des.py) is not ported yet: "
-        "ROADMAP Queue 1 item 5.2")
 
 
 @dataclasses.dataclass
@@ -49,11 +49,32 @@ class AsyncFixedPoint:
         return fn(self.op, tol=tol, max_iters=max_iters, dtype=dt,
                   backend=self.backend, **kw)
 
-    def solve_des(self, p: int, cfg=None):
-        raise NotImplementedError(_DES)
+    def solve_des(self, p: int, cfg: Optional[DESConfig] = None,
+                  device: DeviceLike = None) -> AsyncResult:
+        """The asynchronous DES run of eq. (5) (`core.des.AsyncDES.run`)
+        with p UEs; device=None is the CUDA card."""
+        return self._des(p, cfg, device).run()
 
-    def solve_des_sync(self, p: int, cfg=None):
-        raise NotImplementedError(_DES)
+    def solve_des_sync(self, p: int, cfg: Optional[DESConfig] = None,
+                       device: DeviceLike = None) -> SyncResult:
+        """The barrier-synchronous DES baseline (`AsyncDES.run_sync`) under
+        the same clock and network models; device=None is the CUDA card."""
+        return self._des(p, cfg, device).run_sync()
+
+    def _des(self, p: int, cfg: Optional[DESConfig],
+             device: DeviceLike) -> AsyncDES:
+        cfg = cfg or DESConfig()
+        dev = resolve_device(device)
+        part = self.make_partition(p)
+        opr = PageRankBlockOperator(self.op, part, kind=self.kind,
+                                    matvec=self._des_matvec(), device=dev)
+        return AsyncDES(opr, part, cfg, check_operator=self.op, device=dev)
+
+    def _des_matvec(self) -> str:
+        # the JAX package's name for the block flavor; the port's block
+        # update runs the same float64 CSR product either way
+        # (runtime/local.py)
+        return "bsr" if self.backend in ("bsr_pallas", "bsr") else "csr"
 
     def solve_spmd(self, cfg: SPMDConfig,
                    device: DeviceLike = None) -> SPMDResult:

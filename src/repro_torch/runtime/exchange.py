@@ -1,5 +1,7 @@
-"""The bulk-synchronous rendering of an ExchangePlan, with every shard on
-one card: who refreshes which fragment of whose view after a superstep.
+"""ExchangePlan — who messages whom, when, with what fragment subset — in
+its two renderings: the host/event plans of the DES engine, and the
+bulk-synchronous exchange with every shard on one card (who refreshes
+which fragment of whose view after a superstep).
 
 The JAX package runs one shard program per device under `shard_map`, each
 holding its own (n_pad, nv) stale view, and exchanges fragments with
@@ -24,14 +26,205 @@ The delivery draws (`accept`) come from the host as well
 tensor is touched and the exchange never reads the card. The views are
 updated in place: the superstep reads them only before its exchange.
 
-The host renderings of the plans (`ExchangePlan`, `make_plan`) are not
-ported yet (ROADMAP Queue 1 item 5.2).
+The host/event rendering of the plans (`ExchangePlan` and its four
+policies, `make_plan`) is the JAX package's numpy code, copied: the DES
+engine (core/des.py) consults it per local update, and its decisions stay
+on the host (`SparsifiedPlan.payload_rows` picks the rows numpy's
+`argpartition` and stable `argsort` pick, ties included).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
+
+# ---------------------------------------------------------------------------
+# host/event rendering
+# ---------------------------------------------------------------------------
+class ExchangePlan:
+    """Base plan: all-to-all every local update, full fragments."""
+
+    name = "all_to_all"
+
+    def __init__(self, p: int):
+        self.p = p
+
+    def wants(self, i: int, d: int, it: int) -> bool:
+        """Topology/cadence gate for a message i -> d after i's it-th local
+        update (callers have already excluded d == i)."""
+        return True
+
+    def gate_mass(self, i: int, d: int, it: int, mass: float) -> bool:
+        """Residual-mass gate (§6): True = send now. Default sends always."""
+        return True
+
+    def refresh_due(self, i: int, d: int, it: int) -> bool:
+        """True when the payload i -> d must ship as a *full* fragment
+        (engines skip `payload_rows` then).  Plans without partial payloads
+        always ship full."""
+        return True
+
+    def payload_rows(self, delta_abs: np.ndarray,
+                     i: Optional[int] = None,
+                     d: Optional[int] = None) -> Optional[np.ndarray]:
+        """Local row ids to include in the payload (None = full fragment).
+        `i`/`d` identify the (src, dst) pair for plans that keep per-pair
+        payload statistics (the adaptive sparsified k)."""
+        return None
+
+    def on_result(self, i: int, d: int, ok: bool) -> None:
+        """Feedback: the send was delivered (ok) or canceled (not ok)."""
+
+    def note_sent(self, i: int, d: int, it: int, full: bool = True) -> None:
+        """Bookkeeping hook: a payload for d actually left shard i."""
+
+
+class AllToAllPlan(ExchangePlan):
+    pass
+
+
+class RingPlan(ExchangePlan):
+    """Each shard messages only its successor; receivers relay accepted
+    fragments one hop (the engine owns the relay — versions circulate the
+    ring in <= p-1 hops, so staleness stays O(p))."""
+
+    name = "ring"
+
+    def wants(self, i: int, d: int, it: int) -> bool:
+        return d == (i + 1) % self.p
+
+
+class AdaptivePlan(ExchangePlan):
+    """Cancel-feedback backoff: consecutive canceled sends to a peer double
+    that peer's send period (up to max_backoff); a delivered send halves
+    it.  This is the DES comm_policy="adaptive" behavior, verbatim."""
+
+    name = "adaptive"
+
+    def __init__(self, p: int, cancel_limit: int = 3, max_backoff: int = 16):
+        super().__init__(p)
+        self.cancel_limit = cancel_limit
+        self.max_backoff = max_backoff
+        self.consec_cancels = np.zeros((p, p), dtype=np.int64)
+        self.backoff = np.ones((p, p), dtype=np.int64)
+
+    def wants(self, i: int, d: int, it: int) -> bool:
+        return it % self.backoff[i, d] == 0
+
+    def on_result(self, i: int, d: int, ok: bool) -> None:
+        if ok:
+            self.consec_cancels[i, d] = 0
+            self.backoff[i, d] = max(1, self.backoff[i, d] // 2)
+        else:
+            self.consec_cancels[i, d] += 1
+            if self.consec_cancels[i, d] >= self.cancel_limit:
+                self.backoff[i, d] = min(self.backoff[i, d] * 2,
+                                         self.max_backoff)
+                self.consec_cancels[i, d] = 0
+
+
+class SparsifiedPlan(ExchangePlan):
+    """§6 message targeting: send to a peer only when the sender-side
+    residual mass (||delta||_1 since the last send to that peer) exceeds
+    `thresh`, with a forced full refresh every `refresh_every` local
+    updates so delays stay bounded; `payload_rows` keeps only the top-k
+    rows by |delta|, so payloads shrink as the sender converges.
+
+    `top_k` may be a fixed row count, None (full payloads), or
+    ``"adaptive"``: k is then *read off the observed row-delta
+    distribution* — the smallest k whose top rows cover `cover_frac` of
+    the payload's |delta| mass — and EWMA-smoothed per (src, dst) pair
+    (`ewma` is the new-observation weight), so a sender whose residual
+    concentrates ships a few heavy rows while a sender with flat deltas
+    ships proportionally more.  The forced full refresh is untouched
+    (`refresh_due` payloads skip `payload_rows` entirely), so the
+    bounded-delay property holds for any adaptive trajectory."""
+
+    name = "sparsified"
+
+    def __init__(self, p: int, thresh: float, refresh_every: int = 8,
+                 top_k=None, cover_frac: float = 0.9, ewma: float = 0.5):
+        super().__init__(p)
+        assert refresh_every >= 1
+        if top_k == "adaptive":
+            assert 0.0 < cover_frac <= 1.0 and 0.0 < ewma <= 1.0
+        elif top_k is not None:
+            top_k = int(top_k)
+        self.thresh = float(thresh)
+        self.refresh_every = int(refresh_every)
+        self.top_k = top_k
+        self.cover_frac = float(cover_frac)
+        self.ewma = float(ewma)
+        # iteration of the last *full* send per (src, dst) pair
+        self.last_full = np.zeros((p, p), dtype=np.int64)
+        # per-pair EWMA of the mass-coverage row count (0 = no data yet)
+        self._k_ewma = np.zeros((p, p))
+
+    def refresh_due(self, i: int, d: int, it: int) -> bool:
+        return it - self.last_full[i, d] >= self.refresh_every
+
+    def gate_mass(self, i: int, d: int, it: int, mass: float) -> bool:
+        return mass > self.thresh or self.refresh_due(i, d, it)
+
+    def payload_rows(self, delta_abs: np.ndarray,
+                     i: Optional[int] = None,
+                     d: Optional[int] = None) -> Optional[np.ndarray]:
+        if self.top_k is None:
+            return None
+        if self.top_k == "adaptive":
+            total = float(delta_abs.sum())
+            if total <= 0.0:
+                return None
+            order = np.argsort(-delta_abs, kind="stable")
+            csum = np.cumsum(delta_abs[order])
+            k_now = int(np.searchsorted(
+                csum, self.cover_frac * total, side="left")) + 1
+            if i is None or d is None:
+                k = k_now                # pair-less call: no profile state
+            else:
+                prev = self._k_ewma[i, d]
+                cur = (float(k_now) if prev == 0.0
+                       else self.ewma * k_now + (1.0 - self.ewma) * prev)
+                self._k_ewma[i, d] = cur
+                # ceil so the smoothed k never under-covers by rounding
+                k = int(np.ceil(cur))
+            k = max(1, min(k, delta_abs.size))
+            if k >= delta_abs.size:
+                return None
+            return np.sort(order[:k])
+        if self.top_k >= delta_abs.size:
+            return None
+        idx = np.argpartition(-delta_abs, self.top_k - 1)[: self.top_k]
+        return np.sort(idx)
+
+    def note_sent(self, i: int, d: int, it: int, full: bool = True) -> None:
+        if full:
+            self.last_full[i, d] = it
+
+
+def make_plan(policy: str, p: int, *, cancel_limit: int = 3,
+              max_backoff: int = 16, thresh: float = 0.0,
+              refresh_every: int = 8,
+              top_k=None) -> ExchangePlan:
+    """Plan factory keyed by the DES comm_policy names."""
+    if policy == "all_to_all":
+        return AllToAllPlan(p)
+    if policy == "ring":
+        return RingPlan(p)
+    if policy == "adaptive":
+        return AdaptivePlan(p, cancel_limit=cancel_limit,
+                            max_backoff=max_backoff)
+    if policy == "sparsified":
+        return SparsifiedPlan(p, thresh=thresh, refresh_every=refresh_every,
+                              top_k=top_k)
+    raise ValueError(f"unknown exchange policy {policy!r}")
+
+
+# ---------------------------------------------------------------------------
+# bulk-synchronous rendering, every shard on one card
+# ---------------------------------------------------------------------------
 SPMD_SCHEDULES = ("allgather", "allgather_k", "ring", "sparsified")
 
 

@@ -23,8 +23,10 @@ array carries a leading `p` axis and one function steps every shard:
   comm_bytes_model    the payload bytes of a loop segment.
 
 The superstep counter is a Python int, and the protocol counters are int32
-tensors, as in the JAX package's carry. The host rendering of a shard's
-cycle (`HostShardStep`) is not ported yet (ROADMAP Queue 1 item 7).
+tensors, as in the JAX package's carry. The shard program (`core.spmd`)
+and the device transport (`runtime.device`) assemble their loops from
+these builders. The host rendering of a shard's cycle (`HostShardStep`) is
+not ported yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import pt_matvec
+from ..kernels import resolve_impl
 from ..kernels.bsr_spmv.ops import hybrid_matvec
 from .driver import TerminationDriver
 from .transport import mesh_psum
@@ -64,18 +67,31 @@ def shard_pt_apply(op_dev: dict, *, use_bsr: bool, bsize: int, nv: int,
     `HybridBSR.device`-style dict (`blocks` (p * nbr_l, K, bm, bm), block
     columns offset by i * n_pad / bm for shard i, `blk_count`, and the hub
     rows' side offset likewise, in CSR form), read against the
-    stacked views as (p * n_pad / bm, bm, nv); with accum "f32" the views
-    are cast to float32 on entry, and the hub rows sum in float64
-    (`hybrid_matvec`: on the card the CSR kernel's hub lane, in a fixed
-    order; the JAX package sums them in float32). For the segment-sum
-    backend: one CSR over the p * bsize packed rows (`indptr`, `src` offset
-    by i * n_pad into the stacked views, `weight`, `row_ids`). Returns
+    stacked views as (p * n_pad / bm, bm, nv), the hub rows summed in
+    float64 (`hybrid_matvec`: on the card the CSR kernel's hub lane, in a
+    fixed order; the JAX package sums them in float32). For the
+    segment-sum backend: one CSR over the p * bsize packed rows (`indptr`,
+    `src` offset by i * n_pad into the stacked views, `weight`,
+    `row_ids`), summed in the views' dtype. Returns
     pt_apply(view) -> (p, bsize, nv) in the views' dtype.
+
+    The numerics of each block lane (`accum`):
+      "f32"   the views rounded to float32, the block sums in float32;
+      "kahan" the views rounded to float32, the block sums
+              Kahan-compensated over the K slots;
+      "f64"   on the CPU the views' own dtype with float64 block sums (the
+              plain version); on the card the views rounded to float32 for
+              the Kahan block kernel and the hub lane (the kernels take
+              float32 x, as the JAX package's kernel paths render "f64" as
+              "kahan"), the float32 result widened to the views' dtype.
     """
     if use_bsr:
         def pt_apply(view):
             p = view.shape[0]
-            cast = view.float() if accum == "f32" else view
+            # the kernels read float32 x; only the CPU's plain "f64" lane
+            # keeps a float64 view as it is
+            narrow = accum != "f64" or resolve_impl(impl, view) == "cuda"
+            cast = view.float() if narrow else view
             xb = cast.reshape(p * n_pad // bm, bm, nv)
             y = hybrid_matvec(op_dev, xb, impl=impl, accum=accum)
             return y.reshape(p, bsize, nv).to(view.dtype)
@@ -170,20 +186,26 @@ def shard_superstep_fns(local_update, comm, *, p: int, tol: float,
                         pc_max_compute: int, pc_max_monitor: int,
                         seed: int, q: float, freeze_lanes: bool,
                         max_steps, compact_exit: bool = False,
-                        exit_k: int = 0, spans: Optional[Spans] = None):
+                        exit_k: int = 0, conv: str = "linf",
+                        spans: Optional[Spans] = None):
     """The superstep body and the loop condition, over the carry
 
       (view, frag, comm_state, step, pc, mon_pc, lane_done, lane_step,
        rows_sent, fulls)
 
     with `step` a Python int, `fulls` a (p,) numpy int array and the rest
-    tensors with a leading p axis. A shard has converged on a lane when the
-    inf-norm of its fragment's change is under `tol` (the JAX package's
-    other test, the all-reduced L1 "l1_psum", serves its device transport,
-    ROADMAP Queue 1 item 6.1). The condition reads the lanes' done bits to
-    the host: one sync a superstep. `spans`, when given, is marked around
-    the phases.
+    tensors with a leading p axis. `conv` picks when a shard has converged
+    on a lane: "linf", the inf-norm of its fragment's change under `tol`
+    (the shard program); "l1_psum", the all-reduced L1 of every shard's
+    fragment change at most `tol` — for the linear form ||r||_1 of the
+    previous iterate up to view staleness, the same verdict on every shard
+    (the device transport). Both run through the same `bits_step`
+    persistence counters. The condition reads the lanes' done bits to the
+    host: one sync a superstep. `spans`, when given, is marked around the
+    phases.
     """
+    if conv not in ("linf", "l1_psum"):
+        raise ValueError(f"unknown convergence test {conv!r}")
     psum = mesh_psum(0)
     shards = np.arange(p)
     mark = spans.mark if spans is not None else (lambda label: None)
@@ -205,7 +227,12 @@ def shard_superstep_fns(local_update, comm, *, p: int, tol: float,
             # observed persistent global convergence
             newfrag = torch.where(lane_done[:, None, :], frag, newfrag)
         delta = (newfrag - frag).abs()
-        locally_conv = delta.amax(dim=1) < tol_like(delta)        # (p, nv)
+        if conv == "linf":
+            locally_conv = delta.amax(dim=1) < tol_like(delta)    # (p, nv)
+        else:
+            total = psum(tree_sum(delta))                         # (1, nv)
+            locally_conv = (total <= tol_like(total)).expand(
+                p, total.shape[1])
         mark("apply")
 
         # ---- communication (ExchangePlan, bulk-sync) ---------------------

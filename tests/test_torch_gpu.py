@@ -820,3 +820,110 @@ def test_spmd_lanes_on_card(cuda, backend):
         assert np.abs(masked.lane_supersteps
                       - compact.lane_supersteps).max() <= 3
         assert np.abs(masked.x - compact.x).max() <= 1e-6
+
+
+@pytest.mark.parametrize("kind,policy", [("power", "all_to_all"),
+                                         ("linear", "sparsified")])
+def test_des_on_card_matches_cpu(cuda, kind, policy):
+    """The DES with its block updates on the card (the CSR kernel's float64
+    lane, once per update) against the port's CPU run on the seeded
+    5,000-page graph: the same decisions, so equal counts and times, and x
+    within L1 1e-12 (the kernel adds in its own fixed order)."""
+    from repro_torch.core import AsyncFixedPoint, DESConfig
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    op = _spmd_graph()
+    cfg = DESConfig(tol=1e-7, norm="inf", base_flops_rate=1e5,
+                    bandwidth=1e6, msg_latency=1e-3, cancel_window=1.0,
+                    max_iters=3000, seed=9, comm_policy=policy,
+                    sparsify_top_k=64 if policy == "sparsified" else None)
+    afp = AsyncFixedPoint(op, kind=kind)
+    before = CSR["f64"]
+    a = afp.solve_des(4, cfg, device=cuda)
+    assert CSR["f64"] == before + int(a.iters.sum())
+    b = afp.solve_des(4, cfg, device="cpu")
+    for f in ("iters", "imports", "attempts", "local_conv_iter"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert (a.stop_time, a.max_staleness) == (b.stop_time, b.max_staleness)
+    assert float(np.abs(a.x - b.x).sum()) <= 1e-12
+    before = CSR["f64"]
+    s = afp.solve_des_sync(4, cfg, device=cuda)
+    assert CSR["f64"] == before + 4 * s.iters
+    c = afp.solve_des_sync(4, cfg, device="cpu")
+    assert (s.iters, s.time) == (c.iters, c.time)
+    assert float(np.abs(s.x - c.x).sum()) <= 1e-12
+
+
+DRAINS = {
+    # name: (DeviceShardTransport fields, L1 target)
+    "f64_allgather": (dict(exchange="allgather"), 1e-10),
+    "f64_ring": (dict(exchange="ring"), 1e-10),
+    "f64_sparsified": (dict(), 1e-10),
+    "f32_bsr_f32": (dict(dtype="float32", backend="bsr", accum="f32"), 1e-6),
+    "f32_bsr_kahan": (dict(dtype="float32", backend="bsr", accum="kahan"),
+                      1e-6),
+    "f64_bsr": (dict(backend="bsr"), 1e-6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DRAINS))
+def test_device_transport_on_card_matches_cpu(cuda, name):
+    """Each drain on the card against its CPU run on the seeded 5,000-page
+    graph, each launching its lane once per superstep for all four shards
+    (+ the final residual's apply). float64 segment sum: equal counts and
+    x within L1 1e-12. The block lanes read float32 views on the card (the
+    "f64" lane too: its kernel is the Kahan one over the views rounded to
+    float32, where the CPU's plain lane sums in float64): the same
+    verdict, supersteps within 2, x within L1 2e-6 of the CPU's, and a
+    host float64 residual within 3x the target."""
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.runtime import DeviceShardTransport
+    op = _spmd_graph()
+    kw, target = DRAINS[name]
+    x0 = np.full(op.n, 1.0 / op.n)
+    lane = ((CSR, "f64") if "backend" not in kw else
+            (LAUNCHES, "f32" if kw.get("accum") == "f32" else "kahan"))
+    before = lane[0][lane[1]]
+    a = DeviceShardTransport(4, device=cuda, **kw).run(op, x0,
+                                                       target=target)
+    assert lane[0][lane[1]] == before + a.supersteps + 1
+    b = DeviceShardTransport(4, device="cpu", **kw).run(op, x0,
+                                                        target=target)
+    assert a.converged and b.converged
+    if "backend" not in kw:
+        for f in ("supersteps", "rows_sent", "fulls", "comm_bytes_total"):
+            assert getattr(a, f) == getattr(b, f), f
+        assert float(np.abs(a.x - b.x).sum()) <= 1e-12
+    else:
+        assert abs(a.supersteps - b.supersteps) <= 2
+        assert float(np.abs(a.x - b.x).sum()) <= 2e-6
+    resid = float(np.abs(op.apply_linear_numpy(a.x) - a.x).sum())
+    assert resid <= 3 * target
+
+
+def test_f64_bsr_drain_reaches_the_kernels(cuda):
+    """A float64 bsr drain on the card: the views are rounded to float32
+    for the Kahan block kernel and the CSR kernel's hub lane (which take
+    float32 x only), and the result comes back float64."""
+    from repro_torch.core.partition import block_rows
+    from repro_torch.core.spmd import SPMDConfig, _device_structure, \
+        _pack_blocks
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.runtime.step import shard_pt_apply
+    op = _spmd_graph()
+    p, bm = 4, 8
+    cfg = SPMDConfig(p=p, backend="bsr")
+    packed = _pack_blocks(op, block_rows(op.n, p), np.float64, cfg,
+                          op.teleport()[:, None], bm)
+    dev = _device_structure(op, packed, True, cuda)
+    n_pad, bsize = packed["n_pad"], packed["bsize"]
+    view = torch.rand((p, n_pad, 1), dtype=torch.float64, device=cuda)
+    apply = shard_pt_apply(dev["op_dev"], use_bsr=True, bsize=bsize, nv=1,
+                           n_pad=n_pad, bm=bm, accum="f64")
+    before = (LAUNCHES["kahan"], CSR["hub"])
+    y = apply(view)
+    assert (LAUNCHES["kahan"], CSR["hub"]) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == torch.float64 and y.shape == (p, bsize, 1)
+    dev_cpu = _device_structure(op, packed, True, torch.device("cpu"))
+    ref = shard_pt_apply(dev_cpu["op_dev"], use_bsr=True, bsize=bsize, nv=1,
+                         n_pad=n_pad, bm=bm, accum="f64")(view.cpu())
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-5, atol=1e-6)

@@ -30,6 +30,8 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.core.spmd, repro_torch.core.engine\n"
         "import repro_torch.core.partition, repro_torch.core.termination\n"
         "import repro_torch.runtime, repro_torch.kernels.csr_spmv\n"
+        "import repro_torch.core.des, repro_torch.runtime.device\n"
+        "import repro_torch.runtime.local, repro_torch.runtime.state\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -608,9 +608,27 @@ def test_facade_matches_the_functions_it_wraps(g8):
         267, 267, 266]
 
 
-def test_facade_des_not_ported(g8):
+def test_facade_des_not_ported(g8, monkeypatch):
+    """The facade's DES flavors (once NotImplementedError, now ported:
+    tests/test_torch_des.py holds them to the JAX package) run the engine
+    on the facade's partition and kind, and need the card unless told the
+    CPU."""
+    from repro_torch.core import AsyncDES, DESConfig, PageRankBlockOperator
     op, _ = g8
-    for call in (lambda: AsyncFixedPoint(op).solve_des(4),
-                 lambda: AsyncFixedPoint(op).solve_des_sync(4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
+    cfg = DESConfig(tol=1e-8, max_iters=400, seed=3)
+    afp = AsyncFixedPoint(op, kind="linear", partition="balanced_nnz")
+    part = afp.make_partition(4)
+    def direct():
+        opr = PageRankBlockOperator(op, part, kind="linear", device="cpu")
+        return AsyncDES(opr, part, cfg, check_operator=op, device="cpu")
+    a, b = afp.solve_des(4, cfg, device="cpu"), direct().run()
+    assert a.iters.tolist() == b.iters.tolist() and a.stop_time == b.stop_time
+    np.testing.assert_array_equal(a.x, b.x)
+    a, b = afp.solve_des_sync(4, cfg, device="cpu"), direct().run_sync()
+    assert (a.iters, a.time) == (b.iters, b.time)
+    np.testing.assert_array_equal(a.x, b.x)
+    monkeypatch.setattr(__import__("torch").cuda, "is_available",
+                        lambda: False)
+    for call in (lambda: afp.solve_des(4), lambda: afp.solve_des_sync(4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
             call()
