@@ -58,13 +58,29 @@ Phases, each printing its own lines and seconds:
               (float64 segment sum; block float32 with the f32 and the
               Kahan lane; block float64), each certified by a host float64
               residual, with the launch counts read around them;
- 13. main   : Yi-6B inference at full width (random weights from --seed,
+ 13. main   : certified streaming updates on Stanford-Web (ROADMAP Queue
+              1 items 6.2-6.5): a DeltaGraph and its float64 cold state,
+              a crawl stream through update_ranks and a 1% batch whose
+              fallback solve runs on the card (the fallback split into the
+              P^T splice, the upload, the solve and the exact residual;
+              the stream replayed on the CPU's plain path beside it), the
+              sharded device drain of a further 1% batch, 16 batched
+              personalized queries on both device backends, the rank
+              server inline and threaded, the replay and the DES over
+              StreamingBlockOperator, each certificate the host float64
+              recomputation, with the device memory across versions and
+              the launch counts read around it;
+ 14. timing : the block kernel and the CSR kernel at the batched queries'
+              16 lanes (the block kernel's generic path; its ring path at
+              8 beside it), their plain versions, PyTorch's sparse calls
+              and the bounds;
+ 15. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
               the forward (bf16, then a float32 copy whose forward takes the
               CUDA-core lane), and greedy and sampled generation, with the
               launch counts of both lanes read around it;
- 14. timing : each flash lane, its plain version, PyTorch's
+ 16. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
@@ -152,6 +168,20 @@ TRANSPORT_LANES = [
      dict(dtype="float32", backend="bsr", accum="kahan"), 1e-6, 3e-6),
     ("bsr float64, accum f64, sparsified", dict(backend="bsr"), 1e-6, 3e-6),
 ]
+# the streaming phase (ROADMAP Queue 1 items 6.2-6.5) on Stanford-Web: the
+# crawl stream of benchmarks/streaming_bench.py's replay (:79-91: 24
+# batches of 2 edges; seed 4 here), its serving tol, the 1% batches' and
+# the cold state's tol, the shards of the device drain, the batched
+# queries (`benchmarks/query_bench.py`'s middle batch, 16) and the
+# replay's clock, copied, since those modules import the JAX package
+STREAM_TRACE = dict(n_batches=24, batch_edges=2, seed=4)
+STREAM_TOL = 1e-6
+STREAM_BULK_TOL = 1e-8
+STREAM_P = 4
+STREAM_PPR_NV = 16
+STREAM_PPR_TOL = 1e-4
+STREAM_REPLAY = dict(query_rate=500.0, delta_interval=0.25, tol=1e-5)
+STREAM_SERVE_S = 2.0
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "csr": "src/repro/graph/csr.py:152 (no TPU kernel: an XLA "
                      "gather + segment_sum)",
@@ -990,6 +1020,455 @@ def transport_main_path(op, smi):
     return launches, out
 
 
+@contextmanager
+def timed_calls(targets):
+    """Wrap each (owner, attribute, label) so that its calls add their
+    host seconds, ending in a synchronize, to totals[label]; the wrappers
+    are taken out on exit. A measurement aid of this script only."""
+    import torch
+    totals = {label: 0.0 for _, _, label in targets}
+    saved = []
+    for owner, name, label in targets:
+        raw = owner.__dict__[name]
+        fn = getattr(owner, name)
+        if isinstance(owner, type):
+            fn = raw                     # a method: wrap the function
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                totals[_label] += time.perf_counter() - t0
+        saved.append((owner, name, raw))
+        setattr(owner, name, wrapped)
+    try:
+        yield totals
+    finally:
+        for owner, name, raw in saved:
+            setattr(owner, name, raw)
+
+
+def streaming_main_path(g, smi):
+    """ROADMAP Queue 1 items 6.2-6.5 on Stanford-Web: a DeltaGraph, its
+    certified cold state, a crawl stream through `update_ranks` and a 1%
+    batch that falls back to the card's float64 solve (replayed on the
+    CPU's plain path from the same cold state), the sharded device drain,
+    16 batched personalized queries on both device backends (the host
+    scipy path beside them), the rank server inline and threaded, the
+    replay and the DES over `StreamingBlockOperator`. Every certificate is
+    the host float64 recomputation. Returns the launches of each kernel
+    over the card's runs, and the batched queries' seed sets."""
+    import threading
+    import numpy as np
+    import torch
+    import repro_torch.core.spmd as spmd_mod
+    import repro_torch.streaming.incremental as inc_mod
+    import repro_torch.streaming.sharded as sharded_mod
+    from repro_torch.core import AsyncDES, DESConfig, block_rows
+    from repro_torch.core.pagerank import kendall_tau_topk
+    from repro_torch.graph.google import GoogleOperator, exact_pagerank
+    from repro_torch.kernels.bsr_spmv import LAUNCHES
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+    from repro_torch.runtime import DeviceShardTransport
+    from repro_torch.streaming import (DeltaGraph, EdgeDelta, RankServer,
+                                       RankState, ReplayConfig,
+                                       StreamingBlockOperator, cold_state,
+                                       ppr_push_batched, refresh_residual,
+                                       replay_trace, synth_edge_trace,
+                                       update_ranks, update_ranks_sharded)
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    free_cuda()
+    mem = {"start": torch.cuda.memory_allocated()}
+    reset_launches()
+
+    # 1. the cold state: linear form, float64 segment sum (the CSR kernel's
+    # float64 lane once an iteration)
+    dg = DeltaGraph(g)
+    t0 = time.perf_counter()
+    st = cold_state(dg, tol=STREAM_BULK_TOL)
+    cold_ms = sync_ms(t0)
+    print(f"  cold_state: {cold_ms / 1e3:.3f} s, {CSR_LAUNCHES['f64']} "
+          f"iterations (CSR float64 launches), cert {st.cert:.3g} "
+          f"(tol {STREAM_BULK_TOL:g}), uploads included [{smi}]")
+    check(st.cert <= STREAM_BULK_TOL,
+          f"cold state certified: {st.cert:.3g} <= {STREAM_BULK_TOL:g}")
+    dg_h = DeltaGraph(g)
+    st_h = RankState(x=st.x.copy(), r=st.r.copy(), version=0,
+                     alpha=st.alpha)
+
+    # 2. the crawl stream, then a 1% batch that must fall back
+    t0 = time.perf_counter()
+    trace = synth_edge_trace(dg, **STREAM_TRACE)
+    print(f"  synth_edge_trace({STREAM_TRACE}): "
+          f"{time.perf_counter() - t0:.2f} s host (a scratch replica; the "
+          f"snapshot CSR rebuilt a batch)")
+    stream = []
+    certs = []
+    for k, d in enumerate(trace):
+        t0 = time.perf_counter()
+        st, s = update_ranks(dg, d, st, tol=STREAM_TOL)
+        ms = sync_ms(t0)
+        stream.append((s.path, s.pushes, s.nodes_visited))
+        certs.append(s.cert <= STREAM_TOL)
+        print(f"  batch {k:2d} ({d.size} edges, {d.new_nodes} new nodes): "
+              f"{s.path}, pushes {s.pushes}, visited {s.nodes_visited}, "
+              f"cert {s.cert:.3g}, {ms:.2f} ms")
+        if k == 1:
+            mem["after 2 batches"] = torch.cuda.memory_allocated()
+    check(all(certs), f"{len(trace)} stream batches certified at "
+          f"tol {STREAM_TOL:g} ({sum(p == 'push' for p, _, _ in stream)} "
+          f"on the push path)")
+    t0 = time.perf_counter()
+    bulk = synth_edge_trace(dg, n_batches=1, batch_edges=dg.nnz // 100,
+                            seed=5)[0]
+    print(f"  the 1% batch's trace: {time.perf_counter() - t0:.2f} s host")
+    before = CSR_LAUNCHES["f64"]
+    with timed_calls([
+            (DeltaGraph, "transition", "P^T splice"),
+            (GoogleOperator, "device_arrays", "upload"),
+            (inc_mod, "solve_linear", "solve"),
+            (inc_mod, "_exact_residual", "exact residual")]) as parts:
+        t0 = time.perf_counter()
+        st, s = update_ranks(dg, bulk, st, tol=STREAM_BULK_TOL)
+        ms = sync_ms(t0)
+    mem["after the 1% fallback"] = torch.cuda.memory_allocated()
+    rest = ms - 1e3 * sum(parts.values()) + 1e3 * parts["upload"]
+    print(f"  1% batch ({bulk.size} edges, {bulk.new_nodes} new nodes): "
+          f"{s.path}, {s.solver_iters} iterations ({CSR_LAUNCHES['f64'] - before}"
+          f" CSR float64 launches), aborted pushes {s.pushes}, cert "
+          f"{s.cert:.3g}, {ms:.1f} ms = P^T splice "
+          f"{1e3 * parts['P^T splice']:.1f} + upload "
+          f"{1e3 * parts['upload']:.1f} + solve "
+          f"{1e3 * (parts['solve'] - parts['upload']):.1f} + exact residual "
+          f"{1e3 * parts['exact residual']:.1f} (scipy P^T included) + "
+          f"the rest {rest:.1f} (apply, seeding, frontier count) [{smi}]")
+    check(s.path == "solve_linear" and s.cert <= STREAM_BULK_TOL
+          and CSR_LAUNCHES["f64"] - before == s.solver_iters,
+          f"1% batch fell back to the card's solve ({s.solver_iters} CSR "
+          f"float64 launches) and certified {s.cert:.3g} <= "
+          f"{STREAM_BULK_TOL:g}")
+    # the same stream on the CPU's plain path from the card's cold state
+    t0 = time.perf_counter()
+    same = True
+    for (path, pushes, visited), d in zip(stream, trace):
+        st_h, s_h = update_ranks(dg_h, d, st_h, tol=STREAM_TOL, device="cpu")
+        same &= (s_h.path, s_h.pushes, s_h.nodes_visited) == (path, pushes,
+                                                             visited)
+    st_h, s_h = update_ranks(dg_h, bulk, st_h, tol=STREAM_BULK_TOL,
+                             device="cpu")
+    l1 = float(np.abs(st.x - st_h.x).sum())
+    print(f"  CPU replay of step 2 ({time.perf_counter() - t0:.2f} s): 1% "
+          f"batch {s_h.path}, {s_h.solver_iters} iterations; L1(x_card, "
+          f"x_cpu) {l1:.3g}")
+    check(same and s_h.path == s.path and l1 <= 1e-9,
+          f"CPU replay: every batch's path and push counts equal, "
+          f"L1(x_card, x_cpu) {l1:.3g} <= 1e-9")
+    del dg_h, st_h
+
+    # 3. the sharded device drain of a further 1% batch
+    t0 = time.perf_counter()
+    bulk2 = synth_edge_trace(dg, n_batches=1, batch_edges=dg.nnz // 100,
+                             seed=6)[0]
+    print(f"  the second 1% batch's trace: {time.perf_counter() - t0:.2f} s "
+          f"host")
+    before = CSR_LAUNCHES["f64"]
+    with timed_calls([(DeltaGraph, "transition", "P^T splice"),
+                      (DeviceShardTransport, "run", "drain"),
+                      (spmd_mod, "_pack_blocks", "pack"),
+                      (spmd_mod, "_device_structure", "upload"),
+                      (sharded_mod, "_exact_residual", "exact residual")]) \
+            as parts:
+        t0 = time.perf_counter()
+        st, s = update_ranks_sharded(dg, bulk2, st, p=STREAM_P,
+                                     mode="async", transport="device",
+                                     exchange="sparsified",
+                                     tol=STREAM_BULK_TOL)
+        ms = sync_ms(t0)
+    drain_launches = CSR_LAUNCHES["f64"] - before
+    print(f"  sharded device drain, p={STREAM_P}, sparsified, 1% batch "
+          f"({bulk2.size} edges): {s.path}, supersteps {s.supersteps}, "
+          f"rows_sent {s.rows_sent:,}, fulls {s.fulls}, bytes "
+          f"{s.bytes_moved:,}, attempts {s.attempts}, cert {s.cert:.3g}, "
+          f"{ms:.1f} ms = P^T splice {1e3 * parts['P^T splice']:.1f} + "
+          f"drain {1e3 * parts['drain']:.1f} (packing "
+          f"{1e3 * parts['pack']:.1f}, upload {1e3 * parts['upload']:.1f}; "
+          f"{1e3 * (parts['drain'] - parts['pack'] - parts['upload']) / s.supersteps:.3f}"
+          f" ms a superstep) + exact residuals "
+          f"{1e3 * parts['exact residual']:.1f} + the rest "
+          f"{ms - 1e3 * (parts['P^T splice'] + parts['drain'] + parts['exact residual']):.1f}"
+          f" (apply, seeding), CSR float64 launches {drain_launches} "
+          f"[{smi}]")
+    check(s.path == "sharded_push" and s.cert <= STREAM_BULK_TOL
+          and drain_launches == s.supersteps + s.attempts,
+          f"device drain certified {s.cert:.3g} <= {STREAM_BULK_TOL:g}, one "
+          f"launch a superstep for all {STREAM_P} shards + one a drain")
+    mem["after the device drain"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    exact = exact_pagerank(dg.operator(0.85), tol=1e-12)
+    l1 = float(np.abs(st.x - exact).sum())
+    tau = kendall_tau_topk(st.x, exact, k=100)
+    print(f"  float64 oracle of version {dg.version} "
+          f"({time.perf_counter() - t0:.2f} s host): L1 {l1:.3g}, top-100 "
+          f"tau {tau:.6f}")
+    check(l1 <= s.cert and tau >= 0.999,
+          f"after steps 2-3: L1 to the oracle {l1:.3g} <= the last "
+          f"certificate {s.cert:.3g}, top-100 tau {tau:.6f} >= 0.999")
+    t0 = time.perf_counter()
+    dg.compact()
+    print(f"  compact(): {time.perf_counter() - t0:.2f} s host (the 1% "
+          f"batches' overlay folded into the base; the version stays "
+          f"{dg.version})")
+
+    # 4. batched personalized PageRank: 16 lanes
+    rng = np.random.default_rng(16)
+    sets = [rng.choice(dg.n, size=4, replace=False)
+            for _ in range(STREAM_PPR_NV)]
+    for backend in ("segment_sum", "bsr", "scipy"):
+        t0 = time.perf_counter()
+        _, cs, bs = ppr_push_batched(dg, sets, tol=STREAM_PPR_TOL,
+                                     backend=backend)
+        ms = sync_ms(t0)
+        print(f"  ppr_push_batched[{backend}] nv={bs.nv}: {ms:.1f} ms "
+              f"({ms / bs.nv:.2f} ms a query), path {bs.path}, iters "
+              f"{bs.iters}, lane_iters {bs.lane_iters.tolist()}, certs "
+              f"max {cs.max():.3g} {np.round(cs / 1e-5, 2).tolist()} x 1e-5"
+              f"{' (a yardstick on the host)' if backend == 'scipy' else ''}"
+              f" [{smi}]")
+        if backend != "scipy":
+            check((cs <= STREAM_PPR_TOL).all(),
+                  f"{backend}: every lane certified <= {STREAM_PPR_TOL:g}")
+    print(f"  launches so far: block {dict(LAUNCHES)}, CSR "
+          f"{dict(CSR_LAUNCHES)}")
+
+    # 5. the rank server, inline, then threaded
+    t0 = time.perf_counter()
+    srv = RankServer(dg, tol=STREAM_TOL)
+    print(f"  RankServer(tol={STREAM_TOL:g}): {sync_ms(t0):.0f} ms (its cold "
+          f"state on the card)")
+    for _ in range(8):
+        srv.ingest(EdgeDelta.inserts(rng.integers(0, dg.n, 2),
+                                     rng.integers(0, dg.n, 2)))
+    t0 = time.perf_counter()
+    s = srv.apply_pending()
+    ms = sync_ms(t0)
+    ids, _ = srv.top_k(100)
+    t0 = time.perf_counter()
+    _, pcert, ps = srv.personalized(sets[0])
+    pms = (time.perf_counter() - t0) * 1e3
+    print(f"  RankServer: 8 deltas merged, {s.path}, cert {s.cert:.3g}, "
+          f"{ms:.1f} ms; top_k(100) head {ids[:5].tolist()}; personalized "
+          f"cert {pcert:.3g} ({ps.pushes} pushes, {pms:.1f} ms)")
+    check(len(ids) == 100 and pcert <= 1e-4 and srv.snapshot().cert
+          <= STREAM_TOL, "inline server: top_k(100), a certified "
+          "personalized answer and snapshot")
+    seen, errors = [], []
+    stop = threading.Event()
+
+    def ingester():
+        r = np.random.default_rng(18)
+        while not stop.is_set():
+            srv.ingest(EdgeDelta.inserts(r.integers(0, dg.n, 2),
+                                         r.integers(0, dg.n, 2)))
+            time.sleep(0.01)
+
+    def reader(kind):
+        r = np.random.default_rng(kind)
+        try:
+            while not stop.is_set():
+                seen.append(srv.snapshot().cert)
+                if kind == 0:
+                    srv.top_k(100)
+                else:
+                    srv.personalized(r.choice(dg.n, 2, replace=False),
+                                     tol=1e-2)
+                time.sleep(0.001)       # a query stream, not a spin
+        except Exception as exc:
+            errors.append(exc)
+            stop.set()
+
+    applied0 = srv.batches_applied
+    srv.start(poll_s=0.001)
+    threads = [threading.Thread(target=ingester)] + [
+        threading.Thread(target=reader, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    time.sleep(STREAM_SERVE_S)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    t0 = time.perf_counter()
+    srv.stop(drain=True)
+    torch.cuda.synchronize()
+    h = srv.health()
+    print(f"  threaded, {STREAM_SERVE_S:g} s: {srv.deltas_ingested} deltas "
+          f"ingested, {srv.batches_applied - applied0} batches applied, "
+          f"{srv.queries_served} queries served, {srv.fallbacks} fallbacks, "
+          f"staleness {srv.staleness()}, stop(drain) "
+          f"{time.perf_counter() - t0:.2f} s; health {h['status']}, "
+          f"last_error {h['last_error']}, restarts {h['updater_restarts']}, "
+          f"cold rebuilds {srv.cold_rebuilds}")
+    check(not errors and not any(t.is_alive() for t in threads)
+          and h["last_error"] is None and h["updater_restarts"] == 0
+          and srv.cold_rebuilds == 0 and srv.snapshot().cert <= STREAM_TOL
+          and all(c <= STREAM_TOL for c in seen)
+          and srv.snapshot().version == dg.version,
+          f"threaded server: no error, no restart, no cold rebuild, every "
+          f"one of {len(seen)} snapshots read certified <= {STREAM_TOL:g}")
+
+    # 6. the replay, and the DES over the streaming operator
+    snap = srv.snapshot()
+    st6 = RankState(x=snap.x.copy(), r=np.zeros(dg.n), version=dg.version,
+                    alpha=0.85)
+    refresh_residual(dg, st6)
+    del srv, snap
+    t0 = time.perf_counter()
+    trace6 = synth_edge_trace(dg, **dict(STREAM_TRACE, seed=7))
+    print(f"  the replay's trace: {time.perf_counter() - t0:.2f} s host")
+    t0 = time.perf_counter()
+    res = replay_trace(dg, st6, trace6, ReplayConfig(**STREAM_REPLAY))
+    wall = sync_ms(t0)
+    paths = [r.path for r in res.rows]
+    print(f"  replay_trace, ReplayConfig({STREAM_REPLAY}): {wall:.0f} ms "
+          f"host, {paths.count('push')} of {len(paths)} batches on the push "
+          f"path; fresh {res.fresh_pct:.1f}%, mean age "
+          f"{res.mean_age_s * 1e3:.0f} ms, p95 {res.p95_age_s * 1e3:.0f} ms,"
+          f" busy {res.busy_frac:.3f}, {res.deltas_per_s:.1f} deltas/s "
+          f"(simulated clock)")
+    print("    " + res.table().replace("\n", "\n    "))
+    check(len(res.rows) == len(trace6) and st6.cert <= STREAM_REPLAY["tol"],
+          f"replay: {len(res.rows)} records, final cert {st6.cert:.3g}")
+    mem["after the stream"] = torch.cuda.memory_allocated()
+    part = block_rows(dg.n, STREAM_P)
+    t0 = time.perf_counter()
+    dg.transition()
+    print(f"  P^T of version {dg.version} for the DES: "
+          f"{time.perf_counter() - t0:.2f} s host")
+    before = CSR_LAUNCHES["f64"]
+    t0 = time.perf_counter()
+    a = AsyncDES(StreamingBlockOperator(dg, part), part,
+                 DESConfig(**DES_CFG)).run()
+    wall_a = sync_ms(t0)
+    des_launches = CSR_LAUNCHES["f64"] - before
+    t0 = time.perf_counter()
+    c = AsyncDES(StreamingBlockOperator(dg, part, device="cpu"), part,
+                 DESConfig(**DES_CFG), device="cpu").run()
+    wall_c = (time.perf_counter() - t0) * 1e3
+    l1 = float(np.abs(a.x - c.x).sum())
+    print(f"  DES over StreamingBlockOperator, p={STREAM_P}: card "
+          f"{wall_a:.0f} ms, CPU {wall_c:.0f} ms; iters {a.iters.tolist()} /"
+          f" {c.iters.tolist()}, imports {int(a.imports.sum())} / "
+          f"{int(c.imports.sum())}, attempts {int(a.attempts.sum())} / "
+          f"{int(c.attempts.sum())}, CSR float64 launches {des_launches}; "
+          f"L1(x_card, x_cpu) {l1:.3g}")
+    check(a.iters.tolist() == c.iters.tolist()
+          and np.array_equal(a.imports, c.imports)
+          and np.array_equal(a.attempts, c.attempts) and l1 <= 1e-6
+          and des_launches == int(a.iters.sum()),
+          f"DES bridge: the card's iters, imports and attempts are the "
+          f"CPU's, L1 {l1:.3g} <= 1e-6, one launch a block update")
+    launches = {"bsr_f32": LAUNCHES["f32"], "bsr_kahan": LAUNCHES["kahan"],
+                "csr_f32": CSR_LAUNCHES["f32"], "csr_f64": CSR_LAUNCHES["f64"],
+                "csr_hub": CSR_LAUNCHES["hub"]}
+    print(f"  streaming launches: {launches}")
+    check(launches["bsr_f32"] > 0 and launches["csr_f64"] > 0
+          and launches["csr_hub"] > 0,
+          "the phase launched the block kernel, the CSR kernel's float64 "
+          "lane and its hub lane")
+    del a, c
+    free_cuda()
+    mem["end"] = torch.cuda.memory_allocated()
+    print("  memory_allocated: " + ", ".join(
+        f"{k} {v / 1e6:.1f} MB" for k, v in mem.items()))
+    check(mem["after the stream"] <= 1.5 * mem["after 2 batches"],
+          f"device memory after the stream "
+          f"{mem['after the stream'] / 1e6:.1f} MB <= 1.5 x after two "
+          f"batches ({mem['after 2 batches'] / 1e6:.1f} MB)")
+    device_breakdown(lambda: ppr_push_batched(
+        dg, sets, tol=STREAM_PPR_TOL, backend="segment_sum"),
+        "ppr_push_batched[segment_sum] nv=16", smi)
+    return launches, dg, sets
+
+
+def nv16_timing(dg, sets, cuda, smi):
+    """The block kernel (bm = 8) and the CSR kernel (float32, float64) at
+    the batched queries' 16 lanes on the stream's final graph, against
+    their plain versions, a PyTorch call and the bound; the block kernel's
+    path at 16 lanes and at 8. Returns {lane: row}."""
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import as_spec, prepare, seed_stack
+    from repro_torch.kernels.bsr_spmv import (bsr_spmv, bsr_spmv_ref,
+                                              kernel_path)
+    from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
+    op = dg.operator(0.85)
+    n = op.n
+    v16 = seed_stack(n, sets)
+    rows = {}
+    dev, meta, _ = prepare(op, as_spec("bsr", cuda), torch.float32, v=v16)
+    blocks, cols, count = dev["blocks"], dev["blk_cols"], dev["blk_count"]
+    # a seeded iterate with distinct lanes and zero padding rows: a kernel
+    # that gathers the wrong block columns or mixes lanes disagrees
+    x = torch.rand((meta.n_pad // blocks.shape[3], blocks.shape[3], 16),
+                   dtype=torch.float32, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(4))
+    x.view(meta.n_pad, 16)[n:] = 0.0
+    paths = {nv: kernel_path(blocks, x[..., :nv].contiguous())
+             for nv in (16, 8)}
+    for nv in (16, 8):
+        xs = x[..., :nv].contiguous()
+        y = bsr_spmv(blocks, cols, xs, blk_count=count)
+        y_ref = bsr_spmv_ref(blocks, cols, xs)
+        err = float((y - y_ref).abs().max())
+        check(err <= 1e-5 * float(y_ref.abs().max()),
+              f"block kernel nv={nv} ({paths[nv]}) against plain {err:.3g}")
+        lib = library_bsr_call(blocks, cols, xs, count)
+        t = {"kernel": cuda_ms(lambda: bsr_spmv(blocks, cols, xs,
+                                                blk_count=count), 20),
+             "plain": cuda_ms(lambda: bsr_spmv_ref(blocks, cols, xs), 3),
+             "library": cuda_ms(lib, 10)}
+        b_ms, b_by, _, _ = bound(blocks, count, xs, y)
+        rows[("bsr", nv)] = dict(t, err=err, bound_ms=b_ms, bound_by=b_by,
+                                 path=paths[nv])
+        print(f"  block kernel bm=8 nv={nv} ({paths[nv]} path): "
+              f"{t['kernel']:.4f} ms, plain {t['plain']:.4f}, sparse-BSR "
+              f"call {t['library']:.4f}, bound {b_ms:.4f} ({b_by}; kernel "
+              f"at {100 * b_ms / t['kernel']:.1f}%) [{smi}]")
+    del dev, x, blocks, cols, count
+    nnz_r = torch.as_tensor(np.diff(op.pt.indptr), device=cuda)
+    for dt, lane in ((torch.float32, "f32"), (torch.float64, "f64")):
+        d = op.pt.device_arrays(dt, cuda)
+        xs = torch.rand((n, 16), dtype=dt, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+        y = csr_spmv(d["indptr"], d["src"], d["weight"], xs, n)
+        y_ref = csr_spmv_ref(d["row_ids"], d["src"], d["weight"], xs, n)
+        ok, err = csr_within_bound(y, y_ref, d["row_ids"], d["src"],
+                                   d["weight"], xs, nnz_r)
+        check(ok, f"CSR kernel {lane} nv=16 against plain: max |kernel - "
+              f"plain| = {err:.3g} (" + ("1e-12 relative" if lane == "f64"
+                                         else "the per-row float32 reorder "
+                                         "bound") + ")")
+        lib = library_csr_call(d, xs, n)
+        t = {"kernel": cuda_ms(lambda: csr_spmv(d["indptr"], d["src"],
+                                                d["weight"], xs, n), 20),
+             "plain": cuda_ms(lambda: csr_spmv_ref(d["row_ids"], d["src"],
+                                                   d["weight"], xs, n), 5),
+             "library": cuda_ms(lib, 10)}
+        b_ms, b_by = csr_bound(d, xs, y, n)
+        rows[(lane, 16)] = dict(t, err=err, bound_ms=b_ms, bound_by=b_by)
+        print(f"  CSR kernel {lane} nv=16: {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f}, sparse CSR call {t['library']:.4f}, bound "
+              f"{b_ms:.4f} ({b_by}; kernel at "
+              f"{100 * b_ms / t['kernel']:.1f}%) [{smi}]")
+    free_cuda()
+    return rows
+
+
 def attention_flops(q, k, causal):
     """The work of one attention call: 4 * D flops per allowed (query, key)
     pair and head (q k^T and p v). Causal is top-left: row i sees
@@ -1457,6 +1936,7 @@ def main(argv=None):
     from repro_torch.core.pagerank import (kendall_tau_topk, solve_linear,
                                            solve_power)
     from repro_torch.core.spmd import SPMDConfig, solve_spmd
+    from repro_torch.graph.csr import CSRGraph
     from repro_torch.graph.google import GoogleOperator, exact_pagerank
     from repro_torch.kernels import build
     from repro_torch.kernels.bsr_spmv import (DEFAULT_BM, LAUNCHES,
@@ -1833,8 +2313,19 @@ def main(argv=None):
                f"{TRANSPORT_P})"):
         drain_launches, _ = transport_main_path(op, smi)
 
+    # the crawl's graph (source rows) back from P^T, for the stream
+    g = CSRGraph.from_edges(op.n, op.pt.src, op.pt.row_ids)
     del op, op8, y_kahan, y_f32    # the Stanford-Web layouts on the card
     free_cuda()
+
+    with phase("main path: Stanford-Web streaming"):
+        print(f"  card: {smi}")
+        stream_launches, dg, ppr_sets = streaming_main_path(g, smi)
+
+    with phase("timing: the block and CSR kernels at 16 lanes"):
+        nv16 = nv16_timing(dg, ppr_sets, cuda, smi)
+        del dg, g
+        free_cuda()
 
     with phase("main path: Yi-6B inference"):
         flash_launches = yi_main_path(cuda, args.seed)
@@ -1851,20 +2342,26 @@ def main(argv=None):
             "source": BSR_SOURCE, "replaces": TPU_KERNEL[accum],
             "launches": main_launches[accum] + (
                 spmd_launches["bsr_f32"] if accum == "f32" else 0)
-            + drain_launches[f"bsr_{accum}"],
+            + drain_launches[f"bsr_{accum}"]
+            + stream_launches[f"bsr_{accum}"],
             "max_abs_err": max(max_err[accum], errs[accum], *(
-                f[3] for f in folded.values() if accum == "f32")),
+                f[3] for f in folded.values() if accum == "f32"), *(
+                nv16[("bsr", nv)]["err"] for nv in (16, 8)
+                if accum == "f32")),
             "ms": t[accum], "plain_ms": t[f"plain_{accum}"], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
-    for lane, launches in (("f32", spmd_launches["csr_f32"]),
+    for lane, launches in (("f32", spmd_launches["csr_f32"]
+                            + stream_launches["csr_f32"]),
                            ("f64", main_csr["f64"] + des_launches
-                            + drain_launches["csr_f64"])):
+                            + drain_launches["csr_f64"]
+                            + stream_launches["csr_f64"])):
         row = csr_rows[(lane, 1)]
         kernels.append({
             "name": f"csr_spmv_{lane}", "route": "cuda", "source": CSR_SOURCE,
             "replaces": TPU_KERNEL["csr"], "launches": launches,
-            "max_abs_err": max(csr_err[lane], row["err"]),
+            "max_abs_err": max(csr_err[lane], row["err"],
+                               nv16[(lane, 16)]["err"]),
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library"]})
@@ -1873,7 +2370,7 @@ def main(argv=None):
         "name": "csr_spmv_hub", "route": "cuda", "source": CSR_SOURCE,
         "replaces": TPU_KERNEL["hub"],
         "launches": main_csr["hub"] + spmd_launches["csr_hub"]
-        + drain_launches["csr_hub"],
+        + drain_launches["csr_hub"] + stream_launches["csr_hub"],
         "max_abs_err": max(csr_err["hub"], row["err"]), "ms": row["kernel"],
         "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None})

@@ -9,6 +9,12 @@ Ported so far:
     one card, the Fig. 1 termination protocol and the AsyncFixedPoint
     facade, with the segment-sum backend's SpMV as a hand-written CUDA
     kernel in a fixed order;
+  * the paper's discrete-event simulation (Tables 1-2) and the device
+    shard transport;
+  * certified streaming updates (the `streaming` package: the delta log,
+    the incremental and sharded updaters, batched personalized PageRank,
+    the rank server and the replay), with its solves, lane stacks, device
+    drains and block updates on the CSR and block-CSR kernels;
   * inference for the dense decoders of the LM scaffold (Yi-6B, SmolLM,
     Qwen1.5, Minitron): the prefill forward, with the flash-attention
     kernel as a hand-written CUDA kernel, the KV-cache decode step and the

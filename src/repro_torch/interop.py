@@ -11,15 +11,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .graph.csr import TransitionT
+from .graph.csr import CSRGraph, TransitionT
 from .graph.google import GoogleOperator
 from .kernels.bsr_spmv.ops import BSRMatrix, HybridBSR
 from .models.config import ModelConfig
 from .models.param import match_defs
 from .models.transformer import model_defs, stack_plan
+from .streaming.delta import EdgeDelta
+from .streaming.incremental import RankState
 
 OPERATOR_KEYS = ("n", "indptr", "src", "weight", "row_ids", "dangling",
                  "alpha", "v")
+GRAPH_KEYS = ("n", "indptr", "indices")
+DELTA_KEYS = ("add_src", "add_dst", "del_src", "del_dst", "new_nodes")
+STATE_KEYS = ("x", "r", "version", "alpha", "v")
 HYBRID_KEYS = ("n_rows", "n_cols", "bm", "bn", "blocks", "blk_cols",
                "fill_ratio", "hub_rows", "hub_cols", "hub_vals",
                "hub_nnz_frac")
@@ -49,6 +54,44 @@ def operator_from_arrays(d: Mapping) -> GoogleOperator:
         raise ValueError("inconsistent operator arrays")
     v = None if d["v"] is None else np.asarray(d["v"], dtype=np.float64)
     return GoogleOperator(pt=pt, alpha=float(d["alpha"]), v=v)
+
+
+def csr_graph_from_arrays(d: Mapping) -> CSRGraph:
+    """CSRGraph (source rows, target columns) from `n`, `indptr` and
+    `indices`, as a DeltaGraph's base takes it."""
+    _check_keys(d, GRAPH_KEYS, "graph")
+    n = int(d["n"])
+    g = CSRGraph(n=n, indptr=np.asarray(d["indptr"], dtype=np.int64),
+                 indices=np.asarray(d["indices"], dtype=np.int32))
+    if (g.indptr.shape != (n + 1,) or g.indptr[0] != 0
+            or g.indptr[-1] != g.nnz or np.any(np.diff(g.indptr) < 0)
+            or (g.nnz and (g.indices.min() < 0 or g.indices.max() >= n))):
+        raise ValueError("inconsistent graph arrays")
+    return g
+
+
+def edge_delta_from_arrays(d: Mapping) -> EdgeDelta:
+    """EdgeDelta from `add_src`, `add_dst`, `del_src`, `del_dst` (node
+    ids) and `new_nodes`."""
+    _check_keys(d, DELTA_KEYS, "delta")
+    ids = {k: np.asarray(d[k], dtype=np.int64).ravel()
+           for k in DELTA_KEYS[:4]}
+    return EdgeDelta(**ids, new_nodes=int(d["new_nodes"]))
+
+
+def rank_state_from_arrays(d: Mapping) -> RankState:
+    """RankState from `x`, `r` (float64), `version`, `alpha` and `v` (None
+    for the uniform teleport); x and r are copied, since the updaters
+    change them in place."""
+    _check_keys(d, STATE_KEYS, "rank state")
+    x = np.array(d["x"], dtype=np.float64)
+    r = np.array(d["r"], dtype=np.float64)
+    v = None if d["v"] is None else np.array(d["v"], dtype=np.float64)
+    if x.ndim != 1 or r.shape != x.shape or (v is not None
+                                             and v.shape != x.shape):
+        raise ValueError("inconsistent rank state arrays")
+    return RankState(x=x, r=r, version=int(d["version"]),
+                     alpha=float(d["alpha"]), v=v)
 
 
 def bsr_from_arrays(d: Mapping) -> HybridBSR:

@@ -14,11 +14,14 @@ the whole runtime):
   transport — `HostAllReduce` and `mesh_psum`, the reduction seam;
   step      — the superstep builders and `comm_bytes_model`;
   device    — `DeviceShardTransport`: the p shard programs on one card,
-              draining the linear form to an all-reduced L1 target.
+              draining the linear form to an all-reduced L1 target;
+  schedule  — the drain schedules (`ScheduleSpec`, `make_schedule`) the
+              streaming drains order their sweeps by;
+  observe   — `render_prometheus`, the rank server's metrics text.
 
 Not ported yet (ROADMAP Queue 1 item 7): ShardArena, the threads and
-worker-process transports, the executor, faults, supervisor, observer and
-schedules.
+worker-process transports, the executor, faults, supervisor and the
+observer itself.
 """
 from .device import DeviceRunResult, DeviceShardTransport
 from .driver import TerminationDriver
@@ -26,6 +29,7 @@ from .exchange import (SPMD_SCHEDULES, AdaptivePlan, AllToAllPlan,
                        ExchangePlan, RingPlan, SparsifiedPlan, make_plan,
                        spmd_exchange)
 from .local import BlockLocalSolver, LocalSolver
+from .schedule import SCHEDULES, ScheduleSpec, make_schedule
 from .state import ShardState
 from .step import (Spans, comm_bytes_model, hash_uniform, init_carry,
                    shard_local_update, shard_pt_apply, shard_superstep_fns)
@@ -39,4 +43,5 @@ __all__ = [
     "comm_bytes_model", "hash_uniform", "init_carry", "shard_local_update",
     "shard_pt_apply", "shard_superstep_fns", "HostAllReduce", "mesh_psum",
     "DeviceShardTransport", "DeviceRunResult",
+    "SCHEDULES", "ScheduleSpec", "make_schedule",
 ]

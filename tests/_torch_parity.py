@@ -44,3 +44,22 @@ def ref_x64(monkeypatch):
     if not hasattr(jax.experimental, "enable_x64"):
         monkeypatch.setattr(jax.experimental, "enable_x64",
                             lambda: jax.enable_x64(True), raising=False)
+
+
+def graph_arrays(g):
+    """The arrays `csr_graph_from_arrays` takes, read off a JAX-package
+    CSRGraph."""
+    return dict(n=g.n, indptr=g.indptr, indices=g.indices)
+
+
+def delta_arrays(d):
+    """The arrays `edge_delta_from_arrays` takes, read off a JAX-package
+    EdgeDelta."""
+    return dict(add_src=d.add_src, add_dst=d.add_dst, del_src=d.del_src,
+                del_dst=d.del_dst, new_nodes=d.new_nodes)
+
+
+def state_arrays(s):
+    """The arrays `rank_state_from_arrays` takes, read off a JAX-package
+    RankState."""
+    return dict(x=s.x, r=s.r, version=s.version, alpha=s.alpha, v=s.v)

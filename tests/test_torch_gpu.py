@@ -927,3 +927,207 @@ def test_f64_bsr_drain_reaches_the_kernels(cuda):
     ref = shard_pt_apply(dev_cpu["op_dev"], use_bsr=True, bsize=bsize, nv=1,
                          n_pad=n_pad, bm=bm, accum="f64")(view.cpu())
     torch.testing.assert_close(y.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# streaming: certified updates, batched personalized PageRank, the sharded
+# device drain, the rank server and the DES bridge, on the card against the
+# port's CPU run
+# ---------------------------------------------------------------------------
+def _stream_graph():
+    from repro_torch.graph import powerlaw_webgraph
+    return powerlaw_webgraph(n=2000, target_nnz=16000, n_dangling=10,
+                             seed=7)
+
+
+def _stream_pair(cuda):
+    """The same graph as two DeltaGraphs, with the card's cold state and
+    its copy for the CPU side."""
+    from repro_torch.streaming import DeltaGraph, RankState, cold_state
+    g = _stream_graph()
+    dg_c, dg_h = DeltaGraph(g), DeltaGraph(g)
+    st_c = cold_state(dg_c, tol=1e-9, device=cuda)
+    st_h = RankState(x=st_c.x.copy(), r=st_c.r.copy(), version=0,
+                     alpha=st_c.alpha)
+    return dg_c, dg_h, st_c, st_h
+
+
+def test_update_ranks_stream_on_card_matches_cpu(cuda):
+    """A crawl stream: the push batches (host numpy) give the CPU's counts
+    and bits; the fallbacks run the CSR kernel's float64 lane once per
+    solver iteration and give the CPU's path and iterations, x within L1
+    1e-12."""
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import (DeltaGraph, cold_state,
+                                       synth_edge_trace, update_ranks)
+    g = _stream_graph()
+    a = cold_state(DeltaGraph(g), tol=1e-9, device=cuda)
+    b = cold_state(DeltaGraph(g), tol=1e-9, device="cpu")
+    assert float(np.abs(a.x - b.x).sum()) <= 1e-12 and a.cert <= 1e-9
+    dg_c, dg_h, st_c, st_h = _stream_pair(cuda)
+    trace = synth_edge_trace(dg_c, n_batches=6, batch_edges=3, seed=5,
+                             p_new_node=0.3)
+    fallbacks = 0
+    for k, d in enumerate(trace):
+        kw = (dict(tol=1e-5, push_frontier_frac=1.0) if k % 2 == 0 else
+              dict(tol=1e-7, push_frontier_frac=0.25))
+        before = CSR["f64"]
+        st_c, s_c = update_ranks(dg_c, d, st_c, device=cuda, **kw)
+        st_h, s_h = update_ranks(dg_h, d, st_h, device="cpu", **kw)
+        assert s_c.path == s_h.path
+        assert (s_c.pushes, s_c.nodes_visited, s_c.solver_iters) == (
+            s_h.pushes, s_h.nodes_visited, s_h.solver_iters)
+        assert CSR["f64"] == before + s_c.solver_iters
+        assert float(np.abs(st_c.x - st_h.x).sum()) <= 1e-12
+        assert s_c.cert <= kw["tol"] and s_h.cert <= kw["tol"]
+        fallbacks += s_c.path != "push"
+        st_h.x[:] = st_c.x          # the next batch from the same bits
+        st_h.r[:] = st_c.r
+    assert 0 < fallbacks < len(trace)
+
+
+@pytest.mark.parametrize("backend", ["segment_sum", "bsr"])
+def test_ppr_push_batched_16_lanes_on_card(cuda, backend):
+    """16 lanes (off the block kernel's ring path: its first chunk runs the
+    generic path, until freezing compacts the stack to 8): every
+    certificate within tol on the card, lane iterations within one of the
+    CPU's and each lane within L1 1e-9 of it on the float64 segment sum,
+    the kernel launched."""
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import DeltaGraph, ppr_push_batched
+    dg = DeltaGraph(_stream_graph())
+    rng = np.random.default_rng(10)
+    sets = [rng.choice(dg.n, size=3, replace=False) for _ in range(16)]
+    counter = LAUNCHES if backend == "bsr" else CSR
+    lane = "f32" if backend == "bsr" else "f64"
+    before = counter[lane]
+    xa, ca, sa = ppr_push_batched(dg, sets, tol=1e-4, backend=backend,
+                                  device=cuda)
+    assert counter[lane] > before and sa.nv == 16
+    xb, cb, sb = ppr_push_batched(dg, sets, tol=1e-4, backend=backend,
+                                  device="cpu")
+    assert (ca <= 1e-4).all() and (cb <= 1e-4).all()
+    if backend == "segment_sum":
+        assert np.abs(sa.lane_iters - sb.lane_iters).max() <= 1
+        assert np.abs(xa - xb).sum(axis=0).max() <= 1e-9
+    else:
+        assert np.abs(xa - xb).sum(axis=0).max() <= 2e-4
+    x16 = torch.zeros((8, 8, 16), device=cuda)
+    assert kernel_path(torch.zeros((8, 2, 8, 8), device=cuda), x16) \
+        == "generic"
+
+
+def test_sharded_device_drain_on_card_matches_cpu(cuda):
+    """The sharded updater's device drain on the card: one CSR float64
+    launch a superstep for all four shards (+ the final residual's apply a
+    drain), the CPU's supersteps, rows and refreshes, x within L1 1e-12."""
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import synth_edge_trace, update_ranks_sharded
+    dg_c, dg_h, st_c, st_h = _stream_pair(cuda)
+    for d in synth_edge_trace(dg_c, n_batches=2, batch_edges=20, seed=71,
+                              p_new_node=0.0):
+        kw = dict(p=4, tol=1e-8, mode="async", transport="device",
+                  exchange="sparsified")
+        before = CSR["f64"]
+        st_c, a = update_ranks_sharded(dg_c, d, st_c, device=cuda, **kw)
+        assert CSR["f64"] == before + a.supersteps + a.attempts
+        st_h, b = update_ranks_sharded(dg_h, d, st_h, device="cpu", **kw)
+        assert a.path == b.path == "sharded_push"
+        for f in ("supersteps", "rows_sent", "fulls", "bytes_moved",
+                  "attempts"):
+            assert getattr(a, f) == getattr(b, f), f
+        assert float(np.abs(st_c.x - st_h.x).sum()) <= 1e-12
+        assert a.cert <= 1e-8 and b.cert <= 1e-8
+        st_h.x[:] = st_c.x
+        st_h.r[:] = st_c.r
+
+
+def test_rank_server_threaded_on_card(cuda):
+    """The daemon updater launches its fallback solves from its own thread
+    while two threads query: every snapshot the readers see is certified,
+    the kernel ran from the updater thread, and after stop(drain=True) the
+    health is clean (no swallowed error, no restart, no cold rebuild) and
+    the ranks agree with the CPU's float64 oracle of the final graph."""
+    import threading
+    import time
+    from repro_torch.graph.google import exact_pagerank
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import DeltaGraph, EdgeDelta, RankServer
+    tol = 1e-7
+    srv = RankServer(DeltaGraph(_stream_graph()), tol=tol,
+                     push_frontier_frac=0.25, device=cuda)
+    seen, errors = [], []
+    stop = threading.Event()
+
+    def reader(kind):
+        rng = np.random.default_rng(kind)
+        try:
+            while not stop.is_set():
+                snap = srv.snapshot()
+                seen.append(snap.cert)
+                if kind == 0:
+                    srv.top_k(10)
+                else:
+                    x, cert, _ = srv.personalized(
+                        rng.choice(2000, 2, replace=False), tol=1e-2)
+                    assert cert <= 1e-2
+        except BaseException as exc:
+            errors.append(exc)
+            stop.set()
+
+    before = CSR["f64"]
+    srv.start(poll_s=0.001)
+    threads = [threading.Thread(target=reader, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    rng = np.random.default_rng(27)
+    try:
+        for _ in range(20):
+            srv.ingest(EdgeDelta.inserts(rng.integers(0, 2000, 2),
+                                         rng.integers(0, 2000, 2)))
+            time.sleep(0.02)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        srv.stop(drain=True)
+    assert not errors, errors[0]
+    assert srv.last_error is None and srv.updater_restarts == 0
+    assert srv.cold_rebuilds == 0 and srv.health()["status"] == "ok"
+    assert srv.fallbacks >= 1 and CSR["f64"] > before
+    assert all(c <= tol for c in seen)
+    snap = srv.snapshot()
+    assert snap.version == srv.dg.version and snap.cert <= tol
+    x_ref = exact_pagerank(srv.dg.operator(0.85), tol=1e-13)
+    assert float(np.abs(snap.x - x_ref).sum()) <= tol
+
+
+def test_streaming_des_bridge_on_card_matches_cpu(cuda):
+    """StreamingBlockOperator's block updates (one CSR float64 launch each)
+    against the CPU's within 1e-12, and the DES over it with the CPU's
+    counts."""
+    from repro_torch.core import AsyncDES, DESConfig
+    from repro_torch.core.partition import block_rows
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import (DeltaGraph, StreamingBlockOperator,
+                                       synth_edge_trace)
+    dg = DeltaGraph(_stream_graph())
+    dg.apply(synth_edge_trace(dg, n_batches=1, batch_edges=20, seed=43,
+                              p_new_node=0.0)[0])
+    part = block_rows(dg.n, 4)
+    x = torch.rand(dg.n, dtype=torch.float64)
+    ops = {d: StreamingBlockOperator(dg, part, device=d)
+           for d in (cuda, "cpu")}
+    before = CSR["f64"]
+    y = torch.cat([ops[cuda].update_block(i, x.to(cuda)) for i in range(4)])
+    assert CSR["f64"] == before + 4
+    ref = torch.cat([ops["cpu"].update_block(i, x) for i in range(4)])
+    torch.testing.assert_close(y.cpu(), ref, rtol=1e-12, atol=1e-15)
+    cfg = DESConfig(tol=1e-7, norm="inf", base_flops_rate=1e5,
+                    bandwidth=1e6, msg_latency=1e-3, cancel_window=1.0,
+                    max_iters=3000, seed=9)
+    a = AsyncDES(ops[cuda], part, cfg, device=cuda).run()
+    b = AsyncDES(ops["cpu"], part, cfg, device="cpu").run()
+    for f in ("iters", "imports", "attempts"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert float(np.abs(a.x - b.x).sum()) <= 1e-12

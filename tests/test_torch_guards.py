@@ -32,6 +32,12 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.runtime, repro_torch.kernels.csr_spmv\n"
         "import repro_torch.core.des, repro_torch.runtime.device\n"
         "import repro_torch.runtime.local, repro_torch.runtime.state\n"
+        "import repro_torch.runtime.schedule, repro_torch.runtime.observe\n"
+        "import repro_torch.streaming, repro_torch.streaming.delta\n"
+        "import repro_torch.streaming.incremental\n"
+        "import repro_torch.streaming.sharded\n"
+        "import repro_torch.streaming.server\n"
+        "import repro_torch.streaming.scenario\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -99,6 +105,45 @@ def test_spmd_entry_points_default_to_cuda():
     dev = op.pt.device_arrays(torch.float32, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         pt_matvec(dev, torch.ones(16), 16, impl="cuda")
+
+
+def test_streaming_entry_points_default_to_cuda():
+    """Every streaming entry point that can reach the device resolves it
+    at entry (None: the card) and raises without one, before the graph
+    changes, even where its path would stay on the host; with
+    device="cpu" each runs."""
+    from repro_torch.core.partition import block_rows
+    from repro_torch.graph import cycle_graph
+    from repro_torch.streaming import (DeltaGraph, EdgeDelta, RankServer,
+                                       ReplayConfig, StreamingBlockOperator,
+                                       cold_state, ppr_push_batched,
+                                       replay_trace, update_ranks,
+                                       update_ranks_sharded)
+    if torch.cuda.is_available():
+        return
+    dg = DeltaGraph(cycle_graph(16))
+    st = cold_state(dg, tol=1e-6, device="cpu")
+    delta = EdgeDelta.inserts([0], [5])
+    for call in (lambda: cold_state(dg),
+                 lambda: update_ranks(dg, delta, st),
+                 lambda: update_ranks_sharded(dg, delta, st, p=2),
+                 lambda: update_ranks_sharded(dg, delta, st, p=2,
+                                              mode="async",
+                                              transport="device"),
+                 lambda: ppr_push_batched(dg, [[1]]),
+                 lambda: ppr_push_batched(dg, [[1]], backend="scipy"),
+                 lambda: RankServer(dg),
+                 lambda: replay_trace(dg, st, [delta], ReplayConfig()),
+                 lambda: StreamingBlockOperator(dg, block_rows(16, 2))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        assert dg.version == 0 and st.version == 0
+    st, stats = update_ranks(dg, delta, st, tol=1e-6, device="cpu")
+    assert stats.cert <= 1e-6 and dg.version == 1
+    x, certs, _ = ppr_push_batched(dg, [[1], [2, 3]], device="cpu")
+    assert (certs <= 1e-4).all()
+    srv = RankServer(dg, tol=1e-6, device="cpu")
+    assert srv.snapshot().cert <= 1e-6
 
 
 def test_lm_entry_points_default_to_cuda():
