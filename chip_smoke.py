@@ -74,13 +74,27 @@ Phases, each printing its own lines and seconds:
               16 lanes (the block kernel's generic path; its ring path at
               8 beside it), their plain versions, PyTorch's sparse calls
               and the bounds;
- 15. main   : Yi-6B inference at full width (random weights from --seed,
+ 15. main   : the paper's asynchronous host runtime and the query tier
+              (ROADMAP Queue 1 items 7-8): `update_ranks_sharded(mode=
+              "async")` on worker threads and on worker processes forked
+              from this process (numpy only): the JAX package's 50k
+              acceptance case (a 1% delta) at p = 2 and 4 and under its
+              chaos plan (a kill, 10% drops and duplicates), then a 0.1%
+              batch of Stanford-Web from the streaming phase's cold state
+              (threads with the observer and its Chrome trace, procpool),
+              each certified and held to a float64 cold solve on the card;
+              then the rank server on the process pool with the query tier
+              (batcher, cache, 2 replicas) taking the crawl batches while
+              8 client threads query, and a burst of 16 queries through
+              the block kernel's lanes; /dev/shm and the device memory
+              clean at the end;
+ 16. main   : Yi-6B inference at full width (random weights from --seed,
               bf16): the prefill forward through the tensor-core flash
               kernel against its plain version, ServeEngine prefill against
               the forward (bf16, then a float32 copy whose forward takes the
               CUDA-core lane), and greedy and sampled generation, with the
               launch counts of both lanes read around it;
- 16. timing : each flash lane, its plain version, PyTorch's
+ 17. timing : each flash lane, its plain version, PyTorch's
               scaled_dot_product_attention and the bound at the Yi-6B
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
@@ -182,6 +196,39 @@ STREAM_PPR_NV = 16
 STREAM_PPR_TOL = 1e-4
 STREAM_REPLAY = dict(query_rate=500.0, delta_interval=0.25, tol=1e-5)
 STREAM_SERVE_S = 2.0
+# the asynchronous host runtime and the query tier (ROADMAP Queue 1 items
+# 7-8): the JAX package's acceptance workload (tests/conftest.py: the 50k
+# power-law graph and a seeded 1% delta, 85% inserts; its
+# tests/test_transport.py and test_faults.py hold it to 1e-8 at p = 2 and
+# 4, and at p = 4 under the chaos plan), a 0.1% batch of Stanford-Web drawn
+# the same way, and the rank server on the process pool with the query
+# tier under the traffic of the JAX package's
+# benchmarks/query_bench.py::load_gen (its numbers, copied): each client
+# call is router.top_k(k), k uniform in [1, 100), with probability 0.55,
+# router.scores of 8 uniform ids with 0.30, and else personalized() at tol
+# 1e-3 of a seed set from a pool of 32 (1-3 seeds each, generator seed 11;
+# client k's generator seed 100 + k) drawn with Zipf 1.1 popularity; the
+# tier at max_batch 16, max_delay 5 ms, cache capacity 64, 2 replicas,
+# redirect on a stale replica, the server polling every 2 ms. Unlike
+# load_gen: 8 clients (its 3), max_version_lag 1 (its 2; 1 as in
+# tests/test_query_tier.py's end-to-end case), and the updater takes the
+# streaming phase's crawl batches (load_gen: a 1% batch a second). Then a
+# burst of 16 queries at query_bench's tol 1e-4 through the block
+# kernel's lanes
+ASYNC_50K = dict(n=50_000, target_nnz=400_000, n_dangling=50, seed=3)
+ASYNC_TOL = 1e-8
+ASYNC_CHAOS = dict(seed=7, kill={1: 40}, drop_rate=0.10, dup_rate=0.10)
+ASYNC_WEB_DEN = 1000
+TIER_CLIENTS = 8
+TIER_MIX = (0.55, 0.85)
+TIER_POOL = 32
+TIER_ZIPF = 1.1
+TIER_SETTINGS = dict(max_batch=16, max_delay_s=0.005, cache_capacity=64,
+                     replicas=2, max_version_lag=1, on_stale="redirect")
+TIER_PPR_TOL = 1e-3
+TIER_SERVE_S = 6.0
+TIER_TOL = 1e-4
+TIER_BURST = 16
 TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "csr": "src/repro/graph/csr.py:152 (no TPU kernel: an XLA "
                      "gather + segment_sum)",
@@ -1059,7 +1106,8 @@ def streaming_main_path(g, smi):
     scipy path beside them), the rank server inline and threaded, the
     replay and the DES over `StreamingBlockOperator`. Every certificate is
     the host float64 recomputation. Returns the launches of each kernel
-    over the card's runs, and the batched queries' seed sets."""
+    over the card's runs, the final graph, the batched queries' seed sets,
+    the cold state's (x, r) and the crawl batches."""
     import threading
     import numpy as np
     import torch
@@ -1098,6 +1146,7 @@ def streaming_main_path(g, smi):
           f"(tol {STREAM_BULK_TOL:g}), uploads included [{smi}]")
     check(st.cert <= STREAM_BULK_TOL,
           f"cold state certified: {st.cert:.3g} <= {STREAM_BULK_TOL:g}")
+    cold = (st.x.copy(), st.r.copy())
     dg_h = DeltaGraph(g)
     st_h = RankState(x=st.x.copy(), r=st.r.copy(), version=0,
                      alpha=st.alpha)
@@ -1392,7 +1441,7 @@ def streaming_main_path(g, smi):
     device_breakdown(lambda: ppr_push_batched(
         dg, sets, tol=STREAM_PPR_TOL, backend="segment_sum"),
         "ppr_push_batched[segment_sum] nv=16", smi)
-    return launches, dg, sets
+    return launches, dg, sets, cold, trace
 
 
 def nv16_timing(dg, sets, cuda, smi):
@@ -1467,6 +1516,358 @@ def nv16_timing(dg, sets, cuda, smi):
               f"{100 * b_ms / t['kernel']:.1f}%) [{smi}]")
     free_cuda()
     return rows
+
+
+def accept_style_delta(g, den, seed):
+    """tests/conftest.py::accept_delta's draw (copied): nnz // den links,
+    85% inserts from random sources to the targets of random existing
+    links, 15% deletions of distinct existing links."""
+    import numpy as np
+    from repro_torch.streaming import EdgeDelta
+    rng = np.random.default_rng(seed)
+    k = g.nnz // den
+    n_del = k * 15 // 100
+    slots = rng.choice(g.nnz, size=n_del, replace=False)
+    src_of_edge = np.repeat(np.arange(g.n, dtype=np.int64),
+                            np.diff(g.indptr))
+    return EdgeDelta(
+        add_src=rng.integers(0, g.n, k - n_del),
+        add_dst=g.indices[rng.integers(0, g.nnz, k - n_del)].astype(np.int64),
+        del_src=src_of_edge[slots],
+        del_dst=g.indices[slots].astype(np.int64))
+
+
+def async_main_path(g, cold, trace, smi):
+    """ROADMAP Queue 1 items 7-8: `update_ranks_sharded(mode="async")` on
+    the worker-thread and worker-process transports (the processes forked
+    from this process, which holds the card's context; they run numpy
+    only) on the JAX package's 50k acceptance case at p = 2 and 4 and
+    under its chaos plan, then on a 0.1% batch of `g` from the streaming
+    phase's cold state `cold` (threads with the observer, procpool); then
+    the rank server on the process pool with the query tier attached,
+    taking the crawl batches `trace` while 8 client threads send
+    query_bench's load_gen mix, and a burst of 16 queries through the
+    block kernel's lanes. Every
+    certificate is the host float64 recomputation, every L1 is to a
+    float64 cold solve on the card. Returns the launches of each kernel."""
+    import json
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.graph import powerlaw_webgraph
+    from repro_torch.kernels.bsr_spmv import LAUNCHES
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
+    from repro_torch.runtime import (FaultPlan, live_segments,
+                                     write_chrome_trace)
+    from repro_torch.serving import QueryBatcher, attach_query_tier
+    from repro_torch.streaming import (DeltaGraph, RankServer, RankState,
+                                       cold_state, update_ranks_sharded)
+
+    free_cuda()
+    mem = {"start": torch.cuda.memory_allocated()}
+    reset_launches()
+    print(f"  host: {os.cpu_count()} CPU cores; shard worker processes are "
+          f"forked from this process (it holds the card's context) and run "
+          f"numpy only")
+
+    def fresh(st):
+        return RankState(x=st.x.copy(), r=st.r.copy(), version=0,
+                         alpha=st.alpha)
+
+    def drain(label, graph, base, delta, oracle, **kw):
+        dg = DeltaGraph(graph)
+        t0 = time.perf_counter()
+        st, s = update_ranks_sharded(dg, delta, fresh(base), tol=ASYNC_TOL,
+                                     mode="async", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l1 = float(np.abs(st.x - oracle).sum())
+        print(f"  {label}: {s.path}, pushes {s.pushes:,}, rounds "
+              f"{s.supersteps:,} (the busiest worker), attempts "
+              f"{s.attempts}, exchanges {s.exchanges:,}, bytes "
+              f"{s.bytes_moved:,}, idle {s.idle_s:.2f} s (all workers), "
+              f"recoveries {s.recoveries} ({s.recovery_s:.3f} s), cert "
+              f"{s.cert:.3g}, L1 to the oracle {l1:.3g}, wall {wall:.2f} s")
+        return st, s, l1
+
+    # 1. the 50k acceptance case
+    t0 = time.perf_counter()
+    g50 = powerlaw_webgraph(**ASYNC_50K)
+    d50 = accept_style_delta(g50, 100, 31)
+    base50 = cold_state(DeltaGraph(g50), tol=5e-9)
+    dgm = DeltaGraph(g50)
+    dgm.apply(d50)
+    oracle50 = cold_state(dgm, tol=1e-11)
+    torch.cuda.synchronize()
+    print(f"  50k graph ({g50.n:,} pages, {g50.nnz:,} links), its 1% delta "
+          f"({d50.size:,} edges), cold state (cert {base50.cert:.3g}) and "
+          f"the mutated graph's float64 oracle on the card (cert "
+          f"{oracle50.cert:.3g}): {time.perf_counter() - t0:.2f} s")
+    xs = {}
+    for transport, p in (("procpool", 2), ("procpool", 4), ("threads", 2)):
+        st, s, l1 = drain(f"50k 1% delta, {transport}, p={p}", g50, base50,
+                          d50, oracle50.x, p=p, transport=transport)
+        check(s.path == "sharded_push" and s.cert <= ASYNC_TOL
+              and l1 <= 2 * ASYNC_TOL,
+              f"50k {transport} p={p}: sharded_push, cert {s.cert:.3g} <= "
+              f"{ASYNC_TOL:g}, L1 {l1:.3g} <= {2 * ASYNC_TOL:g}")
+        xs[(transport, p)] = st.x
+    l1 = float(np.abs(xs[("threads", 2)] - xs[("procpool", 2)]).sum())
+    check(l1 <= 2 * ASYNC_TOL, f"threads and procpool at p=2 agree: L1 "
+          f"{l1:.3g} <= {2 * ASYNC_TOL:g}")
+
+    # 2. the chaos case
+    st, s, l1 = drain(f"50k 1% delta, procpool, p=4, FaultPlan"
+                      f"({ASYNC_CHAOS})", g50, base50, d50, oracle50.x,
+                      p=4, transport="procpool",
+                      faults=FaultPlan(**ASYNC_CHAOS))
+    check(s.recoveries >= 1 and s.cert <= ASYNC_TOL
+          and l1 <= 2 * ASYNC_TOL,
+          f"chaos: {s.recoveries} recovery(ies), cert {s.cert:.3g}, L1 "
+          f"{l1:.3g}")
+    del g50, d50, base50, dgm, oracle50, xs, st
+
+    # 3. a 0.1% batch of the full graph from the streaming phase's cold state
+    x0, r0 = cold
+    base = RankState(x=x0, r=r0, version=0, alpha=0.85)
+    d_web = accept_style_delta(g, ASYNC_WEB_DEN, 32)
+    t0 = time.perf_counter()
+    dgm = DeltaGraph(g)
+    dgm.apply(d_web)
+    oracle = cold_state(dgm, tol=1e-11)
+    torch.cuda.synchronize()
+    print(f"  0.1% batch ({d_web.size:,} edges, {d_web.add_src.size:,} "
+          f"inserts) and the mutated graph's float64 oracle on the card "
+          f"(cert {oracle.cert:.3g}): {time.perf_counter() - t0:.2f} s")
+    del dgm
+    for transport in ("threads", "procpool"):
+        observe = transport == "threads"
+        st, s, l1 = drain(f"{g.n:,}-page graph, 0.1% batch, {transport}, "
+                          f"p=4{', observe' if observe else ''}", g, base,
+                          d_web, oracle.x, p=4, transport=transport,
+                          observe=observe)
+        check(s.cert <= ASYNC_TOL and l1 <= 2 * ASYNC_TOL,
+              f"{transport}: {s.path}, cert {s.cert:.3g} <= {ASYNC_TOL:g}, "
+              f"L1 {l1:.3g} <= {2 * ASYNC_TOL:g}")
+        if observe:
+            ob = s.observed
+            parts = (s.pushes_first, s.pushes_local, s.pushes_boundary)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                write_chrome_trace(path, ob["events"], p=4)
+                with open(path) as fh:
+                    tr = json.load(fh)
+                size = os.path.getsize(path)
+            print(f"    pushes first/local/boundary {parts}; events "
+                  f"written {ob['events_written']}, dropped "
+                  f"{ob['events_dropped']}; Chrome trace "
+                  f"{len(tr['traceEvents']):,} records, {size:,} bytes")
+            check(sum(parts) == s.pushes and len(tr["traceEvents"]) > 4,
+                  "threads observe: first + local + boundary == pushes, "
+                  "and the Chrome trace loads back")
+    del st, oracle, base, cold
+
+    # 4. the rank server on the process pool, with the query tier
+    t0 = time.perf_counter()
+    srv = RankServer(DeltaGraph(g), tol=STREAM_TOL, updater="sharded",
+                     shards=4, shard_mode="async",
+                     shard_transport="procpool")
+    batcher, cache, router = attach_query_tier(srv, **TIER_SETTINGS)
+    torch.cuda.synchronize()
+    print(f"  RankServer(updater='sharded', shard_mode='async', "
+          f"shard_transport='procpool', tol={STREAM_TOL:g}) with "
+          f"attach_query_tier({TIER_SETTINGS}): "
+          f"{time.perf_counter() - t0:.2f} s (the cold state on the card, "
+          f"the snapshot's operator)")
+    rng = np.random.default_rng(11)
+    pool = [rng.choice(g.n, size=int(rng.integers(1, 4)), replace=False)
+            for _ in range(TIER_POOL)]
+    pop = (1.0 / np.arange(1, TIER_POOL + 1)) ** TIER_ZIPF
+    pop /= pop.sum()
+    lat = {"top_k": [], "scores": [], "ppr": []}
+    qcerts, paths, errors, seen = [], [], [], []
+    stop = threading.Event()
+
+    # the first fused solve the collector makes under this load runs in a
+    # profiler window that this thread opens: the collector waits at the
+    # solve's start until the window is open
+    solve = batcher._solve
+    window = {k: threading.Event() for k in ("ready", "go", "done")}
+
+    def profiled_solve(batch):
+        if len(batch) < 2 or window["ready"].is_set():
+            return solve(batch)
+        window["lanes"] = len(batch)
+        window["ready"].set()
+        window["go"].wait(timeout=60)
+        try:
+            solve(batch)
+        finally:
+            window["done"].set()
+
+    batcher._solve = profiled_solve
+
+    def client(k):
+        r = np.random.default_rng(100 + k)
+        try:
+            while not stop.is_set():
+                u = r.random()
+                t = time.perf_counter()
+                if u < TIER_MIX[0]:
+                    _, sc = router.top_k(int(r.integers(1, 100)))
+                    assert np.all(np.diff(sc) <= 0)
+                    lat["top_k"].append(time.perf_counter() - t)
+                elif u < TIER_MIX[1]:
+                    vals = router.scores(r.integers(0, g.n, 8))
+                    assert np.isfinite(vals).all()
+                    lat["scores"].append(time.perf_counter() - t)
+                else:
+                    q = pool[int(r.choice(TIER_POOL, p=pop))]
+                    _, cert, st_q = srv.personalized(q, tol=TIER_PPR_TOL)
+                    lat["ppr"].append(time.perf_counter() - t)
+                    qcerts.append(cert)
+                    paths.append(getattr(st_q, "path", "?"))
+                seen.append(srv.snapshot().cert)
+        except BaseException as exc:
+            errors.append(exc)
+            stop.set()
+
+    def ingester():
+        for d in trace:
+            if stop.is_set():
+                return
+            srv.ingest(d)
+            time.sleep(TIER_SERVE_S / len(trace))
+
+    srv.start(poll_s=0.002)
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(TIER_CLIENTS)] + [
+        threading.Thread(target=ingester)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    prof = "no fused solve"
+    try:
+        if window["ready"].wait(timeout=TIER_SERVE_S):
+            prof = device_breakdown(
+                lambda: (window["go"].set(),
+                         window["done"].wait(timeout=120)),
+                f"one of the batcher's own fused solves under the load, "
+                f"{window['lanes']} lanes (segment_sum, solve tol "
+                f"{0.5 * TIER_PPR_TOL:g})", smi)
+    except Exception as exc:   # the profiler's; the solve keeps its own
+        prof = repr(exc)
+    finally:
+        window["go"].set()
+    time.sleep(max(0.0, TIER_SERVE_S - (time.perf_counter() - t0)))
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.stop(drain=True)
+    torch.cuda.synchronize()
+    stop_s = time.perf_counter() - t0
+    _, c1, _ = srv.personalized(pool[0], tol=TIER_PPR_TOL)
+    _, c2, s2 = srv.personalized(pool[0], tol=TIER_PPR_TOL)
+    ids, _ = router.top_k(100)
+    h = srv.health()
+    bs, cs, rs = batcher.stats(), cache.stats(), router.stats()
+    hit = cs["hits"] / max(cs["hits"] + cs["misses"], 1)
+    n_q = sum(len(v) for v in lat.values())
+    pct = ", ".join(
+        f"{kind} {len(v):,} (p50 {np.percentile(v, 50) * 1e3:.3f} ms, p99 "
+        f"{np.percentile(v, 99) * 1e3:.3f} ms)" if v else f"{kind} 0"
+        for kind, v in lat.items())
+    print(f"  served {serve_s:.1f} s: {n_q:,} queries by {TIER_CLIENTS} "
+          f"clients ({n_q / serve_s:.0f} a second): {pct}; personalized "
+          f"paths {dict((p, paths.count(p)) for p in set(paths))}; batcher "
+          f"{bs} (mean lanes a batch {bs['mean_batch']:.2f}); cache {cs} "
+          f"(hit share {hit:.3f}); router {rs['routed']} routed, "
+          f"{rs['redirects']} redirects, {rs['rejects']} rejects; updater "
+          f"{srv.deltas_ingested} deltas in {srv.batches_applied} batches, "
+          f"{srv.fallbacks} fallbacks, stop(drain) {stop_s:.2f} s; health "
+          f"{h['status']}, last_error {h['last_error']} [{smi}]")
+    if not isinstance(prof, tuple):
+        print(f"  the card's busy share in the batcher's solves: not "
+              f"measured ({prof})")
+    check(not errors and not any(t.is_alive() for t in threads)
+          and len(lat["ppr"]) > 0 and max(qcerts) <= TIER_PPR_TOL
+          and max(seen) <= STREAM_TOL and srv.snapshot().cert <= STREAM_TOL
+          and h["status"] == "ok" and h["last_error"] is None
+          and h["updater_restarts"] == 0 and srv.cold_rebuilds == 0
+          and srv.batches_applied > 0
+          and srv.snapshot().version == srv.dg.version,
+          f"query tier: no error, every query cert <= {TIER_PPR_TOL:g} "
+          f"and every snapshot cert <= {STREAM_TOL:g}, health ok, "
+          f"{srv.batches_applied} certified batches on the process pool")
+    check(getattr(s2, "path", None) == "cache" and c2 <= TIER_PPR_TOL
+          and ids.size == 100 and bs["fused_lanes"] > 0,
+          f"a repeated query answered from the cache (cert {c2:.3g}), "
+          f"router.top_k(100) answered, {bs['fused_lanes']} fused lanes")
+    batcher.stop()
+
+    # the burst through the block kernel's lanes
+    burst = QueryBatcher(srv, max_batch=TIER_BURST, max_delay_s=1.0,
+                         backend="bsr").attach()
+    sets = [rng.choice(g.n, size=3, replace=False)
+            for _ in range(TIER_BURST)]
+    out, errs = [None] * TIER_BURST, []
+    gate = threading.Barrier(TIER_BURST)
+    before = (LAUNCHES["f32"], CSR_LAUNCHES["hub"])
+
+    def ask(k):
+        gate.wait()
+        try:
+            out[k] = burst.submit(sets[k], None, TIER_TOL)
+        except BaseException as exc:
+            errs.append(exc)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=ask, args=(k,)) for k in range(TIER_BURST)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    burst.stop()
+    bst = burst.stats()
+    print(f"  burst of {TIER_BURST} through QueryBatcher(backend='bsr'): "
+          f"{burst_ms:.0f} ms, {bst}, block launches "
+          f"{LAUNCHES['f32'] - before[0]}, hub lane launches "
+          f"{CSR_LAUNCHES['hub'] - before[1]}")
+    check(not errs and all(o is not None and o[1] <= TIER_TOL for o in out)
+          and LAUNCHES["f32"] > before[0]
+          and CSR_LAUNCHES["hub"] > before[1],
+          f"bsr burst: {TIER_BURST} answers certified <= {TIER_TOL:g}, the "
+          f"block kernel and its hub lane launched")
+    launches = {"bsr_f32": LAUNCHES["f32"], "bsr_kahan": LAUNCHES["kahan"],
+                "csr_f32": CSR_LAUNCHES["f32"], "csr_f64": CSR_LAUNCHES["f64"],
+                "csr_hub": CSR_LAUNCHES["hub"]}
+    print(f"  phase launches: {launches}")
+    check(launches["csr_f64"] > 0 and launches["bsr_f32"] > 0
+          and launches["csr_hub"] > 0,
+          "the phase launched the CSR kernel's float64 lane, the block "
+          "kernel and its hub lane")
+
+    # 5. clean-up: this process's segments are checked; another process's
+    # (a second run on the same machine) are only listed
+    del srv, batcher, solve, cache, router, burst, out
+    free_cuda()
+    mem["end"] = torch.cuda.memory_allocated()
+    pid = str(os.getpid())
+    left, others = [], []
+    for nm in live_segments():
+        (left if nm.split("_")[-2] == pid else others).append(nm)
+    print(f"  /dev/shm segments of the port's prefix: this process's "
+          f"{left}, other processes' {others}; memory_allocated "
+          f"{mem['start'] / 1e6:.1f} MB at the start, "
+          f"{mem['end'] / 1e6:.1f} MB at the end")
+    check(not left and mem["end"] <= mem["start"],
+          "no shared-memory segment left, device memory back to its start")
+    return launches
 
 
 def attention_flops(q, k, causal):
@@ -2320,11 +2721,19 @@ def main(argv=None):
 
     with phase("main path: Stanford-Web streaming"):
         print(f"  card: {smi}")
-        stream_launches, dg, ppr_sets = streaming_main_path(g, smi)
+        stream_launches, dg, ppr_sets, stream_cold, stream_trace = \
+            streaming_main_path(g, smi)
 
     with phase("timing: the block and CSR kernels at 16 lanes"):
         nv16 = nv16_timing(dg, ppr_sets, cuda, smi)
-        del dg, g
+        del dg
+        free_cuda()
+
+    with phase("main path: Stanford-Web asynchronous shard workers and "
+               "query tier"):
+        print(f"  card: {smi}")
+        async_launches = async_main_path(g, stream_cold, stream_trace, smi)
+        del g, stream_cold, stream_trace
         free_cuda()
 
     with phase("main path: Yi-6B inference"):
@@ -2343,7 +2752,8 @@ def main(argv=None):
             "launches": main_launches[accum] + (
                 spmd_launches["bsr_f32"] if accum == "f32" else 0)
             + drain_launches[f"bsr_{accum}"]
-            + stream_launches[f"bsr_{accum}"],
+            + stream_launches[f"bsr_{accum}"]
+            + async_launches[f"bsr_{accum}"],
             "max_abs_err": max(max_err[accum], errs[accum], *(
                 f[3] for f in folded.values() if accum == "f32"), *(
                 nv16[("bsr", nv)]["err"] for nv in (16, 8)
@@ -2352,10 +2762,12 @@ def main(argv=None):
             "bound_by": b_by,
             "library_ms": t["library"] if accum == "f32" else None})
     for lane, launches in (("f32", spmd_launches["csr_f32"]
-                            + stream_launches["csr_f32"]),
+                            + stream_launches["csr_f32"]
+                            + async_launches["csr_f32"]),
                            ("f64", main_csr["f64"] + des_launches
                             + drain_launches["csr_f64"]
-                            + stream_launches["csr_f64"])):
+                            + stream_launches["csr_f64"]
+                            + async_launches["csr_f64"])):
         row = csr_rows[(lane, 1)]
         kernels.append({
             "name": f"csr_spmv_{lane}", "route": "cuda", "source": CSR_SOURCE,
@@ -2370,7 +2782,8 @@ def main(argv=None):
         "name": "csr_spmv_hub", "route": "cuda", "source": CSR_SOURCE,
         "replaces": TPU_KERNEL["hub"],
         "launches": main_csr["hub"] + spmd_launches["csr_hub"]
-        + drain_launches["csr_hub"] + stream_launches["csr_hub"],
+        + drain_launches["csr_hub"] + stream_launches["csr_hub"]
+        + async_launches["csr_hub"],
         "max_abs_err": max(csr_err["hub"], row["err"]), "ms": row["kernel"],
         "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None})

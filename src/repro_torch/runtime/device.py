@@ -1,9 +1,9 @@
 """DeviceShardTransport — the eq. (5) cycle as p shard programs on one card
 (the JAX package's runtime/device.py:47-284).
 
-The third rendering of the shard transport seam (the host threads and
-worker-process transports are not ported yet, ROADMAP Queue 1 item 7): the
-per-shard cycle runs as the shard program, built from the SAME superstep
+The third rendering of the shard transport seam (beside the host threads
+and worker-process transports of runtime/transport.py): the per-shard
+cycle runs as the shard program, built from the SAME superstep
 builders the SPMD solver runs (runtime/step.py), with the p shards on one
 leading tensor axis of one device, as `core.spmd` holds them:
 

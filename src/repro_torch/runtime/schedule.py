@@ -55,9 +55,8 @@ must show up in the attribution counters (reduced ``pushes_local`` /
 gates.
 
 Wiring in the port: `streaming.update_ranks(schedule=)` /
-`streaming.update_ranks_sharded(schedule=)` (the superstep loop) /
-`streaming.RankServer(drain_schedule=)`.  The asynchronous host
-transports that also read it wait for ROADMAP Queue 1 item 7.
+`streaming.update_ranks_sharded(schedule=)` / `transport.WorkerConfig
+.schedule` / `streaming.RankServer(drain_schedule=)`.
 """
 from __future__ import annotations
 

@@ -25,8 +25,12 @@ array carries a leading `p` axis and one function steps every shard:
 The superstep counter is a Python int, and the protocol counters are int32
 tensors, as in the JAX package's carry. The shard program (`core.spmd`)
 and the device transport (`runtime.device`) assemble their loops from
-these builders. The host rendering of a shard's cycle (`HostShardStep`) is
-not ported yet (ROADMAP Queue 1 item 7).
+these builders.
+
+`HostShardStep` is the host rendering of one shard's cycle: one `round()`
+is one iteration of `transport.shard_worker_loop` (intake, hysteresis-gated
+drain, §6-gated exchange, Fig. 1 report), the JAX package's host numpy,
+copied. It calls no torch, so it runs in forked worker processes.
 """
 from __future__ import annotations
 
@@ -39,8 +43,309 @@ import torch
 from ..graph.csr import pt_matvec
 from ..kernels import resolve_impl
 from ..kernels.bsr_spmv.ops import hybrid_matvec
+from ..core.partition import Partition
 from .driver import TerminationDriver
+from .exchange import ExchangePlan
+from .observe import (C_CAPPED, C_CONVERGES, C_DIVERGES, C_DRAIN_MASS,
+                      C_DRAIN_ROWS, C_DRAINS, C_EXCHANGE_BYTES,
+                      C_EXCHANGE_ROWS, C_EXCHANGES, C_INTAKES, C_STOPS,
+                      EV_CAPPED, EV_CONVERGE, EV_DIVERGE, EV_DRAIN,
+                      EV_EXCHANGE, EV_INTAKE, EV_STOP, ShardObserver)
 from .transport import mesh_psum
+
+
+# ---------------------------------------------------------------------------
+# host rendering — one round() == one iteration of the worker loop
+# ---------------------------------------------------------------------------
+class HostShardStep:
+    """One shard's eq. (5) cycle as a resumable step object.
+
+    Construction captures everything the worker loop hoists above its
+    `while`: the block geometry, the per-shard convergence target and drain
+    floor, the boundary-batched exchange gate, and the cached L1s of the
+    two O(n) structures this worker owns.  `round()` then runs exactly one
+    loop iteration — intake, hysteresis-gated drain, §6-gated exchange,
+    value publish, Fig. 1 report, idle backoff — and returns False on the
+    loop's exit paths (observed STOP, round cap, push cap, own STOP).
+
+    The body is the JAX package's `HostShardStep`, copied (host numpy,
+    split at the seam comments); the soundness argument lives in
+    transport.py's module docstring.
+    """
+
+    def __init__(self, i: int, r: np.ndarray, part: Partition,
+                 plan: ExchangePlan, cfg, ctx, drain_fn,
+                 obs: Optional[ShardObserver] = None):
+        self.i = i
+        self.r = r
+        self.part = part
+        self.plan = plan
+        self.cfg = cfg
+        self.ctx = ctx
+        self.drain_fn = drain_fn
+        self.obs = obs
+
+        self.p = part.p
+        self.s, self.e = part.block(i)
+        self.bs = self.e - self.s
+        self.n = part.n
+        self.conv_target = (cfg.l1_target * (self.bs / self.n)
+                            if self.n else cfg.l1_target)
+        self.drain_floor = 0.5 * self.conv_target
+        self.outbox = ctx.outbox(i)
+        self.peers = [d for d in range(self.p) if d != i]
+        # boundary-batched DrainSchedule: pair shipments coalesce behind
+        # this gate (None for every other schedule — the zero-cost default)
+        self.gate = cfg.schedule.gate(self.p)
+        # cached L1s of the two O(n) structures this worker owns — only
+        # intake/drain/exchange can change them, so idle rounds cost O(p)
+        # instead of O(n)
+        self.own_l1 = float(np.abs(r[self.s:self.e]).sum())
+        # a restarted worker can inherit a non-empty outbox (plan-withheld
+        # or backpressured mass from the dead incarnation) — seed the cache
+        # from the structure itself, never assume empty
+        self.outbox_l1 = float(np.abs(self.outbox).sum())
+        self.own_dirty = False
+        self.outbox_dirty = False
+        self.it = 0            # raw rounds (spin included): caps, telemetry
+        self.updates = 0       # *local updates*: the ExchangePlan's clock
+        self.tick_pending = False
+        self.idle_total = 0.0
+        self.prev_verdict: Optional[bool] = None  # Fig. 1 flip edge detector
+
+    # -- the four seams, each a method so renderings/tests can drive them
+    #    individually; round() composes them in the loop's order ----------
+    def intake(self) -> bool:
+        """Fold incoming mail + my uniform share; retract convergence
+        BEFORE the mass leaves the sender's books (see transport.py)."""
+        i, obs = self.i, self.obs
+        progressed = False
+        if self.ctx.intake_ready(i):
+            t_ev = obs.now() if obs is not None else 0.0
+            self.ctx.retract(i)
+            if self.ctx.fold_intake(i, self.r, self.s, self.e):
+                progressed = True
+                self.own_dirty = True
+            if obs is not None:
+                obs.ctr[i, C_INTAKES] += 1
+                obs.emit(EV_INTAKE, i, t_ev, dur=obs.now() - t_ev,
+                         gen=self.updates, a=float(progressed))
+        return progressed
+
+    def drain(self, step_target: float) -> bool:
+        """Hysteresis-gated local update: drain own rows to the sliding
+        target, foreign contributions into the outbox."""
+        i, cfg, obs = self.i, self.cfg, self.obs
+        if self.own_dirty:
+            self.own_l1 = float(np.abs(self.r[self.s:self.e]).sum())
+            self.own_dirty = False
+        did_drain = False
+        if self.own_l1 > (cfg.hysteresis * step_target
+                          if step_target > self.drain_floor
+                          else self.drain_floor):
+            if obs is None:
+                got, c_add = self.drain_fn(i, self.s, self.e, step_target,
+                                           self.outbox)
+            else:
+                t_ev = obs.now()
+                a0 = (obs.attr[i].copy()
+                      if obs.attr is not None else None)
+                got, c_add = self.drain_fn(i, self.s, self.e, step_target,
+                                           self.outbox)
+                dt_ev = obs.now() - t_ev
+                da_local = da_boundary = 0.0
+                if a0 is not None:
+                    da = obs.attr[i] - a0
+                    da_local, da_boundary = float(da[1]), float(da[2])
+                obs.ctr[i, C_DRAINS] += 1
+                obs.ctr[i, C_DRAIN_ROWS] += got
+                obs.ctr[i, C_DRAIN_MASS] += max(self.own_l1 - step_target,
+                                                0.0)
+                obs.observe_drain_s(i, dt_ev)
+                obs.emit(EV_DRAIN, i, t_ev, dur=dt_ev, gen=self.updates,
+                         a=float(got), b=self.own_l1, c=da_local,
+                         d=da_boundary)
+            self.ctx.uniform_add(i, c_add)
+            self.own_dirty = self.outbox_dirty = True
+            did_drain = True
+            self._drain_got = got
+        return did_drain
+
+    def exchange(self, step_target: float) -> bool:
+        """§6-gated exchange: plan consulted per *local update*; the
+        boundary-batched gate and mass gates may withhold (mass stays in
+        the counted outbox)."""
+        i, cfg, obs = self.i, self.cfg, self.obs
+        plan, gate, ctx = self.plan, self.gate, self.ctx
+        progressed = False
+        self.updates += 1
+        self.tick_pending = False
+        if self.outbox_dirty:
+            self.outbox_l1 = float(np.abs(self.outbox).sum())
+            self.outbox_dirty = False
+        for d in self.peers:
+            if not plan.wants(i, d, self.updates):
+                continue
+            if self.outbox_l1 == 0.0:
+                # nothing pending anywhere: the receiver's copy already
+                # reflects everything this shard produced, so the epoch
+                # counts as a (zero-byte) refresh — quiet pairs must not
+                # bank forced-refresh debt
+                plan.note_sent(i, d, self.updates)
+                if gate is not None:
+                    gate.note_quiet(d, self.updates)
+                continue
+            sd, ed = self.part.block(d)
+            box = self.outbox[sd:ed]
+            mass = float(np.abs(box).sum())
+            if mass == 0.0:
+                plan.note_sent(i, d, self.updates)
+                if gate is not None:
+                    gate.note_quiet(d, self.updates)
+                continue
+            if gate is not None and not gate.ready(
+                    d, self.updates, mass, step_target):
+                # boundary-batched: the pair's mass keeps folding in the
+                # outbox (still counted in this shard's value) until the
+                # batch window expires or the coalesced payload is worth
+                # a generation
+                continue
+            if not plan.gate_mass(i, d, self.updates, mass):
+                continue
+            t_ev = obs.now() if obs is not None else 0.0
+            nz = ctx.send(i, d, box)
+            if nz < 0:
+                # channel backpressure (a full procpool ring): the mass
+                # stays in the outbox — still counted in this shard's
+                # value — and ships on a later update
+                continue
+            if obs is not None:
+                nbytes = nz * (4 + cfg.bytes_per_entry)
+                obs.ctr[i, C_EXCHANGES] += 1
+                obs.ctr[i, C_EXCHANGE_ROWS] += nz
+                obs.ctr[i, C_EXCHANGE_BYTES] += nbytes
+                obs.emit(EV_EXCHANGE, i, t_ev,
+                         dur=obs.now() - t_ev, gen=self.updates,
+                         a=float(d), b=float(nz), c=float(nbytes))
+            self.outbox_dirty = True
+            plan.note_sent(i, d, self.updates)
+            plan.on_result(i, d, True)
+            if gate is not None:
+                gate.note_sent(d, self.updates)
+            ctx.note_exchange(i, nz)
+            progressed = True
+        return progressed
+
+    def value(self) -> float:
+        """Everything this shard is accountable for right now (the
+        conservation invariant): own rows, undelivered outbox, channel
+        mass *I* put in flight, and my rows' share of the pending
+        uniform."""
+        if self.own_dirty:
+            self.own_l1 = float(np.abs(self.r[self.s:self.e]).sum())
+            self.own_dirty = False
+        if self.outbox_dirty:
+            self.outbox_l1 = float(np.abs(self.outbox).sum())
+            self.outbox_dirty = False
+        return (self.own_l1 + self.outbox_l1
+                + abs(self.ctx.uniform_pending(self.i)) * self.bs
+                + self.ctx.inflight_l1(self.i))
+
+    def report(self, value: float) -> bool:
+        """Fig. 1, message rendering: publish the verdict; True = STOP."""
+        i, obs = self.i, self.obs
+        verdict = value <= self.conv_target
+        if obs is not None and verdict != self.prev_verdict:
+            if verdict:
+                obs.ctr[i, C_CONVERGES] += 1
+                obs.emit(EV_CONVERGE, i, obs.now(), gen=self.updates,
+                         a=value)
+            else:
+                obs.ctr[i, C_DIVERGES] += 1
+                obs.emit(EV_DIVERGE, i, obs.now(), gen=self.updates,
+                         a=value)
+            self.prev_verdict = verdict
+        self._verdict = verdict
+        return self.ctx.report(i, verdict, self.it)
+
+    # -- one full round ---------------------------------------------------
+    def round(self) -> bool:
+        """Run one cycle round; False means the worker loop should exit."""
+        i, cfg, ctx, obs = self.i, self.cfg, self.ctx, self.obs
+        if ctx.stopped():
+            # the other clean exit: a peer's report chain stamped the
+            # global STOP and this shard observed it at the round top —
+            # trace it so every shard's stream ends in exactly one STOP
+            # (the report()-True path below emits its own)
+            if obs is not None:
+                obs.ctr[i, C_STOPS] += 1
+                obs.emit(EV_STOP, i, obs.now(), gen=self.updates,
+                         a=float(self.it))
+            return False
+        if self.it >= cfg.max_rounds:
+            if obs is not None:
+                obs.ctr[i, C_CAPPED] += 1
+                obs.emit(EV_CAPPED, i, obs.now(), gen=self.updates,
+                         a=float(self.it))
+            ctx.note_capped()
+            return False
+        self.it += 1
+        progressed = False
+
+        # -- receive ------------------------------------------------------
+        if self.intake():
+            progressed = True
+
+        # -- local update: drain own rows to a sliding target -------------
+        approx_total = ctx.values_total()
+        step_target = max(self.drain_floor,
+                          cfg.drain_frac * approx_total / self.p)
+        did_drain = self.drain(step_target)
+        if did_drain and self._drain_got:
+            ctx.add_pushes(i, self._drain_got)
+            progressed = True
+        if (cfg.max_total_pushes is not None
+                and ctx.total_pushes() > cfg.max_total_pushes):
+            if obs is not None:
+                obs.ctr[i, C_CAPPED] += 1
+                obs.emit(EV_CAPPED, i, obs.now(), gen=self.updates,
+                         a=float(self.it))
+            ctx.note_capped()
+            return False
+
+        # -- exchange: plan consulted per *local update*, not per spin
+        #    round — idle-converged rounds must not tick the §6 refresh
+        #    clock.  A blocked-but-unconverged round (tick_pending) still
+        #    ticks: mass parked above the convergence target keeps the
+        #    bounded-delay escape hatch live. -----------------------------
+        if did_drain or self.tick_pending:
+            if self.exchange(step_target):
+                progressed = True
+
+        # -- value + Fig. 1 report ----------------------------------------
+        if self.report(self.value_and_publish()):
+            if obs is not None:
+                obs.ctr[i, C_STOPS] += 1
+                obs.emit(EV_STOP, i, obs.now(), gen=self.updates,
+                         a=float(self.it))
+            return False
+        if not self._verdict and not progressed:
+            # parked above target with the plan withholding: count the
+            # next round as a local update so the forced refresh can fire
+            # (no livelock)
+            self.tick_pending = True
+
+        # -- idle backoff: park until mail can have arrived ---------------
+        if not progressed:
+            t_idle = time.perf_counter()
+            ctx.idle_wait(cfg.idle_sleep)
+            self.idle_total += time.perf_counter() - t_idle
+        return True
+
+    def value_and_publish(self) -> float:
+        v = self.value()
+        self.ctx.publish_value(self.i, v)
+        return v
 
 
 def hash_uniform(seed: int, step, lane) -> np.ndarray:

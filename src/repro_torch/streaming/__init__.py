@@ -11,10 +11,10 @@ Layers:
                  on the device, L1 certification bound (host float64).
   sharded      — update_ranks_sharded: the Partition-sharded rendering on
                  the runtime layer.  mode="superstep" is the deterministic
-                 host loop; mode="async" with transport="device" drains on
-                 the p shard programs of runtime.DeviceShardTransport.  The
-                 threads and worker-process transports wait for ROADMAP
-                 Queue 1 item 7.
+                 host loop; mode="async" drains with no barrier on worker
+                 threads ("threads"), numpy-only worker processes over
+                 shared memory ("procpool"), or the p shard programs of
+                 runtime.DeviceShardTransport ("device").
   server       — RankServer: double-buffered snapshots, atomic publish,
                  top_k/scores/personalized queries with staleness metadata.
   scenario     — edge-stream replay (freshness vs throughput, the Table-2

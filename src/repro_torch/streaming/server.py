@@ -32,9 +32,13 @@ ingest queue in merged batches, the update-while-serve mode.  The daemon
 thread launches its device solves on the same device and the default
 stream as the caller's thread; it sets no device of its own.
 
-The query tier's hooks (`_ppr_batcher`, `_ppr_cache`) stay None until
-ROADMAP Queue 1 item 8 attaches them; `personalized` answers with a host
-push (`ppr_push`) meanwhile.
+The query tier (`repro_torch.serving.attach_query_tier`) plugs into the
+hooks `_ppr_batcher` and `_ppr_cache`: with it, concurrent `personalized`
+calls fuse into one lane solve on the batcher's device, and repeats are
+answered from a certified cache; without it `personalized` answers with a
+host push (`ppr_push`).  With `shard_mode="async"` on the "procpool"
+transport, the updater thread forks (or spawns) numpy-only worker
+processes for every batch.
 """
 from __future__ import annotations
 
@@ -156,12 +160,6 @@ class RankServer:
                 and shard_mode != "async":
             raise ValueError(f"shard_transport={shard_transport!r} "
                              "requires shard_mode='async'")
-        if updater == "sharded" and shard_mode == "async" \
-                and shard_transport != "device":
-            raise NotImplementedError(
-                f"shard_mode='async' on shard_transport={shard_transport!r}"
-                " is not ported yet: ROADMAP Queue 1 item 7; use "
-                "shard_mode='superstep' or shard_transport='device'")
         # every solve of this server (the cold one, the updaters'
         # fallbacks and device drains) runs here; None is the CUDA card
         self.device = resolve_device(device)
@@ -178,8 +176,8 @@ class RankServer:
         # certificate via the Fig. 1 TerminationDriver.  shard_mode="async"
         # runs the drains with no superstep barrier on `shard_transport`:
         # "threads" (AsyncShardExecutor worker threads), "procpool"
-        # (worker processes, `shard_workers` sizing the pool; these two
-        # wait for ROADMAP Queue 1 item 7), or "device" (p shard programs
+        # (worker processes over a shared-memory ShardArena,
+        # `shard_workers` sizing the pool), or "device" (p shard programs
         # on `device`, runtime/device.py).
         self.updater = updater
         self.shards = shards
@@ -193,8 +191,7 @@ class RankServer:
         # certificate every snapshot publishes is schedule-independent)
         self.drain_schedule = make_schedule(drain_schedule)
 
-        # query-tier hooks (the serving tier, ROADMAP Queue 1 item 8): a
-        # QueryBatcher fuses
+        # query-tier hooks (repro_torch.serving): a QueryBatcher fuses
         # concurrent personalized() calls into one (n, nv) lane solve, a
         # PPRCache short-circuits repeats under a certified drift bound,
         # and subscribe() fans each publish out to router read-replicas.

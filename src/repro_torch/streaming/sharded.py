@@ -24,20 +24,27 @@ rendering of the paper's eq. (5) cycle, built directly on the port's
     upper-bounds the true ||r||_1 and the certificate
     ||x - x*||_1 <= sum_i ||r_i||_1 / (1 - alpha) is sound at STOP time.
 
-Two renderings run in the port:
+Two execution modes (`mode=`):
 
-  mode="superstep" (default) — the sequential host loop: all p drains,
-    then the exchange, then one `TerminationDriver.allreduce_step` per
+  "superstep" (default) — the sequential host loop: all p drains, then
+    the exchange, then one `TerminationDriver.allreduce_step` per
     superstep.  Deterministic; numpy on the host, so it equals the JAX
     package's loop bit for bit.
-  mode="async", transport="device" — the p shard programs of
-    `runtime.DeviceShardTransport` on one device (the card's CSR kernel,
-    float64), warm-started from the current iterate; the published
-    certificate is the host float64 recompute (`_exact_residual`).
-
-The asynchronous host transports (mode="async" on "threads" or
-"procpool"), fault injection and the runtime observer raise
-NotImplementedError: they wait for ROADMAP Queue 1 item 7.
+  "async" — no barrier of any kind, on one of three transports:
+    "threads" (`runtime.AsyncShardExecutor` worker threads with per-pair
+    mailboxes) and "procpool" (worker processes over a shared-memory
+    `runtime.ShardArena` with lock-free rings) run the host drains, the
+    plan consulted after every local update and termination driven
+    through the driver's message rendering (`ue_step` / `monitor_recv`);
+    "device" runs the p shard programs of `runtime.DeviceShardTransport`
+    on one device (the card's CSR kernel, float64), warm-started from the
+    current iterate.  The host schedules are nondeterministic: after STOP
+    the exact residual is recomputed from the folded-back state
+    (`_exact_residual`, host float64), and the drain is re-entered if an
+    in-flight race let STOP fire before the target was truly met — the
+    published certificate is always exact.  The worker processes run the
+    drain below (numpy only, no torch call: they may be forked from a
+    parent that holds a CUDA context).
 
 The dense uniform terms a dangling push would smear (column = e/n) fold
 into a scalar that all shards share and apply at epoch boundaries, so
@@ -58,7 +65,12 @@ from ..device import DeviceLike, resolve_device
 from ..runtime.device import DeviceShardTransport
 from ..runtime.driver import TerminationDriver
 from ..runtime.exchange import AllToAllPlan, ExchangePlan, SparsifiedPlan
-from ..runtime.schedule import make_schedule
+from ..runtime.executor import AsyncShardExecutor
+from ..runtime.faults import FaultPlan
+from ..runtime.observe import ShardObserver, attribute_frontier
+from ..runtime.schedule import ScheduleSpec, make_schedule
+from ..runtime.state import ShardArena
+from ..runtime.transport import ProcPoolShardExecutor
 from .delta import DeltaGraph, EdgeDelta
 from .incremental import (RankState, _check_cert, _exact_residual,
                           _frontier_contrib, _group_sums, _seed_delta,
@@ -97,10 +109,7 @@ class ShardedUpdateStats:
     pushes_first: int = 0      # rows pushed for the first time this update
     pushes_local: int = 0      # re-pushes from the shard's own sweep order
     pushes_boundary: int = 0   # re-pushes re-activated by foreign mass
-    observed: Optional[dict] = None  # the observer's payload
-    # (idle_s, recoveries, recovery_s, the attribution and `observed` are
-    # written by the asynchronous host transports, ROADMAP Queue 1 item 7;
-    # the port's renderings leave them at their defaults)
+    observed: Optional[dict] = None  # ShardObserver.observed() payload
     # device transport only: the §6 sparsified collective counters
     rows_sent: int = 0         # sparse payload rows shipped in-loop
     fulls: int = 0             # forced full refreshes (bounded-delay)
@@ -123,12 +132,16 @@ def _scatter_add(out: np.ndarray, idx: np.ndarray,
 def _drain_shard(arrays, x: np.ndarray, r: np.ndarray,
                  outbox: np.ndarray, s: int, e: int, alpha: float,
                  local_target: float, eps_floor: float,
-                 c_holder: list, order=None) -> int:
+                 c_holder: list, attr=None, order=None) -> int:
     """Drain shard rows [s, e) to ||r[s:e]||_1 <= local_target with batched
     frontier sweeps.  Contributions to own rows feed back into r (and keep
     draining); contributions to foreign rows accumulate into `outbox`
     (addressed by global row id); dangling mass accumulates into the shared
     uniform scalar `c_holder[0]`.  Returns the number of pushes.
+
+    `attr=(pushed, foreign, cnt)` arms push-inflation attribution: each
+    frontier is classified first/local/boundary into `cnt` (the shard's
+    (3,) row) before its flags advance (runtime/observe.py).
 
     `order` (a `runtime.schedule.DrainOrder`, local coords [0, e-s)) lets
     a DrainSchedule refine each sweep's frontier — priority retention may
@@ -162,6 +175,8 @@ def _drain_shard(arrays, x: np.ndarray, r: np.ndarray,
         if order is not None:
             order.note_drained(frontier)
         frontier = frontier + s
+        if attr is not None:
+            attribute_frontier(attr[0], attr[1], attr[2], frontier)
         pushes += int(frontier.size)
         moved = r[frontier].copy()
         x[frontier] += moved
@@ -243,6 +258,75 @@ def _make_plan(exchange: str, p: int, l1_target: float,
         return SparsifiedPlan(p, thresh=thresh,
                               refresh_every=sparsify_refresh_every)
     return AllToAllPlan(p)
+
+
+class _ShardDrain:
+    """The drain `_ShardDrainFactory` builds inside each worker (and the
+    threads transport binds to the in-process arrays), as an object so
+    that the observing worker can wire attribution through
+    `set_observer` (`_procpool_worker_main` duck-types for it).  Numpy
+    only: it runs in forked worker processes, which must never call
+    torch."""
+
+    def __init__(self, arrays, x: np.ndarray, r: np.ndarray,
+                 alpha: float, eps_floor: float,
+                 spec: Optional[ScheduleSpec] = None):
+        self.arrays = arrays
+        self.x = x
+        self.r = r
+        self.alpha = alpha
+        self.eps_floor = eps_floor
+        self.spec = spec
+        self._orders: dict = {}   # shard id -> DrainOrder (lazy: a worker
+        #                         # only ever drains the shards it owns)
+        self.obs: Optional[ShardObserver] = None
+
+    def set_observer(self, obs: Optional[ShardObserver]) -> None:
+        # attribution needs the per-row flags; a counters-only observer
+        # (synthetic drains) leaves the drain untouched
+        self.obs = obs if (obs is not None and obs.pushed is not None) \
+            else None
+
+    def _order(self, i, s, e):
+        if self.spec is None:
+            return None
+        if i not in self._orders:
+            self._orders[i] = self.spec.order(e - s, shard=i)
+        return self._orders[i]
+
+    def __call__(self, i, s, e, step_target, outbox):
+        holder = [0.0]
+        obs = self.obs
+        attr = ((obs.pushed, obs.foreign, obs.attr[i])
+                if obs is not None else None)
+        got = _drain_shard(self.arrays, self.x, self.r, outbox, s, e,
+                           self.alpha, step_target, self.eps_floor,
+                           holder, attr, self._order(i, s, e))
+        return got, holder[0]
+
+
+class _ShardDrainFactory:
+    """Picklable procpool DrainFactory: rebuilds the batched
+    Gauss-Southwell sweep inside each worker process from the arena views
+    (`runtime.transport.DrainFactory` contract; a spawned worker unpickles
+    it, importing this module).  The ScheduleSpec rides
+    along (frozen dataclass, picklable); each worker incarnation builds
+    fresh per-shard DrainOrder state from it — retention and RNG state are
+    schedule heuristics, so losing them to a worker restart is sound."""
+
+    def __init__(self, alpha: float, eps_floor: float, base_n: int,
+                 spec: Optional[ScheduleSpec] = None):
+        self.alpha = alpha
+        self.eps_floor = eps_floor
+        self.base_n = base_n
+        self.spec = spec
+
+    def __call__(self, views):
+        arrays = (views["base_indptr"], views["base_indices"], self.base_n,
+                  views["dirty_rows"], views["out_deg"],
+                  views["dirty_indptr"], views["dirty_indices"])
+        return _ShardDrain(arrays, views["x"], views["r"],
+                           self.alpha, self.eps_floor, self.spec)
 
 
 def _device_update(dg: DeltaGraph, state: RankState, *, p: int,
@@ -329,7 +413,7 @@ def update_ranks_sharded(
         backend: str = "segment_sum", method: str = "linear",
         solver_max_iters: int = 1000,
         bytes_per_entry: int = 8,
-        faults=None,
+        faults: Optional[FaultPlan] = None,
         observe: bool = False,
         schedule=None,
         device: DeviceLike = None
@@ -338,22 +422,44 @@ def update_ranks_sharded(
 
     Mirrors `update_ranks` (same RankState in/out, same exact residual
     bookkeeping, same warm-started fallback) but runs the drain as the
-    runtime-layer cycle described in the module docstring: the
-    deterministic superstep loop (``mode="superstep"``, the default) or
-    the device shard programs (``mode="async", transport="device"``: p
-    shard programs on `device`; custom drain schedules are host-drain
-    heuristics and raise; the device counters land on
-    ``stats.rows_sent`` / ``stats.fulls`` / ``stats.bytes_moved``).  On
-    success ``stats.cert`` is sound and ``state.cert <= stats.cert``
-    (state.r is the exactly-maintained residual; the superstep bound is
-    the driver's all-reduced sum, the device bound the exact recompute).
+    runtime-layer cycle described in the module docstring, either as the
+    deterministic superstep loop (``mode="superstep"``) or with zero
+    inter-drain barriers (``mode="async"``) on the selected transport:
+    ``transport="threads"`` (worker threads), ``transport="procpool"``
+    (worker *processes* over a shared-memory ShardArena — the rendering
+    whose raw wall-clock escapes the GIL; ``n_workers`` sizes the pool,
+    default min(p, cores)), or ``transport="device"`` (p shard programs
+    on `device`; faults, observe and custom drain schedules are host-seam
+    features and raise; the device counters land on ``stats.rows_sent`` /
+    ``stats.fulls`` / ``stats.bytes_moved``).  On success ``stats.cert``
+    is sound and ``state.cert <= stats.cert`` (state.r is the
+    exactly-maintained residual; the superstep bound is the driver's
+    all-reduced sum, the async bound is the exact post-fold recompute —
+    under every transport).  The arguments are checked as the JAX package
+    checks them, in its order and with its ValueErrors.
 
-    The arguments are checked as the JAX package checks them, in its
-    order and with its ValueErrors.  What that package also accepts and
-    the port does not run yet raises NotImplementedError naming ROADMAP
-    Queue 1 item 7: ``mode="async"`` on ``transport="threads"`` or
-    ``"procpool"`` (``n_workers`` sizes that pool), and ``faults=`` /
-    ``observe=True``, which only those transports take.
+    `faults=FaultPlan(...)` (async mode, host transports) injects a
+    deterministic seeded fault schedule — worker kill/hang, exchange
+    drop/dup/delay, slow shards — at the transport seam
+    (runtime/faults.py); an inactive plan injects nothing and is accepted
+    in every mode.  Killed procpool workers are restarted by the
+    `ShardSupervisor` (threads restart the worker loop in place);
+    whenever faults were injected or recoveries happened, the residual is
+    re-derived with the exact O(nnz) recompute and the drain re-entered
+    until the *exact* residual meets the target, so the published
+    certificate stays sound across any recovered schedule.  Only an
+    exhausted restart budget raises RuntimeError — with the shared
+    segments released and the surviving mass folded back; after such an
+    abort re-certify via `refresh_residual` (or rebuild via `cold_state`)
+    before trusting the state.
+
+    `observe=True` (async mode, host transports) arms the runtime observer
+    (runtime/observe.py): per-shard metrics, a ring-buffered event trace
+    at the cycle seams, and push-inflation attribution — the
+    `pushes_first` / `pushes_local` / `pushes_boundary` decomposition on
+    the stats, with the full payload in `stats.observed` and a
+    Perfetto-loadable export via
+    `runtime.observe.write_chrome_trace(path, stats.observed["events"])`.
 
     `schedule=` selects the DrainSchedule rendering (a name or a
     `runtime.schedule.ScheduleSpec`): "default", "priority" (D-Iteration
@@ -364,8 +470,9 @@ def update_ranks_sharded(
     outbox — so certificates are schedule-independent.
 
     `device` (None: the CUDA card, raising without one) runs the device
-    drain and the fallback solve; it is resolved after the argument
-    checks and before the graph changes.
+    drain and the fallback solve of every transport; it is resolved after
+    the argument checks and before the graph changes.  The host drains
+    never touch it.
     """
     if state.version != dg.version:
         raise ValueError(
@@ -384,7 +491,7 @@ def update_ranks_sharded(
     if transport in ("procpool", "device") and mode != "async":
         raise ValueError(f"transport={transport!r} requires mode='async' "
                          "(the superstep loop is a host loop)")
-    faulty = faults is not None     # the port has no FaultPlan to ask
+    faulty = faults is not None and faults.active
     if faulty and mode != "async":
         raise ValueError("faults= requires mode='async' (the superstep "
                          "loop has no transport seam to inject at)")
@@ -405,11 +512,6 @@ def update_ranks_sharded(
     if transport == "device" and spec.name != "default":
         raise ValueError("schedule= renderings are host-drain heuristics; "
                          "transport='device' supports only the default")
-    if mode == "async" and transport != "device":
-        raise NotImplementedError(
-            f"mode='async' on transport={transport!r} (and faults= / "
-            "observe=True, which it carries) is not ported yet: ROADMAP "
-            "Queue 1 item 7; use mode='superstep', or transport='device'")
     # the zero-cost contract: a spec whose drain rendering is the default
     # ladder passes order=None straight through (every hook skipped)
     drain_spec = spec if spec.drain_kind != "default" else None
@@ -450,6 +552,181 @@ def update_ranks_sharded(
             device=device)
 
     arrays = _view_arrays(dg)
+
+    if mode == "async":
+        # --- truly asynchronous drain: shard workers on the selected
+        # transport (threads: per-pair mailboxes in-process; procpool:
+        # worker processes over a shared-memory ShardArena with lock-free
+        # rings), plan consulted per local update, Fig. 1 by routed
+        # messages.  STOP can race mass in flight, so the exact residual
+        # is recomputed after every fold-back and the drain is re-entered
+        # (with fresh protocol state) until it truly holds — the
+        # published certificate is always the exact recompute.
+        arena = None
+        # observe=True arms the runtime observer: threads share one
+        # in-process ShardObserver across every attempt; procpool grows
+        # each run's control arena with the obs_* slots (observe=True on
+        # the executor) and hands the payload back via res.observed
+        obs = (ShardObserver.alloc(p, n)
+               if observe and transport == "threads" else None)
+        if transport == "procpool":
+            # shard fragments move to shared memory once per update
+            # batch; workers rebuild the drain from the arena views
+            arena = ShardArena.from_arrays({
+                "r": r, "x": x,
+                "base_indptr": arrays[0], "base_indices": arrays[1],
+                "dirty_rows": arrays[3], "out_deg": arrays[4],
+                "dirty_indptr": arrays[5], "dirty_indices": arrays[6],
+            })
+            factory = _ShardDrainFactory(alpha=alpha, eps_floor=eps_floor,
+                                         base_n=int(arrays[2]),
+                                         spec=drain_spec)
+            r_run = arena["r"]
+        else:
+            # the same drain object the procpool factory builds, bound to
+            # the in-process arrays: per-shard DrainOrder state persists
+            # across drain attempts (retention/RNG are heuristics; the
+            # certificate never depends on them)
+            drain_fn = _ShardDrain(arrays, x, r, alpha, eps_floor,
+                                   drain_spec)
+            drain_fn.set_observer(obs)
+            r_run = r
+
+        pushes_per_shard = np.zeros(p, dtype=np.int64)
+        exchanges = bytes_moved = 0
+        step = 0
+        stop_round = -1
+        idle_s = 0.0
+        capped = False
+        attempts = 0
+        recoveries = 0
+        recovery_s = 0.0
+        observed = None
+        attr_tot = np.zeros(3, dtype=np.int64)
+        # kill/hang schedules fire once per *update*, so the fired flags
+        # live here and cross every drain attempt (and, in procpool,
+        # every worker restart via the control arena)
+        fstate = faults.state(p) if faulty else None
+        try:
+            resid = float(np.abs(r_run).sum())
+            # always enter at least once (even an already-converged
+            # residual gets its STOP from a routed Fig. 1 transcript, not
+            # a shortcut)
+            while (attempts == 0 or resid > l1_target) \
+                    and not capped and attempts < 4:
+                attempts += 1
+                plan = _make_plan(exchange, p, l1_target, sparsify_thresh,
+                                  sparsify_refresh_every)
+                driver = TerminationDriver(p, pc_max_compute=pc_max_compute,
+                                           pc_max_monitor=pc_max_monitor)
+                # 2x push headroom vs the superstep budget: the
+                # fine-grained schedule pushes a row per *arrival* where
+                # the superstep loop batches a whole exchange generation
+                # into one push — same mass drained, more (cheaper) pops
+                push_budget = (2 * max_pushes
+                               - int(pushes_per_shard.sum()))
+
+                # spec.drain_frac overrides the transport's drain-call
+                # granularity, clamped to keep hysteresis * drain_frac
+                # under the livelock bound 1.0 (WorkerConfig rejects it)
+                def _df_kw(hysteresis: float) -> dict:
+                    if spec.drain_frac is None:
+                        return {}
+                    return dict(drain_frac=min(float(spec.drain_frac),
+                                               0.95 / hysteresis))
+
+                if transport == "procpool":
+                    ex = ProcPoolShardExecutor(
+                        part, plan, driver, l1_target=l1_target,
+                        bytes_per_entry=bytes_per_entry,
+                        max_rounds=100 * max_supersteps,
+                        max_total_pushes=push_budget, n_workers=n_workers,
+                        faults=faults, fault_state=fstate,
+                        observe=observe, schedule=spec,
+                        **_df_kw(ProcPoolShardExecutor.HYSTERESIS))
+                    res = ex.run(factory, arena, x_key="x")
+                else:
+                    ex = AsyncShardExecutor(
+                        part, plan, driver, l1_target=l1_target,
+                        bytes_per_entry=bytes_per_entry,
+                        max_rounds=100 * max_supersteps,
+                        max_total_pushes=push_budget,
+                        faults=faults, fault_state=fstate, observe=obs,
+                        schedule=spec,
+                        **_df_kw(2.0))
+                    res = ex.run(drain_fn, r_run)
+                if res.observed is not None:
+                    # threads reuse one observer, so the last payload is
+                    # already cumulative; procpool arenas are per-attempt,
+                    # so attribution totals accumulate here (the trace in
+                    # `observed` covers the final attempt)
+                    observed = res.observed
+                    if transport == "procpool":
+                        a = res.observed.get("attribution")
+                        if a is not None:
+                            attr_tot += np.array(
+                                [a["first"], a["local"], a["boundary"]],
+                                dtype=np.int64)
+                pushes_per_shard += res.pushes_per_shard
+                exchanges += res.exchanges
+                bytes_moved += res.bytes_moved
+                step = max(step, int(res.rounds_per_shard.max()))
+                stop_round = res.stop_round
+                idle_s += float(res.idle_s_per_shard.sum())
+                capped = res.capped
+                recoveries += res.recoveries
+                recovery_s += res.recovery_s
+                if faulty or res.recoveries:
+                    # faults (and checkpoint-restored restarts) leave the
+                    # maintained residual only *boundedly* approximate:
+                    # re-derive it exactly from the iterate, so both the
+                    # re-entry decision and the published certificate
+                    # stand on the exact O(nnz) recompute
+                    x_cur = arena["x"] if arena is not None else x
+                    r_run[:] = _exact_residual(dg, x_cur, alpha, state.v)
+                resid = float(np.abs(r_run).sum())
+        finally:
+            if arena is not None:
+                # bring the fragments home, then release the segment
+                # (nothing survives in /dev/shm even on a worker crash)
+                r[:] = arena["r"]
+                x[:] = arena["x"]
+                r_run = None
+                arena.close()
+
+        if obs is not None:
+            # threads: one observer covered every attempt
+            observed = obs.observed()
+            if obs.attr is not None:
+                attr_tot = obs.attr.sum(axis=0)
+
+        pushes = int(pushes_per_shard.sum())
+        if resid <= l1_target and not capped:
+            return state, ShardedUpdateStats(
+                path="sharded_push", p=p, supersteps=step, pushes=pushes,
+                pushes_per_shard=pushes_per_shard, exchanges=exchanges,
+                bytes_moved=bytes_moved, seed_l1=seed_l1, resid_l1=resid,
+                cert=resid / (1.0 - alpha), stop_superstep=stop_round,
+                mode=mode, idle_s=idle_s, attempts=attempts,
+                transport=transport, recoveries=recoveries,
+                recovery_s=recovery_s, pushes_first=int(attr_tot[0]),
+                pushes_local=int(attr_tot[1]),
+                pushes_boundary=int(attr_tot[2]), observed=observed,
+                schedule=spec.name)
+        return _solver_fallback(
+            dg, state, alpha=alpha, tol=tol, method=method,
+            backend=backend, solver_max_iters=solver_max_iters,
+            device=device,
+            stats_kw=dict(p=p, supersteps=step, pushes=pushes,
+                          pushes_per_shard=pushes_per_shard,
+                          exchanges=exchanges, bytes_moved=bytes_moved,
+                          seed_l1=seed_l1, mode=mode, idle_s=idle_s,
+                          attempts=max(attempts, 1), transport=transport,
+                          recoveries=recoveries, recovery_s=recovery_s,
+                          pushes_first=int(attr_tot[0]),
+                          pushes_local=int(attr_tot[1]),
+                          pushes_boundary=int(attr_tot[2]),
+                          observed=observed, schedule=spec.name))
 
     local_target = l1_target / (2.0 * p)
     plan = _make_plan(exchange, p, l1_target, sparsify_thresh,

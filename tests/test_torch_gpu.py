@@ -1131,3 +1131,113 @@ def test_streaming_des_bridge_on_card_matches_cpu(cuda):
     for f in ("iters", "imports", "attempts"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
     assert float(np.abs(a.x - b.x).sum()) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the asynchronous host transports and the query tier, beside the card
+# ---------------------------------------------------------------------------
+def test_procpool_after_cuda_certifies(cuda):
+    """Worker processes forked from a parent that holds a CUDA context and
+    has launched kernels (the cold solve): the async updates
+    certify, the ranks match the CPU's float64 oracle, and no segment of
+    the port's prefix is left in /dev/shm."""
+    from _torch_async_drains import own_segments, within
+    from repro_torch.graph.google import exact_pagerank
+    from repro_torch.streaming import EdgeDelta, update_ranks_sharded
+    dg, _, st, _ = _stream_pair(cuda)           # cold solve on the card
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(91)
+    for _ in range(2):
+        d = EdgeDelta.inserts(rng.integers(0, 2000, 10),
+                              rng.integers(0, 2000, 10))
+        st, s = within(update_ranks_sharded, dg, d, st, p=4, tol=1e-7,
+                       mode="async", transport="procpool", n_workers=2,
+                       seconds=120.0)
+        assert s.transport == "procpool" and s.cert <= 1e-7
+    x_ref = exact_pagerank(dg.operator(0.85), tol=1e-13)
+    assert float(np.abs(st.x - x_ref).sum()) <= 2e-7
+    assert own_segments() == []
+
+
+def test_procpool_spawn_executor_after_cuda(cuda):
+    """The process pool spawned (the start method that re-imports the
+    package and torch in each worker) from a parent holding a CUDA
+    context: a synthetic drain terminates, conserves mass and releases
+    its segment."""
+    from _torch_async_drains import AbsorbDrain, own_segments, within
+    from repro_torch.core.partition import block_rows
+    from repro_torch.runtime import (AllToAllPlan, ProcPoolShardExecutor,
+                                     ShardArena, TerminationDriver)
+    torch.zeros(1, device=cuda)
+    p, n = 3, 30
+    ex = ProcPoolShardExecutor(block_rows(n, p), AllToAllPlan(p),
+                               TerminationDriver(p), l1_target=1e-6,
+                               max_rounds=100_000, start_method="spawn")
+    with ShardArena.from_arrays(dict(r=np.linspace(0.1, 1.0, n))) as arena:
+        res = within(ex.run, AbsorbDrain(n, p), arena, seconds=120.0)
+        assert res.stopped and float(np.abs(arena["r"]).sum()) <= 2e-6
+    assert own_segments() == []
+
+
+def test_threads_async_fallback_solves_on_card(cuda):
+    """A threads async update whose push budget is too small falls back
+    to the warm-started float64 solve on the card: one CSR float64 launch
+    an iteration (+ one for the final residual check), certified."""
+    from _torch_async_drains import within
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.streaming import synth_edge_trace, update_ranks_sharded
+    dg, _, st, _ = _stream_pair(cuda)
+    d = synth_edge_trace(dg, n_batches=1, batch_edges=30, seed=62,
+                         p_new_node=0.0)[0]
+    before = CSR["f64"]
+    st, s = within(update_ranks_sharded, dg, d, st, p=2, tol=1e-8,
+                   mode="async", transport="threads", max_push_factor=0.05)
+    assert s.path == "solve_linear" and s.transport == "threads"
+    assert s.cert <= 1e-8 and s.solver_iters > 0
+    assert CSR["f64"] - before >= s.solver_iters
+
+
+@pytest.mark.parametrize("backend", ["segment_sum", "bsr"])
+def test_batcher_lanes_on_card_match_cpu(cuda, backend):
+    """Eight concurrent personalized queries fused by a QueryBatcher on
+    the card (the CSR kernel's float64 lanes, or the block kernel and its
+    hub lane) against the same batcher on the CPU: each answer certified
+    and within tol of the CPU's in L1; the kernels ran from the
+    batcher's collector thread."""
+    import threading
+    from _torch_async_drains import within
+    from repro_torch.kernels.csr_spmv import LAUNCHES as CSR
+    from repro_torch.serving import QueryBatcher
+    from repro_torch.streaming import DeltaGraph, RankServer
+    tol = 1e-4
+    g = _stream_graph()
+    rng = np.random.default_rng(93)
+    sets = [rng.choice(2000, size=3, replace=False) for _ in range(8)]
+    answers = {}
+    for dev in (cuda, "cpu"):
+        srv = RankServer(DeltaGraph(g), tol=1e-7, device=dev)
+        b = QueryBatcher(srv, max_batch=8, max_delay_s=0.5,
+                         backend=backend, device=dev).attach()
+        out = [None] * 8
+        gate = threading.Barrier(8)
+
+        def ask(k):
+            gate.wait()
+            out[k] = b.submit(sets[k], None, tol)
+        launches = (dict(CSR), LAUNCHES["f32"])
+        ts = [threading.Thread(target=ask, args=(k,)) for k in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            within(t.join)
+        within(b.stop)
+        assert all(o is not None and o[1] <= tol for o in out)
+        assert b.stats()["fused_lanes"] > 0
+        answers[str(dev)] = out
+        if dev is cuda:
+            key = "f64" if backend == "segment_sum" else "hub"
+            assert CSR[key] > launches[0][key]
+            if backend == "bsr":
+                assert LAUNCHES["f32"] > launches[1]
+    for a, c in zip(answers[str(cuda)], answers["cpu"]):
+        assert float(np.abs(a[0] - c[0]).sum()) <= tol

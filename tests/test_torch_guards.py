@@ -38,6 +38,12 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.streaming.sharded\n"
         "import repro_torch.streaming.server\n"
         "import repro_torch.streaming.scenario\n"
+        "import repro_torch.runtime.transport, repro_torch.runtime.executor\n"
+        "import repro_torch.runtime.faults, repro_torch.runtime.supervisor\n"
+        "import repro_torch.runtime.step, repro_torch.runtime.exchange\n"
+        "import repro_torch.runtime.driver\n"
+        "import repro_torch.serving, repro_torch.serving.batcher\n"
+        "import repro_torch.serving.ppr_cache, repro_torch.serving.router\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -144,6 +150,31 @@ def test_streaming_entry_points_default_to_cuda():
     assert (certs <= 1e-4).all()
     srv = RankServer(dg, tol=1e-6, device="cpu")
     assert srv.snapshot().cert <= 1e-6
+
+
+def test_query_tier_defaults_to_cuda():
+    """The query tier's lane solves resolve their device at construction
+    (None: the card) and raise without one, before anything attaches to
+    the server; with device="cpu" the tier attaches and answers."""
+    from repro_torch.graph import cycle_graph
+    from repro_torch.serving import QueryBatcher, attach_query_tier
+    from repro_torch.streaming import DeltaGraph, RankServer
+    if torch.cuda.is_available():
+        return
+    srv = RankServer(DeltaGraph(cycle_graph(16)), tol=1e-6, device="cpu")
+    for call in (lambda: QueryBatcher(srv),
+                 lambda: attach_query_tier(srv, replicas=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        assert srv._ppr_batcher is None and srv._ppr_cache is None
+    from _torch_async_drains import within
+    batcher, cache, router = attach_query_tier(srv, replicas=1,
+                                               device="cpu")
+    try:
+        x, cert, _ = within(srv.personalized, [3], tol=1e-3)
+        assert cert <= 1e-3 and router.top_k(2)[0].size == 2
+    finally:
+        within(batcher.stop)
 
 
 def test_lm_entry_points_default_to_cuda():

@@ -557,7 +557,10 @@ def test_rank_server_threaded_with_concurrent_queries():
     assert float(np.abs(snap.x - x_ref).sum()) <= tol
 
 
-def test_rank_server_rejects_like_reference():
+def test_rank_server_rejects_like_reference(ref_x64):
+    """Bad updater arguments raise ValueError in both packages; the host
+    asynchronous sharded updaters (which the port once rejected) are
+    accepted by both and publish a certified cold snapshot."""
     g = j_powerlaw(n=200, target_nnz=1500, n_dangling=2, seed=3)
     _, td = pair(g)
     for kw in (dict(updater="telepathic"), dict(shard_mode="psychic"),
@@ -568,9 +571,12 @@ def test_rank_server_rejects_like_reference():
         with pytest.raises(ValueError):
             T.RankServer(td, device=CPU, **kw)
     for transport in ("threads", "procpool"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            T.RankServer(td, updater="sharded", shard_mode="async",
-                         shard_transport=transport, device=CPU)
+        kw = dict(updater="sharded", shard_mode="async",
+                  shard_transport=transport, tol=1e-7)
+        js = J.RankServer(J.DeltaGraph(g), **kw)
+        ts = T.RankServer(td, device=CPU, **kw)
+        assert ts.shard_transport == js.shard_transport == transport
+        assert js.snapshot().cert <= 1e-7 and ts.snapshot().cert <= 1e-7
 
 
 # ---------------------------------------------------------------------------
