@@ -99,7 +99,24 @@ Phases, each printing its own lines and seconds:
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
               CUDA-core lane in bf16 at head dim 96); forward and
-              decode-step times.
+              decode-step times;
+ 18. main   : the paper's iteration applied to SGD (ROADMAP Queue 1 item
+              9.1): run_async_training_sim at p = 4, uniform and with a
+              straggler, its DES views on the card, the iterations, times,
+              speedups and losses equal to the same runs on the CPU;
+ 19. main   : Qwen2-MoE-A2.7B at full width and depth (item 10.1; 15.1e9
+              random bf16 weights from --seed): the forward of 4 x 128
+              tokens through the tensor-core flash kernel in its MHA
+              layout, its routing (drops at capacity factor 1.25, expert
+              load, aux loss), the plain attention under the same routing
+              against it, greedy generation, the decode path against the
+              forward, a 2048-token prefill, the flash launches read
+              around it;
+ 20. timing : the flash kernel at the MoE prefill shape (H = Hkv = 16)
+              beside its plain version, SDPA and the bound; forward and
+              decode-step times and the card's busy share;
+ 21. analysis: the roofline (`repro_torch.analysis`, H100 constants) of
+              the MoE prefill and decode step beside their measured times.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -118,13 +135,6 @@ from contextlib import contextmanager
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside
-# the tensor cores (the SpMV kernel uses full-f32 FMAs on the CUDA cores),
-# and dense bf16 FLOP/s on the tensor cores (the attention bound)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F64_FLOPS = 34e12      # float64 outside the tensor cores
 # cuda_ms's device sleep before its timed calls: ~20 ms at the H100's
 # 1.98 GHz boost clock
 SLEEP_CYCLES = 40_000_000
@@ -150,12 +160,11 @@ SPMD_LANE_PC_MAX = 4
 # repeats of the lane run in the timing phase (the spread of its L1 error)
 SPMD_LANE_REPEATS = 4
 SPMD_SCHEDULES = ("allgather", "allgather_k", "ring", "sparsified")
-# the paper's experiment in the DES (Tables 1-2): the configuration of
-# benchmarks/paper_tables.py (des_cfg, :35-36) and the paper's values
-# (PAPER_TABLE1, :19-27; Table 2's completed imports, :77), copied, since
-# that module imports the JAX package
+# the paper's experiment in the DES (Tables 1-2): its configuration is the
+# port's `configs.pagerank.paper_des_config`; the paper's values are those
+# of benchmarks/paper_tables.py (PAPER_TABLE1, :19-27; Table 2's completed
+# imports, :77), copied, since that module imports the JAX package
 DES_PROCS = (2, 4, 6)
-DES_CFG = dict(tol=1e-6, norm="l2", barrier_overhead=0.5, seed=7)
 PAPER_TABLE1 = {
     2: dict(sync_iters=44, sync_t=179.2, async_iters=(68, 69),
             async_t=(86.3, 94.5), speedup=1.98),
@@ -237,9 +246,14 @@ TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:27"}
-# the Yi-6B runs: prompts of the main path, and the prefill shape timed
+# the Yi-6B runs: prompts of the main path, and the prefill shape timed;
+# the Qwen2-MoE-A2.7B runs take the same shapes
 YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
 YI_PREFILL = (1, 2048)
+MOE_ARCH = "qwen2-moe-a2.7b"
+# the paper's iteration on SGD (training/async_dp.py): p = 4 UEs at seed 0,
+# uniform and with one UE at 0.3x speed (tests/test_async_dp.py)
+TRAIN_CASES = (("uniform", None), ("straggler", [1, 1, 1, 0.3]))
 # flash against its plain version, max over rows of ||o - r|| / ||r||,
 # about twice (bf16) and seven times (float32) the largest reading of the
 # sound kernels, 4.6e-3 and 1.4e-6 (PERF.md §6)
@@ -258,6 +272,17 @@ def check(cond, what):
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}")
+
+
+def roofline_ms(flops, nbytes, dtype):
+    """Least time (ms) for work of `flops` operations of `dtype` moving
+    `nbytes` on one H100, the larger of the two terms of the port's
+    roofline (`repro_torch.analysis.roofline`, NVIDIA's data-sheet peaks),
+    and which term it is: (ms, "bytes" | "operations")."""
+    from repro_torch.analysis.roofline import from_counts
+    r = from_counts(flops, nbytes, dtype=dtype)
+    return (r.bound_s * 1e3,
+            "bytes" if r.memory_s >= r.compute_s else "operations")
 
 
 def cuda_ms(fn, reps):
@@ -310,9 +335,7 @@ def bound(blocks, blk_count, x, y):
     real_bytes = real * (bm * bn * 4 + 4) + nbr * 4 + xy
     layout_bytes = nbr * K * (bm * bn * 4 + 4) + xy
     flops = 2.0 * real * bm * bn * x.shape[2]
-    t_bytes, t_ops = real_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", real_bytes,
+    return (*roofline_ms(flops, real_bytes, "float32"), real_bytes,
             layout_bytes)
 
 
@@ -520,15 +543,11 @@ def csr_bound(dev, x, y, n_rows):
     """Least time (ms) for one CSR product: indptr, src, weights, x and y
     each moved once at the HBM rate, against 2 flops per edge and lane at
     the CUDA-core peak of x's type. Returns (ms, bound_by)."""
-    import torch
     nv = 1 if x.ndim == 1 else x.shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in
                  (dev["indptr"], dev["src"], dev["weight"], x, y))
     flops = 2.0 * dev["src"].numel() * nv
-    peak = PEAK_F64_FLOPS if x.dtype == torch.float64 else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(flops, nbytes, str(x.dtype)[6:])
 
 
 def library_csr_call(dev, x, n_rows):
@@ -769,10 +788,7 @@ def csr_timing(op, cuda, smi, hub_dev):
                       (*args[:3], hub_dev["hub_map"]))
                   + n_src * nv * x.element_size()
                   + 2 * n_hub * nv * y.element_size())
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = 2.0 * nnz_h * nv / PEAK_F64_FLOPS
-        b_ms = max(t_bytes, t_ops) * 1e3
-        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        b_ms, b_by = roofline_ms(2.0 * nnz_h * nv, nbytes, "float64")
         print(f"  csr hub lane nv={nv} ({n_hub:,} rows, {nnz_h:,} in-links "
               f"from {n_src:,} distinct rows of x, "
               f"f32 in, f64 sum, into y in place): kernel {t['kernel']:.4f} "
@@ -887,12 +903,16 @@ def des_main_path(op, exact, smi):
     float64 launches over the card's runs."""
     import numpy as np
     import torch
-    from repro_torch.core import (AsyncDES, AsyncFixedPoint, DESConfig,
+    from repro_torch.configs.pagerank import paper_des_config
+    from repro_torch.core import (AsyncDES, AsyncFixedPoint,
                                   PageRankBlockOperator, kendall_tau_topk)
     from repro_torch.kernels.csr_spmv import LAUNCHES as CSR_LAUNCHES
 
     afp = AsyncFixedPoint(op, kind="power")
-    print(f"  DESConfig({DES_CFG}), kind power, block partition [{smi}]")
+    c = paper_des_config()
+    print(f"  paper_des_config(): tol {c.tol}, norm {c.norm}, "
+          f"barrier_overhead {c.barrier_overhead}, seed {c.seed}; kind "
+          f"power, block partition [{smi}]")
 
     def tau_ok(x, what):
         tau = kendall_tau_topk(x, exact, k=100)
@@ -905,7 +925,7 @@ def des_main_path(op, exact, smi):
     for p in DES_PROCS:
         before = CSR_LAUNCHES["f64"]
         t0 = time.perf_counter()
-        s = afp.solve_des_sync(p, DESConfig(**DES_CFG))
+        s = afp.solve_des_sync(p, paper_des_config())
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         n_sync = CSR_LAUNCHES["f64"] - before
@@ -914,7 +934,7 @@ def des_main_path(op, exact, smi):
               f"{s.iters} iterations x {p} block updates")
         before = CSR_LAUNCHES["f64"]
         t0 = time.perf_counter()
-        a = afp.solve_des(p, DESConfig(**DES_CFG))
+        a = afp.solve_des(p, paper_des_config())
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
         n_async = CSR_LAUNCHES["f64"] - before
@@ -954,7 +974,7 @@ def des_main_path(op, exact, smi):
           f" (paper {PAPER_TABLE2_PCT})")
 
     t0 = time.perf_counter()
-    c = afp.solve_des(4, DESConfig(**DES_CFG), device="cpu")
+    c = afp.solve_des(4, paper_des_config(), device="cpu")
     wall_c = time.perf_counter() - t0
     l1 = float(np.abs(a.x - c.x).sum())
     print(f"  p=4 card vs CPU (plain path, {wall_c:.2f} s): iters "
@@ -972,7 +992,7 @@ def des_main_path(op, exact, smi):
     opr = PageRankBlockOperator(op, part, kind="power")
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    des = lambda: AsyncDES(opr, part, DESConfig(**DES_CFG)).run()
+    des = lambda: AsyncDES(opr, part, paper_des_config()).run()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1114,7 +1134,8 @@ def streaming_main_path(g, smi):
     import repro_torch.core.spmd as spmd_mod
     import repro_torch.streaming.incremental as inc_mod
     import repro_torch.streaming.sharded as sharded_mod
-    from repro_torch.core import AsyncDES, DESConfig, block_rows
+    from repro_torch.configs.pagerank import paper_des_config
+    from repro_torch.core import AsyncDES, block_rows
     from repro_torch.core.pagerank import kendall_tau_topk
     from repro_torch.graph.google import GoogleOperator, exact_pagerank
     from repro_torch.kernels.bsr_spmv import LAUNCHES
@@ -1401,12 +1422,12 @@ def streaming_main_path(g, smi):
     before = CSR_LAUNCHES["f64"]
     t0 = time.perf_counter()
     a = AsyncDES(StreamingBlockOperator(dg, part), part,
-                 DESConfig(**DES_CFG)).run()
+                 paper_des_config()).run()
     wall_a = sync_ms(t0)
     des_launches = CSR_LAUNCHES["f64"] - before
     t0 = time.perf_counter()
     c = AsyncDES(StreamingBlockOperator(dg, part, device="cpu"), part,
-                 DESConfig(**DES_CFG), device="cpu").run()
+                 paper_des_config(), device="cpu").run()
     wall_c = (time.perf_counter() - t0) * 1e3
     l1 = float(np.abs(a.x - c.x).sum())
     print(f"  DES over StreamingBlockOperator, p={STREAM_P}: card "
@@ -1887,13 +1908,9 @@ def attention_bound(q, k, v, causal):
     read once and o written once at the HBM rate, against the work
     (`attention_flops`) at the peak for the operands' type: dense bf16 on
     the tensor cores, float32 on the CUDA cores."""
-    import torch
     flops = attention_flops(q, k, causal)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    peak = PEAK_F32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return roofline_ms(flops, nbytes, str(q.dtype)[6:])
 
 
 def device_breakdown(fn, label, smi):
@@ -2008,6 +2025,9 @@ def flash_against_plain(cuda):
         (1, 8, 2, 1000, 1000, 128, True, bf16),
         (YI_BATCH, 32, 4, YI_PROMPT, YI_PROMPT, 128, True, bf16),  # main
         (1, 32, 4, 2048, 2048, 128, True, bf16),   # Yi-6B prefill
+        # Qwen2-MoE-A2.7B: MHA, H = Hkv = 16, D = 128
+        (YI_BATCH, 16, 16, YI_PROMPT, YI_PROMPT, 128, True, bf16),
+        (1, 16, 16, 2048, 2048, 128, True, bf16),
         # the tensor-core lane: S = T in {64, 128, 1000, 2048}, D in
         # {64, 128}, G in {1, 4, 8}, causal S != T, ragged 1/63/65/129, B = 2
         (1, 4, 4, 64, 64, 64, False, bf16),
@@ -2220,6 +2240,7 @@ def yi_timing(cuda, seed, smi):
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.analysis.roofline import H100
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref,
@@ -2258,7 +2279,8 @@ def yi_timing(cuda, seed, smi):
         f32_share = ""
         if lane == "f32":  # the CUDA-core lane's FMAs against their peak
             rate = attention_flops(q, k, True) / (t["kernel"] * 1e-3)
-            f32_share = f"{100 * rate / PEAK_F32_FLOPS:.1f}% of the f32 peak, "
+            f32_share = (f"{100 * rate / H100.peak_flops['float32']:.1f}% "
+                         f"of the f32 peak, ")
         print(f"  flash {lane} lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
               f"causal {str(dt)[6:]}: "
               f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
@@ -2321,6 +2343,412 @@ def yi_timing(cuda, seed, smi):
     return rows
 
 
+def async_dp_main_path(smi):
+    """The paper's asynchronous iteration applied to SGD (ROADMAP Queue 1
+    item 9.1): `run_async_training_sim` at p = 4, seed 0, sync and async,
+    uniform and with a straggler, with the DES views on the card (each
+    block update reads its view once, takes the gradient in host numpy
+    and uploads the new fragment), each run held count for count to the
+    same run on the CPU."""
+    import torch
+    from repro_torch.core import DESConfig
+    from repro_torch.training import run_async_training_sim
+    for name, speeds in TRAIN_CASES:
+        t0 = time.perf_counter()
+        card = run_async_training_sim(p=4, ue_speed=speeds, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = run_async_training_sim(p=4, ue_speed=speeds, seed=0,
+                                     device="cpu")
+        wall_cpu = time.perf_counter() - t0
+        print(f"  {name} (ue_speed {speeds}): sync {card.sync_iters} iters, "
+              f"{card.sync_time:.4f} sim s, loss {card.sync_loss:.6f} | "
+              f"async iters {card.async_iters_min}-{card.async_iters_max}, "
+              f"{card.async_time:.4f} sim s, loss {card.async_loss:.6f} | "
+              f"speedup {card.speedup:.4f}; wall {wall:.2f} s on the card, "
+              f"{wall_cpu:.2f} s on the CPU [{smi}]")
+        counts = ("sync_iters", "async_iters_min", "async_iters_max")
+        check(all(getattr(card, f) == getattr(cpu, f) for f in counts),
+              f"{name}: iterations on the card equal the CPU's "
+              f"({[getattr(cpu, f) for f in counts]})")
+        rel = max(abs(getattr(card, f) - getattr(cpu, f))
+                  / abs(getattr(cpu, f))
+                  for f in ("sync_time", "async_time", "speedup",
+                            "sync_loss", "async_loss"))
+        check(rel <= 1e-12,
+              f"{name}: times, speedup and losses equal the CPU's (max "
+              f"relative difference {rel:.3g} <= 1e-12)")
+        check(card.speedup > 1.5 if speeds else card.speedup > 1.0,
+              f"{name}: async beats sync, speedup {card.speedup:.3f}")
+    # the card's share of a short run (the straggler case cut at 100
+    # iterations: profiling the whole run costs ~40 s of trace handling)
+    short = DESConfig(tol=2e-3, norm="l2", base_flops_rate=2e6,
+                      bandwidth=2e5, msg_latency=1e-3, cancel_window=0.5,
+                      max_iters=100, ue_speed=TRAIN_CASES[1][1],
+                      normalize=False, seed=0)
+    stats = device_breakdown(
+        lambda: run_async_training_sim(p=4, cfg=short, seed=0),
+        "run_async_training_sim straggler, max_iters 100 (sync + async)",
+        smi)
+    check(stats is not None and stats[0] > 0,
+          "the training DES ran its fragment arithmetic on the card")
+
+
+def moe_routing(fn, pin=None):
+    """Run fn() with every MoE call of the decoder layers observed: returns
+    fn()'s result and, per call, its routing (dict: assignments `n`, kept
+    assignments `kept`, kept per expert `load`, `aux`, and the chosen
+    experts `idx`, (B, S, K)). With `pin`, call i routes its (B, S)
+    tokens to the experts pin(i, B, S) gives instead of its own top-k,
+    with gate values from its own probabilities at those experts: a run
+    then takes the routing decisions of another. Wraps the function the
+    layers call (`models.transformer.moe_apply`) for the length of fn(),
+    composing it from the port's `route` and `moe_experts` as it is."""
+    import repro_torch.models.transformer as tr
+    from repro_torch.models.moe import assign, moe_experts, route
+    calls = []
+    orig = tr.moe_apply
+
+    def observed(p, x, cfg):
+        B, S, D = x.shape
+        tg = min(cfg.moe_group_size, B * S)
+        xg = x.reshape((B * S) // tg, tg, D)
+        probs, gates, idx = route(p, xg, cfg)
+        if pin is not None:
+            idx = pin(len(calls), B, S).reshape(idx.shape)
+            gates = probs.gather(-1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        out, aux = moe_experts(p, xg, cfg, probs, gates, idx)
+        mask, _ = assign(idx, cfg)
+        calls.append(dict(n=B * S * cfg.top_k, kept=float(mask.sum()),
+                          load=mask.sum(dim=(0, 1, 2)).cpu(),
+                          aux=float(aux), idx=idx.reshape(B, S, -1)))
+        return out.reshape(B, S, D), aux
+    tr.moe_apply = observed
+    try:
+        return fn(), calls
+    finally:
+        tr.moe_apply = orig
+
+
+def report_routing(calls, what, n_experts):
+    """Print the drop share, the expert load and the aux loss of observed
+    MoE calls; returns the drop share over all of them."""
+    import torch
+    total = sum(c["n"] for c in calls)
+    kept = sum(c["kept"] for c in calls)
+    drops = [1.0 - c["kept"] / c["n"] for c in calls]
+    loads = torch.stack([c["load"] for c in calls])     # (calls, E)
+    mean = loads.sum(dim=1) / n_experts
+    imbalance = loads.max(dim=1).values / mean
+    idle = int((loads == 0).sum())
+    auxes = [c["aux"] for c in calls]
+    share = 1.0 - kept / total
+    print(f"  {what}: {len(calls)} MoE calls, {total:,} assignments, "
+          f"dropped {100 * share:.3f}% (per layer {100 * min(drops):.3f}-"
+          f"{100 * max(drops):.3f}%); expert load max/mean "
+          f"{float(imbalance.min()):.2f}-{float(imbalance.max()):.2f}, "
+          f"{idle} idle (layer, expert) pairs of {loads.numel()}; aux "
+          f"{min(auxes):.4f}-{max(auxes):.4f} per layer, sum "
+          f"{sum(auxes):.4f}")
+    return share
+
+
+def differing_choices(a, b):
+    """How many (layer, token, k) expert choices differ between two runs'
+    observed calls (as sets per token), and of how many."""
+    diff = total = 0
+    for ca, cb in zip(a, b):
+        ia, ib = ca["idx"].sort(dim=-1).values, cb["idx"].sort(dim=-1).values
+        diff += int((ia != ib).sum())
+        total += ia.numel()
+    return diff, total
+
+
+def moe_main_path(cuda, seed, smi):
+    """Qwen2-MoE-A2.7B inference at full width and depth (ROADMAP Queue 1
+    item 10.1) through the port's entry points, random bf16 weights drawn
+    on the card from `seed`: the forward of 4 prompts of 128 tokens
+    through the tensor-core flash kernel (H = Hkv = 16, D = 128) and its
+    routing (drops at capacity factor 1.25, expert load, aux loss); the
+    same weights with the plain attention, held to the kernel's forward
+    under the kernel run's routing decisions (routing is discontinuous:
+    with its own, a bf16 rounding that moves a top-k choice or a capacity
+    drop changes a token's output outright); greedy generation of 32
+    tokens through ServeEngine; the decode path against the forward on
+    8-token prompts; one 2048-token prefill. Returns the flash launches of
+    the run and the model."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES, kernel_lane
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(MOE_ARCH)
+    L = cfg.n_layers
+    check(kernel_lane(cfg.dtype(), cfg.head_dim_) == "wgmma",
+          f"{MOE_ARCH} (bf16, head dim {cfg.head_dim_}) is on the "
+          f"tensor-core flash lane")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=cuda, seed=seed)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == total_params(cfg) == 15_146_256_384,
+          f"{MOE_ARCH} at full width on the card: {n:,} parameters "
+          f"({L} layers, {cfg.n_experts} experts top-{cfg.top_k}, "
+          f"{cfg.n_shared_experts} shared), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"({time.perf_counter() - t0:.2f} s to draw) [{smi}]")
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT)), device=cuda)
+    long = torch.as_tensor(rng.integers(0, cfg.vocab_size, YI_PREFILL),
+                           device=cuda)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    (logits, aux), calls = moe_routing(lambda: model(prompts, impl="cuda"))
+    torch.cuda.synchronize()
+    print(f"  forward B={YI_BATCH} S={YI_PROMPT}: "
+          f"{time.perf_counter() - t0:.3f} s (first call, routing observed)")
+    check(tuple(logits.shape) == (YI_BATCH, YI_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"logits {tuple(logits.shape)} {logits.dtype}, finite")
+    share = report_routing(calls, f"routing of the forward, capacity "
+                           f"factor {cfg.capacity_factor}", cfg.n_experts)
+    check(len(calls) == L and 0.0 <= share < 0.5
+          and abs(float(aux) - sum(c["aux"] for c in calls))
+          <= 1e-4 * float(aux)
+          and 0.0 < float(aux) < L * cfg.n_experts,
+          f"every layer routed; {100 * share:.3f}% of assignments dropped "
+          f"(< 50%); the forward's aux {float(aux):.4f} is the layers' sum")
+
+    # the plain attention under the kernel run's routing: the Yi-6B
+    # phase's bf16 tolerances
+    (ref, ref_aux), pinned = moe_routing(
+        lambda: model(prompts, impl="ref"),
+        pin=lambda i, B, S: calls[i]["idx"])
+    torch.cuda.synchronize()
+    rel = rel_err(logits, ref)
+    n_bad, n_pos, margins = top1_report(logits, ref)
+    print(f"  forward cuda vs ref (bf16), the ref routed as the kernel "
+          f"run: max|dlogits|/max|logits| = {rel:.3g}; top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos} positions (ref top-2 margins where "
+          f"it differs: {margins}); aux {float(aux):.6f} / "
+          f"{float(ref_aux):.6f}")
+    check(rel <= 3e-2 and n_bad <= 0.1 * n_pos,
+          f"forward impl=cuda against impl=ref in bf16 under one routing: "
+          f"relative error {rel:.3g} <= 3e-2, top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos} positions (>= 90%)")
+    (free, _), own = moe_routing(lambda: model(prompts, impl="ref"))
+    torch.cuda.synchronize()
+    diff, total = differing_choices(calls, own)
+    n_bad, n_pos, _ = top1_report(logits, free)
+    print(f"  for the record, the ref with its own routing: "
+          f"max|dlogits|/max|logits| = {rel_err(logits, free):.3g}, top-1 "
+          f"agrees at {n_pos - n_bad} of {n_pos}; {diff} of {total:,} "
+          f"(layer, token, k) expert choices differ from the kernel run's")
+    report_routing(own, "the ref's own routing", cfg.n_experts)
+    del ref, free, pinned, own
+
+    eng = ServeEngine(cfg, model, max_len=YI_PROMPT + YI_GEN + 1,
+                      device=cuda)
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, YI_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = YI_PROMPT + YI_GEN - 1
+    print(f"  ServeEngine.generate {YI_BATCH} x {YI_GEN} tokens greedy "
+          f"after a {YI_PROMPT}-token prompt: {wall:.2f} s for {steps} "
+          f"decode steps ({wall / steps * 1e3:.1f} ms a step); greedy[0] "
+          f"{greedy[0, :12].tolist()} [{smi}]")
+    check(tuple(greedy.shape) == (YI_BATCH, YI_GEN)
+          and int(greedy.min()) >= 0 and int(greedy.max()) < cfg.vocab_size,
+          f"greedy tokens ({YI_BATCH}, {YI_GEN}) in [0, {cfg.vocab_size})")
+    # decode against the forward, drop-free (8 positions route 32 tokens,
+    # far below an expert's capacity of 40 a group), each decode step
+    # routed as the forward routed its tokens
+    short = prompts[:, :8]
+    (fwd, _), fwd_calls = moe_routing(lambda: model(short))
+    (last, _), _ = moe_routing(
+        lambda: eng.prefill(short),
+        pin=lambda i, B, S: fwd_calls[i % L]["idx"][:, i // L][:, None])
+    torch.cuda.synchronize()
+    rel = rel_err(last, fwd[:, -1])
+    n_bad, n_pos, _ = top1_report(last, fwd[:, -1])
+    check(all(c["kept"] == c["n"] for c in fwd_calls) and rel <= 3e-2
+          and n_bad <= 0.1 * n_pos,
+          f"8-token prompts (no assignment dropped): prefill through the "
+          f"decode path against the forward's last position under one "
+          f"routing, relative error {rel:.3g} <= 3e-2, top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos}")
+
+    t0 = time.perf_counter()
+    (out, _), long_calls = moe_routing(lambda: model(long))
+    torch.cuda.synchronize()
+    print(f"  prefill forward B={YI_PREFILL[0]} S={YI_PREFILL[1]}: "
+          f"{time.perf_counter() - t0:.3f} s (first call, routing observed)")
+    check(bool(torch.isfinite(out).all()),
+          f"{YI_PREFILL[1]}-token prefill finite")
+    report_routing(long_calls, f"routing of the {YI_PREFILL[1]}-token "
+                   f"prefill", cfg.n_experts)
+    launches = {"wgmma": LAUNCHES["wgmma"],
+                "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"]}
+    # the forwards with impl "auto"/"cuda": prompts, 8-token prompts, 2048
+    check(launches == {"wgmma": 3 * L, "f32": 0},
+          f"flash launches over the main path: {launches} (3 forwards x "
+          f"{L} layers on the tensor cores, none on the CUDA cores; decode "
+          f"attends over its cache without the kernel)")
+    del logits, out, fwd, last, eng, greedy, calls, fwd_calls, long_calls
+    free_cuda()
+    return launches, model
+
+
+def moe_timing(cuda, model, seed, smi):
+    """Times of Qwen2-MoE-A2.7B on the card: the flash kernel at the MoE
+    prefill shape (MHA, H = Hkv = 16) beside its plain version, SDPA and
+    the bound; the forward at B = 4, S = 128 and B = 1, S = 2048 (prefill
+    tokens/s, the card's busy share in one forward); the decode step at
+    B = 4. Returns the measured times for the roofline phase."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.models import decode_step
+    from repro_torch.serving import ServeEngine
+
+    cfg = model.cfg
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    B, S = YI_PREFILL
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((B, h, S, D), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    o = flash_attention(q, k, v, causal=True)
+    r = flash_attention_ref(q, k, v, causal=True)
+    err = float((o.float() - r.float()).abs().max())
+    t = {"kernel": cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                           20),
+         "plain": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                          5),
+         "sdpa": cuda_ms(sdpa, 20)}
+    b_ms, b_by = attention_bound(q, k, v, True)
+    print(f"  flash wgmma lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} causal "
+          f"bf16: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+          f"sdpa {t['sdpa']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
+          f"at {100 * b_ms / t['kernel']:.1f}% of bound, "
+          f"{t['sdpa'] / t['kernel']:.2f}x SDPA's speed; max |kernel - "
+          f"plain| {err:.3g} [{smi}]")
+    del q, k, v, o, r
+    times = {"flash": dict(t, bound_ms=b_ms, bound_by=b_by, err=err)}
+
+    rng = np.random.default_rng(seed)
+    for B, S in ((YI_BATCH, YI_PROMPT), YI_PREFILL):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device=cuda)
+        model(tokens)
+        torch.cuda.synchronize()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"  forward B={B} S={S}: {ms:.2f} ms, prefill "
+              f"{B * S / ms * 1e3:.0f} tokens/s [{smi}]")
+        stats = device_breakdown(lambda: model(tokens),
+                                 f"forward B={B} S={S}", smi)
+        times[("forward", B, S)] = (ms, stats)
+    eng = ServeEngine(cfg, model, max_len=24, device=cuda)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (YI_BATCH, 24)),
+                             device=cuda)
+    _, cache = eng.prefill(tokens[:, :4])
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for i in range(steps):
+        decode_step(model, tokens[:, 4 + i], cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"  decode_step B={YI_BATCH} at length 5..{4 + steps}: {ms:.2f} ms "
+          f"per step, {YI_BATCH / ms * 1e3:.1f} tokens/s [{smi}]")
+    _, calls = moe_routing(
+        lambda: decode_step(model, tokens[:, 4 + steps], cache))
+    stats = device_breakdown(
+        lambda: decode_step(model, tokens[:, 5 + steps], cache),
+        f"decode_step B={YI_BATCH}", smi)
+    hit = [int((c["load"] > 0).sum()) for c in calls]
+    times["decode"] = (ms, stats, hit, 4 + steps)
+    del eng, cache
+    return times
+
+
+def analysis_phase(cfg, times, smi):
+    """The roofline (`repro_torch.analysis`) of one MoE prefill of 2048
+    tokens and one decode step at B = 4 on one H100, from counts, beside
+    the measured times. FLOPs: `model_flops_cell` (2 x active parameters
+    x tokens, the JAX package's count, which takes the shared experts at
+    top_k / n_experts), plus the shared experts' remainder and the
+    attention's 4 D flops a (query, key) pair and head. Bytes: every
+    weight the step must read, once (for decode only the experts its
+    tokens were routed to, as recorded), the embedding rows, the logits
+    written, and for decode the KV cache read."""
+    from repro_torch.analysis import from_counts, model_flops_cell
+    from repro_torch.analysis.flops import _leaf_counts
+    counts = _leaf_counts(cfg)
+    item = cfg.pdtype().itemsize
+    router = sum(n for k, n in counts if k.endswith("moe/router"))
+    routed = sum(n for k, n in counts
+                 if "/moe/w_" in k and "/shared/" not in k)
+    shared = sum(n for k, n in counts if "/moe/shared/" in k)
+    embed_tok = dict(counts)["embed/tok"]
+    rest = sum(n for _, n in counts) - routed - router - embed_tok
+    H, D, L, V = cfg.n_heads, cfg.head_dim_, cfg.n_layers, cfg.padded_vocab
+    per_expert = routed // (L * cfg.n_experts)
+
+    def flops(shape, tokens, pairs):
+        model = model_flops_cell(cfg, shape)
+        full = model + 2.0 * tokens * shared * (
+            1 - cfg.top_k / cfg.n_experts)
+        return model, full + 4.0 * H * D * pairs * L
+
+    B, S = YI_PREFILL
+    ms_prefill = times[("forward", B, S)][0]
+    ms_decode, _, hit, t_len = times["decode"]
+    kv_read = 2 * L * YI_BATCH * cfg.n_kv_heads * t_len * D * item
+    cells = [
+        (f"prefill B={B} S={S}",
+         *flops(dict(kind="prefill", batch=B, seq=S), B * S,
+                B * S * (S + 1) // 2),
+         (rest + routed) * item + router * 4
+         + B * S * (cfg.d_model + V) * item, ms_prefill),
+        (f"decode step B={YI_BATCH} at length {t_len} (experts hit per "
+         f"layer {min(hit)}-{max(hit)} of {cfg.n_experts})",
+         *flops(dict(kind="decode", batch=YI_BATCH), YI_BATCH,
+                YI_BATCH * t_len),
+         (rest + sum(hit) * per_expert) * item + router * 4
+         + YI_BATCH * (cfg.d_model + V) * item + kv_read, ms_decode),
+    ]
+    for what, model, total, nbytes, ms in cells:
+        r = from_counts(total, nbytes)
+        print(f"  roofline of the {what}: model FLOPs (model_flops_cell) "
+              f"{model / 1e12:.4f} T, with the shared experts in full and "
+              f"attention {total / 1e12:.4f} T; {nbytes / 1e9:.3f} GB -> "
+              f"compute {r.compute_s * 1e3:.3f} ms, memory "
+              f"{r.memory_s * 1e3:.3f} ms: {r.dominant}-bound, bound "
+              f"{r.bound_s * 1e3:.3f} ms; measured {ms:.2f} ms, "
+              f"{100 * r.bound_s * 1e3 / ms:.1f}% of the bound [{smi}]")
+        check(r.dominant in ("compute", "memory") and r.collective_s == 0.0,
+              f"{what}: {r.dominant}-bound by the H100 constants, no "
+              f"collective term on one card")
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2331,6 +2759,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     import numpy as np
+    from repro_torch.analysis.roofline import H100
     from repro_torch.configs.pagerank import STANFORD
     from repro_torch.core.backend import (BackendSpec, as_spec,
                                           google_apply, prepare, seed_stack)
@@ -2658,7 +3087,7 @@ def main(argv=None):
                       f"{t['library_real']:.4f} ms (real slots) "
                       f"(|diff| {lib_err:.3g}), google_apply "
                       f"{t['apply']:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
-                      f"layout {layout_bytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+                      f"layout {layout_bytes / H100.hbm_bw * 1e3:.4f} "
                       f"ms): kernel at {100 * b_ms / t['f32']:.1f}% "
                       f"(kahan {100 * b_ms / t['kahan']:.1f}%) of bound "
                       f"[{smi}]")
@@ -2743,6 +3172,22 @@ def main(argv=None):
         print(f"  card: {smi}")
         flash_rows = yi_timing(cuda, args.seed, smi)
 
+    with phase("main path: asynchronous training in the DES (paper §4 on "
+               "SGD)"):
+        async_dp_main_path(smi)
+
+    with phase("main path: Qwen2-MoE-A2.7B"):
+        moe_launches, moe_model = moe_main_path(cuda, args.seed, smi)
+
+    with phase("timing: Qwen2-MoE-A2.7B"):
+        moe_times = moe_timing(cuda, moe_model, args.seed, smi)
+        moe_cfg = moe_model.cfg
+        del moe_model
+        free_cuda()
+
+    with phase("analysis"):
+        analysis_phase(moe_cfg, moe_times, smi)
+
     t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
@@ -2792,7 +3237,8 @@ def main(argv=None):
         row = flash_rows[lane]
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE[lane],
-            "replaces": TPU_KERNEL["flash"], "launches": flash_launches[lane],
+            "replaces": TPU_KERNEL["flash"],
+            "launches": flash_launches[lane] + moe_launches[lane],
             "max_abs_err": max(flash_err[lane], row["err"]),
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -16,9 +16,12 @@ Ported so far:
     the rank server and the replay), with its solves, lane stacks, device
     drains and block updates on the CSR and block-CSR kernels;
   * inference for the dense decoders of the LM scaffold (Yi-6B, SmolLM,
-    Qwen1.5, Minitron): the prefill forward, with the flash-attention
-    kernel as a hand-written CUDA kernel, the KV-cache decode step and the
-    batched ServeEngine.
+    Qwen1.5, Minitron) and the mixture-of-experts Qwen2-MoE-A2.7B: the
+    prefill forward, with the flash-attention kernel as a hand-written
+    CUDA kernel, the KV-cache decode step and the batched ServeEngine;
+  * the paper's iteration applied to SGD (`training`: asynchronous
+    parameter-sharded SGD on the DES, and the local-SGD step), and the
+    roofline and parameter/FLOP accounting (`analysis`).
 
 Entry points run on the CUDA card unless given `device="cpu"`.
 """

@@ -1,14 +1,16 @@
 """Workload configs of the port: the PageRank graphs, and the registry of
-the model architectures ported so far (the dense decoders)."""
+the model architectures ported so far (the dense decoders and
+Qwen2-MoE)."""
 from __future__ import annotations
 
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import minitron_4b, qwen1p5_4b, smollm_360m, yi_6b
-from .pagerank import SMALL, STANFORD, PageRankConfig
+from . import (minitron_4b, qwen1p5_4b, qwen2_moe_a2p7b, smollm_360m,
+               yi_6b)
+from .pagerank import SMALL, STANFORD, PageRankConfig, paper_des_config
 
-_MODULES = [smollm_360m, qwen1p5_4b, minitron_4b, yi_6b]
+_MODULES = [smollm_360m, qwen1p5_4b, minitron_4b, yi_6b, qwen2_moe_a2p7b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKE_REGISTRY: Dict[str, ModelConfig] = {
@@ -18,7 +20,7 @@ ARCH_NAMES = list(REGISTRY)
 
 # the JAX package's other architectures, which this port does not run yet
 NOT_PORTED = ("paligemma-3b", "recurrentgemma-2b", "mamba2-2.7b",
-              "qwen2-moe-a2.7b", "deepseek-v3-671b", "whisper-base")
+              "deepseek-v3-671b", "whisper-base")
 
 
 def _lookup(name: str, registry: Dict[str, ModelConfig]) -> ModelConfig:

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..core.des import DESConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class PageRankConfig:
@@ -33,3 +35,8 @@ STANFORD = PageRankConfig(
     locality=0.93, site_size=256)
 
 SMALL = PageRankConfig(name="small", n=20_000, nnz=160_000, n_dangling=50)
+
+
+def paper_des_config(seed: int = 7) -> DESConfig:
+    """The DES testbed calibrated to the paper's cluster (Tables 1-2)."""
+    return DESConfig(tol=1e-6, norm="l2", barrier_overhead=0.5, seed=seed)

@@ -2,8 +2,9 @@
 
 The same fields as the JAX package's `ModelConfig`, so a config module
 carries over unchanged; `dtype()` and `pdtype()` return torch dtypes. The
-port runs the dense decoder (`family="dense"`, layer kind "attn"); the
-other families' fields are kept for the configs that declare them."""
+port runs the decoder of layer kind "attn", dense or mixture-of-experts
+(`family` "dense" or "moe"); the other families' fields are kept for the
+configs that declare them."""
 from __future__ import annotations
 
 import dataclasses
@@ -116,6 +117,9 @@ class ModelConfig:
     def layer_kinds(self) -> Tuple[str, ...]:
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    def moe_layer(self, idx: int) -> bool:
+        return (self.n_experts > 0) and (idx >= self.first_dense_layers)
 
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]

@@ -1,5 +1,5 @@
-"""Autoregressive decode for the dense decoder: the KV cache and the
-single-token step.
+"""Autoregressive decode for the decoder (dense or mixture-of-experts):
+the KV cache and the single-token step.
 
     logits, cache = decode_step(model, token, cache)
 
@@ -21,7 +21,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .attention import NEG_INF, _mask, gqa_project
-from .blocks import embed_lookup, logits_out, mlp_apply, rmsnorm, rope
+from .blocks import embed_lookup, logits_out, rmsnorm, rope
 from .config import ModelConfig
 from .transformer import DecoderLayer, Transformer, check_supported
 
@@ -78,10 +78,9 @@ def _layer_step(layer: DecoderLayer, cache_l: dict, x: torch.Tensor,
     cfg = layer.cfg
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     x = x + _attn_step(layer.attn, h, cache_l, cfg, length)
-    if layer.mlp is not None:
-        h = rmsnorm(x, layer.norm2, cfg.norm_eps)
-        x = x + mlp_apply(layer.mlp, h, cfg.act)
-    return x
+    # the MoE layer routes the B tokens of the step as one group, as the
+    # JAX package's decode step does; its aux loss is dropped
+    return layer.ffn(x)[0]
 
 
 def decode_step(model: Transformer, token, cache: dict):

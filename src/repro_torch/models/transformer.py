@@ -1,12 +1,12 @@
-"""The dense decoder: embedding, a stack of attention + MLP layers, final
-norm and output projection.
+"""The decoder: embedding, a stack of attention layers, each followed by
+an MLP or a mixture of experts, final norm and output projection.
 
 The JAX package stacks layers of one signature and scans over them; here
 the layers are an `nn.ModuleList` walked by a Python loop, and the JAX
 layout (`stack_plan`) is kept only to carry its parameters across
-(`interop.lm_params_from_arrays`). Mixture-of-experts, SSD, RG-LRU, local
-windows, MLA, encoder-decoder and prefix-LM models are not ported yet
-(ROADMAP.md, Queue 1 item 10): building one raises NotImplementedError.
+(`interop.lm_params_from_arrays`). SSD, RG-LRU, local windows, MLA,
+encoder-decoder and prefix-LM models are not ported yet (ROADMAP.md,
+Queue 1 item 10): building one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from .attention import attn_defs, gqa_attention
 from .blocks import (embed_defs, embed_lookup, logits_out, mlp_apply,
                      mlp_defs, rmsnorm, rmsnorm_def)
 from .config import ModelConfig
+from .moe import moe_apply, moe_defs
 from .param import init_params, match_defs
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 10)"
@@ -28,9 +29,6 @@ _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 10)"
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"mixture-of-experts (models/moe.py) "
-                                  f"{_NOT_PORTED}")
     if cfg.use_mla:
         raise NotImplementedError(f"multi-head latent attention "
                                   f"{_NOT_PORTED}")
@@ -45,11 +43,15 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ===================================================================== defs
-def layer_defs(cfg: ModelConfig) -> dict:
-    """One "attn" layer: norm1, attention, and norm2 + MLP when d_ff > 0."""
+def layer_defs(cfg: ModelConfig, is_moe: bool = False) -> dict:
+    """One "attn" layer: norm1, attention, then norm2 + the mixture of
+    experts (is_moe) or norm2 + MLP when d_ff > 0."""
     dt = cfg.pdtype()
     d = {"norm1": rmsnorm_def(cfg.d_model, dt), "attn": attn_defs(cfg)}
-    if cfg.d_ff > 0:
+    if is_moe:
+        d["norm2"] = rmsnorm_def(cfg.d_model, dt)
+        d["moe"] = moe_defs(cfg)
+    elif cfg.d_ff > 0:
         d["norm2"] = rmsnorm_def(cfg.d_model, dt)
         d["mlp"] = mlp_defs(cfg, cfg.d_model, cfg.d_ff)
     return d
@@ -61,7 +63,8 @@ def model_defs(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     return {
         "embed": embed_defs(cfg),
-        "layers": [layer_defs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [layer_defs(cfg, cfg.moe_layer(i))
+                   for i in range(cfg.n_layers)],
         "final_norm": rmsnorm_def(cfg.d_model, cfg.pdtype()),
     }
 
@@ -96,8 +99,24 @@ def _frozen_dict(d: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
 
 
+class MoEParams(nn.Module):
+    """A layer's mixture-of-experts parameters: the router and the expert
+    stacks, and the shared experts' MLP when the config has them. Read
+    like the parameter tree's dict (`p["router"]`, `p["shared"]`)."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.experts = _frozen_dict(
+            {k: v for k, v in params.items() if k != "shared"})
+        self.shared = (_frozen_dict(params["shared"]) if "shared" in params
+                       else None)
+
+    def __getitem__(self, key: str):
+        return self.shared if key == "shared" else self.experts[key]
+
+
 class DecoderLayer(nn.Module):
-    """x + attn(norm1(x)), then + mlp(norm2(x))."""
+    """x + attn(norm1(x)), then + mlp(norm2(x)) or + moe(norm2(x))."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -106,21 +125,36 @@ class DecoderLayer(nn.Module):
         self.attn = _frozen_dict(params["attn"])
         self.norm2 = _frozen(params["norm2"]) if "norm2" in params else None
         self.mlp = _frozen_dict(params["mlp"]) if "mlp" in params else None
+        self.moe = MoEParams(params["moe"]) if "moe" in params else None
+
+    def ffn(self, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x + the layer's MLP or mixture of experts of norm2(x), and the
+        MoE aux loss (None for a dense layer)."""
+        cfg = self.cfg
+        if self.moe is not None:
+            h = rmsnorm(x, self.norm2, cfg.norm_eps)
+            h, aux = moe_apply(self.moe, h, cfg)
+            return x + h, aux
+        if self.mlp is not None:
+            h = rmsnorm(x, self.norm2, cfg.norm_eps)
+            x = x + mlp_apply(self.mlp, h, cfg.act)
+        return x, None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer's output and its MoE aux loss (None when dense)."""
         cfg = self.cfg
         h = rmsnorm(x, self.norm1, cfg.norm_eps)
         x = x + gqa_attention(self.attn, h, cfg, positions=positions,
                               impl=impl)
-        if self.mlp is not None:
-            h = rmsnorm(x, self.norm2, cfg.norm_eps)
-            x = x + mlp_apply(self.mlp, h, cfg.act)
-        return x
+        return self.ffn(x)
 
 
 class Transformer(nn.Module):
-    """Decoder-only dense transformer for inference.
+    """Decoder-only transformer (dense or mixture-of-experts) for
+    inference.
 
     params: a tree shaped like `model_defs(cfg)` (from `init_params` or
     `interop.lm_params_from_arrays`), moved to `device` and cast to each
@@ -153,16 +187,20 @@ class Transformer(nn.Module):
     def forward(self, tokens, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Prefill forward. tokens: (B, S) integer tensor or array.
-        Returns (logits (B, S, padded_vocab) in the compute dtype, aux = 0).
-        Each layer's attention launches the flash kernel once on the card
-        (impl "auto" or "cuda"); impl="ref" runs its plain version."""
+        Returns (logits (B, S, padded_vocab) in the compute dtype, aux): aux
+        is the float32 sum of the MoE layers' load-balance losses (0 for a
+        dense model). Each layer's attention launches the flash kernel once
+        on the card (impl "auto" or "cuda"); impl="ref" runs its plain
+        version."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = embed_lookup(self.embed["tok"], tokens, cfg.d_model)
         x = x.to(cfg.dtype())
         positions = torch.arange(tokens.shape[1], device=self.device)
-        for layer in self.layers:
-            x = layer(x, positions, impl)
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer in self.layers:
+            x, a = layer(x, positions, impl)
+            if a is not None:
+                aux = aux + a
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return logits_out(self.embed, x, cfg), aux

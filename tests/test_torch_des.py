@@ -320,3 +320,16 @@ def test_des_config_fields_match_reference():
     j_f = {f.name: f.default for f in dataclasses.fields(j_core.DESConfig)}
     t_f = {f.name: f.default for f in dataclasses.fields(t_core.DESConfig)}
     assert t_f == j_f
+
+
+@pytest.mark.parametrize("seed", [7, 3])
+def test_paper_des_config_matches_reference(seed):
+    """The paper's DES testbed (Tables 1-2) equals the JAX package's,
+    field for field."""
+    from repro.configs.pagerank import paper_des_config as j_paper
+    from repro_torch.configs.pagerank import paper_des_config
+    cfg = paper_des_config(seed)
+    assert isinstance(cfg, t_core.DESConfig)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_paper(seed))
+    assert dataclasses.asdict(paper_des_config()) == dataclasses.asdict(
+        j_paper())

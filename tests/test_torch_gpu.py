@@ -1241,3 +1241,108 @@ def test_batcher_lanes_on_card_match_cpu(cuda, backend):
                 assert LAUNCHES["f32"] > launches[1]
     for a, c in zip(answers[str(cuda)], answers["cpu"]):
         assert float(np.abs(a[0] - c[0]).sum()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous training and the mixture of experts
+# ---------------------------------------------------------------------------
+def test_async_dp_straggler_on_card_matches_cpu(cuda):
+    """The training DES with its views on the card: the straggler case
+    (p = 4, one UE at 0.3x speed) gives the CPU run's counts, and its
+    times, speedup and losses to 1e-12 relative."""
+    from repro_torch.training import run_async_training_sim
+    card = run_async_training_sim(p=4, ue_speed=[1, 1, 1, 0.3], seed=0)
+    cpu = run_async_training_sim(p=4, ue_speed=[1, 1, 1, 0.3], seed=0,
+                                 device="cpu")
+    assert (card.sync_iters, card.async_iters_min, card.async_iters_max) \
+        == (cpu.sync_iters, cpu.async_iters_min, cpu.async_iters_max) \
+        == (866, 545, 1136)
+    for f in ("sync_time", "async_time", "speedup", "sync_loss",
+              "async_loss"):
+        assert getattr(card, f) == pytest.approx(getattr(cpu, f), rel=1e-12)
+
+
+def test_local_sgd_step_on_card_matches_cpu(cuda):
+    from repro_torch.training import make_local_sgd_step
+
+    def loss_fn(p, batch):
+        x, y = batch
+        return torch.mean((x @ p["w"] - y) ** 2)
+    step = make_local_sgd_step(loss_fn, lr=0.05, sync_every=4, n_shards=4)
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((3, 1)).astype(np.float32)
+    xs = rng.standard_normal((4, 4, 16, 3)).astype(np.float32)
+    ys = rng.standard_normal((4, 4, 16, 1)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = step({"w": torch.as_tensor(w, device=dev)},
+                             (torch.as_tensor(xs, device=dev),
+                              torch.as_tensor(ys, device=dev)))["w"]
+    assert out["cuda"].is_cuda
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-5,
+                               atol=1e-6)
+
+
+def _moe_smoke(capacity_factor=None):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    return cfg
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.01, 64.0])
+def test_moe_layer_on_card_matches_cpu(cuda, capacity_factor):
+    """`moe_apply` on the card against its CPU run over the same float32
+    weights and tokens (TF32 off): the same assignments are kept, the
+    output agrees within 1e-5 of its scale and the aux loss within 1e-6
+    relative."""
+    from repro_torch.models.moe import assign, moe_apply, moe_defs, route
+    from repro_torch.models.param import init_params
+    cfg = _moe_smoke(capacity_factor)
+    cpu = torch.device("cpu")
+    p = init_params(moe_defs(cfg), torch.Generator().manual_seed(0), cpu)
+    pc = {k: ({kk: vv.to(cuda) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.to(cuda)) for k, v in p.items()}
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 32, cfg.d_model)), dtype=torch.float32)
+    out, aux = moe_apply(pc, x.to(cuda), cfg)
+    ref, ref_aux = moe_apply(p, x, cfg)
+    assert out.is_cuda and out.dtype == torch.float32
+    for xg in (x[:1], x[1:]):
+        idx_c = route(pc, xg.to(cuda), cfg)[2].cpu()
+        idx = route(p, xg, cfg)[2]
+        assert torch.equal(idx_c, idx)
+        assert torch.equal(assign(idx_c, cfg)[0], assign(idx, cfg)[0])
+    scale = float(ref.abs().max())
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5 * scale
+    assert float(aux) == pytest.approx(float(ref_aux), rel=1e-6)
+
+
+def test_moe_smoke_model_on_card(cuda):
+    """The Qwen2-MoE smoke model on the card (float32, drop-free): the
+    forward launches the flash kernel once per layer and agrees with the
+    CPU's over the same weights, and the engine's prefill through the
+    decode path gives the forward's last position."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Transformer, model_defs
+    from repro_torch.models.param import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = _moe_smoke(64.0)
+    cpu = torch.device("cpu")
+    params = init_params(model_defs(cfg), torch.Generator().manual_seed(0),
+                         cpu)
+    model = Transformer(cfg, params, device=cuda)
+    model_cpu = Transformer(cfg, params, device=cpu)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 32))
+    before = dict(LAUNCHES)
+    logits, aux = model(torch.as_tensor(tokens, device=cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwd"] == before["fwd"] + cfg.n_layers
+    ref, ref_aux = model_cpu(torch.as_tensor(tokens))
+    torch.testing.assert_close(logits.cpu(), ref, rtol=1e-4, atol=1e-4)
+    assert float(aux) == pytest.approx(float(ref_aux), rel=1e-5)
+    eng = ServeEngine(cfg, model, max_len=40, device=cuda)
+    last, _ = eng.prefill(torch.as_tensor(tokens, device=cuda))
+    torch.testing.assert_close(last, logits[:, -1], rtol=1e-4, atol=1e-4)

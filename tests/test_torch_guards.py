@@ -44,6 +44,10 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.runtime.driver\n"
         "import repro_torch.serving, repro_torch.serving.batcher\n"
         "import repro_torch.serving.ppr_cache, repro_torch.serving.router\n"
+        "import repro_torch.training, repro_torch.training.async_dp\n"
+        "import repro_torch.analysis, repro_torch.analysis.roofline\n"
+        "import repro_torch.analysis.flops, repro_torch.models.moe\n"
+        "import repro_torch.configs.qwen2_moe_a2p7b\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -196,6 +200,24 @@ def test_lm_entry_points_default_to_cuda():
         attention(q, q, q, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         model(np.zeros((1, 4), np.int64), impl="cuda")
+
+
+def test_training_and_moe_default_to_cuda():
+    """The asynchronous training run and the MoE model resolve their
+    device at entry (None: the card) and raise without one; with
+    device="cpu" each runs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Transformer
+    from repro_torch.training import run_async_training_sim
+    if torch.cuda.is_available():
+        return
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    for call in (lambda: run_async_training_sim(p=2),
+                 lambda: Transformer(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    logits, aux = Transformer(cfg, device="cpu")(np.zeros((1, 4), np.int64))
+    assert logits.shape == (1, 4, cfg.padded_vocab) and float(aux) > 0
 
 
 def test_lm_unported_paths_raise():

@@ -206,7 +206,19 @@ def test_interop_refuses_mismatched_trees(pairs):
         lm_params_from_arrays(pr.cfg, bad)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-2.7b",
+def test_moe_config_resolves():
+    """Qwen2-MoE-A2.7B is ported: its config resolves, full width and
+    smoke, and equals the JAX package's field for field."""
+    arch = "qwen2-moe-a2.7b"
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(j_get_config(arch))
+    assert dataclasses.asdict(get_smoke_config(arch)) == \
+        dataclasses.asdict(J_SMOKE[arch])
+    assert count_params(model_defs(get_config(arch))) == \
+        j_count_params(j_model_defs(j_get_config(arch))) == 15_146_256_384
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b",
                                   "recurrentgemma-2b", "deepseek-v3-671b",
                                   "whisper-base", "paligemma-3b"])
 def test_unported_archs_raise(arch):
@@ -221,8 +233,13 @@ def test_full_kv_cache_raises(pairs):
     """The two packages part at a full KV cache, so parity stays inside
     max_len. The port raises at position >= t_max and leaves the cache as
     it was; the JAX package's dynamic_update_slice clamps the write into
-    the last slot, overwriting position t_max - 1 with position t_max."""
-    pr = pairs("smollm-360m")
+    the last slot, overwriting position t_max - 1 with position t_max.
+    Checked on a dense smoke config and on the MoE one."""
+    _check_full_kv_cache(pairs("smollm-360m"))
+    _check_full_kv_cache(pairs("qwen2-moe-a2.7b"))
+
+
+def _check_full_kv_cache(pr):
     t_max = 6
     jeng = JServeEngine(pr.jcfg, pr.jparams, max_len=t_max)
     eng = ServeEngine(pr.cfg, pr.model, max_len=t_max, device=CPU)
