@@ -15,9 +15,10 @@ Phases, each printing its own lines and seconds:
               version on random cases and cases built round its chunks of
               2,048 edges, run to run and lane by lane;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
-              at head dim 64 or 128, the CUDA-core lane for the rest)
-              against their plain version, and the CUDA-core lane's
-              resident warps per SM, registers and spills;
+              at head dim 64, 128 or 256, the CUDA-core lane for the rest)
+              against their plain version, with and without a local
+              window, and the CUDA-core lane's resident warps per SM,
+              registers and spills;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -116,7 +117,30 @@ Phases, each printing its own lines and seconds:
               beside its plain version, SDPA and the bound; forward and
               decode-step times and the card's busy share;
  21. analysis: the roofline (`repro_torch.analysis`, H100 constants) of
-              the MoE prefill and decode step beside their measured times.
+              the MoE prefill and decode step beside their measured times;
+ 22. main   : Mamba2-2.7B at full width and depth (item 10.2; 2.7e9
+              random bf16 weights from --seed, the MoE's freed first):
+              ssd_scan against its plain version at the main path's
+              shapes, then the forward of 4 x 128 and of 1 x 2048 tokens
+              through ssd_scan, the decode path (the scan at S = 1 from
+              the cached state) and greedy generation of 32 tokens; the
+              same draws in float32, whose forward is held to impl="ref"
+              and whose decode to the forward (1e-4), while the bf16
+              forward is held to the float32 one no further than the bf16
+              plain versions are; the ssd_scan launches read around it;
+ 23. main   : RecurrentGemma-2B likewise (item 10.3; 2.9e9 weights):
+              rglru_scan against its plain version, the forward of
+              4 x 128 and of 1 x 4096 tokens (the window of 2048 binds)
+              through rglru_scan in its 18 RG-LRU layers and the flash
+              kernel at head dim 256 in its 8 local_attn layers (the
+              CUDA-core lane in the float32 copy), decode through the ring
+              KV cache, the launches read around it;
+ 24. timing : the flash kernel at B = 1, H = 10, Hkv = 1, S = T = 4096,
+              D = 256 with the window and without, ssd_scan at 1 x 2048,
+              rglru_scan at 1 x 4096, each beside its plain version, the
+              library call where there is one and the bound; both models'
+              forward and decode-step times and the card's busy share;
+              the roofline of both prefills.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -245,12 +269,29 @@ TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
                      "kernel: hybrid_matvec's hub gather + segment_sum)",
               "kahan": "src/repro/kernels/bsr_spmv/bsr_spmv.py:50",
               "flash": "src/repro/kernels/flash_attention/"
-                       "flash_attention.py:27"}
+                       "flash_attention.py:27",
+              "ssd": "src/repro/models/ssm.py:59 (no TPU kernel: _ssd_scan, "
+                     "a lax.scan of einsums)",
+              "rglru": "src/repro/models/rglru.py:44 (no TPU kernel: "
+                       "_lru_coeffs and lax.associative_scan)"}
 # the Yi-6B runs: prompts of the main path, and the prefill shape timed;
 # the Qwen2-MoE-A2.7B runs take the same shapes
 YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
 YI_PREFILL = (1, 2048)
 MOE_ARCH = "qwen2-moe-a2.7b"
+# Mamba2-2.7B and RecurrentGemma-2B (ROADMAP Queue 1 items 10.2-10.3): the
+# main path's prompts and generation, each model's long prefill (2048
+# tokens, and 4096 for RecurrentGemma, where its window of 2048 binds),
+# and their parameter counts (the JAX package's model_defs)
+RECUR_BATCH, RECUR_PROMPT, RECUR_GEN = 4, 128, 32
+# RecurrentGemma's local attention with a window under the 128-token
+# prompts, so that the decode path's ring KV cache wraps on the card
+RING_WINDOW = 64
+RECUR_ARCHS = {"mamba2-2.7b": dict(prefill=(1, 2048), params=2_702_296_576),
+               "recurrentgemma-2b": dict(prefill=(1, 4096),
+                                         params=2_894_528_000)}
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+RGLRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 # the paper's iteration on SGD (training/async_dp.py): p = 4 UEs at seed 0,
 # uniform and with one UE at 0.3x speed (tests/test_async_dp.py)
 TRAIN_CASES = (("uniform", None), ("straggler", [1, 1, 1, 0.3]))
@@ -1891,24 +1932,30 @@ def async_main_path(g, cold, trace, smi):
     return launches
 
 
-def attention_flops(q, k, causal):
-    """The work of one attention call: 4 * D flops per allowed (query, key)
-    pair and head (q k^T and p v). Causal is top-left: row i sees
-    min(i + 1, T) keys."""
+def attention_pairs(S, T, causal, window=None):
+    """The allowed (query, key) pairs of one head: row i sees keys j < T
+    with j <= i where causal (top-left) and j > i - window where a window
+    is given."""
     import numpy as np
+    i = np.arange(S)
+    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(q, k, causal, window=None):
+    """The work of one attention call: 4 * D flops per allowed (query, key)
+    pair and head (q k^T and p v)."""
     B, H, S, D = q.shape
-    T = k.shape[2]
-    pairs = (int(np.minimum(np.arange(1, S + 1), T).sum()) if causal
-             else S * T)
-    return 4.0 * B * H * D * pairs
+    return 4.0 * B * H * D * attention_pairs(S, k.shape[2], causal, window)
 
 
-def attention_bound(q, k, v, causal):
+def attention_bound(q, k, v, causal, window=None):
     """Least time (ms) for one attention call on these operands: q, k, v
     read once and o written once at the HBM rate, against the work
     (`attention_flops`) at the peak for the operands' type: dense bf16 on
     the tensor cores, float32 on the CUDA cores."""
-    flops = attention_flops(q, k, causal)
+    flops = attention_flops(q, k, causal, window)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     return roofline_ms(flops, nbytes, str(q.dtype)[6:])
 
@@ -1941,12 +1988,13 @@ def device_breakdown(fn, label, smi):
         elif b > end:
             busy += b - end
             end = b
-    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash": 0.0, "scan": 0.0, "matmul": 0.0, "other": 0.0}
     by_name = {}
     for e in kern:
         us = e.time_range.elapsed_us()
         name = e.name
         g = ("flash" if "flash_fwd" in name else
+             "scan" if "ssd_" in name or "rglru_" in name else
              "matmul" if any(w in name.lower() for w in
                              ("gemm", "nvjet", "cutlass", "xmma", "gemv"))
              else "other")
@@ -1955,7 +2003,8 @@ def device_breakdown(fn, label, smi):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     print(f"  {label} (profiled): wall {wall:.2f} ms, {len(kern)} kernels, "
           f"device busy {busy / 1e3:.2f} ms ({100 * busy / 1e3 / wall:.1f}% "
-          f"of wall); flash {groups['flash'] / 1e3:.2f} ms, matmul "
+          f"of wall); flash {groups['flash'] / 1e3:.2f} ms, scans "
+          f"{groups['scan'] / 1e3:.2f} ms, matmul "
           f"{groups['matmul'] / 1e3:.2f} ms, other "
           f"{groups['other'] / 1e3:.2f} ms [{smi}]")
     for name, us in top:
@@ -1992,8 +2041,10 @@ def top1_report(a, b):
 
 
 def flash_against_plain(cuda):
-    """Both flash kernels against their plain version on the card; returns
-    the largest |kernel - plain| seen per lane ("wgmma", "f32")."""
+    """Both flash kernels against their plain version on the card, with and
+    without a local window; returns the largest |kernel - plain| seen per
+    lane ("wgmma", "f32") and on the tensor-core lane at head dim 256
+    ("d256")."""
     import torch
     from repro_torch.kernels.flash_attention import (LAUNCHES,
                                                      flash_attention,
@@ -2002,7 +2053,8 @@ def flash_against_plain(cuda):
                                                      kernel_lane)
     f32, bf16 = torch.float32, torch.bfloat16
     # the CUDA-core lane as compiled: resident warps per SM and spills
-    for D, dt in ((128, f32), (64, f32), (96, bf16), (32, bf16)):
+    for D, dt in ((128, f32), (64, f32), (96, bf16), (32, bf16), (256, f32),
+                  (160, bf16)):
         info = kernel_info(D, dt)
         warps = info["blocks_per_sm"] * info["threads"] // 32
         check(info["local_bytes"] == 0 and (warps >= 8 or D != 128),
@@ -2077,10 +2129,34 @@ def flash_against_plain(cuda):
         # one element off a 16-byte boundary: the synchronous loads
         (1, 4, 2, 200, 200, 128, True, f32, "offset"),
         (1, 4, 2, 200, 200, 96, True, bf16, "offset"),
+        # RecurrentGemma-2B's local_attn (H = 10, Hkv = 1, D = 256, window
+        # 2048) at the main path's shapes, head dim 256 without a window,
+        # and the window on both lanes: ragged, not causal, window 1, S > T
+        (RECUR_BATCH, 10, 1, RECUR_PROMPT, RECUR_PROMPT, 256, True, bf16,
+         2048),
+        (1, 10, 1, 4096, 4096, 256, True, bf16, 2048),
+        (1, 10, 1, 4096, 4096, 256, True, bf16),
+        (2, 8, 2, 1000, 1000, 256, False, bf16),
+        (1, 4, 1, 1, 1, 256, True, bf16),
+        (1, 4, 2, 1000, 1000, 256, True, bf16, 100),
+        (1, 4, 1, 300, 300, 256, False, bf16, 64),
+        (1, 4, 2, 200, 200, 256, True, bf16, 1),
+        (1, 8, 2, 1000, 1000, 128, True, bf16, 300),
+        (1, 8, 2, 1000, 1000, 64, True, bf16, 129),
+        (1, 4, 2, 256, 128, 128, True, bf16, 200),
+        (1, 4, 2, 1000, 1000, 128, True, f32, 300),
+        (1, 4, 2, 1000, 1000, 64, True, f32, 1),
+        (1, 4, 1, 300, 300, 20, False, f32, 77),
+        (1, 4, 1, 500, 500, 256, True, f32),
+        (1, 4, 1, 500, 500, 256, True, f32, 130),
+        (2, 4, 2, 129, 129, 200, True, f32),
+        (1, 4, 1, 300, 300, 160, True, bf16, 64),
     ]
-    worst = {"wgmma": 0.0, "f32": 0.0}
+    worst = {"wgmma": 0.0, "f32": 0.0, "d256": 0.0}
     worst_rel = dict(worst)
-    for B, H, Hkv, S, T, D, causal, dt, *offset in cases:
+    for B, H, Hkv, S, T, D, causal, dt, *extra in cases:
+        offset = "offset" in extra
+        window = next((e for e in extra if isinstance(e, int)), None)
         g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + D)
 
         def draw(*shape):
@@ -2093,8 +2169,8 @@ def flash_against_plain(cuda):
         q, k, v = draw(B, H, S, D), draw(B, Hkv, T, D), draw(B, Hkv, T, D)
         lane = kernel_lane(dt, D)
         before = dict(LAUNCHES)
-        o = flash_attention(q, k, v, causal=causal)
-        r = flash_attention_ref(q, k, v, causal=causal)
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        r = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         on_lane = (LAUNCHES["wgmma"] - before["wgmma"] == (lane == "wgmma")
                    and LAUNCHES["fwd"] - before["fwd"] == 1
@@ -2109,12 +2185,14 @@ def flash_against_plain(cuda):
         rel, lim = row_rel_err(o, r), ROW_REL_LIMIT[str(dt)[6:]]
         check(ok and rel <= lim and on_lane and o.dtype == dt,
               f"flash {lane} ({B},{H},{Hkv},S={S},T={T},D={D}) "
-              f"causal={causal} {str(dt)[6:]}{' unaligned' if offset else ''}"
+              f"causal={causal} window={window} "
+              f"{str(dt)[6:]}{' unaligned' if offset else ''}"
               f": max |kernel - plain| = "
               f"{err:.3g} (rtol = atol = {tol:g}), max row |kernel - "
               f"plain| / |plain| = {rel:.3g} (<= {lim:g})")
-        worst[lane] = max(worst[lane], err)
-        worst_rel[lane] = max(worst_rel[lane], rel)
+        for key in (lane, "d256") if lane == "wgmma" and D == 256 else (lane,):
+            worst[key] = max(worst[key], err)
+            worst_rel[key] = max(worst_rel[key], rel)
     print(f"  largest row-relative error per lane: {worst_rel}")
     del q, k, v, o, r
     return worst
@@ -2749,6 +2827,617 @@ def analysis_phase(cfg, times, smi):
               f"{what}: {r.dominant}-bound by the H100 constants, no "
               f"collective term on one card")
 
+
+def ssd_scan_work(B, S, H, P, N, Q):
+    """Float32 operations of one SSD scan, causal halves counted once:
+    per chunk of q steps, C B^T below the diagonal (q (q + 1) / 2 N
+    multiply-adds), y's intra-chunk term (q (q + 1) / 2 H P), y's
+    inter-chunk term and the state update (q N H P each); 2 flops a
+    multiply-add."""
+    total = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        tri = q * (q + 1) // 2
+        total += tri * N + tri * H * P + 2 * q * N * H * P
+    return 2.0 * B * total
+
+
+def ssd_bound(x, b, dt, chunk):
+    """Least time (ms) of one SSD scan: its float32 work
+    (`ssd_scan_work`) at the CUDA cores' peak against x, b, c, dt and
+    a_log read once and y and the final state written once."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size() + 2 * b.numel()
+              * b.element_size() + dt.numel() * 4 + H * 4 + B * H * P * N * 4)
+    return roofline_ms(ssd_scan_work(B, S, H, P, N, min(chunk, S)), nbytes,
+                       "float32")
+
+
+# float32 operations of the RG-LRU per element: two sigmoids (add, exp,
+# add, divide), log_a (two multiplies), exp, exp(2 log_a), 1 - ., max,
+# sqrt, three multiplies and the recurrence's fma; log_sigmoid(lam) is per
+# channel
+RGLRU_FLOPS_PER_ELEMENT = 20
+
+
+def rglru_bound(u):
+    """Least time (ms) of one RG-LRU scan: u (its dtype), the two float32
+    gate inputs and the float32 h out moved once, 14 bytes an element in
+    bf16, against ~20 float32 operations an element."""
+    n = u.numel()
+    W = u.shape[-1]
+    nbytes = n * (u.element_size() + 4 + 4 + 4) + 3 * W * 4
+    return roofline_ms(RGLRU_FLOPS_PER_ELEMENT * n, nbytes, "float32")
+
+
+def scans_against_plain(arch, cuda, seed):
+    """The model's scan kernel (ssd_scan for Mamba2, rglru_scan for
+    RecurrentGemma) against its plain version at the main path's shapes:
+    the 4 x 128 prompts, the long prefill and a decode step (B = 4, S = 1,
+    from a state). Tolerances: float32 against float32 summed in other
+    orders, so 1e-4 of the largest value for the SSD's y and state (bf16
+    y: 1e-2, one rounding of y) and 1e-5 for the RG-LRU's h (the kernel
+    steps through each chunk from its carry, the plain version is a
+    log-depth tree). Returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    dtype = cfg.dtype()
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dt)
+    shapes = [(RECUR_BATCH, RECUR_PROMPT, False),
+              (*RECUR_ARCHS[arch]["prefill"], False),
+              (RECUR_BATCH, 1, True)]
+    worst = 0.0
+    for B, S, with_h0 in shapes:
+        if arch == "mamba2-2.7b":
+            from repro_torch.kernels.ssd_scan import (ssd_scan_kernel,
+                                                      ssd_scan_ref)
+            H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+            args = (randn(B, S, H, P, dt=dtype),
+                    randn(B, S, N, scale=0.3, dt=dtype),
+                    randn(B, S, N, scale=0.3, dt=dtype),
+                    torch.nn.functional.softplus(randn(B, S, H) - 1.0),
+                    randn(H, scale=0.5), cfg.ssm_chunk)
+            h0 = randn(B, H, P, N) if with_h0 else None
+            y, h = ssd_scan_kernel(*args, h0=h0)
+            yr, hr = ssd_scan_ref(*args, h0=h0)
+            torch.cuda.synchronize()
+            tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            ey = float((y.float() - yr.float()).abs().max())
+            eh = float((h - hr).abs().max())
+            ok = (ey <= tol * float(yr.float().abs().max())
+                  and eh <= 1e-4 * float(hr.abs().max()))
+            check(ok, f"ssd_scan B={B} S={S} H={H} P={P} N={N} "
+                  f"Q={cfg.ssm_chunk} {str(dtype)[6:]} h0={with_h0}: "
+                  f"max |y - plain| {ey:.3g} (<= {tol:g} x max |y|), max "
+                  f"|state - plain| {eh:.3g} (<= 1e-4 x max |state|)")
+            worst = max(worst, ey, eh)
+        else:
+            from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
+                                                        rglru_scan_ref)
+            W = cfg.lru_width_
+            args = (randn(B, S, W, dt=dtype), randn(B, S, W),
+                    randn(B, S, W), randn(W, scale=0.5), randn(W, scale=0.5),
+                    randn(W) + 1.0)
+            h0 = randn(B, W) if with_h0 else None
+            h = rglru_scan_kernel(*args, h0=h0)
+            r = rglru_scan_ref(*args, h0=h0)
+            torch.cuda.synchronize()
+            err = float((h - r).abs().max())
+            check(err <= 1e-5 * float(r.abs().max()),
+                  f"rglru_scan B={B} S={S} W={W} u {str(dtype)[6:]} "
+                  f"h0={with_h0}: max |h - plain| {err:.3g} (<= 1e-5 x "
+                  f"max |h|)")
+            worst = max(worst, err)
+    return worst
+
+
+@contextmanager
+def scans_held_to_plain(held):
+    """For the length of the block, every call of the SSD and RG-LRU
+    layers' scans that launches its kernel (its count rises) is run again
+    through the plain version on the same inputs: the main path's own
+    activations. Appends to held["ssd"] (max |y - plain|, its share of
+    max |y|, max |state - plain|, its share of max |state|) and to
+    held["rglru"] (max |h - plain|, its share of max |h|) for each call.
+    The plain calls launch nothing."""
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.kernels.rglru_scan import rglru_scan_ref
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+    from repro_torch.models import rglru, ssm
+    ssd0, lru0 = ssm.ssd_scan, rglru.rglru_scan
+
+    def errs(a, r):
+        d = float((a.float() - r.float()).abs().max())
+        return d, d / max(float(r.float().abs().max()), 1e-30)
+
+    def ssd(x, b, c, dt, a_log, chunk, h0=None, impl="auto"):
+        before = SSD["scan"]
+        y, h = ssd0(x, b, c, dt, a_log, chunk, h0=h0, impl=impl)
+        if SSD["scan"] != before:
+            yr, hr = ssd_scan_ref(x, b, c, dt, a_log, chunk, h0)
+            held["ssd"].append((*errs(y, yr), *errs(h, hr)))
+        return y, h
+
+    def lru(u, ga, gi, b_a, b_i, lam, h0=None, impl="auto"):
+        before = LRU["scan"]
+        h = lru0(u, ga, gi, b_a, b_i, lam, h0=h0, impl=impl)
+        if LRU["scan"] != before:
+            held["rglru"].append(errs(h, rglru_scan_ref(u, ga, gi, b_a, b_i,
+                                                        lam, h0)))
+        return h
+
+    ssm.ssd_scan, rglru.rglru_scan = ssd, lru
+    try:
+        yield held
+    finally:
+        ssm.ssd_scan, rglru.rglru_scan = ssd0, lru0
+
+
+def check_held_scans(held, n, dtype, what):
+    """The checks of `scans_held_to_plain`'s record of one forward: one
+    call per recurrent layer, each within the tolerances of
+    `scans_against_plain` (SSD y 1e-2 of its largest value in bf16, 1e-4
+    in float32, its state 1e-4; RG-LRU h 1e-5). Returns the largest
+    absolute error."""
+    import torch
+    worst = 0.0
+    if n["ssd"]:
+        calls = held["ssd"]
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        ey, eh = (max(c[i] for c in calls) for i in (1, 3))
+        check(len(calls) == n["ssd"] and ey <= tol and eh <= 1e-4,
+              f"ssd_scan on the {what}'s own activations, {len(calls)} "
+              f"of {n['ssd']} layers: max |y - plain| / max |y| {ey:.3g} "
+              f"<= {tol:g}, max |state - plain| / max |state| {eh:.3g} "
+              f"<= 1e-4")
+        worst = max(max(c[0] for c in calls), max(c[2] for c in calls))
+    if n["rglru"]:
+        calls = held["rglru"]
+        eh = max(c[1] for c in calls)
+        check(len(calls) == n["rglru"] and eh <= 1e-5,
+              f"rglru_scan on the {what}'s own activations, {len(calls)} "
+              f"of {n['rglru']} layers: max |h - plain| / max |h| "
+              f"{eh:.3g} <= 1e-5")
+        worst = max(c[0] for c in calls)
+    return worst
+
+
+def recurrent_main_path(arch, cuda, seed, smi):
+    """Mamba2-2.7B or RecurrentGemma-2B inference at full width and depth
+    (ROADMAP Queue 1 items 10.2-10.3) through the port's entry points,
+    random bf16 weights drawn on the card from `seed`: the forward of 4
+    prompts of 128 tokens and one long prefill (2048 tokens; 4096 for
+    RecurrentGemma, past its window of 2048), the decode path
+    (ServeEngine.prefill through the recurrent states and the ring KV
+    cache) and greedy generation of 32 tokens; then the same draws kept
+    in float32 (TF32 off), whose forwards take the scans in float32 and,
+    for RecurrentGemma, the CUDA-core flash lane at head dim 256.
+
+    The checks: in float32 the kernels' forward against impl="ref" and
+    the decode path against the forward, to 1e-4 of the largest logit
+    (the Yi-6B copy's bound). In bf16, rounding is the larger error:
+    Mamba2's 64 layers under random weights carry a one-ulp change far
+    (the bf16 forward lies 0.15-0.5 of the largest logit from the float32
+    one, through the kernels or the plain versions alike, measured on
+    one H100), so the bf16 kernels' forward is held to the float32 forward
+    no further than the bf16 plain versions' forward is (within 25% and
+    1e-3), with top-1 agreement >= 90% against the plain versions; the
+    scans themselves are held to their plain versions at their own
+    tolerances on the bf16 forward's activations (`scans_held_to_plain`).
+    For RecurrentGemma the float32 draws also decode past a window of
+    RING_WINDOW (`ring_main_path`). The launches of the flash kernel,
+    ssd_scan and rglru_scan are read around it all. Returns the launches,
+    the scans' largest error on the activations and the bf16 model."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES as FLASH
+    from repro_torch.kernels.flash_attention import kernel_lane
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    kinds = cfg.layer_kinds()
+    n = {k: kinds.count(k) for k in ("ssd", "rglru", "local_attn")}
+    if n["local_attn"]:
+        check(kernel_lane(cfg.dtype(), cfg.head_dim_) == "wgmma"
+              and kernel_lane(cfg32.dtype(), cfg.head_dim_) == "f32",
+              f"{arch}'s local attention (head dim {cfg.head_dim_}) is on "
+              f"the tensor-core flash lane in bf16, the CUDA-core lane in "
+              f"float32")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=cuda, seed=seed)
+    torch.cuda.synchronize()
+    count = sum(p.numel() for p in model.parameters())
+    check(count == total_params(cfg) == RECUR_ARCHS[arch]["params"],
+          f"{arch} at full width and depth on the card: {count:,} "
+          f"parameters, layers {n} (window {cfg.local_window}), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"({time.perf_counter() - t0:.2f} s to draw) [{smi}]")
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (RECUR_BATCH, RECUR_PROMPT)),
+        device=cuda)
+    long = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        RECUR_ARCHS[arch]["prefill"]),
+                           device=cuda)
+    inputs = (prompts, long)
+
+    for counts in (FLASH, SSD, LRU):
+        for key in counts:
+            counts[key] = 0
+    bf16 = []
+    held_err = 0.0
+    for tokens in inputs:
+        B, S = tokens.shape
+        t0 = time.perf_counter()
+        held = {"ssd": [], "rglru": []}
+        with scans_held_to_plain(held):
+            out, _ = model(tokens, impl="cuda")
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (B, S, cfg.padded_vocab)
+              and bool(torch.isfinite(out).all()),
+              f"bf16 forward B={B} S={S}: logits {tuple(out.shape)}, finite "
+              f"({time.perf_counter() - t0:.3f} s, first call, each scan "
+              f"also run through its plain version)")
+        held_err = max(held_err, check_held_scans(
+            held, n, cfg.dtype(), f"bf16 forward B={B} S={S}"))
+        ref, _ = model(tokens, impl="ref")
+        bf16.append((out, ref))
+    eng = ServeEngine(cfg, model, max_len=RECUR_PROMPT + RECUR_GEN + 1,
+                      device=cuda)
+    t0 = time.perf_counter()
+    last, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(cache["length"] == RECUR_PROMPT
+          and bool(torch.isfinite(last).all()),
+          f"bf16 ServeEngine.prefill B={RECUR_BATCH} S={RECUR_PROMPT} "
+          f"through decode_step: {wall:.2f} s "
+          f"({wall / RECUR_PROMPT * 1e3:.1f} ms a step), logits finite")
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, RECUR_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = RECUR_PROMPT + RECUR_GEN - 1
+    print(f"  ServeEngine.generate {RECUR_BATCH} x {RECUR_GEN} tokens greedy "
+          f"after a {RECUR_PROMPT}-token prompt: {wall:.2f} s for {steps} "
+          f"decode steps ({wall / steps * 1e3:.1f} ms a step); greedy[0] "
+          f"{greedy[0, :12].tolist()} [{smi}]")
+    check(tuple(greedy.shape) == (RECUR_BATCH, RECUR_GEN)
+          and int(greedy.min()) >= 0 and int(greedy.max()) < cfg.vocab_size,
+          f"greedy tokens ({RECUR_BATCH}, {RECUR_GEN}) in [0, "
+          f"{cfg.vocab_size})")
+    del eng, cache, greedy
+
+    # the same draws in float32
+    model32 = Transformer(cfg32, device=cuda, seed=seed)
+    for tokens, (out, ref) in zip(inputs, bf16):
+        B, S = tokens.shape
+        out32, _ = model32(tokens, impl="cuda")
+        ref32, _ = model32(tokens, impl="ref")
+        torch.cuda.synchronize()
+        rel = rel_err(out32, ref32)
+        n_bad, n_pos, _ = top1_report(out32, ref32)
+        check(rel <= 1e-4 and n_bad == 0,
+              f"f32 forward B={B} S={S} impl=cuda against impl=ref: "
+              f"max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 agrees at all "
+              f"{n_pos} positions")
+        e_k, e_p = rel_err(out, ref32), rel_err(ref, ref32)
+        n_bad, n_pos, margins = top1_report(out, ref)
+        print(f"  bf16 forward B={B} S={S}: kernels against plain "
+              f"{rel_err(out, ref):.3g}; from the float32 forward: kernels "
+              f"{e_k:.3g}, plain {e_p:.3g}; top-1 differs at {n_bad} of "
+              f"{n_pos} (plain top-2 margins there: {margins[:6]})")
+        check(e_k <= 1.25 * e_p + 1e-3 and n_bad <= 0.1 * n_pos,
+              f"bf16 forward B={B} S={S}: the kernels' distance to the "
+              f"float32 forward {e_k:.3g} <= 1.25 x the plain versions' "
+              f"{e_p:.3g} + 1e-3, top-1 agrees with the plain versions at "
+              f"{n_pos - n_bad} of {n_pos} (>= 90%)")
+        if S == RECUR_PROMPT:
+            fwd32_last = out32[:, -1].clone()
+            e_last = rel_err(last, fwd32_last)
+            e_fwd = rel_err(out[:, -1], fwd32_last)
+        del out32, ref32
+    eng32 = ServeEngine(cfg32, model32, max_len=RECUR_PROMPT + 1,
+                        device=cuda)
+    last32, _ = eng32.prefill(prompts)
+    torch.cuda.synchronize()
+    rel = rel_err(last32, fwd32_last)
+    n_bad, n_pos, _ = top1_report(last32, fwd32_last)
+    ring = ", ring KV cache" if n["local_attn"] else ""
+    check(rel <= 1e-4 and n_bad == 0,
+          f"f32 decode path (recurrent states{ring}) against the forward's "
+          f"last position: {rel:.3g} <= 1e-4, top-1 agrees at all {n_pos}")
+    print(f"  for the record, bf16: the decode path's last logits lie "
+          f"{e_last:.3g} from the float32 forward's, the bf16 forward's "
+          f"{e_fwd:.3g}")
+    del bf16, model32, eng32, last, last32, fwd32_last
+    free_cuda()
+
+    forwards = {"bf16": 2, "f32": 2}
+    steps = {"bf16": RECUR_PROMPT + RECUR_PROMPT + RECUR_GEN - 1,
+             "f32": RECUR_PROMPT}
+    if n["local_attn"]:
+        ring_main_path(cfg32, prompts, cuda, seed, n)
+        forwards["f32 ring"], steps["f32 ring"] = 1, RECUR_PROMPT
+
+    launches = {"flash": FLASH["wgmma"], "flash_f32": FLASH["fwd"]
+                - FLASH["wgmma"], "ssd": SSD["scan"], "rglru": LRU["scan"]}
+    # ssd_scan is two launches a call, rglru_scan two over a sequence and
+    # one at a decode step
+    n_fwd, n_steps = sum(forwards.values()), sum(steps.values())
+    want = {"flash": forwards["bf16"] * n["local_attn"],
+            "flash_f32": (n_fwd - forwards["bf16"]) * n["local_attn"],
+            "ssd": 2 * (n_fwd + n_steps) * n["ssd"],
+            "rglru": (2 * n_fwd + n_steps) * n["rglru"]}
+    check(launches == want,
+          f"launches over the main path: {launches} ({forwards} forwards "
+          f"x the layers of each kind, and {steps} decode steps x the "
+          f"recurrent layers; decode attends over its ring without the "
+          f"kernel)")
+    return launches, held_err, model
+
+
+def ring_main_path(cfg32, prompts, cuda, seed, n):
+    """The decode path's ring KV cache wrapping on the card: the float32
+    draws with a local window of RING_WINDOW under the 128-token prompts,
+    their windowed forward (the CUDA-core flash lane) against impl="ref",
+    and ServeEngine.prefill (128 decode steps through rings of
+    RING_WINDOW slots) against the forward's last position, to 1e-4 of
+    the largest logit as for the unwindowed float32 copy."""
+    import torch
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+    cfg = dataclasses.replace(cfg32, local_window=RING_WINDOW)
+    model = Transformer(cfg, device=cuda, seed=seed)
+    out, _ = model(prompts, impl="cuda")
+    ref, _ = model(prompts, impl="ref")
+    eng = ServeEngine(cfg, model, max_len=RECUR_PROMPT + 1, device=cuda)
+    last, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    rings = [c for c, kind in zip(cache["layers"], cfg.layer_kinds())
+             if kind == "local_attn"]
+    held = list(range(RECUR_PROMPT - RING_WINDOW, RECUR_PROMPT))
+    wrapped = len(rings) == n["local_attn"] and all(
+        c["k"].shape[2] == RING_WINDOW
+        and sorted(c["slot_pos"].tolist()) == held for c in rings)
+    e_fwd, e_dec = rel_err(out, ref), rel_err(last, out[:, -1])
+    n_bad, n_pos, _ = top1_report(last, out[:, -1])
+    check(wrapped and e_fwd <= 1e-4 and e_dec <= 1e-4 and n_bad == 0,
+          f"f32 ring KV cache past a window of {RING_WINDOW}: "
+          f"{RECUR_PROMPT} decode steps through {len(rings)} rings of "
+          f"{RING_WINDOW} slots, each holding positions {held[0]}-"
+          f"{held[-1]}; the windowed forward impl=cuda against impl=ref "
+          f"{e_fwd:.3g} <= 1e-4, the decode path against its last position "
+          f"{e_dec:.3g} <= 1e-4, top-1 agrees at all {n_pos}")
+    del model, eng, cache, out, ref, last
+    free_cuda()
+
+
+def recurrent_kernel_timing(cuda, seed, smi):
+    """Each new kernel piece at its main-path shape beside its plain
+    version, the library call where one computes the same function and the
+    bound: the flash kernel at RecurrentGemma-2B's local attention (B = 1,
+    H = 10, Hkv = 1, S = T = 4096, D = 256) with its window of 2048 and
+    without one (SDPA with the window as a boolean mask, and causal);
+    ssd_scan at Mamba2-2.7B's 1 x 2048; rglru_scan at RecurrentGemma's
+    1 x 4096 (neither has a PyTorch library call). Returns each row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
+                                                rglru_scan_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
+
+    rows = {}
+    rg = get_config("recurrentgemma-2b")
+    B, S = RECUR_ARCHS["recurrentgemma-2b"]["prefill"]
+    H, Hkv, D, W = rg.n_heads, rg.n_kv_heads, rg.head_dim_, rg.local_window
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((B, h, S, D), generator=g, device=cuda)
+               .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    i = torch.arange(S, device=cuda)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    for window in (W, None):
+        def kernel():
+            return flash_attention(q, k, v, causal=True, window=window)
+
+        def plain():
+            return flash_attention_ref(q, k, v, causal=True, window=window)
+
+        def sdpa():
+            if window is None:
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True)
+        r = plain()
+        err = float((kernel().float() - r.float()).abs().max())
+        sdpa_err = float((sdpa().float() - r.float()).abs().max())
+        rel = row_rel_err(kernel(), r)
+        check(rel <= ROW_REL_LIMIT["bfloat16"],
+              f"flash D={D} window={window}: max |kernel - plain| {err:.3g}, "
+              f"max row-relative {rel:.3g} <= "
+              f"{ROW_REL_LIMIT['bfloat16']:g}")
+        del r
+        t = {"kernel": cuda_ms(kernel, 20), "plain": cuda_ms(plain, 3),
+             "sdpa": cuda_ms(sdpa, 10)}
+        b_ms, b_by = attention_bound(q, k, v, True, window)
+        pairs = attention_pairs(S, S, True, window)
+        print(f"  flash wgmma lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
+              f"window={window} bf16 ({pairs:,} pairs a head, "
+              f"{attention_flops(q, k, True, window) / 1e9:.2f} GFLOP): "
+              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"sdpa {t['sdpa']:.4f} ms (|diff| {sdpa_err:.3g}), bound "
+              f"{b_ms:.4f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / t['kernel']:.1f}% of bound, "
+              f"{t['sdpa'] / t['kernel']:.2f}x SDPA's speed [{smi}]")
+        rows["flash_window" if window else "flash_d256"] = dict(
+            t, bound_ms=b_ms, bound_by=b_by, err=err)
+    del q, k, v, band
+    free_cuda()
+
+    mb = get_config("mamba2-2.7b")
+    B, S = RECUR_ARCHS["mamba2-2.7b"]["prefill"]
+    H, P, N = mb.ssm_heads, mb.ssm_headdim, mb.ssm_state
+    bf = torch.bfloat16
+    x = torch.randn((B, S, H, P), generator=g, device=cuda).to(bf)
+    b, c = ((0.3 * torch.randn((B, S, N), generator=g, device=cuda)).to(bf)
+            for _ in range(2))
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=cuda) - 1.0)
+    a_log = 0.5 * torch.randn((H,), generator=g, device=cuda)
+    args = (x, b, c, dt, a_log, mb.ssm_chunk)
+    y, h = ssd_scan_kernel(*args)
+    yr, hr = ssd_scan_ref(*args)
+    err = max(float((y.float() - yr.float()).abs().max()),
+              float((h - hr).abs().max()))
+    t = {"kernel": cuda_ms(lambda: ssd_scan_kernel(*args), 20),
+         "plain": cuda_ms(lambda: ssd_scan_ref(*args), 3)}
+    b_ms, b_by = ssd_bound(x, b, dt, mb.ssm_chunk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    work = ssd_scan_work(B, S, H, P, N, mb.ssm_chunk)
+    print(f"  ssd_scan B={B} S={S} H={H} P={P} N={N} Q={mb.ssm_chunk} bf16 "
+          f"x ({work / 1e9:.3f} GFLOP float32, causal halves once): kernel "
+          f"{t['kernel']:.4f} ms ({work / t['kernel'] / 1e9:.2f} TFLOP/s), "
+          f"plain {t['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
+          f"at {100 * b_ms / t['kernel']:.1f}% of bound; {B * H} blocks of "
+          f"256 threads on {sms} SMs; max |kernel - plain| {err:.3g} "
+          f"[{smi}]")
+    rows["ssd"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by, err=err)
+    del x, b, c, dt, y, h, yr, hr, args
+
+    B, S = RECUR_ARCHS["recurrentgemma-2b"]["prefill"]
+    Wd = rg.lru_width_
+    u = torch.randn((B, S, Wd), generator=g, device=cuda).to(bf)
+    ga, gi = (torch.randn((B, S, Wd), generator=g, device=cuda)
+              for _ in range(2))
+    b_a, b_i = (0.5 * torch.randn((Wd,), generator=g, device=cuda)
+                for _ in range(2))
+    lam = torch.randn((Wd,), generator=g, device=cuda) + 1.0
+    args = (u, ga, gi, b_a, b_i, lam)
+    err = float((rglru_scan_kernel(*args) - rglru_scan_ref(*args)).abs()
+                .max())
+    t = {"kernel": cuda_ms(lambda: rglru_scan_kernel(*args), 20),
+         "plain": cuda_ms(lambda: rglru_scan_ref(*args), 3)}
+    b_ms, b_by = rglru_bound(u)
+    print(f"  rglru_scan B={B} S={S} W={Wd} bf16 u: kernel "
+          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); kernel at "
+          f"{100 * b_ms / t['kernel']:.1f}% of bound; max |kernel - plain| "
+          f"{err:.3g} [{smi}]")
+    rows["rglru"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by, err=err)
+    del u, ga, gi, args
+    free_cuda()
+    return rows
+
+
+def recurrent_model_timing(cuda, model, seed, smi):
+    """The decode step at B = 4 (ms a step, timed before any profiler
+    runs), and the forward at B = 4, S = 128 and at the model's long
+    prefill (prefill tokens/s), each then profiled once for the card's
+    busy share. Returns the times for the roofline."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.serving import ServeEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    times = {}
+    eng = ServeEngine(cfg, model, max_len=24, device=cuda)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (RECUR_BATCH,
+                                                              24)),
+                             device=cuda)
+    _, cache = eng.prefill(tokens[:, :4])
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for i in range(steps):
+        decode_step(model, tokens[:, 4 + i], cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"  {cfg.name} decode_step B={RECUR_BATCH} at length 5.."
+          f"{4 + steps}: {ms:.2f} ms per step, "
+          f"{RECUR_BATCH / ms * 1e3:.1f} tokens/s [{smi}]")
+    for B, S in ((RECUR_BATCH, RECUR_PROMPT),
+                 RECUR_ARCHS[cfg.name]["prefill"]):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device=cuda)
+        model(prompt)
+        torch.cuda.synchronize()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(prompt)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3 / reps
+        print(f"  {cfg.name} forward B={B} S={S}: {fwd_ms:.2f} ms, prefill "
+              f"{B * S / fwd_ms * 1e3:.0f} tokens/s [{smi}]")
+        stats = device_breakdown(lambda: model(prompt),
+                                 f"{cfg.name} forward B={B} S={S}", smi)
+        times[("forward", B, S)] = (fwd_ms, stats)
+    stats = device_breakdown(
+        lambda: decode_step(model, tokens[:, 4 + steps], cache),
+        f"{cfg.name} decode_step B={RECUR_BATCH}", smi)
+    times["decode"] = (ms, stats)
+    del eng, cache
+    return times
+
+
+def recurrent_roofline(cfg, times, smi):
+    """The roofline (`repro_torch.analysis`, H100 constants) of the long
+    prefill beside its measured time. FLOPs: `model_flops_cell` (2 x the
+    parameters past the embedding x tokens), plus the time mixing's own
+    work: the SSD scans' float32 work (at the float32 peak, so counted at
+    989 / 67 of its operations in the bf16 compute term) or the local
+    attention's 4 D flops a pair and head. Bytes: every weight read once,
+    the embedding rows gathered and the logits written."""
+    from repro_torch.analysis import from_counts, model_flops_cell
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.analysis.roofline import H100
+    B, S = RECUR_ARCHS[cfg.name]["prefill"]
+    kinds = cfg.layer_kinds()
+    item = cfg.pdtype().itemsize
+    model = model_flops_cell(cfg, dict(kind="prefill", batch=B, seq=S))
+    if cfg.name == "mamba2-2.7b":
+        mix = kinds.count("ssd") * ssd_scan_work(
+            B, S, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+            cfg.ssm_chunk) * (H100.peak_flops["bfloat16"]
+                              / H100.peak_flops["float32"])
+    else:
+        mix = (kinds.count("local_attn") * 4.0 * B * cfg.n_heads
+               * cfg.head_dim_ * attention_pairs(S, S, True,
+                                                 cfg.local_window))
+    nbytes = (total_params(cfg) * item
+              + B * S * (cfg.d_model + cfg.padded_vocab) * item)
+    r = from_counts(model + mix, nbytes)
+    ms = times[("forward", B, S)][0]
+    print(f"  roofline of the {cfg.name} prefill B={B} S={S}: model FLOPs "
+          f"(model_flops_cell) {model / 1e12:.4f} T, with the time mixing "
+          f"{(model + mix) / 1e12:.4f} T (bf16-equivalent); "
+          f"{nbytes / 1e9:.3f} GB -> compute {r.compute_s * 1e3:.3f} ms, "
+          f"memory {r.memory_s * 1e3:.3f} ms: {r.dominant}-bound, bound "
+          f"{r.bound_s * 1e3:.3f} ms; measured {ms:.2f} ms, "
+          f"{100 * r.bound_s * 1e3 / ms:.1f}% of the bound [{smi}]")
+    check(r.dominant in ("compute", "memory") and r.collective_s == 0.0,
+          f"{cfg.name} prefill: {r.dominant}-bound by the H100 constants, "
+          f"no collective term on one card")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3188,6 +3877,24 @@ def main(argv=None):
     with phase("analysis"):
         analysis_phase(moe_cfg, moe_times, smi)
 
+    recur = {}
+    for arch in RECUR_ARCHS:
+        with phase(f"main path: {arch}"):
+            err = scans_against_plain(arch, cuda, args.seed)
+            launches, held_err, model = recurrent_main_path(
+                arch, cuda, args.seed, smi)
+            recur[arch] = dict(err=max(err, held_err), launches=launches,
+                               model=model)
+
+    with phase("timing: Mamba2-2.7B and RecurrentGemma-2B"):
+        recur_rows = recurrent_kernel_timing(cuda, args.seed, smi)
+        for r in recur.values():
+            model = r.pop("model")
+            times = recurrent_model_timing(cuda, model, args.seed, smi)
+            recurrent_roofline(model.cfg, times, smi)
+            del model
+            free_cuda()
+
     t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
@@ -3238,11 +3945,37 @@ def main(argv=None):
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE[lane],
             "replaces": TPU_KERNEL["flash"],
-            "launches": flash_launches[lane] + moe_launches[lane],
+            "launches": flash_launches[lane] + moe_launches[lane] + sum(
+                r["launches"]["flash" if lane == "wgmma" else "flash_f32"]
+                for r in recur.values()),
             "max_abs_err": max(flash_err[lane], row["err"]),
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["sdpa"]})
+    # head dim 256 on the tensor-core lane, at RecurrentGemma-2B's local
+    # attention with its window of 2048
+    row = recur_rows["flash_window"]
+    kernels.append({
+        "name": "flash_attention_d256", "route": "cuda",
+        "source": FLASH_SOURCE["wgmma"], "replaces": TPU_KERNEL["flash"],
+        "launches": recur["recurrentgemma-2b"]["launches"]["flash"],
+        "max_abs_err": max(flash_err["d256"], row["err"],
+                           recur_rows["flash_d256"]["err"]),
+        "ms": row["kernel"], "plain_ms": row["plain"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["sdpa"]})
+    for name, key, source, arch in (
+            ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
+            ("rglru_scan", "rglru", RGLRU_SOURCE, "recurrentgemma-2b")):
+        row = recur_rows[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": TPU_KERNEL[key],
+            "launches": recur[arch]["launches"][key],
+            "max_abs_err": max(recur[arch]["err"], row["err"]),
+            "ms": row["kernel"], "plain_ms": row["plain"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version: bsr_spmv (the paper's block SpMV), csr_spmv (the
-segment-sum backend's SpMV, in a fixed order) and flash_attention (the LM
-prefill's attention). Built by `kernels.build` at first use."""
+segment-sum backend's SpMV, in a fixed order), flash_attention (the LM
+prefill's attention, local windows included), ssd_scan (Mamba-2's chunked
+scan) and rglru_scan (RecurrentGemma's gated recurrence). Built by
+`kernels.build` at first use."""
 import torch
 
 IMPLS = ("auto", "cuda", "ref")

@@ -32,9 +32,12 @@ SOURCES: Dict[str, Path] = {
     # the CUDA-core lane (float32, and bf16 at other head dims)
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
-    # the tensor-core lane (bf16, head dim 64 or 128)
+    # the tensor-core lane (bf16, head dim 64, 128 or 256)
     "flash_attention_wgmma": (_KERNELS / "flash_attention" / "csrc"
                               / "flash_attention_wgmma.cu"),
+    # Mamba-2's chunked scan and RecurrentGemma's gated recurrence
+    "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",
 }
 
 

@@ -1,8 +1,8 @@
 // Flash attention forward for Hopper (sm_90a) on the CUDA cores: the lane
-// for float32 inputs and for bf16 at head dims other than 64 and 128 (the
-// smoke configs' 12-20). bf16 at D = 64 or 128 goes to the tensor-core
-// kernel, flash_attention_wgmma.cu. Exported through a plain C interface
-// and bound to PyTorch with ctypes
+// for float32 inputs and for bf16 at head dims other than 64, 128 and 256
+// (the smoke configs' 12-32). bf16 at D = 64, 128 or 256 goes to the
+// tensor-core kernel, flash_attention_wgmma.cu. Exported through a plain C
+// interface and bound to PyTorch with ctypes
 // (repro_torch/kernels/flash_attention/flash_attention.py, whose
 // kernel_lane picks the lane).
 //
@@ -11,9 +11,10 @@
 //   o (B, H, S, D) in q's type; G = H / Hkv.
 //
 // Causal masking is aligned top-left: row i sees columns j <= i, for any S
-// and T. Columns j >= T (the ragged tail of the last kv tile) and rows
-// i >= S (the ragged tail of the last q tile) are masked inside the kernel,
-// so S and T need not be multiples of the tiles.
+// and T; an optional local window keeps columns j > i - window (the JAX
+// package's _mask). Columns j >= T (the ragged tail of the last kv tile)
+// and rows i >= S (the ragged tail of the last q tile) are masked inside
+// the kernel, so S and T need not be multiples of the tiles.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py::_kernel, which
 // walks a sequential (B, H, nq, nk) grid and carries the running max,
@@ -22,7 +23,8 @@
 // itself, so nothing carries across blocks. The block reads kv head h / G
 // in place: kv is never repeated in memory. Causal blocks skip the kv tiles
 // that lie wholly past their last row, as the TPU kernel's pl.when does,
-// and are scheduled longest first.
+// and are scheduled longest first; with a window, a block starts at the
+// first kv tile its window reaches.
 //
 // Arithmetic: q k^T and p v are f32 FMAs on the CUDA cores (no mma, wgmma
 // or TF32: this lane computes the float32 function), and the running max,
@@ -73,8 +75,13 @@
 //   to 4 cycles, and a step's 16 reads hold it about as long as its 256
 //   FMAs hold the SM's four FMA pipes: the two have to overlap, and the
 //   8 x 8 tile (255 registers with the output's) is as large as fits.
-// * The output rescale runs only for a row whose max moved, and the causal
-//   and tail masks only on the tiles that cross the diagonal or the tail.
+// * The output rescale runs only for a row whose max moved, and the causal,
+//   tail and window masks only on the tiles that cross the diagonal, the
+//   tail or the window's lower edge.
+// * Head dims above 128 (DPAD = 256): a q tile of 128 rows would take
+//   133 KB of shared memory in float32 and 128 output registers a thread,
+//   so the block takes 64 rows (4 a thread) and v chunks of 32 keys:
+//   181,248 bytes of shared memory in float32.
 
 #include <cstdint>
 
@@ -86,15 +93,23 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBQ = 128;             // q rows per block
 constexpr int kBK = 128;             // keys per kv tile
-constexpr int kChunk = 64;           // d columns of a k chunk, keys of a v chunk
-constexpr int kRows = kBQ / 16;      // rows per thread: 8
+constexpr int kChunk = 64;           // d columns of a k chunk
 constexpr int kCols = kBK / 16;      // scores per thread and row: 8
 constexpr int kLDP = kBK + 16;       // p's row stride: rows ty, ty + 1 of a
                                      // warp write disjoint banks
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The q tile and the v chunks by padded head dim: 128 q rows (8 a thread)
+// and v chunks of 64 keys up to DPAD = 128; 64 rows (4 a thread) and 32
+// keys at 256, where the larger tiles overflow shared memory.
+template <int DPAD>
+struct Tile {
+  static constexpr int kBQ = DPAD == 256 ? 64 : 128;   // q rows per block
+  static constexpr int kRows = kBQ / 16;               // rows per thread
+  static constexpr int kVC = DPAD == 256 ? 32 : 64;    // keys of a v chunk
+};
 
 // Row strides in elements: the data plus 16 bytes.
 template <typename T, int COLS>
@@ -103,17 +118,19 @@ __host__ __device__ constexpr int ld() {
 }
 
 // Elements of one ring buffer: a k chunk (kBK x kChunk) or a v chunk
-// (kChunk x DPAD), whichever is larger.
+// (kVC x DPAD), whichever is larger.
 template <typename T, int DPAD>
 __host__ __device__ constexpr int chunk_elems() {
-  return kBK * ld<T, kChunk>() > kChunk * ld<T, DPAD>()
-             ? kBK * ld<T, kChunk>() : kChunk * ld<T, DPAD>();
+  constexpr int kv = Tile<DPAD>::kVC * ld<T, DPAD>();
+  return kBK * ld<T, kChunk>() > kv ? kBK * ld<T, kChunk>() : kv;
 }
 
 template <typename T, int DPAD>
 constexpr int smem_bytes() {
-  return (kBQ * ld<T, DPAD>() + 2 * chunk_elems<T, DPAD>()) * (int)sizeof(T) +
-         (kBQ * kLDP + 2 * kRows * kThreads) * (int)sizeof(float);
+  using Tl = Tile<DPAD>;
+  return (Tl::kBQ * ld<T, DPAD>() + 2 * chunk_elems<T, DPAD>()) *
+             (int)sizeof(T) +
+         (Tl::kBQ * kLDP + 2 * Tl::kRows * kThreads) * (int)sizeof(float);
 }
 
 // Four neighbouring elements of a shared-memory tile, widened to f32.
@@ -170,18 +187,19 @@ __device__ __forceinline__ void copy_block(T* tile, const T* src, int row0,
 
 // Issue the copy of chunk `ph` of kv tile `kt` into `buf`: k chunks
 // ph < DPAD / kChunk (all kBK keys, d columns [ph * kChunk, + kChunk)),
-// then v chunks (kChunk keys, all d).
+// then v chunks (kVC keys, all d).
 template <int DPAD, typename T>
 __device__ __forceinline__ void copy_chunk(T* buf, const T* kg, const T* vg,
                                            int kt, int ph, int Tk, int D,
                                            bool vec) {
   constexpr int NKC = DPAD / kChunk;
+  constexpr int VC = Tile<DPAD>::kVC;
   if (ph < NKC)
     copy_block<kBK, kChunk, ld<T, kChunk>()>(buf, kg, kt * kBK, Tk,
                                              ph * kChunk, D, vec);
   else
-    copy_block<kChunk, DPAD, ld<T, DPAD>()>(
-        buf, vg, kt * kBK + (ph - NKC) * kChunk, Tk, 0, D, vec);
+    copy_block<VC, DPAD, ld<T, DPAD>()>(
+        buf, vg, kt * kBK + (ph - NKC) * VC, Tk, 0, D, vec);
 }
 
 // Store the first n (<= 4) of v; the loops are unrolled so that v stays in
@@ -210,26 +228,27 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst,
   }
 }
 
-// One kv tile's online softmax for the thread's rows: scale (and, where
-// MASK, mask) the scores, move the running max, rescale the output and
+// One kv tile's online softmax for the thread's ROWS rows: scale (and,
+// where MASK, mask) the scores, move the running max, rescale the output and
 // denominator of a row whose max moved, and write p to the thread's slots
 // of the shared p tile. The running max and the thread's share of the
 // denominator of row i are ms[i * kThreads] and ls[i * kThreads]: they
 // wait in shared memory, not in registers, while q k^T runs.
-template <bool MASK, int NO>
+template <bool MASK, int ROWS, int NO>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[kRows][kCols], float* ms, float* ls, float (&acc)[kRows][NO],
+    float (&s)[ROWS][kCols], float* ms, float* ls, float (&acc)[ROWS][NO],
     float* ps, int ty, int tx, int q0, int k0, int Tk, bool causal,
-    float scale_log2) {
+    int window, float scale_log2) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
     float m = ms[i * kThreads], l = ls[i * kThreads];
     const int row = q0 + ty + 16 * i;
     float mt = kNegInf;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = k0 + tx + 16 * j;
-      const bool ok = !MASK || (col < Tk && (!causal || col <= row));
+      const bool ok = !MASK || (col < Tk && (!causal || col <= row) &&
+                                (window == 0 || col > row - window));
       s[i][j] = ok ? s[i][j] * scale_log2 : kNegInf;
       mt = fmaxf(mt, s[i][j]);
     }
@@ -264,11 +283,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
                  int S, int Tk, int D, float scale_log2, bool causal,
-                 bool vec) {
+                 int window, bool vec) {
+  constexpr int kBQ = Tile<DPAD>::kBQ;
+  constexpr int kRows = Tile<DPAD>::kRows;
+  constexpr int VC = Tile<DPAD>::kVC;
   constexpr int LDQ = ld<T, DPAD>();    // q tile and v chunks
   constexpr int LDK = ld<T, kChunk>();  // k chunks
   constexpr int NKC = DPAD / kChunk;    // k chunks per kv tile
-  constexpr int NP = NKC + kBK / kChunk;  // chunks per kv tile
+  constexpr int NP = NKC + kBK / VC;    // chunks per kv tile
   constexpr int NC = DPAD / 64;  // float4 output groups per thread and row
   constexpr int NO = 4 * NC;     // outputs per thread and row
   extern __shared__ float4 smem4[];
@@ -295,9 +317,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   int n_kv = (Tk + kBK - 1) / kBK;
   if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);
+  // the first kv tile the window reaches (0 without a window)
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   copy_block<kBQ, DPAD, LDQ>(qs, q + q_off, q0, S, 0, D, vec);
-  copy_chunk<DPAD>(ring, kg, vg, 0, 0, Tk, D, vec);
+  copy_chunk<DPAD>(ring, kg, vg, kt0, 0, Tk, D, vec);
   hopper::cp_async_commit();
 
   float acc[kRows][NO];
@@ -310,7 +334,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int n = 0;  // chunks consumed
-  for (int kt = 0; kt < n_kv; ++kt) {
+  for (int kt = kt0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
     float s[kRows][kCols];
 #pragma unroll
@@ -354,21 +378,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
         if (ph + 1 == NKC) {
-          // masks only where the tile crosses the tail or the diagonal
-          const bool mask = k0 + kBK > Tk || (causal && k0 + kBK - 1 > q0);
+          // masks only where the tile crosses the tail, the diagonal or
+          // the window's lower edge
+          const bool mask = k0 + kBK > Tk ||
+                            (causal && k0 + kBK - 1 > q0) ||
+                            (window > 0 && k0 <= q0 + kBQ - 1 - window);
           if (mask)
             softmax_tile<true>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
-                               causal, scale_log2);
+                               causal, window, scale_log2);
           else
             softmax_tile<false>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
-                                causal, scale_log2);
+                                causal, window, scale_log2);
           __syncwarp();  // p's rows of this half-warp are written
         }
       } else {
-        // acc += p v over this chunk's 64 keys
-        const float* pc = ps + (ph - NKC) * kChunk;
+        // acc += p v over this chunk's VC keys
+        const float* pc = ps + (ph - NKC) * VC;
 #pragma unroll 2
-        for (int kk = 0; kk < kChunk; kk += 4) {
+        for (int kk = 0; kk < VC; kk += 4) {
           float4 p4[kRows];
 #pragma unroll
           for (int i = 0; i < kRows; ++i)
@@ -430,29 +457,32 @@ cudaError_t prepare() {
 template <typename T, int DPAD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Hkv, int S, int Tk, int D, float scale,
-                   bool causal, bool vec, cudaStream_t stream) {
+                   bool causal, int window, bool vec, cudaStream_t stream) {
   cudaError_t err = prepare<T, DPAD>();
   if (err != cudaSuccess) return err;
-  const int nq = (S + kBQ - 1) / kBQ;
+  const int nq = (S + Tile<DPAD>::kBQ - 1) / Tile<DPAD>::kBQ;
   if (nq > 65535) return cudaErrorInvalidValue;
   const dim3 grid(B * H, nq);
   flash_fwd_kernel<T, DPAD><<<grid, kThreads, smem_bytes<T, DPAD>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Tk, D,
-      scale * kLog2e, causal, vec);
+      scale * kLog2e, causal, window, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Hkv, int S, int Tk, int D,
-                       float scale, bool causal, bool vec,
+                       float scale, bool causal, int window, bool vec,
                        cudaStream_t stream) {
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal, vec,
-                         stream);
-  return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal, vec,
-                        stream);
+    return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
+                         window, vec, stream);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
+                          window, vec, stream);
+  return launch<T, 256>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
+                        window, vec, stream);
 }
 
 template <typename T, int DPAD>
@@ -479,22 +509,23 @@ cudaError_t info(int* out) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). The caller
-// checks shapes: H % Hkv == 0, 1 <= D <= 128, S, T >= 1, contiguous
-// tensors; vec = D is a multiple of 16 bytes' worth of elements and every
-// pointer is 16-byte aligned.
+// checks shapes: H % Hkv == 0, 1 <= D <= 256, S, T >= 1, contiguous
+// tensors; window 0 (none) or >= 1 with S <= T + window - 1; vec = D is a
+// multiple of 16 bytes' worth of elements and every pointer is 16-byte
+// aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int S, int T,
-                           int D, float scale, int causal, int bf16, int vec,
-                           void* stream) {
-  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 || D > 128 || S < 1 ||
-      T < 1 || B < 1)
+                           int D, float scale, int causal, int window,
+                           int bf16, int vec, void* stream) {
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 || D > 256 || S < 1 ||
+      T < 1 || B < 1 || window < 0 || (window > 0 && S > T + window - 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T, D, scale,
-                                       causal != 0, vec != 0, s)
+                                       causal != 0, window, vec != 0, s)
            : dispatch_d<float>(q, k, v, o, B, H, Hkv, S, T, D, scale,
-                               causal != 0, vec != 0, s);
+                               causal != 0, window, vec != 0, s);
   return (int)err;
 }
 
@@ -503,13 +534,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // block, out[2] registers per thread, out[3] local (spill) bytes per
 // thread, out[4] dynamic shared memory per block. Returns a cudaError_t.
 int flash_attention_kernel_info(int D, int bf16, int* out) {
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (bf16)
-    err = D <= 64 ? info<__nv_bfloat16, 64>(out)
-                  : info<__nv_bfloat16, 128>(out);
+    err = D <= 64    ? info<__nv_bfloat16, 64>(out)
+          : D <= 128 ? info<__nv_bfloat16, 128>(out)
+                     : info<__nv_bfloat16, 256>(out);
   else
-    err = D <= 64 ? info<float, 64>(out) : info<float, 128>(out);
+    err = D <= 64    ? info<float, 64>(out)
+          : D <= 128 ? info<float, 128>(out)
+                     : info<float, 256>(out);
   return (int)err;
 }
 

@@ -1,16 +1,18 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): the bf16 lane
-// for head dims 64 and 128, exported through a plain C interface and bound
-// to PyTorch with ctypes (repro_torch/kernels/flash_attention/
+// for head dims 64, 128 and 256, exported through a plain C interface and
+// bound to PyTorch with ctypes (repro_torch/kernels/flash_attention/
 // flash_attention.py, which picks this lane or the CUDA-core one in
 // flash_attention.cu).
 //
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
 //   q (B, H, S, D), k and v (B, Hkv, T, D), bf16, contiguous, 16-byte
-//   aligned; o (B, H, S, D) bf16; G = H / Hkv; D in {64, 128}.
+//   aligned; o (B, H, S, D) bf16; G = H / Hkv; D in {64, 128, 256}.
 //
 // The same function as the CUDA-core lane and as the plain version: causal
 // masking aligned top-left (row i sees columns j <= i) for any S and T,
-// masked scores -1e30, a row whose denominator is 0 divides by 1.
+// an optional local window (row i keeps columns j > i - window: the JAX
+// package's _mask, models/attention.py, for RecurrentGemma's local_attn
+// layers), masked scores -1e30, a row whose denominator is 0 divides by 1.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py::_kernel, which
 // walks a sequential (B, H, nq, nk) grid and carries the running max,
@@ -26,28 +28,40 @@
 // * One thread block per (b, h, 128-row q tile), 384 threads in three
 //   warpgroups. Warpgroup 0 is the producer: it gives up registers
 //   (setmaxnreg 24) and one of its threads issues every TMA copy. The two
-//   consumer warpgroups (setmaxnreg 240) own 64 query rows each.
+//   consumer warpgroups (setmaxnreg 240) own 64 query rows each. At
+//   D = 256 a 384-thread block caps every thread at 168 registers as
+//   compiled, fewer than a consumer's 128 floats of O beside S and P
+//   need, so that head dim takes one consumer warpgroup: 256 threads, a
+//   64-row q tile, up to 255 registers a thread and no setmaxnreg.
 // * TMA with 3-D tensor maps, (D, S, B*H) for q and o and (D, T, B*Hkv)
 //   for k and v, so a box never crosses into another head: rows past S or
 //   T load as zeros and the store of o drops rows >= S. A bf16 row of
 //   D = 128 is 256 bytes, more than the 128-byte swizzle span, so every
 //   tile is loaded as D / 64 panels of 64 columns.
-// * A ring of 2 stages of 128 kv rows (K and V), each with a full barrier
+// * A ring of 2 stages of kBK kv rows (K and V), each with a full barrier
 //   for K, one for V and an empty barrier: the producer runs up to two
 //   tiles ahead, and a consumer starts q k^T as soon as K has landed.
-//   Shared memory at D = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
-// * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   kBK = 128 at D = 64 and 128; shared memory at D = 128: Q 32 KB +
+//   2 x (K 32 KB + V 32 KB) = 160 KB. At D = 256 two stages of 128 rows
+//   would take 256 KB beside Q, over the 227 KB a block may use, so kBK
+//   = 64 there: Q (64 rows) 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+// * S = Q K^T is wgmma m64n{kBK}k16 with both operands in shared memory
 //   (K-major: D contiguous as stored), D / 16 k-steps. O += P V is wgmma
 //   m64nDk16 with P from registers: the f32 accumulator of S, rounded to
 //   bf16 and packed in pairs, is already the register layout of the next
 //   product's A operand. V is read MN-major (D contiguous) with the
-//   transpose bit set.
+//   transpose bit set. At D = 256 a consumer thread holds 128 floats of O
+//   and 32 of S.
 // * The softmax stays in f32 registers: the 4 threads that share a row in
 //   the accumulator layout reduce its max and sum by shuffles; exp2f on
 //   scores pre-scaled by scale * log2(e); O is rescaled only when a row's
 //   max moves. The causal and column (j >= T) masks are applied only on
 //   tiles that cross the diagonal or the tail; causal blocks skip whole
-//   tiles past their last row and the longest tiles launch first.
+//   tiles past their last row and the longest tiles launch first. With a
+//   window, a q tile starting at row q0 begins its kv loop at the tile of
+//   column max(0, q0 - window + 1), and the window's mask is applied only
+//   on the tiles that cross its lower edge; window = 0 (none) keeps the
+//   causal path's loop bounds and masks as they were.
 // * Epilogue: O / l in bf16 is staged, swizzled, over the warpgroup's own
 //   rows of the Q tile and written with one TMA store per panel.
 //
@@ -67,9 +81,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kThreads = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int kBQ = 128;       // q rows per block, 64 per consumer
-constexpr int kBK = 128;       // kv rows per ring stage
 constexpr int kPanel = 64;     // bf16 columns per 128-byte swizzled panel
 constexpr int kPanelRow = 128; // bytes per panel row
 constexpr int kStages = 2;
@@ -84,6 +95,13 @@ constexpr int kErrEncode = 100001;      // + CUresult of the encode
 
 template <int D>
 struct Layout {
+  // consumer warpgroups of 64 q rows each: one at D = 256, where a thread
+  // needs more registers than a 384-thread block leaves it
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // + producer
+  static constexpr int kBQ = 64 * kConsumers;   // q rows per block
+  // kv rows per ring stage: two stages of 128 rows do not fit at D = 256
+  static constexpr int kBK = D == 256 ? 64 : 128;
   static constexpr int kPanels = D / kPanel;
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;  // one K or one V tile
@@ -125,14 +143,41 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
   wgmma_rs_n128(o, a, db, 1);
 }
 
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(o, a, db, 1);
+}
+
+// One k-step of S = Q K^T over a kv tile of BK rows.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_n128(s, da, db, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_n64(s, da, db, scale_d);
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o, int H,
-                       int Hkv, int S, int T, float scale_log2, int causal) {
+                       int Hkv, int S, int T, float scale_log2, int causal,
+                       int window) {
   using L = Layout<D>;
+  constexpr int kBK = L::kBK;
+  constexpr int kBQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQOff;
@@ -151,13 +196,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = qt * kBQ;
   const int nk = (T + kBK - 1) / kBK;
   const int n_kv = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
+  // the first kv tile the window reaches (0 without a window); the ring's
+  // stage and phase count from it
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(empty(st), 2 * 128);  // every consumer thread releases
+      // every consumer thread releases
+      mbar_init(empty(st), L::kConsumers * 128);
     }
     mbar_fence_init();
   }
@@ -166,17 +215,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------------------------------------------------- producer
-    reg_dealloc<kProducerRegs>();
+    if constexpr (L::kConsumers == 2) reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
       for (int p = 0; p < L::kPanels; ++p)
         tma_load_3d(sQ + p * kBQ * kPanelRow, &tm_q, q_full, p * kPanel, q0,
                     bh);
-      for (int kt = 0; kt < n_kv; ++kt) {
-        const int st = kt % kStages;
+      for (int kt = kt0; kt < n_kv; ++kt) {
+        const int st = (kt - kt0) % kStages;
         // the first round finds every stage empty (parity 1 passes)
-        mbar_wait(empty(st), ((kt / kStages) & 1) ^ 1);
+        mbar_wait(empty(st), (((kt - kt0) / kStages) & 1) ^ 1);
         const uint32_t k_dst = sK + st * L::kKVBytes;
         const uint32_t v_dst = sV + st * L::kKVBytes;
         mbar_expect_tx(k_full(st), L::kKVBytes);
@@ -193,7 +242,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // --------------------------------------------------------- consumers
-    reg_alloc<kConsumerRegs>();
+    if constexpr (L::kConsumers == 2) reg_alloc<kConsumerRegs>();
     const int c = wg - 1;  // this warpgroup's rows: q0 + 64 c + [0, 64)
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
@@ -212,9 +261,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t dq = make_desc(sQ + 64 * c * kPanelRow, 16, 1024);
     mbar_wait(q_full, 0);
 
-    for (int kt = 0; kt < n_kv; ++kt) {
-      const int st = kt % kStages;
-      const uint32_t parity = (kt / kStages) & 1;
+    for (int kt = kt0; kt < n_kv; ++kt) {
+      const int st = (kt - kt0) % kStages;
+      const uint32_t parity = ((kt - kt0) / kStages) & 1;
       const int k0 = kt * kBK;
 
       // S = Q K^T: D / 16 k-steps, 4 per 64-column panel
@@ -226,7 +275,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t qoff = (ks / 4) * kBQ * kPanelRow + (ks % 4) * 32;
         const uint32_t koff = (ks / 4) * kBK * kPanelRow + (ks % 4) * 32;
-        wgmma_ss_n128(s, dq + (qoff >> 4), dk + (koff >> 4), ks > 0);
+        wgmma_qk<kBK>(s, dq + (qoff >> 4), dk + (koff >> 4), ks > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -239,6 +288,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int col = k0 + 8 * (r / 4) + col0 + (r % 2);
           const int row = row0 + 8 * ((r % 4) / 2);
           if (col >= T || (causal && col > row)) s[r] = kNegInf;
+        }
+      }
+      // and the window's, only where a tile crosses its lower edge for
+      // one of this warpgroup's 64 rows. A row may see no column of such
+      // a tile: its p are then 1 over a max of -1e30, and the next tile's
+      // real max rescales them to 0 (every row sees its own column)
+      if (window > 0 && k0 <= q0 + 64 * c + 63 - window) {
+#pragma unroll
+        for (int r = 0; r < kBK / 2; ++r) {
+          const int col = k0 + 8 * (r / 4) + col0 + (r % 2);
+          const int row = row0 + 8 * ((r % 4) / 2);
+          if (col <= row - window) s[r] = kNegInf;
         }
       }
 
@@ -256,7 +317,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         alpha[h] = exp2f((m[h] - mx[h]) * scale_log2);
         moved |= mx[h] != m[h];
         m[h] = mx[h];
-        msc[h] = mx[h] * scale_log2;
+        // a row that has seen only masked columns (a window's first tile)
+        // takes p = exp2(-1e30 scale) = 0: with msc = -1e30 scale, the fma
+        // below would leave the product's rounding error, up to 2^72
+        msc[h] = mx[h] == kNegInf ? 0.f : mx[h] * scale_log2;
       }
 #pragma unroll
       for (int r = 0; r < kBK / 2; ++r) {
@@ -379,13 +443,13 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int T, float scale, bool causal,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kErrNoEncode;
   CUtensorMap tq, tk, tv, to;
-  int err = encode(fn, &tq, q, D, S, B * H, kBQ);
-  if (!err) err = encode(fn, &tk, k, D, T, B * Hkv, kBK);
-  if (!err) err = encode(fn, &tv, v, D, T, B * Hkv, kBK);
+  int err = encode(fn, &tq, q, D, S, B * H, Layout<D>::kBQ);
+  if (!err) err = encode(fn, &tk, k, D, T, B * Hkv, Layout<D>::kBK);
+  if (!err) err = encode(fn, &tv, v, D, T, B * Hkv, Layout<D>::kBK);
   if (!err) err = encode(fn, &to, o, D, S, B * H, 64);
   if (err) return err;
   constexpr int smem = Layout<D>::kSmem;
@@ -393,9 +457,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, H, Hkv, S, T,
-                                           scale * kLog2e, causal ? 1 : 0);
+  using L = Layout<D>;
+  const dim3 grid(B * H, (S + L::kBQ - 1) / L::kBQ);
+  kernel<<<grid, L::kThreads, smem, stream>>>(tq, tk, tv, to, H, Hkv, S, T,
+                                              scale * kLog2e, causal ? 1 : 0,
+                                              window);
   return (int)cudaGetLastError();
 }
 
@@ -405,20 +471,24 @@ extern "C" {
 
 // Returns 0 on success, a cudaError_t after the launch, or an error of the
 // tensor-map encode (see flash_attention_wgmma_error_string). The caller
-// checks shapes, types and alignment: bf16, D in {64, 128}, H % Hkv == 0,
-// S, T >= 1, contiguous tensors on 16-byte boundaries.
+// checks shapes, types and alignment: bf16, D in {64, 128, 256},
+// H % Hkv == 0, S, T >= 1, contiguous tensors on 16-byte boundaries;
+// window 0 (none) or >= 1 with S <= T + window - 1.
 int flash_attention_wgmma_launch(const void* q, const void* k,
                                  const void* v, void* o, int B, int H,
                                  int Hkv, int S, int T, int D, float scale,
-                                 int causal, void* stream) {
+                                 int causal, int window, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || T < 1 ||
-      (S + kBQ - 1) / kBQ > 65535)
+      window < 0 || (window > 0 && S > T + window - 1) ||
+      (S + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(q, k, v, o, B, H, Hkv, S, T, scale,
-                                 causal != 0, s);
+                                 causal != 0, window, s);
   if (D == 128) return launch<128>(q, k, v, o, B, H, Hkv, S, T, scale,
-                                   causal != 0, s);
+                                   causal != 0, window, s);
+  if (D == 256) return launch<256>(q, k, v, o, B, H, Hkv, S, T, scale,
+                                   causal != 0, window, s);
   return (int)cudaErrorInvalidValue;
 }
 

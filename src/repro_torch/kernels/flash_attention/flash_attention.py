@@ -1,24 +1,35 @@
 """ctypes wrapper of the hand-written flash-attention CUDA kernels, the
 prefill forward's attention. Two lanes, both hand-written for sm_90a:
 
-* "wgmma" (csrc/flash_attention_wgmma.cu): bf16 with head dim 64 or 128,
-  every full-width config the port serves. q k^T and p v run on the tensor
-  cores (wgmma, p rounded to bf16), k and v arrive by TMA into a
-  shared-memory ring, one producer and two consumer warpgroups.
+* "wgmma" (csrc/flash_attention_wgmma.cu): bf16 with head dim 64, 128 or
+  256, every full-width config the port serves. q k^T and p v run on the
+  tensor cores (wgmma, p rounded to bf16), k and v arrive by TMA into a
+  shared-memory ring, one producer and two consumer warpgroups on a
+  128-row q tile, kv tiles of 128 rows. At head dim 256
+  (RecurrentGemma-2B) one consumer warpgroup on a 64-row q tile, whose
+  threads may then hold O's 128 floats in registers, and kv tiles of 64
+  rows, since two stages of 128 would not fit in shared memory.
 * "f32" (csrc/flash_attention.cu): float32, and bf16 at any other head dim
-  (the smoke configs' 12-20): the arithmetic in f32 FMAs on the CUDA cores.
-  One block of 256 threads (8 warps) per 128-row q tile, kv tiles of 128
-  keys streamed as 32 KB chunks (k in 64-column slices, then v in 64-key
-  slices) through a two-buffer ring by 16-byte cp.async, each chunk copied
-  while the one before is computed on; one block barrier per chunk; 8 x 8
-  scores and outputs per thread, p in shared memory per half-warp. 227,328
-  bytes of shared memory at D = 128 in float32: one block per SM.
-  `kernel_info` reports its occupancy, registers and spills as compiled.
+  (the smoke configs' 12-32): the arithmetic in f32 FMAs on the CUDA cores.
+  One block of 256 threads (8 warps) per 128-row q tile (64 rows at head
+  dims above 128), kv tiles of 128 keys streamed as 32 KB chunks (k in
+  64-column slices, then v in 64-key slices, 32 above 128) through a
+  two-buffer ring by 16-byte cp.async, each chunk copied while the one
+  before is computed on; one block barrier per chunk; 8 x 8 scores and
+  outputs per thread, p in shared memory per half-warp. 227,328 bytes of
+  shared memory at D = 128 in float32: one block per SM. `kernel_info`
+  reports its occupancy, registers and spills as compiled.
 
 `kernel_lane` picks the lane from the dtype and the head dim alone. This is
-dispatch between two kernels, not a fallback: a bf16 tensor of head dim 64
-or 128 only ever goes to the tensor-core kernel, and a failed build or
+dispatch between two kernels, not a fallback: a bf16 tensor of head dim 64,
+128 or 256 only ever goes to the tensor-core kernel, and a failed build or
 launch raises.
+
+Both lanes take an optional local window (RecurrentGemma's `local_attn`
+layers): row i keeps columns j > i - window besides the causal j <= i, the
+JAX package's `_mask`. A q tile starts its kv loop at the first tile its
+window reaches and masks only the tiles that cross the window's lower
+edge; window=None runs the causal path as it was.
 
 The kernels replace the JAX package's Pallas `_kernel`
 (repro/kernels/flash_attention/flash_attention.py): online-softmax
@@ -35,9 +46,10 @@ from typing import Optional
 import torch
 
 from .. import build
+from .ref import check_window
 
-MAX_HEAD_DIM = 128
-WGMMA_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 256)
 
 # Launches: "fwd" counts every forward launch of either lane, "wgmma" those
 # of the tensor-core lane; one added where a kernel is launched, and
@@ -46,9 +58,10 @@ LAUNCHES = {"fwd": 0, "wgmma": 0}
 
 
 def kernel_lane(dtype: torch.dtype, head_dim: int) -> str:
-    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS (the tensor-core
-    kernel), else "f32" (the CUDA-core kernel: 256 threads per 128-row q
-    tile, k and v by cp.async, f32 FMAs)."""
+    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS = (64, 128,
+    256) (the tensor-core kernel; one consumer warpgroup and 64-row tiles
+    at 256), else "f32" (the CUDA-core kernel: 256 threads per 128-row q
+    tile, 64-row above head dim 128, k and v by cp.async, f32 FMAs)."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "f32"
@@ -69,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_kernel_info.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -105,7 +118,7 @@ def _wgmma_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_wgmma")
     lib.flash_attention_wgmma_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] + [ctypes.c_void_p])
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.flash_attention_wgmma_launch.restype = ctypes.c_int
     lib.flash_attention_wgmma_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
@@ -114,15 +127,17 @@ def _wgmma_lib() -> ctypes.CDLL:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """Attention on the card.
 
     q: (B, H, S, D); k, v: (B, Hkv, T, D) with H % Hkv == 0, all float32 or
-    all bfloat16, contiguous, on one CUDA device; 1 <= D <= 128, any S and T.
-    causal masks top-left (row i sees columns j <= i). scale defaults to
-    D ** -0.5. Returns (B, H, S, D) in q's dtype. The lane is
-    `kernel_lane(q.dtype, D)`; the tensor-core lane also needs q, k and v
-    on 16-byte boundaries.
+    all bfloat16, contiguous, on one CUDA device; 1 <= D <= 256, any S and T.
+    causal masks top-left (row i sees columns j <= i); window (None, or
+    >= 1 with S <= T + window - 1 so that every row sees a column) keeps
+    columns j > i - window. scale defaults to D ** -0.5. Returns
+    (B, H, S, D) in q's dtype. The lane is `kernel_lane(q.dtype, D)`; the
+    tensor-core lane also needs q, k and v on 16-byte boundaries.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -152,7 +167,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     if T == 0:
         return o.zero_()
+    check_window(S, T, window)
     scale = D ** -0.5 if scale is None else float(scale)
+    win = 0 if window is None else int(window)  # 0: no window
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if lane == "wgmma":
@@ -160,7 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _wgmma_lib()
             err = lib.flash_attention_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, D, scale, int(causal), stream)
+                Hkv, S, T, D, scale, int(causal), win, stream)
             error_string = lib.flash_attention_wgmma_error_string
         else:
             vec_elems = 16 // q.element_size()
@@ -169,7 +186,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _lib()
             err = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, D, scale, int(causal),
+                Hkv, S, T, D, scale, int(causal), win,
                 int(q.dtype == torch.bfloat16), int(vec), stream)
             error_string = lib.flash_attention_error_string
     if err != 0:

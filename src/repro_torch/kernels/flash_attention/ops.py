@@ -19,9 +19,13 @@ from .ref import flash_attention_ref
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None,
               impl: str = "auto") -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, Hkv, T, D). Returns (B, H, S, D) in q's
-    dtype; causal masks top-left (row i sees columns j <= i)."""
+    dtype; causal masks top-left (row i sees columns j <= i), and a window
+    keeps columns j > i - window."""
     if resolve_impl(impl, q) == "cuda":
-        return flash_attention(q, k, v, causal=causal, scale=scale)
-    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window)
+    return flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                               window=window)

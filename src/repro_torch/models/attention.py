@@ -1,17 +1,18 @@
-"""Attention for the dense decoder: GQA/MQA/MHA projections, the full
-training/prefill self-attention through the flash-attention kernel, and
-one-token attention over a KV cache.
+"""Attention for the decoder: GQA/MQA/MHA projections, the full and the
+local-window prefill self-attention through the flash-attention kernel,
+and one-token attention over a KV cache.
 
 Two compute paths, as in the JAX package:
   * `gqa_attention` — prefill: `kernels.flash_attention.attention`, which
     launches the hand-written CUDA kernel for CUDA tensors (the JAX package
     runs `flash_attn_jnp` here and names its Pallas kernel as the 1:1
-    replacement on the TPU; both are the same top-left causal function);
+    replacement on the TPU; both are the same top-left causal function,
+    and the kernel takes `_mask`'s local window as well);
   * `decode_attn` — one query token over a cache, an einsum over T with
     masking.
 
-Local windows, prefix-LM masks, query offsets and MLA are not ported yet
-(ROADMAP.md, Queue 1 item 10): they raise rather than run a plain path.
+Prefix-LM masks, query offsets and MLA are not ported yet (ROADMAP.md,
+Queue 1 item 10): they raise rather than run a plain path.
 """
 from __future__ import annotations
 
@@ -105,12 +106,9 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                   cfg: ModelConfig, *, positions: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
                   prefix_len: int = 0, impl: str = "auto") -> torch.Tensor:
-    """Full prefill self-attention for one layer. On a CUDA tensor (impl
-    "auto" or "cuda") it launches the flash-attention kernel once."""
-    if window is not None:
-        raise NotImplementedError(
-            "local-window attention is not ported yet: the kernel needs a "
-            "window mask (ROADMAP.md, Queue 1 item 10)")
+    """Prefill self-attention for one layer, full or within a local
+    `window` (row i sees positions (i - window, i]). On a CUDA tensor
+    (impl "auto" or "cuda") it launches the flash-attention kernel once."""
     if prefix_len:
         raise NotImplementedError(
             "prefix-LM masks are not ported yet (ROADMAP.md, Queue 1 "
@@ -120,6 +118,6 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                  causal=causal, impl=impl)
+                  causal=causal, window=window, impl=impl)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim_)
     return o @ p["wo"]

@@ -2,9 +2,9 @@
 
 The same fields as the JAX package's `ModelConfig`, so a config module
 carries over unchanged; `dtype()` and `pdtype()` return torch dtypes. The
-port runs the decoder of layer kind "attn", dense or mixture-of-experts
-(`family` "dense" or "moe"); the other families' fields are kept for the
-configs that declare them."""
+port runs decoders of the layer kinds "attn", "local_attn", "rglru" and
+"ssd": dense, mixture-of-experts, SSM (Mamba-2) and hybrid (Griffin). The
+other families' fields are kept for the configs that declare them."""
 from __future__ import annotations
 
 import dataclasses
@@ -109,6 +109,18 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab_size, self.vocab_round_to)
+
+    @property
+    def d_inner(self) -> int:             # ssd
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def lru_width_(self) -> int:
+        return self.lru_width if self.lru_width else self.d_model
 
     @property
     def is_encdec(self) -> bool:

@@ -1,16 +1,22 @@
-"""Autoregressive decode for the decoder (dense or mixture-of-experts):
-the KV cache and the single-token step.
+"""Autoregressive decode for every ported layer kind: the caches and the
+single-token step.
 
     logits, cache = decode_step(model, token, cache)
 
 with `cache["length"]` counting tokens *including* the current one after
 the step. The cache is updated in place: each step writes its keys and
-values into the preallocated (B, Hkv, T_max, dh) buffers and returns the
-same dict (the JAX package returns a new pytree instead).
+values into the preallocated buffers, and the recurrent states are
+replaced, in the same dict that is returned (the JAX package returns a new
+pytree instead).
 
-Cache kinds: only "attn" (the full KV cache with rope'd keys and the
-absolute position held in each slot) is ported; ring caches for local
-windows, MLA's latent cache and the recurrent states wait for their layers
+Cache kinds, one dict a layer:
+  attn        full KV cache (B, Hkv, t_max, dh) with rope'd keys and the
+              absolute position held in each slot; raises when full
+  local_attn  ring KV cache of min(t_max, local_window) slots, slot
+              pos % t_cache, and the slot-position vector; never full
+  ssd         SSDCache's fields: the (B, H, P, N) state and the conv tails
+  rglru       LRUCache's fields: the (B, W) state and the conv tail
+MLA's latent cache and the encoder's cross cache wait for their layers
 (ROADMAP.md, Queue 1 item 10).
 """
 from __future__ import annotations
@@ -23,49 +29,69 @@ from ..device import DeviceLike, resolve_device
 from .attention import NEG_INF, _mask, gqa_project
 from .blocks import embed_lookup, logits_out, rmsnorm, rope
 from .config import ModelConfig
+from .rglru import LRUCache, rglru_init_cache, rglru_step
+from .ssm import SSDCache, ssd_init_cache, ssd_step
 from .transformer import DecoderLayer, Transformer, check_supported
+
+
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, t_max: int,
+                 dev: torch.device) -> dict:
+    if kind == "ssd":
+        return ssd_init_cache(cfg, batch, cfg.dtype(), dev)._asdict()
+    if kind == "rglru":
+        return rglru_init_cache(cfg, batch, cfg.dtype(), dev)._asdict()
+    t = min(t_max, cfg.local_window) if kind == "local_attn" else t_max
+    shape = (batch, cfg.n_kv_heads, t, cfg.head_dim_)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype(), device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype(), device=dev),
+        "slot_pos": torch.full((t,), -1, dtype=torch.int32, device=dev),
+    }
 
 
 def init_cache(cfg: ModelConfig, batch: int, t_max: int,
                device: DeviceLike = None) -> dict:
-    """{"layers": one {"k", "v", "slot_pos"} per layer, "length": 0}.
-    k, v: (batch, Hkv, t_max, dh) in the compute dtype; slot_pos: (t_max,)
-    int32, the position held in each slot, -1 while empty."""
+    """{"layers": one cache dict per layer, by its kind, "length": 0}.
+    Attention caches: k, v (batch, Hkv, slots, dh) in the compute dtype
+    and slot_pos (slots,) int32, the position held in each slot, -1 while
+    empty; t_max slots for "attn", min(t_max, local_window) for the ring
+    of "local_attn". Recurrent states are float32, conv tails in the
+    compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, t_max, cfg.head_dim_)
-    layers = [{
-        "k": torch.zeros(shape, dtype=cfg.dtype(), device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype(), device=dev),
-        "slot_pos": torch.full((t_max,), -1, dtype=torch.int32, device=dev),
-    } for _ in range(cfg.n_layers)]
+    layers = [_layer_cache(cfg, kind, batch, t_max, dev)
+              for kind in cfg.layer_kinds()]
     return {"layers": layers, "length": 0}
 
 
 def _attn_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
-               cache_l: dict, cfg: ModelConfig, length: int) -> torch.Tensor:
+               cache_l: dict, cfg: ModelConfig, length: int,
+               kind: str) -> torch.Tensor:
     """h: (B, 1, D) normed input. Writes the slot of position length - 1
-    into cache_l and returns the attention output (B, 1, D)."""
+    into cache_l (slot pos % slots in the ring of "local_attn") and returns
+    the attention output (B, 1, D)."""
     B = h.shape[0]
     pos = length - 1                                    # current position
     t_cache = cache_l["k"].shape[2]
-    if pos >= t_cache:
+    window = cfg.local_window if kind == "local_attn" else None
+    if window is None and pos >= t_cache:
         raise ValueError(f"KV cache full: position {pos} needs more than "
                          f"{t_cache} slots")
+    slot = pos % t_cache
     q, k, v = gqa_project(p, h, cfg)                    # (B,*,1,dh)
     position = torch.arange(pos, pos + 1, device=h.device)
     q = rope(q, position, cfg.rope_theta)
     k = rope(k, position, cfg.rope_theta)
     kc, vc, slot_pos = cache_l["k"], cache_l["v"], cache_l["slot_pos"]
-    kc[:, :, pos] = k[:, :, 0]
-    vc[:, :, pos] = v[:, :, 0]
-    slot_pos[pos] = pos
+    kc[:, :, slot] = k[:, :, 0]
+    vc[:, :, slot] = v[:, :, 0]
+    slot_pos[slot] = pos
 
-    # mask from absolute slot positions
+    # mask from absolute slot positions (the ring's too)
     dh = cfg.head_dim_
     qg = q.reshape(B, cfg.n_kv_heads, -1, dh)
     s = torch.einsum("bhgd,bhtd->bhgt", qg.float(), kc.float()) * (dh ** -0.5)
-    ok = (slot_pos >= 0) & _mask(position, slot_pos, True, None, 0)
+    ok = (slot_pos >= 0) & _mask(position, slot_pos, True, window, 0)
     s = s.masked_fill(~ok, NEG_INF)
     p_att = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgt,bhtd->bhgd", p_att, vc.float())
@@ -77,7 +103,15 @@ def _layer_step(layer: DecoderLayer, cache_l: dict, x: torch.Tensor,
                 length: int) -> torch.Tensor:
     cfg = layer.cfg
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
-    x = x + _attn_step(layer.attn, h, cache_l, cfg, length)
+    if layer.kind == "ssd":
+        h, new = ssd_step(layer.ssd, h, SSDCache(**cache_l), cfg)
+        cache_l.update(new._asdict())
+    elif layer.kind == "rglru":
+        h, new = rglru_step(layer.rglru, h, LRUCache(**cache_l), cfg)
+        cache_l.update(new._asdict())
+    else:
+        h = _attn_step(layer.attn, h, cache_l, cfg, length, layer.kind)
+    x = x + h
     # the MoE layer routes the B tokens of the step as one group, as the
     # JAX package's decode step does; its aux loss is dropped
     return layer.ffn(x)[0]
@@ -85,7 +119,9 @@ def _layer_step(layer: DecoderLayer, cache_l: dict, x: torch.Tensor,
 
 def decode_step(model: Transformer, token, cache: dict):
     """token: (B,) integers. Returns (logits (B, padded_vocab), cache),
-    the cache updated in place."""
+    the cache updated in place. The recurrent layers move their states
+    through their scans: the kernels on the card, the plain versions on
+    the CPU."""
     cfg = model.cfg
     length = cache["length"] + 1
     token = torch.as_tensor(token, device=model.device).long()

@@ -1,12 +1,15 @@
-"""The decoder: embedding, a stack of attention layers, each followed by
-an MLP or a mixture of experts, final norm and output projection.
+"""The decoder: embedding, a stack of layers, final norm and output
+projection. Each layer mixes over time by its kind, "attn" (full causal
+attention), "local_attn" (attention within `local_window`), "rglru"
+(RecurrentGemma's recurrence) or "ssd" (Mamba-2's scan), then adds an MLP
+or a mixture of experts where the config has one (`d_ff > 0`).
 
 The JAX package stacks layers of one signature and scans over them; here
 the layers are an `nn.ModuleList` walked by a Python loop, and the JAX
 layout (`stack_plan`) is kept only to carry its parameters across
-(`interop.lm_params_from_arrays`). SSD, RG-LRU, local windows, MLA,
-encoder-decoder and prefix-LM models are not ported yet (ROADMAP.md,
-Queue 1 item 10): building one raises NotImplementedError.
+(`interop.lm_params_from_arrays`). MLA, encoder-decoder and prefix-LM
+models are not ported yet (ROADMAP.md, Queue 1 item 10): building one
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,8 +26,11 @@ from .blocks import (embed_defs, embed_lookup, logits_out, mlp_apply,
 from .config import ModelConfig
 from .moe import moe_apply, moe_defs
 from .param import init_params, match_defs
+from .rglru import rglru_apply, rglru_defs
+from .ssm import ssd_apply, ssd_defs
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 10)"
+KINDS = ("attn", "local_attn", "rglru", "ssd")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -37,17 +43,27 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.prefix_len:
         raise NotImplementedError(f"prefix embeddings (prefix-LM) "
                                   f"{_NOT_PORTED}")
-    other = sorted(set(cfg.layer_kinds()) - {"attn"})
+    other = sorted(set(cfg.layer_kinds()) - set(KINDS))
     if other:
         raise NotImplementedError(f"layer kinds {other} {_NOT_PORTED}")
 
 
 # ===================================================================== defs
-def layer_defs(cfg: ModelConfig, is_moe: bool = False) -> dict:
-    """One "attn" layer: norm1, attention, then norm2 + the mixture of
-    experts (is_moe) or norm2 + MLP when d_ff > 0."""
+def layer_defs(cfg: ModelConfig, kind: str = "attn",
+               is_moe: bool = False) -> dict:
+    """One layer of `kind`: norm1 and its mixer ("attn" for both attention
+    kinds, "rglru" or "ssd"), then norm2 + the mixture of experts (is_moe)
+    or norm2 + MLP when d_ff > 0."""
     dt = cfg.pdtype()
-    d = {"norm1": rmsnorm_def(cfg.d_model, dt), "attn": attn_defs(cfg)}
+    d = {"norm1": rmsnorm_def(cfg.d_model, dt)}
+    if kind in ("attn", "local_attn"):
+        d["attn"] = attn_defs(cfg)
+    elif kind == "rglru":
+        d["rglru"] = rglru_defs(cfg)
+    elif kind == "ssd":
+        d["ssd"] = ssd_defs(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
     if is_moe:
         d["norm2"] = rmsnorm_def(cfg.d_model, dt)
         d["moe"] = moe_defs(cfg)
@@ -61,9 +77,10 @@ def model_defs(cfg: ModelConfig) -> dict:
     """The port's parameter tree: `embed`, one entry of `layers` per layer
     in order, and `final_norm`."""
     check_supported(cfg)
+    kinds = cfg.layer_kinds()
     return {
         "embed": embed_defs(cfg),
-        "layers": [layer_defs(cfg, cfg.moe_layer(i))
+        "layers": [layer_defs(cfg, kinds[i], cfg.moe_layer(i))
                    for i in range(cfg.n_layers)],
         "final_norm": rmsnorm_def(cfg.d_model, cfg.pdtype()),
     }
@@ -116,13 +133,19 @@ class MoEParams(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """x + attn(norm1(x)), then + mlp(norm2(x)) or + moe(norm2(x))."""
+    """x + mix(norm1(x)), then + mlp(norm2(x)) or + moe(norm2(x)); mix is
+    the layer kind's: attention (windowed for "local_attn"), the RG-LRU
+    block or the SSD block, whose parameters are `attn`, `rglru` or `ssd`
+    (the other two None)."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, kind: str, params: dict):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.norm1 = _frozen(params["norm1"])
-        self.attn = _frozen_dict(params["attn"])
+        self.attn, self.rglru, self.ssd = (
+            _frozen_dict(params[k]) if k in params else None
+            for k in ("attn", "rglru", "ssd"))
         self.norm2 = _frozen(params["norm2"]) if "norm2" in params else None
         self.mlp = _frozen_dict(params["mlp"]) if "mlp" in params else None
         self.moe = MoEParams(params["moe"]) if "moe" in params else None
@@ -141,19 +164,30 @@ class DecoderLayer(nn.Module):
             x = x + mlp_apply(self.mlp, h, cfg.act)
         return x, None
 
+    def mix(self, h: torch.Tensor, positions: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+        """The time mixing of the normed input h (B, S, D): one flash
+        launch, `ssd_scan` or `rglru_scan` call on the card."""
+        cfg = self.cfg
+        if self.kind == "rglru":
+            return rglru_apply(self.rglru, h, cfg, impl=impl)
+        if self.kind == "ssd":
+            return ssd_apply(self.ssd, h, cfg, impl=impl)
+        window = cfg.local_window if self.kind == "local_attn" else None
+        return gqa_attention(self.attn, h, cfg, positions=positions,
+                             window=window, impl=impl)
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The layer's output and its MoE aux loss (None when dense)."""
-        cfg = self.cfg
-        h = rmsnorm(x, self.norm1, cfg.norm_eps)
-        x = x + gqa_attention(self.attn, h, cfg, positions=positions,
-                              impl=impl)
+        h = rmsnorm(x, self.norm1, self.cfg.norm_eps)
+        x = x + self.mix(h, positions, impl)
         return self.ffn(x)
 
 
 class Transformer(nn.Module):
-    """Decoder-only transformer (dense or mixture-of-experts) for
+    """Decoder-only model (dense, mixture-of-experts, SSM or hybrid) for
     inference.
 
     params: a tree shaped like `model_defs(cfg)` (from `init_params` or
@@ -177,7 +211,8 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = _frozen_dict(params["embed"])
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, p) for p in params["layers"])
+            DecoderLayer(cfg, kind, p)
+            for kind, p in zip(cfg.layer_kinds(), params["layers"]))
         self.final_norm = _frozen(params["final_norm"])
 
     @property
@@ -189,9 +224,10 @@ class Transformer(nn.Module):
         """Prefill forward. tokens: (B, S) integer tensor or array.
         Returns (logits (B, S, padded_vocab) in the compute dtype, aux): aux
         is the float32 sum of the MoE layers' load-balance losses (0 for a
-        dense model). Each layer's attention launches the flash kernel once
-        on the card (impl "auto" or "cuda"); impl="ref" runs its plain
-        version."""
+        dense model). Each layer's time mixing calls its kernel's wrapper
+        once on the card (impl "auto" or "cuda": flash attention, one
+        launch; `ssd_scan` or `rglru_scan`, two); impl="ref" runs their
+        plain versions."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = embed_lookup(self.embed["tok"], tokens, cfg.d_model)

@@ -9,7 +9,8 @@ port's tree (`layers/<i>/...`) where the reference walks its stacked one
 (`decoder/stack/pos<k>/...`), and equal the reference's for every
 ported config, full width and smoke: for Qwen2-MoE-A2.7B 15,146,256,384
 parameters in all and 1,288,275,968 active, the shared experts counted at
-top_k / n_experts as the reference counts them.
+top_k / n_experts as the reference counts them; for Mamba2-2.7B
+2,702,296,576 and for RecurrentGemma-2B 2,894,528,000.
 """
 import pytest
 
@@ -136,6 +137,24 @@ def test_model_flops_cell_by_hand():
     assert flops.model_flops_cell(cfg, SHAPES[0]) == 6.0 * n * 8 * 4096
     assert flops.model_flops_cell(cfg, SHAPES[1]) == 2.0 * n * 4 * 2048
     assert flops.model_flops_cell(cfg, SHAPES[2]) == 2.0 * n * 64
+
+
+@pytest.mark.parametrize("arch,total,embed", [
+    ("mamba2-2.7b", 2_702_296_576, 50_304 * 2560),
+    ("recurrentgemma-2b", 2_894_528_000, 256_000 * 2560),
+])
+def test_recurrent_config_counts(arch, total, embed):
+    """The reference's counts of the SSD and RG-LRU models (tied
+    embeddings, no experts): every parameter is active, and the FLOP cells
+    are 2 or 6 x the parameters past the embedding x the tokens."""
+    cfg = REGISTRY[arch]
+    assert flops.total_params(cfg) == total
+    assert flops.total_params(cfg, include_embed=False) == total - embed
+    assert flops.active_params(cfg) == total - embed
+    assert flops.model_flops_cell(cfg, SHAPES[1]) == \
+        2.0 * (total - embed) * 4 * 2048
+    keys = [k for k, _ in flops._leaf_counts(cfg)]
+    assert not any(flops._is_expert_weight(k) for k in keys)
 
 
 def test_dense_config_has_no_expert_keys():

@@ -6,7 +6,10 @@ held against the JAX package's Pallas kernel in interpret mode over every
 case of test_kernels_attention.py, and at causal S != T, where both align
 the mask top-left (row i sees columns j <= i; the reference's `mha_ref`
 aligns it bottom-right instead, so it is not the oracle there). A ragged
-S = 40 is held against `flash_attn_jnp`, the model path's attention.
+S = 40 is held against `flash_attn_jnp`, the model path's attention, with
+and without a local window (RecurrentGemma's local_attn: row i sees
+columns (i - window, i], the JAX package's `_mask`), and head dim 256
+(RecurrentGemma's) against the Pallas kernel without one.
 Tolerances: 2e-5 in float32 (summation order differs), 3e-2 in bfloat16.
 """
 import numpy as np
@@ -69,6 +72,42 @@ def test_ragged_matches_model_path(causal):
                                np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [1, 16, 39, None])
+@pytest.mark.parametrize("causal", [True, False])
+def test_window_matches_model_path(causal, window):
+    rng = np.random.default_rng(41)
+    q, k, v = rand_qkv(rng, 2, 4, 2, 40, 40, 32)
+    ref = flash_attn_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal, window=window, chunk_q=16,
+                         chunk_k=16)
+    np.testing.assert_allclose(
+        torch_attention(q, k, v, causal=causal, window=window),
+        np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_matches_pallas_kernel(causal):
+    rng = np.random.default_rng(256)
+    q, k, v = rand_qkv(rng, 1, 2, 1, 128, 128, 256)
+    ref = pallas_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, interpret=True)
+    np.testing.assert_allclose(torch_attention(q, k, v, causal=causal),
+                               np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_window_where_rows_see_nothing_raises():
+    """A window so narrow that rows past T + window - 1 see no column is
+    refused, by the plain version as by the kernels' wrapper."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(a) for a in rand_qkv(rng, 1, 2, 1, 9, 4, 8))
+    out = attention(q, k, v, causal=True, window=6)     # rows <= 8 = 4 + 5
+    assert out.shape == q.shape
+    with pytest.raises(ValueError, match="without a column"):
+        attention(q, k, v, causal=True, window=5)
+    with pytest.raises(ValueError, match=">= 1"):
+        attention(q, k, v, window=0)
+
+
 def test_empty_kv_gives_zeros():
     q = torch.ones((1, 2, 3, 8))
     kv = torch.ones((1, 1, 0, 8))
@@ -89,6 +128,9 @@ def test_impl_dispatch_on_cpu():
 @pytest.mark.parametrize("dtype,head_dim,lane", [
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
+    (torch.bfloat16, 160, "f32"),
+    (torch.float32, 256, "f32"),
     (torch.bfloat16, 12, "f32"),
     (torch.bfloat16, 32, "f32"),
     (torch.bfloat16, 96, "f32"),
@@ -116,7 +158,7 @@ def test_tensor_core_lane_refuses_unaligned_pointers():
 
 @pytest.mark.parametrize("head_dim,dtype,error", [
     (0, torch.float32, ValueError),
-    (129, torch.bfloat16, ValueError),
+    (257, torch.bfloat16, ValueError),
     (64, torch.float16, TypeError),
 ])
 def test_kernel_info_refuses_bad_arguments(head_dim, dtype, error):

@@ -420,10 +420,11 @@ def test_flash_f32_lane_unaligned(cuda, D, dtype):
         f"max row |kernel - plain| / |plain| = {rel:.3g}")
 
 
-@pytest.mark.parametrize("D,dtype", [(128, F32), (64, F32), (96, BF16)])
+@pytest.mark.parametrize("D,dtype", [(128, F32), (64, F32), (96, BF16),
+                                     (256, F32), (160, BF16)])
 def test_flash_f32_lane_occupancy(cuda, D, dtype):
     """The CUDA-core lane keeps 8 warps resident per SM and spills
-    nothing."""
+    nothing (its 64-row q tiles at head dims above 128 too)."""
     from repro_torch.kernels.flash_attention import kernel_info
     info = kernel_info(D, dtype)
     assert info["blocks_per_sm"] * info["threads"] // 32 >= 8, info
@@ -446,8 +447,229 @@ def test_flash_wrapper_refuses_bad_operands(cuda):
         flash_attention(q, torch.zeros((1, 3, 8, 16), device=cuda),
                         torch.zeros((1, 3, 8, 16), device=cuda))
     with pytest.raises(ValueError):
-        big = torch.zeros((1, 1, 8, 256), device=cuda)
+        big = torch.zeros((1, 1, 8, 257), device=cuda)
         flash_attention(big, big, big)
+    with pytest.raises(ValueError):   # rows 4.. would see no column
+        flash_attention(q, kv[:, :, :2], kv[:, :, :2], window=3)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv, window=0)
+
+
+# the local window (RecurrentGemma's local_attn) on both lanes, and head
+# dim 256 (its D): the tensor-core lane's 64-row kv tiles in bf16, the
+# CUDA-core lane's 64-row q tiles in float32 and in bf16 at D in (128, 256)
+WINDOW_CASES = [  # (B, H, Hkv, S, T, D, causal, dtype, window)
+    (1, 10, 1, 4096, 4096, 256, True, BF16, 2048),    # recurrentgemma-2b
+    (1, 10, 1, 4096, 4096, 256, True, BF16, None),
+    (2, 10, 1, 128, 128, 256, True, BF16, None),
+    (1, 4, 2, 1000, 1000, 256, True, BF16, 100),      # ragged
+    (1, 4, 1, 300, 300, 256, False, BF16, 64),        # window, not causal
+    (1, 4, 2, 200, 200, 256, True, BF16, 1),          # the diagonal only
+    (1, 4, 2, 200, 200, 256, True, BF16, 199),
+    (1, 8, 2, 1000, 1000, 128, True, BF16, 300),
+    (1, 8, 2, 1000, 1000, 64, True, BF16, 129),
+    (1, 4, 2, 256, 128, 128, True, BF16, 200),        # causal S > T
+    (1, 4, 2, 128, 256, 64, True, BF16, 16),          # causal S < T
+    (1, 4, 2, 40, 40, 32, True, F32, 16),             # CUDA-core lane
+    (1, 4, 2, 1000, 1000, 128, True, F32, 300),
+    (1, 4, 2, 1000, 1000, 64, True, F32, 1),
+    (1, 4, 1, 300, 300, 20, False, F32, 77),
+    (1, 4, 1, 500, 500, 256, True, F32, None),        # D = 256, f32
+    (1, 4, 1, 500, 500, 256, True, F32, 130),
+    (2, 4, 2, 129, 129, 200, True, F32, None),        # D = 200 pads to 256
+    (1, 4, 1, 300, 300, 160, True, BF16, 64),         # bf16 on the f32 lane
+    (1, 2, 1, 1, 1, 256, True, BF16, 5),              # ragged 1
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,D,causal,dtype,window", WINDOW_CASES)
+def test_flash_window_and_d256_match_plain(cuda, B, H, Hkv, S, T, D, causal,
+                                           dtype, window):
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    rng = np.random.default_rng(S * 1000 + T + D + (window or 0))
+    q, k, v = _qkv(rng, B, H, Hkv, S, T, D, dtype, cuda)
+    before = dict(LAUNCHES)
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tensor_cores = kernel_lane(dtype, D) == "wgmma"
+    assert tensor_cores == (dtype == BF16 and D in (64, 128, 256))
+    assert LAUNCHES["fwd"] == before["fwd"] + 1
+    assert LAUNCHES["wgmma"] == before["wgmma"] + int(tensor_cores)
+    # the tolerances of test_flash_kernel_matches_plain
+    tol = 1e-4 if dtype == F32 else 3e-2
+    r = flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    torch.testing.assert_close(o.float(), r, rtol=tol, atol=tol)
+    rel = float(((o.float() - r).norm(dim=-1) / r.norm(dim=-1)).max())
+    assert rel <= ROW_REL_LIMIT[dtype], (
+        f"max row |kernel - plain| / |plain| = {rel:.3g}")
+
+
+def test_flash_window_none_keeps_causal_bits(cuda):
+    """window=None runs the causal path as before: the same bits as a
+    window wider than the sequence, which masks nothing but takes the
+    window's loop bounds and tests."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(7)
+    for D, dtype in ((128, BF16), (256, BF16), (128, F32)):
+        q, k, v = _qkv(rng, 1, 8, 2, 700, 700, D, dtype, cuda)
+        a = flash_attention(q, k, v, causal=True)
+        b = flash_attention(q, k, v, causal=True, window=4096)
+        assert torch.equal(a, b), D
+
+
+# ---------------------------------------------------------------------------
+# the SSD and RG-LRU scans
+# ---------------------------------------------------------------------------
+def _ssd_inputs(rng, B, S, H, P, N, dtype, device, h0=False):
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=dt,
+                               device=device)
+    x, b, c = t(B, S, H, P), t(B, S, N, scale=0.3), t(B, S, N, scale=0.3)
+    dt = torch.nn.functional.softplus(t(B, S, H, dt=F32) - 1.0)
+    a_log = t(H, scale=0.5, dt=F32)
+    return x, b, c, dt, a_log, (t(B, H, P, N, dt=F32) if h0 else None)
+
+
+SSD_CASES = [  # (B, S, H, P, N, Q, dtype, h0)
+    (1, 2048, 80, 64, 128, 256, BF16, False),         # mamba2-2.7b
+    (4, 128, 80, 64, 128, 256, BF16, False),          # S < Q
+    (1, 1, 80, 64, 128, 256, BF16, True),             # a decode step
+    (1, 1, 80, 64, 128, 256, F32, True),
+    (1, 600, 8, 64, 128, 256, F32, False),            # ragged S % Q
+    (2, 300, 4, 64, 128, 128, F32, True),             # h0 carry
+    (2, 21, 8, 16, 16, 8, F32, False),                # mamba2 smoke shapes
+    (2, 37, 3, 40, 100, 16, F32, True),               # P, N, Q not tiles
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q,dtype,h0", SSD_CASES)
+def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, Q, dtype, h0):
+    """The kernel against its plain version on the same inputs: both in
+    float32 past x, summed in other orders (the kernel's C B^T and its
+    products in 32-wide panels, one accumulator for y's two terms), so
+    within 1e-4 of y's and the state's largest value; bf16 rounds y
+    once more (2^-8 relative)."""
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
+                                              ssd_scan_ref)
+    rng = np.random.default_rng(S + H + N)
+    args = _ssd_inputs(rng, B, S, H, P, N, dtype, cuda, h0)
+    before = LAUNCHES["scan"]
+    y, h = ssd_scan_kernel(*args[:5], Q, h0=args[5])
+    torch.cuda.synchronize()
+    assert LAUNCHES["scan"] == before + 2
+    yr, hr = ssd_scan_ref(*args[:5], Q, h0=args[5])
+    assert y.dtype == dtype and h.dtype == F32
+    tol = 1e-4 if dtype == F32 else 1e-2
+    assert float((y.float() - yr.float()).abs().max()) <= \
+        tol * float(yr.float().abs().max())
+    assert float((h - hr).abs().max()) <= 1e-4 * float(hr.abs().max())
+
+
+def test_ssd_scan_refuses_bad_operands(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_kernel
+    rng = np.random.default_rng(0)
+    x, b, c, dt, a_log, _ = _ssd_inputs(rng, 1, 8, 2, 16, 16, F32, cuda)
+    with pytest.raises(TypeError):
+        ssd_scan_kernel(x.half(), b, c, dt, a_log, 4)
+    with pytest.raises(ValueError):                     # P > 64
+        wide = _ssd_inputs(rng, 1, 8, 2, 80, 16, F32, cuda)
+        ssd_scan_kernel(*wide[:5], 4)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(x, b.cpu(), c, dt, a_log, 4)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(x.transpose(2, 3), b, c, dt, a_log, 4)
+    with pytest.raises(ValueError):
+        ssd_scan(x.cpu(), b.cpu(), c.cpu(), dt.cpu(), a_log.cpu(), 4,
+                 impl="cuda")
+
+
+def _lru_inputs(rng, B, S, W, dtype, device, h0=False):
+    def t(*shape, dt=F32, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=dt,
+                               device=device)
+    return (t(B, S, W, dt=dtype), t(B, S, W), t(B, S, W), t(W, scale=0.5),
+            t(W, scale=0.5), t(W) + 1.0, t(B, W) if h0 else None)
+
+
+LRU_CASES = [  # (B, S, W, dtype, h0)
+    (1, 4096, 2560, BF16, False),                     # recurrentgemma-2b
+    (4, 128, 2560, BF16, False),
+    (4, 1, 2560, BF16, True),                         # a decode step
+    (2, 1000, 300, F32, True),                        # ragged W, h0 carry
+    (3, 65, 64, F32, False),                          # smoke width
+    (1, 7, 5, F32, True),
+]
+
+
+@pytest.mark.parametrize("B,S,W,dtype,h0", LRU_CASES)
+def test_rglru_scan_matches_plain(cuda, B, S, W, dtype, h0):
+    """The fused kernel against the plain gates and doubling scan: both in
+    float32; the kernel runs the recurrence step by step from each
+    chunk's carry and the plain version as a log-depth tree, and expf and
+    the sigmoids round apart from PyTorch's by an ulp, so h agrees within
+    1e-5 of its largest value."""
+    from repro_torch.kernels.rglru_scan import (LAUNCHES, rglru_scan_kernel,
+                                                rglru_scan_ref)
+    rng = np.random.default_rng(S + W)
+    args = _lru_inputs(rng, B, S, W, dtype, cuda, h0)
+    before = LAUNCHES["scan"]
+    h = rglru_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["scan"] == before + 1 + (S > 1)
+    r = rglru_scan_ref(*args)
+    assert h.dtype == F32 and h.shape == (B, S, W)
+    assert float((h - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def test_rglru_scan_refuses_bad_operands(cuda):
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    rng = np.random.default_rng(0)
+    u, ga, gi, b_a, b_i, lam, _ = _lru_inputs(rng, 1, 8, 16, F32, cuda)
+    with pytest.raises(TypeError):
+        rglru_scan_kernel(u, ga.bfloat16(), gi, b_a, b_i, lam)
+    with pytest.raises(ValueError):
+        rglru_scan_kernel(u, ga[:, :4], gi, b_a, b_i, lam)
+    with pytest.raises(ValueError):
+        rglru_scan_kernel(u, ga, gi, b_a, b_i, lam.cpu())
+    with pytest.raises(ValueError):
+        rglru_scan_kernel(u, ga, gi, b_a, b_i, lam,
+                          h0=torch.zeros((2, 16), device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_recurrent_smoke_forward_through_kernels(cuda, arch):
+    """A smoke Mamba2 / RecurrentGemma forward launches its scan's two
+    kernels once per SSD / RG-LRU layer and the flash kernel once per
+    local_attn layer,
+    agrees with the plain versions, and its decode path (the scans at
+    S = 1 from the cached states) agrees with the forward past the
+    window's ring (float32, no TF32)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import LAUNCHES as FLASH
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config(arch)
+    kinds = cfg.layer_kinds()
+    model = Transformer(cfg, device=cuda, seed=0)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), device=cuda)
+    before = (FLASH["fwd"], SSD["scan"], LRU["scan"])
+    logits, _ = model(tokens)
+    torch.cuda.synchronize()
+    assert (FLASH["fwd"], SSD["scan"], LRU["scan"]) == (
+        before[0] + kinds.count("local_attn"),
+        before[1] + 2 * kinds.count("ssd"),
+        before[2] + 2 * kinds.count("rglru"))
+    ref, _ = model(tokens, impl="ref")
+    torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-4)
+    eng = ServeEngine(cfg, model, max_len=48, device=cuda)
+    last, cache = eng.prefill(tokens)
+    torch.testing.assert_close(last, logits[:, -1], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "smollm-360m", "qwen1.5-4b",

@@ -48,6 +48,10 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.analysis, repro_torch.analysis.roofline\n"
         "import repro_torch.analysis.flops, repro_torch.models.moe\n"
         "import repro_torch.configs.qwen2_moe_a2p7b\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.rglru_scan\n"
+        "import repro_torch.models.ssm, repro_torch.models.rglru\n"
+        "import repro_torch.configs.mamba2_2p7b\n"
+        "import repro_torch.configs.recurrentgemma_2b\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -221,16 +225,25 @@ def test_training_and_moe_default_to_cuda():
 
 
 def test_lm_unported_paths_raise():
+    """Prefix-LM masks still raise. A local window, which raised until
+    RecurrentGemma's local_attn layers were ported, now runs: it equals
+    the full attention where the window covers the sequence and differs
+    where it binds."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.attention import gqa_attention
     from repro_torch.models import Transformer
     cfg = get_smoke_config("yi-6b")
     model = Transformer(cfg, device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
     pos = torch.arange(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
-                      window=2)
+    full = gqa_attention(model.layers[0].attn, x, cfg, positions=pos)
+    wide = gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                         window=4)
+    narrow = gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                           window=2)
+    assert torch.equal(full, wide) and not torch.allclose(full, narrow)
+    torch.testing.assert_close(narrow[:, :2], full[:, :2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
                       prefix_len=2)

@@ -1,0 +1,246 @@
+"""Parity of repro_torch's RG-LRU layer and the RecurrentGemma model with
+the JAX package's, on the CPU.
+
+The port's plain gates (`kernels.rglru_scan.lru_coeffs`) are held against
+the JAX package's `_lru_coeffs`, and its doubling scan (`linear_scan`,
+what the recurrence runs for CPU tensors) against
+`jax.lax.associative_scan` over the same (a, b) pairs, within 1e-5 of the
+largest value: both are log-depth trees over the same algebra, combined in
+another order, so they round apart by float32 ulps. The kernel on the card
+runs the recurrence step after step from each chunk's carry instead; its
+rounding against this plain version is held in tests/test_torch_gpu.py
+(1e-5 of the largest value as well). The layer (`rglru_apply`) and its
+decode step are held against the JAX package's, the step also against the
+port's own prefill form. The smoke RecurrentGemma model, JAX weights
+carried across by `interop.lm_params_from_arrays`, matches the JAX
+`forward` and `decode_step` within rtol/atol 1e-4 over 30 tokens, past its
+local window of 16, so that the ring KV cache of the local_attn layer
+wraps; and at 5 layers, where `stack_plan` leaves a tail of two layers
+after one repeat of the 3-layer pattern.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SMOKE_REGISTRY as J_SMOKE
+from repro.configs import get_config as j_get_config
+from repro.models import rglru as jrglru
+from repro.models.param import init_params as j_init_params
+from repro.models.transformer import forward as j_forward
+from repro.models.transformer import model_defs as j_model_defs
+from repro.serving.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.interop import lm_params_from_arrays
+from repro_torch.kernels.rglru_scan import (linear_scan, lru_coeffs,
+                                            rglru_scan, rglru_scan_ref)
+from repro_torch.models import (ModelConfig, Transformer, decode_step,
+                                stack_plan)
+from repro_torch.models import rglru
+from repro_torch.serving import ServeEngine
+
+ARCH = "recurrentgemma-2b"
+CPU = torch.device("cpu")
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def close(a, ref, rel=1e-5):
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    assert a.shape == ref.shape
+    err = np.abs(a - ref).max()
+    assert err <= rel * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+@pytest.fixture(scope="module")
+def layer():
+    """The smoke config's RG-LRU layer parameters on both sides, with
+    nonzero biases and a spread of lam."""
+    jcfg = J_SMOKE[ARCH]
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    jp = j_init_params(jrglru.rglru_defs(jcfg), jax.random.PRNGKey(1))
+    rng = np.random.default_rng(5)
+    for name, scale, shift in (("b_a", 0.5, 0.0), ("b_i", 0.5, 0.0),
+                               ("lam", 1.0, 1.0)):
+        jp[name] = jnp.asarray(
+            scale * rng.standard_normal(jp[name].shape) + shift, jnp.float32)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    return jcfg, cfg, jp, p
+
+
+def test_lru_coeffs_match_reference(layer):
+    jcfg, cfg, jp, p = layer
+    u = np.random.default_rng(2).standard_normal(
+        (2, 17, cfg.lru_width_)).astype(np.float32)
+    a_ref, b_ref = jrglru._lru_coeffs(jp, jnp.asarray(u))
+    ut = torch.from_numpy(u)
+    a, b = lru_coeffs(ut, ut @ p["w_a"], ut @ p["w_i"], p["b_a"], p["b_i"],
+                      p["lam"])
+    close(a.numpy(), a_ref)
+    close(b.numpy(), b_ref)
+
+
+@pytest.mark.parametrize("S", [1, 2, 7, 64, 1000])
+def test_doubling_scan_matches_associative_scan(S):
+    rng = np.random.default_rng(S)
+    a = rng.uniform(0.0, 1.0, (2, S, 33)).astype(np.float32)
+    b = rng.standard_normal((2, S, 33)).astype(np.float32)
+
+    def combine(l, r):
+        return l[0] * r[0], r[0] * l[1] + r[1]
+    _, ref = jax.lax.associative_scan(combine, (jnp.asarray(a),
+                                                jnp.asarray(b)), axis=1)
+    close(linear_scan(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+          ref)
+
+
+def test_scan_carries_h0():
+    """From a state h0 the scan equals the scan of the whole sequence split
+    in two, the second part from the first part's last state (the decode
+    step's use of h0)."""
+    rng = np.random.default_rng(9)
+    W = 24
+    u, ga, gi = (torch.from_numpy(rng.standard_normal((2, 40, W))
+                                  .astype(np.float32)) for _ in range(3))
+    b_a, b_i = (torch.from_numpy(rng.standard_normal(W).astype(np.float32))
+                for _ in range(2))
+    lam = torch.from_numpy(rng.standard_normal(W).astype(np.float32) + 1)
+    h = rglru_scan_ref(u, ga, gi, b_a, b_i, lam)
+    h1 = rglru_scan_ref(u[:, :25], ga[:, :25], gi[:, :25], b_a, b_i, lam)
+    h2 = rglru_scan_ref(u[:, 25:], ga[:, 25:], gi[:, 25:], b_a, b_i, lam,
+                        h0=h1[:, -1])
+    close(torch.cat([h1, h2], dim=1).numpy(), h.numpy())
+    assert torch.equal(rglru_scan(u, ga, gi, b_a, b_i, lam), h)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan(u, ga, gi, b_a, b_i, lam, impl="cuda")
+
+
+def test_rglru_apply_matches_reference(layer):
+    jcfg, cfg, jp, p = layer
+    x = np.random.default_rng(6).standard_normal(
+        (2, 21, cfg.d_model)).astype(np.float32)
+    ref = jrglru.rglru_apply(jp, jnp.asarray(x), jcfg)
+    out = rglru.rglru_apply(p, torch.from_numpy(x), cfg)
+    close(out.numpy(), ref)
+
+
+def test_rglru_step_matches_reference(layer):
+    """rglru_step token by token against the JAX step and against the
+    port's prefill form over the same sequence."""
+    jcfg, cfg, jp, p = layer
+    x = np.random.default_rng(7).standard_normal(
+        (2, 13, cfg.d_model)).astype(np.float32)
+    jcache = jrglru.rglru_init_cache(jcfg, 2, jnp.float32)
+    cache = rglru.rglru_init_cache(cfg, 2, torch.float32, CPU)
+    outs = []
+    for t in range(x.shape[1]):
+        ref, jcache = jrglru.rglru_step(jp, jnp.asarray(x[:, t:t + 1]),
+                                        jcache, jcfg)
+        out, cache = rglru.rglru_step(p, torch.from_numpy(x[:, t:t + 1]),
+                                      cache, cfg)
+        close(out.numpy(), ref)
+        outs.append(out)
+    close(cache.h.numpy(), jcache.h)
+    full = rglru.rglru_apply(p, torch.from_numpy(x), cfg)
+    close(torch.cat(outs, dim=1).numpy(), full.numpy())
+
+
+def test_configs_copied():
+    assert dataclasses.asdict(get_config(ARCH)) == \
+        dataclasses.asdict(j_get_config(ARCH))
+    assert dataclasses.asdict(get_smoke_config(ARCH)) == \
+        dataclasses.asdict(J_SMOKE[ARCH])
+    cfg = get_config(ARCH)
+    assert cfg.layer_kinds().count("rglru") == 18
+    assert cfg.layer_kinds().count("local_attn") == 8
+    plan = stack_plan(cfg, cfg.n_layers, cfg.first_dense_layers)
+    assert (plan.head, plan.repeats, plan.tail) == ((), 8, (24, 25))
+
+
+class Pair:
+    """A smoke RecurrentGemma on both sides over the same float32
+    weights."""
+
+    def __init__(self, jcfg):
+        self.jcfg = jcfg
+        self.cfg = ModelConfig(**dataclasses.asdict(jcfg))
+        self.jparams = j_init_params(j_model_defs(jcfg),
+                                     jax.random.PRNGKey(0))
+        tree = jax.tree_util.tree_map(np.asarray, self.jparams)
+        self.model = Transformer(self.cfg,
+                                 lm_params_from_arrays(self.cfg, tree),
+                                 device=CPU)
+
+    def tokens(self, B, S, seed):
+        return np.random.default_rng(seed).integers(
+            0, self.cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    cache = {}
+
+    def get(n_layers):
+        if n_layers not in cache:
+            jcfg = J_SMOKE[ARCH]
+            if n_layers != jcfg.n_layers:
+                jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+            cache[n_layers] = Pair(jcfg)
+        return cache[n_layers]
+    return get
+
+
+@pytest.mark.parametrize("n_layers", [3, 5], ids=["smoke", "tail"])
+def test_forward_matches(pairs, n_layers):
+    pr = pairs(n_layers)
+    plan = stack_plan(pr.cfg, n_layers, 0)
+    assert len(plan.tail) == n_layers % 3
+    tokens = pr.tokens(2, 30, 1)
+    ref, _ = j_forward(pr.jparams, pr.jcfg, jnp.asarray(tokens))
+    logits, aux = pr.model(torch.from_numpy(tokens))
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("n_layers", [3, 5], ids=["smoke", "tail"])
+def test_decode_steps_match(pairs, n_layers):
+    """decode_step against the JAX package's for 30 steps, past the local
+    window of 16: the local_attn layers' ring of 16 slots wraps, holding
+    positions 14..29 at the end; the last step also against the
+    forward's last position."""
+    pr = pairs(n_layers)
+    tokens = pr.tokens(2, 30, 2)
+    jeng = JServeEngine(pr.jcfg, pr.jparams, max_len=40)
+    eng = ServeEngine(pr.cfg, pr.model, max_len=40, device=CPU)
+    jcache, cache = jeng.new_cache(2), eng.new_cache(2)
+    for t in range(tokens.shape[1]):
+        ref, jcache = jeng._step(pr.jparams, jnp.asarray(tokens[:, t]),
+                                 jcache)
+        logits, cache = decode_step(pr.model,
+                                    torch.from_numpy(tokens[:, t]), cache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref), **TOL,
+                                   err_msg=f"step {t}")
+    fwd, _ = pr.model(torch.from_numpy(tokens))
+    np.testing.assert_allclose(logits.numpy(), fwd[:, -1].numpy(), **TOL)
+    window = pr.cfg.local_window
+    for kind, layer in zip(pr.cfg.layer_kinds(), cache["layers"]):
+        if kind == "local_attn":
+            assert layer["k"].shape[2] == window
+            assert sorted(layer["slot_pos"].tolist()) == \
+                list(range(30 - window, 30))
+            assert layer["slot_pos"][29 % window] == 29
+        else:
+            assert set(layer) == {"h", "conv"}
+
+
+def test_generate_matches(pairs):
+    pr = pairs(3)
+    prompts = pr.tokens(2, 10, 3)
+    jeng = JServeEngine(pr.jcfg, pr.jparams, max_len=32)
+    eng = ServeEngine(pr.cfg, pr.model, max_len=32, device=CPU)
+    ref = np.asarray(jeng.generate(jnp.asarray(prompts), 12,
+                                   temperature=0.0))
+    out = eng.generate(torch.from_numpy(prompts), 12, temperature=0.0)
+    np.testing.assert_array_equal(out.numpy(), ref)
