@@ -122,12 +122,14 @@ Phases, each printing its own lines and seconds:
               random bf16 weights from --seed, the MoE's freed first):
               ssd_scan against its plain version at the main path's
               shapes, then the forward of 4 x 128 and of 1 x 2048 tokens
-              through ssd_scan, the decode path (the scan at S = 1 from
-              the cached state) and greedy generation of 32 tokens; the
-              same draws in float32, whose forward is held to impl="ref"
-              and whose decode to the forward (1e-4), while the bf16
-              forward is held to the float32 one no further than the bf16
-              plain versions are; the ssd_scan launches read around it;
+              through ssd_scan (three launches a layer), the decode path
+              (the scan at S = 1 from the cached state: the one-launch
+              step kernel) and greedy generation of 32 tokens; the same
+              draws in float32, whose forward is held to impl="ref" and
+              whose decode to the forward (1e-4), while the bf16 forward
+              is held to the float32 one no further than the bf16 plain
+              versions are; the ssd_scan and step launches read around
+              it;
  23. main   : RecurrentGemma-2B likewise (item 10.3; 2.9e9 weights):
               rglru_scan against its plain version, the forward of
               4 x 128 and of 1 x 4096 tokens (the window of 2048 binds)
@@ -136,11 +138,15 @@ Phases, each printing its own lines and seconds:
               CUDA-core lane in the float32 copy), decode through the ring
               KV cache, the launches read around it;
  24. timing : the flash kernel at B = 1, H = 10, Hkv = 1, S = T = 4096,
-              D = 256 with the window and without, ssd_scan at 1 x 2048,
-              rglru_scan at 1 x 4096, each beside its plain version, the
-              library call where there is one and the bound; both models'
-              forward and decode-step times and the card's busy share;
-              the roofline of both prefills.
+              D = 256 with the window and without, ssd_scan at 1 x 2048
+              (bound: its split TF32 products, and beside it the
+              earlier float32-FMA bound) and its decode step at 4 x 1, rglru_scan
+              at 1 x 4096 and its decode step at 4 x 1 (each step over 8
+              input sets in turn, its state from device memory), each
+              beside its plain version, the library call where there is
+              one and the bound; both models' forward and decode-step
+              times and the card's busy share; the roofline of both
+              prefills.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -273,7 +279,11 @@ TPU_KERNEL = {"f32": "src/repro/kernels/bsr_spmv/bsr_spmv.py:36",
               "ssd": "src/repro/models/ssm.py:59 (no TPU kernel: _ssd_scan, "
                      "a lax.scan of einsums)",
               "rglru": "src/repro/models/rglru.py:44 (no TPU kernel: "
-                       "_lru_coeffs and lax.associative_scan)"}
+                       "_lru_coeffs and lax.associative_scan)",
+              "ssd_step": "src/repro/models/ssm.py:172 (no TPU kernel: "
+                          "ssd_step's one-step update)",
+              "rglru_step": "src/repro/models/rglru.py:94 (no TPU kernel: "
+                            "rglru_step's _lru_coeffs and a h + b)"}
 # the Yi-6B runs: prompts of the main path, and the prefill shape timed;
 # the Qwen2-MoE-A2.7B runs take the same shapes
 YI_BATCH, YI_PROMPT, YI_GEN = 4, 128, 32
@@ -284,6 +294,12 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 # tokens, and 4096 for RecurrentGemma, where its window of 2048 binds),
 # and their parameter counts (the JAX package's model_defs)
 RECUR_BATCH, RECUR_PROMPT, RECUR_GEN = 4, 128, 32
+# the scans' decode steps are timed over this many input sets in turn, so
+# that their states (10.5 MB for Mamba2-2.7B's SSD at B = 4) exceed L2
+DECODE_SETS = 8
+# rglru_scan is also timed at these prompt lengths (1 x S x 2560), where
+# its carry crosses 256 and 512 chunks
+RGLRU_LONG = (16384, 32768)
 # RecurrentGemma's local attention with a window under the 128-token
 # prompts, so that the decode path's ring KV cache wraps on the card
 RING_WINDOW = 64
@@ -345,6 +361,18 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cycle_index(fn, n):
+    """A callable that calls fn(i) with i = 0, 1, .., n - 1, 0, .. in
+    turn."""
+    state = {"i": 0}
+
+    def call():
+        i = state["i"] % n
+        state["i"] += 1
+        return fn(i)
+    return call
 
 
 def host_us(fn, calls=200):
@@ -2828,30 +2856,71 @@ def analysis_phase(cfg, times, smi):
               f"collective term on one card")
 
 
-def ssd_scan_work(B, S, H, P, N, Q):
-    """Float32 operations of one SSD scan, causal halves counted once:
-    per chunk of q steps, C B^T below the diagonal (q (q + 1) / 2 N
-    multiply-adds), y's intra-chunk term (q (q + 1) / 2 H P), y's
-    inter-chunk term and the state update (q N H P each); 2 flops a
-    multiply-add."""
-    total = 0
+def ssd_products(B, S, H, P, N, Q):
+    """Multiply-adds of each of the SSD scan's four products, causal halves
+    counted once: per chunk of q steps, C B^T below the diagonal
+    (q (q + 1) / 2 N), y's intra-chunk term (q (q + 1) / 2 H P), y's
+    inter-chunk term and the chunk states (q N H P each)."""
+    mac = dict(cb=0, intra=0, inter=0, state=0)
     for s0 in range(0, S, Q):
         q = min(Q, S - s0)
         tri = q * (q + 1) // 2
-        total += tri * N + tri * H * P + 2 * q * N * H * P
-    return 2.0 * B * total
+        mac["cb"] += B * tri * N
+        mac["intra"] += B * tri * H * P
+        mac["inter"] += B * q * N * H * P
+        mac["state"] += B * q * N * H * P
+    return mac
+
+
+def ssd_scan_work(B, S, H, P, N, Q):
+    """Float32 operations of one SSD scan (`ssd_products`), 2 flops a
+    multiply-add."""
+    return 2.0 * sum(ssd_products(B, S, H, P, N, Q).values())
+
+
+# TF32 tensor-core products the SSD kernel runs for each of its products
+# with bf16 x, b, c (ssd_scan.cu's note): the float32 operand of a product
+# is split in two, so 2 products where the other operand is bf16 (exact in
+# TF32), 1 for C B^T; with float32 x the kernel runs on the CUDA cores
+SSD_SPLIT = dict(cb=1, intra=2, inter=2, state=2)
+
+
+def ssd_tf32_ops(B, S, H, P, N, Q):
+    """TF32 operations of the SSD kernel's split products, bf16 x."""
+    return 2.0 * sum(SSD_SPLIT[k] * m
+                     for k, m in ssd_products(B, S, H, P, N, Q).items())
 
 
 def ssd_bound(x, b, dt, chunk):
-    """Least time (ms) of one SSD scan: its float32 work
-    (`ssd_scan_work`) at the CUDA cores' peak against x, b, c, dt and
-    a_log read once and y and the final state written once."""
+    """Least time (ms) of one SSD scan with bf16 x: x, b, c, dt and a_log
+    read once and y and the final state written once, against the
+    function's own operations (`ssd_scan_work`) at the tensor cores' TF32
+    peak, the rate of the kernel's products. Returns (ms, "bytes" |
+    "operations", split_ms, f32_ms): split_ms the bound of the kernel's
+    split products (`ssd_tf32_ops`, the cost of its float32 accuracy),
+    f32_ms that of the function as float32 FMAs on the CUDA cores (the
+    earlier, CUDA-core design's bound)."""
     B, S, H, P = x.shape
     N = b.shape[-1]
+    Q = min(chunk, S)
     nbytes = (2 * x.numel() * x.element_size() + 2 * b.numel()
               * b.element_size() + dt.numel() * 4 + H * 4 + B * H * P * N * 4)
-    return roofline_ms(ssd_scan_work(B, S, H, P, N, min(chunk, S)), nbytes,
-                       "float32")
+    work = ssd_scan_work(B, S, H, P, N, Q)
+    ms, by = roofline_ms(work, nbytes, "tfloat32")
+    split_ms, _ = roofline_ms(ssd_tf32_ops(B, S, H, P, N, Q), nbytes,
+                              "tfloat32")
+    f32_ms, _ = roofline_ms(work, nbytes, "float32")
+    return ms, by, split_ms, f32_ms
+
+
+def ssd_step_bound(x, b, h0):
+    """Least time (ms) of one SSD decode step (S = 1): the state read and
+    written once (2 x B H P N x 4 bytes), x, b, c, dt and a_log read and y
+    written, against 3 float32 multiply-adds a state element."""
+    B, _, H, P = x.shape
+    nbytes = (2 * h0.numel() * 4 + 2 * x.numel() * x.element_size()
+              + 2 * b.numel() * b.element_size() + B * H * 4 + H * 4)
+    return roofline_ms(6 * h0.numel(), nbytes, "float32")
 
 
 # float32 operations of the RG-LRU per element: two sigmoids (add, exp,
@@ -2861,13 +2930,16 @@ def ssd_bound(x, b, dt, chunk):
 RGLRU_FLOPS_PER_ELEMENT = 20
 
 
-def rglru_bound(u):
+def rglru_bound(u, h0=None):
     """Least time (ms) of one RG-LRU scan: u (its dtype), the two float32
     gate inputs and the float32 h out moved once, 14 bytes an element in
-    bf16, against ~20 float32 operations an element."""
+    bf16 (and h0 read, where given), against ~20 float32 operations an
+    element."""
     n = u.numel()
     W = u.shape[-1]
     nbytes = n * (u.element_size() + 4 + 4 + 4) + 3 * W * 4
+    if h0 is not None:
+        nbytes += h0.numel() * 4
     return roofline_ms(RGLRU_FLOPS_PER_ELEMENT * n, nbytes, "float32")
 
 
@@ -2879,7 +2951,8 @@ def scans_against_plain(arch, cuda, seed):
     orders, so 1e-4 of the largest value for the SSD's y and state (bf16
     y: 1e-2, one rounding of y) and 1e-5 for the RG-LRU's h (the kernel
     steps through each chunk from its carry, the plain version is a
-    log-depth tree). Returns the largest |kernel - plain|."""
+    log-depth tree). Returns the largest |kernel - plain| of the sequences
+    ("scan") and of the decode step ("step")."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -2891,8 +2964,9 @@ def scans_against_plain(arch, cuda, seed):
     shapes = [(RECUR_BATCH, RECUR_PROMPT, False),
               (*RECUR_ARCHS[arch]["prefill"], False),
               (RECUR_BATCH, 1, True)]
-    worst = 0.0
+    worst = {"scan": 0.0, "step": 0.0}
     for B, S, with_h0 in shapes:
+        key = "step" if S == 1 else "scan"
         if arch == "mamba2-2.7b":
             from repro_torch.kernels.ssd_scan import (ssd_scan_kernel,
                                                       ssd_scan_ref)
@@ -2915,7 +2989,7 @@ def scans_against_plain(arch, cuda, seed):
                   f"Q={cfg.ssm_chunk} {str(dtype)[6:]} h0={with_h0}: "
                   f"max |y - plain| {ey:.3g} (<= {tol:g} x max |y|), max "
                   f"|state - plain| {eh:.3g} (<= 1e-4 x max |state|)")
-            worst = max(worst, ey, eh)
+            worst[key] = max(worst[key], ey, eh)
         else:
             from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
                                                         rglru_scan_ref)
@@ -2932,7 +3006,7 @@ def scans_against_plain(arch, cuda, seed):
                   f"rglru_scan B={B} S={S} W={W} u {str(dtype)[6:]} "
                   f"h0={with_h0}: max |h - plain| {err:.3g} (<= 1e-5 x "
                   f"max |h|)")
-            worst = max(worst, err)
+            worst[key] = max(worst[key], err)
     return worst
 
 
@@ -2957,17 +3031,17 @@ def scans_held_to_plain(held):
         return d, d / max(float(r.float().abs().max()), 1e-30)
 
     def ssd(x, b, c, dt, a_log, chunk, h0=None, impl="auto"):
-        before = SSD["scan"]
+        before = sum(SSD.values())
         y, h = ssd0(x, b, c, dt, a_log, chunk, h0=h0, impl=impl)
-        if SSD["scan"] != before:
+        if sum(SSD.values()) != before:
             yr, hr = ssd_scan_ref(x, b, c, dt, a_log, chunk, h0)
             held["ssd"].append((*errs(y, yr), *errs(h, hr)))
         return y, h
 
     def lru(u, ga, gi, b_a, b_i, lam, h0=None, impl="auto"):
-        before = LRU["scan"]
+        before = sum(LRU.values())
         h = lru0(u, ga, gi, b_a, b_i, lam, h0=h0, impl=impl)
-        if LRU["scan"] != before:
+        if sum(LRU.values()) != before:
             held["rglru"].append(errs(h, rglru_scan_ref(u, ga, gi, b_a, b_i,
                                                         lam, h0)))
         return h
@@ -3019,9 +3093,14 @@ def recurrent_main_path(arch, cuda, seed, smi):
     in float32 (TF32 off), whose forwards take the scans in float32 and,
     for RecurrentGemma, the CUDA-core flash lane at head dim 256.
 
-    The checks: in float32 the kernels' forward against impl="ref" and
-    the decode path against the forward, to 1e-4 of the largest logit
-    (the Yi-6B copy's bound). In bf16, rounding is the larger error:
+    The checks: in float32 each scan held to its plain version on the
+    forward's own activations (`scans_held_to_plain`, 1e-4), the kernels'
+    forward against impl="ref" to 1e-4 of the largest logit (the Yi-6B
+    copy's bound) over all positions and at the last one (Mamba2's first
+    positions carry any rounding of its scans far, so the SSD kernel's
+    float32 path rounds as the plain einsums do: ssd_scan.cu's note), and
+    the decode path against the forward to 1e-4. In bf16, rounding is the
+    larger error:
     Mamba2's 64 layers under random weights carry a one-ulp change far
     (the bf16 forward lies 0.15-0.5 of the largest logit from the float32
     one, through the kernels or the plain versions alike, measured on
@@ -3125,14 +3204,20 @@ def recurrent_main_path(arch, cuda, seed, smi):
     model32 = Transformer(cfg32, device=cuda, seed=seed)
     for tokens, (out, ref) in zip(inputs, bf16):
         B, S = tokens.shape
-        out32, _ = model32(tokens, impl="cuda")
+        held32 = {"ssd": [], "rglru": []}
+        with scans_held_to_plain(held32):
+            out32, _ = model32(tokens, impl="cuda")
         ref32, _ = model32(tokens, impl="ref")
         torch.cuda.synchronize()
+        held_err = max(held_err, check_held_scans(
+            held32, n, cfg32.dtype(), f"f32 forward B={B} S={S}"))
         rel = rel_err(out32, ref32)
+        rel_last = rel_err(out32[:, -1], ref32[:, -1])
         n_bad, n_pos, _ = top1_report(out32, ref32)
-        check(rel <= 1e-4 and n_bad == 0,
+        check(rel <= 1e-4 and rel_last <= 1e-4 and n_bad == 0,
               f"f32 forward B={B} S={S} impl=cuda against impl=ref: "
-              f"max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 agrees at all "
+              f"max|d|/max|logits| = {rel:.3g} <= 1e-4, at the last "
+              f"position {rel_last:.3g} <= 1e-4, top-1 agrees at all "
               f"{n_pos} positions")
         e_k, e_p = rel_err(out, ref32), rel_err(ref, ref32)
         n_bad, n_pos, margins = top1_report(out, ref)
@@ -3174,14 +3259,15 @@ def recurrent_main_path(arch, cuda, seed, smi):
         forwards["f32 ring"], steps["f32 ring"] = 1, RECUR_PROMPT
 
     launches = {"flash": FLASH["wgmma"], "flash_f32": FLASH["fwd"]
-                - FLASH["wgmma"], "ssd": SSD["scan"], "rglru": LRU["scan"]}
-    # ssd_scan is two launches a call, rglru_scan two over a sequence and
-    # one at a decode step
+                - FLASH["wgmma"], "ssd": SSD["scan"], "ssd_step": SSD["step"],
+                "rglru": LRU["scan"], "rglru_step": LRU["step"]}
+    # ssd_scan is three launches over a sequence (chunk states, carry, y),
+    # rglru_scan one; a decode step is one launch of each step kernel
     n_fwd, n_steps = sum(forwards.values()), sum(steps.values())
     want = {"flash": forwards["bf16"] * n["local_attn"],
             "flash_f32": (n_fwd - forwards["bf16"]) * n["local_attn"],
-            "ssd": 2 * (n_fwd + n_steps) * n["ssd"],
-            "rglru": (2 * n_fwd + n_steps) * n["rglru"]}
+            "ssd": 3 * n_fwd * n["ssd"], "ssd_step": n_steps * n["ssd"],
+            "rglru": n_fwd * n["rglru"], "rglru_step": n_steps * n["rglru"]}
     check(launches == want,
           f"launches over the main path: {launches} ({forwards} forwards "
           f"x the layers of each kind, and {steps} decode steps x the "
@@ -3226,22 +3312,128 @@ def ring_main_path(cfg32, prompts, cuda, seed, n):
     free_cuda()
 
 
+def scan_times(cuda, seed, long_lru=()):
+    """The two scan kernels and their plain versions timed (`cuda_ms`) at
+    the main path's shapes, on inputs drawn on the card from `seed`:
+    ssd_scan at Mamba2-2.7B's widths over 1 x 2048 bf16 ("ssd") and its
+    decode step at 4 x 1 float32 from a state ("ssd_step"), rglru_scan at
+    RecurrentGemma-2B's W = 2560 over 1 x 4096 bf16 ("rglru"), over
+    1 x S for each S of `long_lru` ("rglru_<S>") and its decode step at
+    4 x 1 from a state ("rglru_step"). The decode steps cycle through
+    DECODE_SETS input sets, so that their states come from device memory.
+    Each row: "kernel" and "plain" ms, "err" (max |kernel - plain|),
+    "scale" (max |plain|), "launches" (the counts' rise over one kernel
+    call) and "inputs" (the bound functions' arguments, on the meta
+    device). Only the scans' public functions and the configs are
+    imported, so tools/time_scans.py times another checkout of the port
+    by the same method."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
+                                                rglru_scan_ref)
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=cuda)).to(
+            dtype)
+
+    def meta(*ts):
+        return tuple(t.to("meta") for t in ts)
+
+    def row(kernel, plain, counts, inputs, sets=1):
+        """kernel() and plain() over the first input set; with `sets`,
+        each takes the set's index."""
+        before = sum(counts.values())
+        out = kernel(0)
+        launches = sum(counts.values()) - before
+        ref = plain(0)
+        pairs = list(zip(*(o if isinstance(o, tuple) else (o,)
+                           for o in (out, ref))))
+        err = max(float((a.float() - r.float()).abs().max())
+                  for a, r in pairs)
+        scale = max(float(r.float().abs().max()) for _, r in pairs)
+        del out, ref, pairs
+        reps = 8 * sets if sets > 1 else 20
+        return {"kernel": cuda_ms(cycle_index(kernel, sets), reps),
+                "plain": cuda_ms(cycle_index(plain, sets),
+                                 sets if sets > 1 else 3),
+                "err": err, "scale": scale, "launches": launches,
+                "inputs": inputs}
+
+    times = {}
+    mb = get_config("mamba2-2.7b")
+    H, P, N, Q = mb.ssm_heads, mb.ssm_headdim, mb.ssm_state, mb.ssm_chunk
+    bf = torch.bfloat16
+    B, S = RECUR_ARCHS["mamba2-2.7b"]["prefill"]
+    x = randn(B, S, H, P, dtype=bf)
+    b, c = (randn(B, S, N, scale=0.3, dtype=bf) for _ in range(2))
+    dt = F.softplus(randn(B, S, H) - 1.0)
+    a_log = randn(H, scale=0.5)
+    args = (x, b, c, dt, a_log, Q)
+    times["ssd"] = row(lambda i: ssd_scan_kernel(*args),
+                       lambda i: ssd_scan_ref(*args), SSD, meta(x, b, dt))
+    del x, b, c, dt, args
+
+    # the decode step (B = 4, S = 1, float32 x, b, c as ssd_step passes
+    # them)
+    B = RECUR_BATCH
+    sets = [(randn(B, 1, H, P), randn(B, 1, N, scale=0.3),
+             randn(B, 1, N, scale=0.3), F.softplus(randn(B, 1, H) - 1.0),
+             a_log, Q, randn(B, H, P, N)) for _ in range(DECODE_SETS)]
+    times["ssd_step"] = row(
+        lambda i: ssd_scan_kernel(*sets[i][:6], h0=sets[i][6]),
+        lambda i: ssd_scan_ref(*sets[i][:6], h0=sets[i][6]), SSD,
+        meta(sets[0][0], sets[0][1], sets[0][6]), sets=DECODE_SETS)
+    del sets
+    free_cuda()
+
+    rg = get_config("recurrentgemma-2b")
+    Wd = rg.lru_width_
+    b_a, b_i = (randn(Wd, scale=0.5) for _ in range(2))
+    lam = randn(Wd) + 1.0
+    B, S = RECUR_ARCHS["recurrentgemma-2b"]["prefill"]
+    for key, S_ in [("rglru", S)] + [(f"rglru_{n}", n) for n in long_lru]:
+        args = (randn(B, S_, Wd, dtype=bf), randn(B, S_, Wd),
+                randn(B, S_, Wd), b_a, b_i, lam)
+        times[key] = row(lambda i: rglru_scan_kernel(*args),
+                         lambda i: rglru_scan_ref(*args), LRU,
+                         meta(args[0]))
+        del args
+        free_cuda()
+
+    B = RECUR_BATCH
+    sets = [(randn(B, 1, Wd, dtype=bf), randn(B, 1, Wd), randn(B, 1, Wd),
+             b_a, b_i, lam, randn(B, Wd)) for _ in range(DECODE_SETS)]
+    times["rglru_step"] = row(
+        lambda i: rglru_scan_kernel(*sets[i][:6], h0=sets[i][6]),
+        lambda i: rglru_scan_ref(*sets[i][:6], h0=sets[i][6]), LRU,
+        meta(sets[0][0], sets[0][6]), sets=DECODE_SETS)
+    del sets
+    free_cuda()
+    return times
+
+
 def recurrent_kernel_timing(cuda, seed, smi):
     """Each new kernel piece at its main-path shape beside its plain
     version, the library call where one computes the same function and the
     bound: the flash kernel at RecurrentGemma-2B's local attention (B = 1,
     H = 10, Hkv = 1, S = T = 4096, D = 256) with its window of 2048 and
     without one (SDPA with the window as a boolean mask, and causal);
-    ssd_scan at Mamba2-2.7B's 1 x 2048; rglru_scan at RecurrentGemma's
-    1 x 4096 (neither has a PyTorch library call). Returns each row."""
+    the scans by `scan_times`: ssd_scan at Mamba2-2.7B's 1 x 2048 and its
+    decode step, rglru_scan at RecurrentGemma's 1 x 4096 (and, printed
+    only, at the longer prompts of RGLRU_LONG, whose carry crosses more
+    chunks) and its decode step (neither has a PyTorch library call).
+    Returns each row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
-    from repro_torch.kernels.rglru_scan import (rglru_scan_kernel,
-                                                rglru_scan_ref)
-    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
 
     rows = {}
     rg = get_config("recurrentgemma-2b")
@@ -3292,55 +3484,72 @@ def recurrent_kernel_timing(cuda, seed, smi):
     free_cuda()
 
     mb = get_config("mamba2-2.7b")
+    H, P, N, Q = mb.ssm_heads, mb.ssm_headdim, mb.ssm_state, mb.ssm_chunk
+    Wd = rg.lru_width_
+    times = scan_times(cuda, seed, long_lru=RGLRU_LONG)
+
+    t = times["ssd"]
     B, S = RECUR_ARCHS["mamba2-2.7b"]["prefill"]
-    H, P, N = mb.ssm_heads, mb.ssm_headdim, mb.ssm_state
-    bf = torch.bfloat16
-    x = torch.randn((B, S, H, P), generator=g, device=cuda).to(bf)
-    b, c = ((0.3 * torch.randn((B, S, N), generator=g, device=cuda)).to(bf)
-            for _ in range(2))
-    dt = F.softplus(torch.randn((B, S, H), generator=g, device=cuda) - 1.0)
-    a_log = 0.5 * torch.randn((H,), generator=g, device=cuda)
-    args = (x, b, c, dt, a_log, mb.ssm_chunk)
-    y, h = ssd_scan_kernel(*args)
-    yr, hr = ssd_scan_ref(*args)
-    err = max(float((y.float() - yr.float()).abs().max()),
-              float((h - hr).abs().max()))
-    t = {"kernel": cuda_ms(lambda: ssd_scan_kernel(*args), 20),
-         "plain": cuda_ms(lambda: ssd_scan_ref(*args), 3)}
-    b_ms, b_by = ssd_bound(x, b, dt, mb.ssm_chunk)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    work = ssd_scan_work(B, S, H, P, N, mb.ssm_chunk)
-    print(f"  ssd_scan B={B} S={S} H={H} P={P} N={N} Q={mb.ssm_chunk} bf16 "
-          f"x ({work / 1e9:.3f} GFLOP float32, causal halves once): kernel "
-          f"{t['kernel']:.4f} ms ({work / t['kernel'] / 1e9:.2f} TFLOP/s), "
-          f"plain {t['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
-          f"at {100 * b_ms / t['kernel']:.1f}% of bound; {B * H} blocks of "
-          f"256 threads on {sms} SMs; max |kernel - plain| {err:.3g} "
-          f"[{smi}]")
-    rows["ssd"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by, err=err)
-    del x, b, c, dt, y, h, yr, hr, args
+    b_ms, b_by, split_ms, f32_ms = ssd_bound(*t["inputs"], Q)
+    nc = -(-S // Q)
+    nt = -(-min(Q, S) // 64)
+    work = ssd_scan_work(B, S, H, P, N, Q)
+    tf32 = ssd_tf32_ops(B, S, H, P, N, Q)
+    print(f"  ssd_scan B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 "
+          f"x ({work / 1e9:.3f} GFLOP, causal halves once; "
+          f"{tf32 / 1e9:.3f} GFLOP of split TF32 products): kernel "
+          f"{t['kernel']:.4f} ms ({work / t['kernel'] / 1e9:.2f} TFLOP/s of "
+          f"the function, {tf32 / t['kernel'] / 1e9:.2f} of split TF32), "
+          f"plain {t['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, the "
+          f"function at TF32's 495 TFLOP/s; its split products "
+          f"{split_ms:.4f} ms, as float32 FMAs {f32_ms:.4f} ms); kernel at "
+          f"{100 * b_ms / t['kernel']:.1f}% of bound "
+          f"({100 * split_ms / t['kernel']:.1f}% of the split bound); "
+          f"{t['launches']} launches of {(H + nt * (nt + 1) // 2) * nc * B}, "
+          f"{-(-B * H * P * N // 4 // 256)} and {H * nc * B} blocks; max "
+          f"|kernel - plain| {t['err']:.3g} [{smi}]")
+    rows["ssd"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by,
+                       bounds={"split_bound_ms": split_ms,
+                               "f32_fma_bound_ms": f32_ms})
+
+    t = times["ssd_step"]
+    B = RECUR_BATCH
+    b_ms, b_by = ssd_step_bound(*t["inputs"])
+    print(f"  ssd_scan decode step B={B} S=1 H={H} P={P} N={N} float32 from "
+          f"a state ({2 * B * H * P * N * 4 / 1e6:.2f} MB of state in and "
+          f"out; {DECODE_SETS} input sets in turn): kernel "
+          f"{1e3 * t['kernel']:.2f} us ({t['launches']} launch), plain "
+          f"{1e3 * t['plain']:.2f} us, bound {1e3 * b_ms:.2f} us ({b_by}); "
+          f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound; max "
+          f"|kernel - plain| {t['err']:.3g} [{smi}]")
+    rows["ssd_step"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by)
 
     B, S = RECUR_ARCHS["recurrentgemma-2b"]["prefill"]
-    Wd = rg.lru_width_
-    u = torch.randn((B, S, Wd), generator=g, device=cuda).to(bf)
-    ga, gi = (torch.randn((B, S, Wd), generator=g, device=cuda)
-              for _ in range(2))
-    b_a, b_i = (0.5 * torch.randn((Wd,), generator=g, device=cuda)
-                for _ in range(2))
-    lam = torch.randn((Wd,), generator=g, device=cuda) + 1.0
-    args = (u, ga, gi, b_a, b_i, lam)
-    err = float((rglru_scan_kernel(*args) - rglru_scan_ref(*args)).abs()
-                .max())
-    t = {"kernel": cuda_ms(lambda: rglru_scan_kernel(*args), 20),
-         "plain": cuda_ms(lambda: rglru_scan_ref(*args), 3)}
-    b_ms, b_by = rglru_bound(u)
-    print(f"  rglru_scan B={B} S={S} W={Wd} bf16 u: kernel "
-          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); kernel at "
-          f"{100 * b_ms / t['kernel']:.1f}% of bound; max |kernel - plain| "
-          f"{err:.3g} [{smi}]")
-    rows["rglru"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by, err=err)
-    del u, ga, gi, args
+    for key in ["rglru"] + [f"rglru_{S_}" for S_ in RGLRU_LONG]:
+        t = times[key]
+        S_ = t["inputs"][0].shape[1]
+        b_ms, b_by = rglru_bound(*t["inputs"])
+        print(f"  rglru_scan B={B} S={S_} W={Wd} bf16 u: kernel "
+              f"{t['kernel']:.4f} ms ({t['launches']} launch, "
+              f"{-(-S_ // 64) * -(-Wd // 32)} blocks), plain "
+              f"{t['plain']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
+              f"at {100 * b_ms / t['kernel']:.1f}% of bound; max |kernel - "
+              f"plain| {t['err']:.3g} [{smi}]")
+        check(t["err"] <= 1e-5 * t["scale"],
+              f"rglru_scan B={B} S={S_} W={Wd}: max |h - plain| "
+              f"{t['err']:.3g} <= 1e-5 x max |h|")
+        if key == "rglru":
+            rows["rglru"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by)
+
+    t = times["rglru_step"]
+    B = RECUR_BATCH
+    b_ms, b_by = rglru_bound(*t["inputs"])
+    print(f"  rglru_scan decode step B={B} S=1 W={Wd} bf16 u from a state: "
+          f"kernel {1e3 * t['kernel']:.2f} us ({t['launches']} launch), "
+          f"plain {1e3 * t['plain']:.2f} us, bound {1e3 * b_ms:.2f} us "
+          f"({b_by}); kernel at {100 * b_ms / t['kernel']:.1f}% of bound; "
+          f"max |kernel - plain| {t['err']:.3g} [{smi}]")
+    rows["rglru_step"] = dict(t, sdpa=None, bound_ms=b_ms, bound_by=b_by)
     free_cuda()
     return rows
 
@@ -3402,9 +3611,9 @@ def recurrent_roofline(cfg, times, smi):
     """The roofline (`repro_torch.analysis`, H100 constants) of the long
     prefill beside its measured time. FLOPs: `model_flops_cell` (2 x the
     parameters past the embedding x tokens), plus the time mixing's own
-    work: the SSD scans' float32 work (at the float32 peak, so counted at
-    989 / 67 of its operations in the bf16 compute term) or the local
-    attention's 4 D flops a pair and head. Bytes: every weight read once,
+    work: the SSD scan's own operations (`ssd_scan_work`, at the TF32
+    peak of the kernel's products, so counted at 989 / 495 of them in the
+    bf16 compute term) or the local attention's 4 D flops a pair and head. Bytes: every weight read once,
     the embedding rows gathered and the logits written."""
     from repro_torch.analysis import from_counts, model_flops_cell
     from repro_torch.analysis.flops import total_params
@@ -3417,7 +3626,7 @@ def recurrent_roofline(cfg, times, smi):
         mix = kinds.count("ssd") * ssd_scan_work(
             B, S, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
             cfg.ssm_chunk) * (H100.peak_flops["bfloat16"]
-                              / H100.peak_flops["float32"])
+                              / H100.peak_flops["tfloat32"])
     else:
         mix = (kinds.count("local_attn") * 4.0 * B * cfg.n_heads
                * cfg.head_dim_ * attention_pairs(S, S, True,
@@ -3883,8 +4092,9 @@ def main(argv=None):
             err = scans_against_plain(arch, cuda, args.seed)
             launches, held_err, model = recurrent_main_path(
                 arch, cuda, args.seed, smi)
-            recur[arch] = dict(err=max(err, held_err), launches=launches,
-                               model=model)
+            recur[arch] = dict(err=dict(scan=max(err["scan"], held_err),
+                                        step=err["step"]),
+                               launches=launches, model=model)
 
     with phase("timing: Mamba2-2.7B and RecurrentGemma-2B"):
         recur_rows = recurrent_kernel_timing(cuda, args.seed, smi)
@@ -3966,16 +4176,21 @@ def main(argv=None):
         "library_ms": row["sdpa"]})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
-            ("rglru_scan", "rglru", RGLRU_SOURCE, "recurrentgemma-2b")):
+            ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),
+            ("rglru_scan", "rglru", RGLRU_SOURCE, "recurrentgemma-2b"),
+            ("rglru_scan_step", "rglru_step", RGLRU_SOURCE,
+             "recurrentgemma-2b")):
         row = recur_rows[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[key],
             "launches": recur[arch]["launches"][key],
-            "max_abs_err": max(recur[arch]["err"], row["err"]),
+            "max_abs_err": max(
+                recur[arch]["err"]["step" if "step" in key else "scan"],
+                row["err"]),
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "library_ms": None, **row.get("bounds", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

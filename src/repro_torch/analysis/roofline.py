@@ -32,6 +32,7 @@ ICI_LINK_BW = 50e9              # B/s per link
 H100_HBM_BW = 3.35e12           # B/s, HBM3
 H100_PEAK_FLOPS = {
     "bfloat16": 989e12,         # dense, tensor cores
+    "tfloat32": 495e12,         # dense, tensor cores
     "float32": 67e12,           # outside the tensor cores
     "float64": 34e12,           # outside the tensor cores
 }

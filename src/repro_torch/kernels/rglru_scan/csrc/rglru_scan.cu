@@ -1,6 +1,7 @@
 // The RG-LRU gates and linear recurrence of RecurrentGemma (Griffin) for
-// Hopper (sm_90a), fused, exported through a plain C interface and bound
-// to PyTorch with ctypes (repro_torch/kernels/rglru_scan/rglru_scan.py).
+// Hopper (sm_90a), fused into one pass, exported through a plain C
+// interface and bound to PyTorch with ctypes
+// (repro_torch/kernels/rglru_scan/rglru_scan.py).
 //
 //   u (B, S, W) float or bf16, the causal conv's output; ga = u @ w_a and
 //   gi = u @ w_i (B, S, W) float32 (the products stay cuBLAS's); b_a, b_i,
@@ -18,23 +19,47 @@
 // a cumulative sum of log a overflows as a -> 0. So it gets a kernel.
 //
 // What bounds it: bytes. Each element reads u (2 bytes in bf16), ga and
-// gi (4 each) and writes h (4): 14 bytes against some 30 flops, far below
-// the card's ~20 flops a byte in float32. A simple design that is right,
-// a chunked scan in two launches, so that B x W = 2,560 channels at B = 1
-// (RecurrentGemma-2B) still fill the card:
+// gi (4 each) and writes h (4): 14 bytes against some 20 flops, far below
+// the card's ~20 flops a byte in float32. The design moves those 14 bytes
+// once, in one launch (rglru_scan_kernel), and fills the card at B = 1:
 //
-// * Time is cut into nch chunks of L steps (nch <= 64). One thread owns a
-//   (b, chunk, w): neighbouring threads take neighbouring channels, so
-//   every load and store is coalesced along W.
-// * rglru_chunk_kernel: each chunk's composite over its steps, the
-//   product of its a and its local h from a zero start, into a workspace.
-// * rglru_scan_kernel: each chunk's carry-in, h0 folded through the
-//   composites of the chunks before it in order, then the chunk's steps
-//   again from the carry, writing h. The gates are computed twice (once a
-//   pass), the inputs read twice.
-// The recurrence runs step after step from the carry, so its rounding
-// differs from the associative scan's (a log-depth tree of products) by a
-// few float32 ulps.
+// * Time is cut into chunks of 64 steps. A block owns one (b, chunk, 32
+//   channels): 8 warps, a segment of 8 steps each, a lane a channel, so a
+//   warp's load covers one row of 128 bytes (64 in bf16). Each thread
+//   issues its 24 loads at once, then computes its steps' (a, b) once and
+//   holds them in registers: 5,120 blocks at RecurrentGemma-2B's B = 1,
+//   S = 4096, W = 2560, four on an SM (64 registers a thread).
+// * The block folds its segments' composites (the product of a, and h
+//   from a zero start) in order into the chunk's composite and publishes
+//   it as one 64-bit word (a, h), which is its own flag: the caller fills
+//   the words with ones, a value no composite takes. Up to 64 chunks
+//   (S <= 4096) a chunk's carry-in is h0 folded through every earlier
+//   chunk's composite, at most 8 words a warp. Past that the chunks form
+//   groups of G = ceil(sqrt(nch)) (group_size; a kernel instantiation of
+//   its own), and the last chunk of a group also folds the group's
+//   composites in order and publishes the group's, before it waits on
+//   anything else. A chunk's carry-in is then h0 folded through the
+//   composites of the groups before the last one, then those of every
+//   chunk since: fewer than 3 sqrt(nch) words (read 8 at a time, and read
+//   again until set), which the 8 warps fold as contiguous ranges, the
+//   ranges then folded in order. A group's composite is read only from two
+//   groups on, when its fold is as a rule long done. A
+//   fixed order for each chunk, so the same bits on every call, whichever
+//   block finishes first (a decoupled look-back would combine in the order
+//   the words happen to arrive), and the reads grow as nch^1.5 and not as
+//   nch^2: at RecurrentGemma's W = 2560, 41 MB at 1 x 4096 (64 chunks,
+//   one group) and 0.46 GB at 1 x 32768 (2.68 GB folding every earlier
+//   chunk) against the scan's own 1.17 GB, from L2.
+// * Blocks take their unit from a ticket (an atomic counter) in the order
+//   they start, chunk by chunk, so a block waits only on blocks that are
+//   already running or done: no deadlock, however many are resident.
+// * Each segment's carry-in is the chunk's carry folded through the
+//   segments before it; it runs its 8 steps from there and writes h. The
+//   recurrence runs step after step from each carry, so its rounding
+//   differs from the associative scan's (a log-depth tree of products) by
+//   a few float32 ulps.
+// * rglru_step_kernel, S = 1 (a decode step): one thread a (b, w),
+//   h = a h0 + b; one launch and no workspace.
 
 #include <cstdint>
 
@@ -43,8 +68,15 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kC = 8.0f;   // Griffin's fixed gate exponent
+constexpr float kC = 8.0f;      // Griffin's fixed gate exponent
+constexpr int kCw = 32;         // channels a block: a lane each
+constexpr int kG = 8;           // segments a chunk: a warp each
+constexpr int kL = 8;           // steps a segment
+constexpr int kThreads = kCw * kG;
+constexpr int kChunk = kG * kL;
+constexpr int kStepThreads = 256;
+constexpr int kFold = 8;        // earlier chunks' composites a load batch
+constexpr int kTicketBytes = 16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -55,103 +87,248 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// a and b of one step: the JAX package's _lru_coeffs
-template <typename T>
-__device__ __forceinline__ void coeffs(const T* __restrict__ u,
-                                       const float* __restrict__ ga,
-                                       const float* __restrict__ gi,
-                                       long long idx, float b_a, float b_i,
-                                       float log_a0, float& a, float& b) {
-  const float r = sigmoid(ga[idx] + b_a);
-  const float i = sigmoid(gi[idx] + b_i);
-  const float log_a = kC * r * log_a0;
-  a = expf(log_a);
-  const float mult = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
-  b = mult * (i * to_f(u[idx]));
-}
-
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_kernel(const T* __restrict__ u, const float* __restrict__ ga,
-                   const float* __restrict__ gi,
-                   const float* __restrict__ b_a,
-                   const float* __restrict__ b_i,
-                   const float* __restrict__ lam, float* __restrict__ agg_a,
-                   float* __restrict__ agg_h, int S, int W, int L) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const int ch = blockIdx.y, b = blockIdx.z, nch = gridDim.y;
-  const float ba = b_a[w], bi = b_i[w], la0 = log_sigmoid(lam[w]);
-  const int t1 = min(S, (ch + 1) * L);
-  float A = 1.f, h = 0.f;
-  for (int t = ch * L; t < t1; ++t) {
-    float a, bb;
-    coeffs(u, ga, gi, ((long long)b * S + t) * W + w, ba, bi, la0, a, bb);
-    h = fmaf(a, h, bb);
-    A *= a;
-  }
-  const long long o = ((long long)b * nch + ch) * W + w;
-  agg_a[o] = A;
-  agg_h[o] = h;
+// a and b of one step from its loaded inputs: the JAX package's
+// _lru_coeffs
+__device__ __forceinline__ void coeffs(float u, float ga, float gi, float b_a,
+                                       float b_i, float log_a0, float& a,
+                                       float& b) {
+  const float r = sigmoid(ga + b_a);
+  const float i = sigmoid(gi + b_i);
+  const float log_a = kC * r * log_a0;
+  a = expf(log_a);
+  const float mult = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
+  b = mult * (i * u);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// A chunk's composite, published as one 64-bit word: (h, a) = (high,
+// low). The caller fills the words with ones first; a composite's a is
+// >= 0, so its low half never reads 0xffffffff.
+constexpr unsigned long long kUnset = ~0ull;
+
+__device__ __forceinline__ unsigned long long pack(float a, float h) {
+  return (unsigned long long)__float_as_uint(h) << 32 | __float_as_uint(a);
+}
+
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// One block a (b, chunk, 32 channels), taken by ticket in the order the
+// blocks start: chunk by chunk, so every ticket of chunk k - 1 is below
+// every ticket of chunk k. comp (B, nch, W): the chunks' composites; grp
+// (B, ngr, W): the composites of the groups of G chunks; comp, grp and the
+// ticket filled with ones by the caller (the ticket then counts from -1).
+// kGrouped false: one group (G = nch), whose fold is compiled without the
+// groups' code and registers.
+template <typename T, bool kGrouped>
+__global__ void __launch_bounds__(kThreads, 4)
 rglru_scan_kernel(const T* __restrict__ u, const float* __restrict__ ga,
                   const float* __restrict__ gi,
                   const float* __restrict__ b_a,
                   const float* __restrict__ b_i,
                   const float* __restrict__ lam,
-                  const float* __restrict__ h0,
-                  const float* __restrict__ agg_a,
-                  const float* __restrict__ agg_h, float* __restrict__ out,
-                  int S, int W, int L) {
-  const int w = blockIdx.x * kThreads + threadIdx.x;
-  if (w >= W) return;
-  const int ch = blockIdx.y, b = blockIdx.z, nch = gridDim.y;
-  float h = h0 != nullptr ? h0[(long long)b * W + w] : 0.f;
-  for (int c = 0; c < ch; ++c) {
-    const long long o = ((long long)b * nch + c) * W + w;
-    h = fmaf(agg_a[o], h, agg_h[o]);
+                  const float* __restrict__ h0, float* __restrict__ out,
+                  unsigned long long* __restrict__ comp,
+                  unsigned long long* __restrict__ grp,
+                  int* __restrict__ ticket, int B, int S, int W, int G) {
+  __shared__ float seg_a[kG][kCw], seg_h[kG][kCw];   // the segments
+  __shared__ float rng_a[kG][kCw], rng_h[kG][kCw];   // ranges of chunks
+  __shared__ float carry[kCw];
+  __shared__ int order;
+  if (threadIdx.x == 0) order = atomicAdd(ticket, 1) + 1;
+  __syncthreads();
+  const int tiles = (W + kCw - 1) / kCw;
+  const int nch = (S + kChunk - 1) / kChunk;
+  const int k = order / (tiles * B), tile = order % (tiles * B) / B,
+            b = order % B;
+  const int c = threadIdx.x % kCw, j = threadIdx.x / kCw;
+  const int w = tile * kCw + c;
+  const bool live = w < W;
+  const int t0 = k * kChunk + j * kL;
+  const long long base = (long long)b * S * W + w;
+
+  float vu[kL], vga[kL], vgi[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const bool ok = live && t0 + i < S;
+    const long long idx = base + (long long)(t0 + i) * W;
+    vu[i] = ok ? to_f(u[idx]) : 0.f;
+    vga[i] = ok ? ga[idx] : 0.f;
+    vgi[i] = ok ? gi[idx] : 0.f;
   }
-  const float ba = b_a[w], bi = b_i[w], la0 = log_sigmoid(lam[w]);
-  const int t1 = min(S, (ch + 1) * L);
-  for (int t = ch * L; t < t1; ++t) {
-    const long long idx = ((long long)b * S + t) * W + w;
-    float a, bb;
-    coeffs(u, ga, gi, idx, ba, bi, la0, a, bb);
-    h = fmaf(a, h, bb);
-    out[idx] = h;
+  const float ba = live ? b_a[w] : 0.f, bi = live ? b_i[w] : 0.f;
+  const float la0 = live ? log_sigmoid(lam[w]) : 0.f;
+  const float hin = j == 0 && live && h0 != nullptr
+                        ? h0[(long long)b * W + w] : 0.f;
+  float a[kL], bb[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    if (live && t0 + i < S) {
+      coeffs(vu[i], vga[i], vgi[i], ba, bi, la0, a[i], bb[i]);
+    } else {
+      a[i] = 1.f;           // past the end: the identity step
+      bb[i] = 0.f;
+    }
+  }
+  float A = 1.f, hs = 0.f;
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    hs = fmaf(a[i], hs, bb[i]);
+    A *= a[i];
+  }
+  seg_a[j][c] = A;
+  seg_h[j][c] = hs;
+  __syncthreads();
+
+  // publish the chunk's composite, its segments folded in order
+  unsigned long long* cp = comp + (long long)b * nch * W + w;   // chunk kk
+                                                                // at kk W
+  const int ngr = (nch + G - 1) / G, gk = k / G;
+  unsigned long long* gp = grp + (long long)b * ngr * W + w;    // group gg
+                                                                // at gg W
+  if (j == 0 && live) {
+    float ca = 1.f, ch = 0.f;
+#pragma unroll
+    for (int s = 0; s < kG; ++s) {
+      ch = fmaf(seg_a[s][c], ch, seg_h[s][c]);
+      ca *= seg_a[s][c];
+    }
+    publish(cp + (long long)k * W, pack(ca, ch));
+  }
+
+  // folds words i0 .. i1 - 1 of a list (addr(i): word i's address) in
+  // order into (ra, rh), reading 8 at a time, each again until it is set
+  float ra = 1.f, rh = 0.f;
+  auto fold = [&](int i0, int i1, auto addr) {
+    for (int kk0 = i0; kk0 < i1; kk0 += kFold) {
+      unsigned long long v[kFold];
+#pragma unroll
+      for (int i = 0; i < kFold; ++i)
+        v[i] = live && kk0 + i < i1 ? peek(addr(kk0 + i)) : pack(1.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < kFold; ++i) {
+        while (v[i] == kUnset) v[i] = peek(addr(kk0 + i));
+        const float pa = __uint_as_float((unsigned)v[i]);
+        const float ph = __uint_as_float((unsigned)(v[i] >> 32));
+        rh = fmaf(pa, rh, ph);
+        ra *= pa;
+      }
+    }
+  };
+
+  // the last chunk of a group publishes the group's composite, its chunks
+  // folded in order (its own word read back), before it waits on any other
+  // group; only chunks two groups on read it
+  if (kGrouped && j == 0 && live && k == gk * G + G - 1 && gk + 2 < ngr) {
+    fold(gk * G, k + 1, [&](int kk) { return cp + (long long)kk * W; });
+    publish(gp + (long long)gk * W, pack(ra, rh));
+    ra = 1.f;
+    rh = 0.f;
+  }
+
+  // the chunk's carry-in: h0 through the composites of the groups before
+  // the last one, then those of the chunks since (the last group's and its
+  // own group's earlier ones: a group's composite is read only from two
+  // groups on, by when its fold is as a rule done). Warp j folds a
+  // contiguous range of that list and the 8 ranges are folded in order: a
+  // fixed order for a given k.
+  const int ng = kGrouped ? max(gk - 1, 0) : 0, c0 = ng * G;
+  const int m = ng + (k - c0);
+  const int per = (m + kG - 1) / kG, i1 = min(m, (j + 1) * per);
+  fold(j * per, i1, [&](int i) {
+    return kGrouped && i < ng ? gp + (long long)i * W
+                              : cp + (long long)(c0 + i - ng) * W;
+  });
+  rng_a[j][c] = ra;
+  rng_h[j][c] = rh;
+  __syncthreads();
+  if (j == 0) {
+    float h = hin;
+#pragma unroll
+    for (int r = 0; r < kG; ++r) h = fmaf(rng_a[r][c], h, rng_h[r][c]);
+    carry[c] = h;
+  }
+  __syncthreads();
+
+  // the segment's carry-in, then its steps
+  float h = carry[c];
+  for (int s = 0; s < j; ++s) h = fmaf(seg_a[s][c], h, seg_h[s][c]);
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    h = fmaf(a[i], h, bb[i]);
+    if (live && t0 + i < S) out[base + (long long)(t0 + i) * W] = h;
   }
 }
 
-// Steps per chunk: at most 64 chunks, so that the carry walk stays short.
-int chunk_len(int S) { return (S + 63) / 64; }
+// S = 1: one thread a (b, w)
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads)
+rglru_step_kernel(const T* __restrict__ u, const float* __restrict__ ga,
+                  const float* __restrict__ gi,
+                  const float* __restrict__ b_a,
+                  const float* __restrict__ b_i,
+                  const float* __restrict__ lam,
+                  const float* __restrict__ h0, float* __restrict__ out,
+                  int B, int W) {
+  const long long e = (long long)blockIdx.x * kStepThreads + threadIdx.x;
+  if (e >= (long long)B * W) return;
+  const int w = (int)(e % W);
+  float a, bb;
+  coeffs(to_f(u[e]), ga[e], gi[e], b_a[w], b_i[w], log_sigmoid(lam[w]), a,
+         bb);
+  out[e] = fmaf(a, h0 != nullptr ? h0[e] : 0.f, bb);
+}
+
+// G, the chunks a group. Up to kG kFold = 64 chunks, one group: a chunk's
+// carry-in folds every earlier chunk, at most 8 words a warp, one batch of
+// loads (and no chunk does a group's fold). Past that ceil(sqrt(nch)), so
+// that a chunk's carry-in folds fewer than 3 sqrt(nch) words.
+int group_size(int S) {
+  const int nch = (S + kChunk - 1) / kChunk;
+  if (nch <= kG * kFold) return nch;
+  int G = 1;
+  while (G * G < nch) ++G;
+  return G;
+}
 
 template <typename T>
 cudaError_t launch(const void* u, const float* ga, const float* gi,
                    const float* b_a, const float* b_i, const float* lam,
-                   const float* h0, float* work, float* out, int B, int S,
+                   const float* h0, float* out, void* work, int B, int S,
                    int W, cudaStream_t stream) {
-  const int L = chunk_len(S);
-  const int nch = (S + L - 1) / L;
-  const dim3 grid((W + kThreads - 1) / kThreads, nch, B);
-  float* agg_a = work;
-  float* agg_h = work + (long long)B * nch * W;
-  if (nch > 1) {
-    rglru_chunk_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(u), ga, gi, b_a, b_i, lam, agg_a, agg_h, S, W,
-        L);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  const T* ut = static_cast<const T*>(u);
+  if (S == 1) {
+    const long long n = (long long)B * W;
+    rglru_step_kernel<T><<<(unsigned)((n + kStepThreads - 1) / kStepThreads),
+                           kStepThreads, 0, stream>>>(ut, ga, gi, b_a, b_i,
+                                                      lam, h0, out, B, W);
+    return cudaGetLastError();
   }
-  rglru_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(u), ga, gi, b_a, b_i, lam, h0, agg_a, agg_h, out,
-      S, W, L);
+  const long long nch = (S + kChunk - 1) / kChunk;
+  const long long tiles = (W + kCw - 1) / kCw;
+  const int G = group_size(S);
+  int* ticket = static_cast<int*>(work);
+  auto* comp = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(work) + kTicketBytes);
+  auto kernel = G < nch ? rglru_scan_kernel<T, true>
+                        : rglru_scan_kernel<T, false>;
+  kernel<<<(unsigned)(B * nch * tiles), kThreads, 0, stream>>>(
+      ut, ga, gi, b_a, b_i, lam, h0, out, comp, comp + B * nch * W, ticket, B,
+      S, W, G);
   return cudaGetLastError();
 }
 
@@ -159,30 +336,36 @@ cudaError_t launch(const void* u, const float* ga, const float* gi,
 
 extern "C" {
 
-// Bytes of the chunk composites' workspace a call needs.
+// Bytes of the workspace a call needs, all of it to be filled with ones
+// by the caller: the ticket counter (in 16 bytes), then the chunks'
+// composites (64 bits, B x nch x W) and the groups' (B x ngr x W); none at
+// S = 1.
 long long rglru_scan_workspace_bytes(int B, int S, int W) {
-  const int L = chunk_len(S);
-  const long long nch = (S + L - 1) / L;
-  return 2 * (long long)B * nch * W * 4;
+  if (S <= 1) return 0;
+  const long long nch = (S + kChunk - 1) / kChunk;
+  const int G = group_size(S);
+  const long long ngr = (nch + G - 1) / G;
+  return kTicketBytes + 8LL * B * (nch + ngr) * W;
 }
 
-// Returns 0 or the cudaError_t of the first launch that failed. The caller
-// checks shapes and types: contiguous tensors, S, W, B >= 1; work holds
-// rglru_scan_workspace_bytes(B, S, W) bytes; h0 may be null.
+// Returns 0 or the cudaError_t of the launch. The caller checks shapes and
+// types: contiguous tensors, S, W, B >= 1; h0 may be null; work holds
+// rglru_scan_workspace_bytes(B, S, W) bytes, filled with ones. One launch
+// a call.
 int rglru_scan_launch(const void* u, const void* ga, const void* gi,
                       const void* b_a, const void* b_i, const void* lam,
                       const void* h0, void* work, void* out, int B, int S,
                       int W, int bf16, void* stream) {
-  if (B < 1 || S < 1 || W < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || W < 1 || (S > 1 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  float* wk = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(u, f(ga), f(gi), f(b_a), f(b_i), f(lam),
-                                   f(h0), wk, o, B, S, W, s)
-           : launch<float>(u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0),
-                           wk, o, B, S, W, s);
+                                   f(h0), o, work, B, S, W, s)
+           : launch<float>(u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), o,
+                           work, B, S, W, s);
   return (int)err;
 }
 

@@ -4,11 +4,15 @@ kernel, and the dispatch between it and its plain version (ref.py).
 
 The JAX package has no TPU kernel here: `_lru_coeffs` and
 `jax.lax.associative_scan` (repro/models/rglru.py:44-75) are XLA ops. The
-kernel computes the gates and h_t = a_t h_{t-1} + b_t in float32, time cut
-into at most 64 chunks: one launch forms each chunk's composite, a second
-carries h0 across the composites and runs each chunk's steps from its
-carry. A call with S > 1 is two launches, at S = 1 one (no composites),
-and adds each to the count.
+kernel computes the gates and h_t = a_t h_{t-1} + b_t in float32 in one
+pass: a block holds a chunk of 64 steps of 32 channels in its registers,
+publishes the chunk's composite, and runs its steps from h0 folded
+through the composites of the earlier chunks (past 64 chunks, of the
+groups of ceil(sqrt(chunks)) chunks before the last group, then of each
+chunk since) in a fixed order, so the inputs are read once, h is written
+once and the bits are the same on every call. A
+call is one launch, and adds one to the count "scan"; at S = 1 a step
+kernel with no workspace, counted in "step".
 
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
 plain version on any device; "auto" picks "cuda" for CUDA tensors and
@@ -28,7 +32,7 @@ from .ref import rglru_scan_ref
 
 # Launches: one added for each kernel launch, where it is launched, and
 # nowhere else (chip_smoke.py reads it to show a model ran here).
-LAUNCHES = {"scan": 0}
+LAUNCHES = {"scan": 0, "step": 0}
 
 
 @functools.cache
@@ -80,19 +84,23 @@ def rglru_scan_kernel(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
-    work = torch.empty(lib.rglru_scan_workspace_bytes(B, S, W),
-                       dtype=torch.uint8, device=u.device)
+    nbytes = lib.rglru_scan_workspace_bytes(B, S, W)
+    work = None
+    if nbytes:
+        # the ticket and the chunks' composites, all ones: unset
+        work = torch.full((nbytes,), 255, dtype=torch.uint8, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.rglru_scan_launch(
             u.data_ptr(), ga.data_ptr(), gi.data_ptr(), b_a.data_ptr(),
             b_i.data_ptr(), lam.data_ptr(),
-            None if h0 is None else h0.data_ptr(), work.data_ptr(),
-            out.data_ptr(), B, S, W, int(u.dtype == torch.bfloat16), stream)
+            None if h0 is None else h0.data_ptr(),
+            None if work is None else work.data_ptr(), out.data_ptr(), B, S,
+            W, int(u.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {err} "
                            f"({lib.rglru_scan_error_string(err).decode()})")
-    LAUNCHES["scan"] += 1 + (S > 1)         # composites, then the steps
+    LAUNCHES["step" if S == 1 else "scan"] += 1
     return out
 
 

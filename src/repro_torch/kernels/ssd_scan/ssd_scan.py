@@ -4,10 +4,14 @@ its plain version (ref.py).
 
 The JAX package has no TPU kernel here: its `_ssd_scan`
 (repro/models/ssm.py:59-110) is a `lax.scan` of einsums that XLA compiles.
-The kernel computes the same function in float32 on the CUDA cores: one
-launch forms C B^T of every chunk once for all heads, a second walks the
-chunks of each (batch, head) in order with the (P, N) state in shared
-memory. A call is two launches, and adds two to the count.
+The kernel computes the same function chunk-parallel: one launch forms
+C B^T of every chunk once for all heads and each chunk's own state, a
+second carries the state across the chunks in order, a third forms y of
+every chunk from its incoming state. With bf16 x its products run on the
+tensor cores in split TF32 (float32 accuracy); with float32 x on the CUDA
+cores, summed in the order of the plain version's float32 products. At S = 1 (a decode step) one launch moves
+the state a step, with no workspace. Each launch adds one to its count:
+"scan" three a call, "step" one a decode step.
 
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
 plain version on any device; "auto" picks "cuda" for CUDA tensors and
@@ -21,13 +25,14 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import build, resolve_impl
 from .ref import ssd_scan_ref
 
 # Launches: one added for each kernel launch, where it is launched, and
 # nowhere else (chip_smoke.py reads it to show a model ran here).
-LAUNCHES = {"scan": 0}
+LAUNCHES = {"scan": 0, "step": 0}
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 
 
@@ -37,7 +42,7 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_launch.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.ssd_scan_launch.restype = ctypes.c_int
-    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 6
     lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -93,21 +98,39 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         return y, (torch.zeros((B, H, P, N), dtype=torch.float32,
                                device=x.device) if h0 is None
                    else h0.clone())
+    if S > 1 and (P % 8 or N % 8):
+        # the chunk kernels read 16-byte vectors of rows of P and N values:
+        # zero columns add nothing, so pad to multiples of 8 and cut back
+        dp, dn = -P % 8, -N % 8
+        y, h = ssd_scan_kernel(
+            F.pad(x, (0, dp)), F.pad(b, (0, dn)), F.pad(c, (0, dn)), dt,
+            a_log, chunk, None if h0 is None else F.pad(h0, (0, dn, 0, dp)))
+        return y[..., :P].contiguous(), h[:, :, :P, :N].contiguous()
+    if S > 1:                   # and on 16-byte boundaries
+        x, b, c = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (x, b, c))
+        if h0 is not None and h0.data_ptr() % 16:
+            h0 = h0.clone()
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = _lib()
-    work = torch.empty(lib.ssd_scan_workspace_bytes(B, S, Q),
-                       dtype=torch.uint8, device=x.device)
+    nbytes = lib.ssd_scan_workspace_bytes(B, S, H, P, N, Q)
+    work = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            if nbytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
-            work.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N, Q,
-            int(x.dtype == torch.bfloat16), stream)
+            None if work is None else work.data_ptr(), y.data_ptr(),
+            h.data_ptr(), B, S, H, P, N, Q, int(x.dtype == torch.bfloat16),
+            stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"({lib.ssd_scan_error_string(err).decode()})")
-    LAUNCHES["scan"] += 2                   # C B^T, then the chunk walk
+    if S == 1:
+        LAUNCHES["step"] += 1               # the decode step
+    else:
+        LAUNCHES["scan"] += 3               # chunk states, carry, y
     return y, h
 
 

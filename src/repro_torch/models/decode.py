@@ -11,7 +11,9 @@ pytree instead).
 
 Cache kinds, one dict a layer:
   attn        full KV cache (B, Hkv, t_max, dh) with rope'd keys and the
-              absolute position held in each slot; raises when full
+              absolute position held in each slot; past t_max each step
+              overwrites the last slot, as the JAX package's clamped
+              dynamic_update_slice does
   local_attn  ring KV cache of min(t_max, local_window) slots, slot
               pos % t_cache, and the slot-position vector; never full
   ssd         SSDCache's fields: the (B, H, P, N) state and the conv tails
@@ -68,16 +70,15 @@ def _attn_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
                cache_l: dict, cfg: ModelConfig, length: int,
                kind: str) -> torch.Tensor:
     """h: (B, 1, D) normed input. Writes the slot of position length - 1
-    into cache_l (slot pos % slots in the ring of "local_attn") and returns
-    the attention output (B, 1, D)."""
+    into cache_l (slot pos % slots in the ring of "local_attn"; in a full
+    "attn" cache the last slot, min(pos, slots - 1), as the JAX package's
+    dynamic_update_slice clamps its start) and returns the attention output
+    (B, 1, D)."""
     B = h.shape[0]
     pos = length - 1                                    # current position
     t_cache = cache_l["k"].shape[2]
     window = cfg.local_window if kind == "local_attn" else None
-    if window is None and pos >= t_cache:
-        raise ValueError(f"KV cache full: position {pos} needs more than "
-                         f"{t_cache} slots")
-    slot = pos % t_cache
+    slot = pos % t_cache if window is not None else min(pos, t_cache - 1)
     q, k, v = gqa_project(p, h, cfg)                    # (B,*,1,dh)
     position = torch.arange(pos, pos + 1, device=h.device)
     q = rope(q, position, cfg.rope_theta)

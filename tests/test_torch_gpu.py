@@ -538,34 +538,80 @@ SSD_CASES = [  # (B, S, H, P, N, Q, dtype, h0)
     (4, 128, 80, 64, 128, 256, BF16, False),          # S < Q
     (1, 1, 80, 64, 128, 256, BF16, True),             # a decode step
     (1, 1, 80, 64, 128, 256, F32, True),
+    (4, 1, 80, 64, 128, 256, BF16, True),             # the decode shape
+    (4, 1, 80, 64, 128, 256, F32, True),
+    (4, 2048, 80, 64, 128, 256, BF16, True),          # h0 across 8 chunks
+    (1, 257, 80, 64, 128, 256, BF16, False),          # S = Q + 1
+    (2, 257, 8, 64, 128, 256, F32, True),
     (1, 600, 8, 64, 128, 256, F32, False),            # ragged S % Q
     (2, 300, 4, 64, 128, 128, F32, True),             # h0 carry
     (2, 21, 8, 16, 16, 8, F32, False),                # mamba2 smoke shapes
     (2, 37, 3, 40, 100, 16, F32, True),               # P, N, Q not tiles
+    (3, 1, 3, 40, 100, 16, F32, True),                # N % 4: scalar step
 ]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,Q,dtype,h0", SSD_CASES)
 def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, Q, dtype, h0):
-    """The kernel against its plain version on the same inputs: both in
-    float32 past x, summed in other orders (the kernel's C B^T and its
-    products in 32-wide panels, one accumulator for y's two terms), so
-    within 1e-4 of y's and the state's largest value; bf16 rounds y
-    once more (2^-8 relative)."""
+    """The kernel against its plain version on the same inputs: its
+    products in split TF32 (float32 accuracy) and the plain version's in
+    float32, summed in other orders (chunk-parallel, the state carried by
+    a second launch, y's two terms in one accumulator), so within 1e-4 of
+    y's and the state's largest value; bf16 rounds y once more (2^-8
+    relative). Three launches a call, counted in "scan"; one at S = 1
+    (the decode step), counted in "step"."""
     from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_kernel,
                                               ssd_scan_ref)
     rng = np.random.default_rng(S + H + N)
     args = _ssd_inputs(rng, B, S, H, P, N, dtype, cuda, h0)
-    before = LAUNCHES["scan"]
+    before = dict(LAUNCHES)
     y, h = ssd_scan_kernel(*args[:5], Q, h0=args[5])
     torch.cuda.synchronize()
-    assert LAUNCHES["scan"] == before + 2
+    assert LAUNCHES == ({"scan": before["scan"], "step": before["step"] + 1}
+                        if S == 1 else
+                        {"scan": before["scan"] + 3, "step": before["step"]})
     yr, hr = ssd_scan_ref(*args[:5], Q, h0=args[5])
     assert y.dtype == dtype and h.dtype == F32
     tol = 1e-4 if dtype == F32 else 1e-2
     assert float((y.float() - yr.float()).abs().max()) <= \
         tol * float(yr.float().abs().max())
     assert float((h - hr).abs().max()) <= 1e-4 * float(hr.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_ssd_scan_rising_cum_matches_plain(cuda, dtype):
+    """With some dt < 0, cum rises inside a chunk and the kernel forms
+    every W element with its own exp (the factored form below a panel
+    needs cum never to rise): still the plain version's result, at the
+    tolerances of `test_ssd_scan_matches_plain`."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_ref
+    rng = np.random.default_rng(13)
+    x, b, c, _, a_log, h0 = _ssd_inputs(rng, 2, 300, 8, 64, 128, dtype,
+                                        cuda, True)
+    dt = torch.as_tensor(0.1 * rng.standard_normal((2, 300, 8)), dtype=F32,
+                         device=cuda)
+    assert bool((dt < 0).any())
+    y, h = ssd_scan_kernel(x, b, c, dt, a_log, 256, h0=h0)
+    yr, hr = ssd_scan_ref(x, b, c, dt, a_log, 256, h0=h0)
+    tol = 1e-4 if dtype == F32 else 1e-2
+    assert float((y.float() - yr.float()).abs().max()) <= \
+        tol * float(yr.float().abs().max())
+    assert float((h - hr).abs().max()) <= 1e-4 * float(hr.abs().max())
+
+
+@pytest.mark.parametrize("B,S,dtype", [(1, 2048, BF16), (4, 2048, F32),
+                                       (4, 1, BF16), (4, 1, F32)])
+def test_ssd_scan_repeats_bit_for_bit(cuda, B, S, dtype):
+    """Every sum of the kernel runs in a fixed order: the same inputs give
+    the same bits, call after call (Mamba2-2.7B's widths, prefill and the
+    decode step)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    rng = np.random.default_rng(11)
+    args = _ssd_inputs(rng, B, S, 80, 64, 128, dtype, cuda, True)
+    y, h = ssd_scan_kernel(*args[:5], 256, h0=args[5])
+    for _ in range(3):
+        y2, h2 = ssd_scan_kernel(*args[:5], 256, h0=args[5])
+        assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 def test_ssd_scan_refuses_bad_operands(cuda):
@@ -598,6 +644,10 @@ LRU_CASES = [  # (B, S, W, dtype, h0)
     (1, 4096, 2560, BF16, False),                     # recurrentgemma-2b
     (4, 128, 2560, BF16, False),
     (4, 1, 2560, BF16, True),                         # a decode step
+    (4, 1, 2560, F32, True),
+    (2, 129, 2560, BF16, True),                       # one window + 1
+    (1, 16384, 256, F32, True),                       # 128 windows
+    (1, 32768, 2560, BF16, True),                     # 512 chunks in groups
     (2, 1000, 300, F32, True),                        # ragged W, h0 carry
     (3, 65, 64, F32, False),                          # smoke width
     (1, 7, 5, F32, True),
@@ -608,20 +658,36 @@ LRU_CASES = [  # (B, S, W, dtype, h0)
 def test_rglru_scan_matches_plain(cuda, B, S, W, dtype, h0):
     """The fused kernel against the plain gates and doubling scan: both in
     float32; the kernel runs the recurrence step by step from each
-    chunk's carry and the plain version as a log-depth tree, and expf and
-    the sigmoids round apart from PyTorch's by an ulp, so h agrees within
-    1e-5 of its largest value."""
+    segment's carry and the plain version as a log-depth tree, and expf
+    and the sigmoids round apart from PyTorch's by an ulp, so h agrees
+    within 1e-5 of its largest value. One launch a call ("step" at
+    S = 1)."""
     from repro_torch.kernels.rglru_scan import (LAUNCHES, rglru_scan_kernel,
                                                 rglru_scan_ref)
     rng = np.random.default_rng(S + W)
     args = _lru_inputs(rng, B, S, W, dtype, cuda, h0)
-    before = LAUNCHES["scan"]
+    before = dict(LAUNCHES)
     h = rglru_scan_kernel(*args)
     torch.cuda.synchronize()
-    assert LAUNCHES["scan"] == before + 1 + (S > 1)
+    key = "step" if S == 1 else "scan"
+    assert LAUNCHES == dict(before, **{key: before[key] + 1})
     r = rglru_scan_ref(*args)
     assert h.dtype == F32 and h.shape == (B, S, W)
     assert float((h - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("B,S,dtype", [(1, 4096, BF16), (4, 1, BF16),
+                                       (1, 16384, F32)])
+def test_rglru_scan_repeats_bit_for_bit(cuda, B, S, dtype):
+    """The windows' folds run in a fixed order: the same inputs give the
+    same bits, call after call (RecurrentGemma-2B's width)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+    rng = np.random.default_rng(12)
+    args = _lru_inputs(rng, B, S, 2560 if S < 16384 else 256, dtype, cuda,
+                       True)
+    h = rglru_scan_kernel(*args)
+    for _ in range(3):
+        assert torch.equal(h, rglru_scan_kernel(*args))
 
 
 def test_rglru_scan_refuses_bad_operands(cuda):
@@ -641,9 +707,9 @@ def test_rglru_scan_refuses_bad_operands(cuda):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
 def test_recurrent_smoke_forward_through_kernels(cuda, arch):
-    """A smoke Mamba2 / RecurrentGemma forward launches its scan's two
-    kernels once per SSD / RG-LRU layer and the flash kernel once per
-    local_attn layer,
+    """A smoke Mamba2 / RecurrentGemma forward launches the SSD scan's three
+    kernels once per SSD layer, the RG-LRU's one per RG-LRU layer and the
+    flash kernel once per local_attn layer,
     agrees with the plain versions, and its decode path (the scans at
     S = 1 from the cached states) agrees with the forward past the
     window's ring (float32, no TF32)."""
@@ -663,8 +729,8 @@ def test_recurrent_smoke_forward_through_kernels(cuda, arch):
     torch.cuda.synchronize()
     assert (FLASH["fwd"], SSD["scan"], LRU["scan"]) == (
         before[0] + kinds.count("local_attn"),
-        before[1] + 2 * kinds.count("ssd"),
-        before[2] + 2 * kinds.count("rglru"))
+        before[1] + 3 * kinds.count("ssd"),
+        before[2] + kinds.count("rglru"))
     ref, _ = model(tokens, impl="ref")
     torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-4)
     eng = ServeEngine(cfg, model, max_len=48, device=cuda)

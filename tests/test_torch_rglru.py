@@ -7,9 +7,12 @@ what the recurrence runs for CPU tensors) against
 `jax.lax.associative_scan` over the same (a, b) pairs, within 1e-5 of the
 largest value: both are log-depth trees over the same algebra, combined in
 another order, so they round apart by float32 ulps. The kernel on the card
-runs the recurrence step after step from each chunk's carry instead; its
-rounding against this plain version is held in tests/test_torch_gpu.py
-(1e-5 of the largest value as well). The layer (`rglru_apply`) and its
+runs the recurrence step after step from each segment's carry instead; its
+design (segment, chunk and group composites, the carry folded through the
+earlier groups and chunks in a fixed order) is rendered plainly here and
+held to this plain
+version, and the kernel itself in tests/test_torch_gpu.py (1e-5 of the
+largest value as well). The layer (`rglru_apply`) and its
 decode step are held against the JAX package's, the step also against the
 port's own prefill form. The smoke RecurrentGemma model, JAX weights
 carried across by `interop.lm_params_from_arrays`, matches the JAX
@@ -19,6 +22,7 @@ wraps; and at 5 layers, where `stack_plan` leaves a tail of two layers
 after one repeat of the 3-layer pattern.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -115,6 +119,94 @@ def test_scan_carries_h0():
     assert torch.equal(rglru_scan(u, ga, gi, b_a, b_i, lam), h)
     with pytest.raises(ValueError, match="CUDA"):
         rglru_scan(u, ga, gi, b_a, b_i, lam, impl="cuda")
+
+
+def rglru_chunked(u, ga, gi, b_a, b_i, lam, h0=None, chunk=64, seg=8,
+                  warps=8):
+    """The one-pass RG-LRU of kernels/rglru_scan/csrc/rglru_scan.cu in plain
+    PyTorch, its fold order included: `lru_coeffs` once; time in chunks
+    of `chunk` steps, each cut into segments of `seg`; a segment's
+    composite (the product of a, and h from a zero start) and the chunk's,
+    its segments folded in order; past 64 chunks, groups of G =
+    ceil(sqrt(nch)) chunks (else one group of all), a group's composite
+    its chunks' folded in order; the carry into chunk
+    k is h0 folded through the list of the composites of the groups
+    before the last one and then those of every chunk since, as `warps`
+    contiguous ranges (ceil(len / warps) words each), each range folded
+    in order, then the ranges in order; a segment runs its steps from the
+    chunk's carry folded through the segments before it."""
+    a, bb = lru_coeffs(u, ga, gi, b_a, b_i, lam)
+    B, S, W = a.shape
+    nch = -(-S // chunk)
+    G = nch if nch <= 64 else math.isqrt(nch - 1) + 1
+
+    def fold(pairs, h):
+        for pa, ph in pairs:
+            h = pa * h + ph
+        return h
+
+    def composite(pairs):
+        ca, ch = torch.ones((B, W)), torch.zeros((B, W))
+        for pa, ph in pairs:
+            ch = pa * ch + ph
+            ca = ca * pa
+        return ca, ch
+
+    segs, comps = [], []
+    for k in range(nch):
+        s_k = []
+        for t0 in range(k * chunk, min(S, (k + 1) * chunk), seg):
+            s_k.append(composite([(a[:, t], bb[:, t]) for t in
+                                  range(t0, min(S, t0 + seg))]))
+        segs.append(s_k)
+        comps.append(composite(s_k))
+    groups = [composite(comps[g0:g0 + G]) for g0 in range(0, nch, G)]
+    out = torch.empty((B, S, W))
+    for k in range(nch):
+        ng = max(k // G - 1, 0)
+        words = groups[:ng] + comps[ng * G:k]
+        per = -(-len(words) // warps)
+        ranges = [composite(words[j * per:(j + 1) * per])
+                  for j in range(warps)]
+        carry = fold(ranges, torch.zeros((B, W)) if h0 is None else h0)
+        for i, t0 in enumerate(range(k * chunk, min(S, (k + 1) * chunk),
+                                     seg)):
+            h = fold(segs[k][:i], carry)
+            for t in range(t0, min(S, t0 + seg)):
+                h = a[:, t] * h + bb[:, t]
+                out[:, t] = h
+    return out
+
+
+@pytest.mark.parametrize("S,h0", [(7, True), (64, False), (65, True),
+                                  (1000, True), (4096, False),
+                                  (8192, True)])
+def test_one_pass_fold_order_matches_plain(S, h0):
+    """The kernel's design (gates once, segment, chunk and group
+    composites, the carry folded through the earlier groups and chunks in
+    ranges in a fixed order) is the plain version's recurrence: within
+    1e-5 of h's largest value, the kernel tests' tolerance, from one
+    segment to 64 chunks (one group) and 128 (11 groups of 12), with h0;
+    and
+    it equals the plain step-by-step recurrence to the same bound."""
+    rng = np.random.default_rng(S)
+    W = 24
+    u, ga, gi = (torch.from_numpy(rng.standard_normal((2, S, W))
+                                  .astype(np.float32)) for _ in range(3))
+    b_a, b_i = (torch.from_numpy(0.5 * rng.standard_normal(W)
+                                 .astype(np.float32)) for _ in range(2))
+    lam = torch.from_numpy(rng.standard_normal(W).astype(np.float32) + 1)
+    h0_t = (torch.from_numpy(rng.standard_normal((2, W)).astype(np.float32))
+            if h0 else None)
+    h = rglru_chunked(u, ga, gi, b_a, b_i, lam, h0_t)
+    close(h.numpy(), rglru_scan_ref(u, ga, gi, b_a, b_i, lam, h0_t).numpy())
+    a, bb = lru_coeffs(u, ga, gi, b_a, b_i, lam)
+    hs = torch.zeros((2, W)) if h0_t is None else h0_t
+    seq = torch.empty_like(h)
+    for t in range(S):
+        hs = a[:, t] * hs + bb[:, t]
+        seq[:, t] = hs
+    close(h.numpy(), seq.numpy())
 
 
 def test_rglru_apply_matches_reference(layer):

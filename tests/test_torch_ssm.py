@@ -12,6 +12,13 @@ form. The smoke Mamba2 model, JAX weights carried across by
 `interop.lm_params_from_arrays`, matches the JAX `forward` and
 `decode_step` within rtol/atol 1e-4 over a ragged 21-token sequence.
 
+The CUDA kernel's design is held here too, rendered plainly: its split of
+the scan into chunk states, the carry and y (with its panel-wise W) against
+`ssd_scan_ref`, and, at Mamba2-2.7B's chunk shapes, its bf16 path's TF32
+split, emulated by rounding float32 to TF32 by its bits as `cvt.rna`
+does, within the GPU tests' 1e-4, and its float32 path (float32 products,
+W unfactored) within 1e-5.
+
 One departure from the JAX package, pinned here: the port's decode step
 moves the state through the scan (at S = 1, from the cached state; the
 kernel on the card) where the JAX package writes the one-step update out,
@@ -96,6 +103,177 @@ def test_ssd_scan_dispatch_on_cpu():
     assert torch.equal(y, yr) and torch.equal(h, hr)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(*args, 4, impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's algebra and numerics, rendered plainly on the CPU
+# ---------------------------------------------------------------------------
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) by its bits, to nearest
+    with ties away from zero, as `cvt.rna.tf32.f32` does: add half of the
+    13 dropped bits' unit to the magnitude, then clear them."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_matmul(a, b, exact_a=False, exact_b=False):
+    """a @ b as the kernel's tensor cores form it: each float32 operand
+    split into TF32 hi and lo (lo = the rounding of a - hi), a product of
+    two split operands hi.lo' + lo.hi' + hi.hi' (lo.lo' dropped), one with
+    a bf16 operand (exact in TF32) two products. The products are exact
+    and summed in float64, then rounded to float32: what is held here is
+    the split's own error."""
+    def parts(m, exact):
+        hi = m.float() if exact else tf32_rna(m)
+        lo = torch.zeros_like(hi) if exact else tf32_rna(m.float() - hi)
+        return hi.double(), lo.double()
+    ah, al = parts(a, exact_a)
+    bh, bl = parts(b, exact_b)
+    return (al @ bh + ah @ bl + ah @ bh).float()
+
+
+def f32_matmul(a, b, exact_a=False, exact_b=False):
+    return a.float() @ b.float()
+
+
+def ssd_chunk_parallel(x, b, c, dt, a_log, chunk, h0=None, mm=f32_matmul,
+                       exact=False, panel=32, factored=True):
+    """The chunk-parallel SSD of kernels/ssd_scan/csrc/ssd_scan.cu in plain
+    PyTorch, on the CPU: (a) C B^T of each chunk, shared by the heads;
+    (b) each chunk's own state from zero, s_c = (x tail)^T @ B; (c) the
+    carry over the chunks in order, h_c = exp(cum_last) h_{c-1} + s_c,
+    leaving each chunk's incoming state; (d) y = exp(cum) (C @ h_in^T)
+    + W @ x, with W formed panel by panel as the kernel stores it: per
+    element exp(cum_t - cum_s) dt_s in a panel's diagonal block, and below
+    it, where dt >= 0, exp(cum_t - cum_piv) times exp(cum_piv - cum_s)
+    dt_s, piv the panel's last real step (`factored`; the kernel's float32
+    path forms every element unfactored). `mm` forms the products (plain
+    float32 or `split_matmul`); `exact`: x, b, c hold bf16 values, not
+    split. Shapes and results those of `ssd_scan_ref`, in float32."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    A = -torch.exp(a_log.float())
+    h = (torch.zeros((B, H, P, N)) if h0 is None else h0.float()).clone()
+    y = torch.zeros((B, S, H, P))
+    mono = factored and bool((dt >= 0).all())
+    states, cums = [], []
+    for ci in range(nc):                     # (b): independent of the carry
+        sl = slice(ci * Q, min(S, (ci + 1) * Q))
+        cum = torch.cumsum(dt[:, sl].float() * A, dim=1)      # (B, qc, H)
+        tail = torch.exp(cum[:, -1:] - cum) * dt[:, sl]
+        xw = x[:, sl].float() * tail[..., None]                # (B, qc, H, P)
+        st = torch.stack([torch.stack(
+            [mm(xw[bi, :, hh].T, b[bi, sl], exact_b=exact)
+             for hh in range(H)]) for bi in range(B)])         # (B, H, P, N)
+        states.append(st)
+        cums.append(cum)
+    h_in = []
+    for ci in range(nc):                     # (c): the only sequential part
+        h_in.append(h.clone())
+        h = h * torch.exp(cums[ci][:, -1])[:, :, None, None] + states[ci]
+    for ci in range(nc):                     # (d)
+        sl = slice(ci * Q, min(S, (ci + 1) * Q))
+        qc = sl.stop - sl.start
+        cum, dtc = cums[ci], dt[:, sl].float()
+        for bi in range(B):
+            cb = mm(c[bi, sl], b[bi, sl].T, exact_a=exact, exact_b=exact)
+            for hh in range(H):
+                cm = cum[bi, :, hh]
+                w = torch.zeros((qc, qc))
+                for s0 in range(0, qc, panel):
+                    piv = min(s0 + panel, qc) - 1
+                    cols = torch.arange(s0, piv + 1)
+                    for t in range(s0, qc):
+                        if mono and t > piv:
+                            w[t, cols] = cb[t, cols] * torch.exp(
+                                cm[t] - cm[piv]) * (torch.exp(
+                                    cm[piv] - cm[cols]) * dtc[bi, cols, hh])
+                        else:
+                            s_ok = cols[cols <= t]
+                            w[t, s_ok] = cb[t, s_ok] * torch.exp(
+                                cm[t] - cm[s_ok]) * dtc[bi, s_ok, hh]
+                inter = mm(c[bi, sl], h_in[ci][bi, hh].T, exact_a=exact)
+                y[bi, sl, hh] = (inter * torch.exp(cm)[:, None]
+                                 + mm(w, x[bi, sl, hh], exact_b=exact))
+    return y, h
+
+
+@pytest.mark.parametrize("S,chunk,h0", [(21, 8, False), (37, 16, True),
+                                        (70, 32, True)],
+                         ids=["smoke", "ragged_h0", "panels"])
+def test_chunk_parallel_algebra_matches_plain(S, chunk, h0):
+    """The kernel's split of the scan (chunk states from zero, the carry,
+    then y from each chunk's incoming state, W panel by panel with the
+    factored exp below each panel's diagonal block) is the plain
+    version's function: float32 products, held to `ssd_scan_ref` within
+    1e-5 of y's and the state's largest value, at the smoke shapes (P = N
+    = 16), ragged S, several chunks and panels, with h0."""
+    rng = np.random.default_rng(S)
+    args = [torch.from_numpy(a) for a in scan_inputs(rng, 2, S, 3, 16, 16)]
+    h0_t = (torch.from_numpy(rng.standard_normal((2, 3, 16, 16))
+                             .astype(np.float32)) if h0 else None)
+    y, h = ssd_chunk_parallel(*args, chunk, h0_t, panel=8)
+    yr, hr = ssd_scan_ref(*args, chunk, h0_t)
+    close(y.numpy(), yr.numpy())
+    close(h.numpy(), hr.numpy())
+
+
+def test_tf32_rna_rounds_like_cvt():
+    """tf32_rna keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero, for both signs."""
+    one = 1.0 + 2.0 ** -10                   # representable in TF32
+    half = 2.0 ** -11                        # half a TF32 unit at 1
+    v = torch.tensor([1.0, one, 1.0 + half, -(1.0 + half), 1.0 + half / 2,
+                      1.0 + 3 * half], dtype=torch.float32)
+    want = torch.tensor([1.0, one, one, -one, 1.0, 1.0 + 2 ** -9],
+                        dtype=torch.float32)
+    assert torch.equal(tf32_rna(v), want)
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal(1000)
+                         .astype(np.float32))
+    r = tf32_rna(w)
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((r - w).abs() / w.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tf32_split_holds_the_kernel_tolerance(dtype):
+    """The kernel's products at Mamba2-2.7B's chunk shapes (Q = 256,
+    P = 64, N = 128; 2 heads, 2 chunks with a ragged one, h0), held to the
+    plain float32 version on the same (bf16-valued, for bf16) inputs. bf16
+    x, b, c: the kernel's algebra with every product formed as
+    `split_matmul` (2 TF32 products with a bf16 operand, 1 for bf16 C B^T)
+    within 1e-4 of y's and the state's largest value, the GPU tests'
+    tolerance. float32: the kernel's CUDA-core path, float32 products and
+    W formed unfactored, within 1e-5. In both, a single unsplit TF32
+    product misses 1e-4."""
+    rng = np.random.default_rng(7)
+    x, b, c, dt, a_log = (torch.from_numpy(a) for a in
+                          scan_inputs(rng, 1, 256 + 37, 2, 64, 128))
+    if dtype == "bfloat16":
+        x, b, c = (t.bfloat16().float() for t in (x, b, c))
+    h0 = torch.from_numpy(rng.standard_normal((1, 2, 64, 128))
+                          .astype(np.float32))
+    exact = dtype == "bfloat16"
+    yr, hr = ssd_scan_ref(x, b, c, dt, a_log, 256, h0)
+    if exact:
+        y, h = ssd_chunk_parallel(x, b, c, dt, a_log, 256, h0,
+                                  mm=split_matmul, exact=True)
+    else:
+        y, h = ssd_chunk_parallel(x, b, c, dt, a_log, 256, h0,
+                                  factored=False)
+    ey = float((y - yr).abs().max() / yr.abs().max())
+    eh = float((h - hr).abs().max() / hr.abs().max())
+    tol = 1e-4 if exact else 1e-5
+    assert ey <= tol and eh <= tol, (ey, eh)
+
+    def tf32_matmul(a, b, exact_a=False, exact_b=False):
+        return (tf32_rna(a).double() @ tf32_rna(b).double()).float()
+    y1, h1 = ssd_chunk_parallel(x, b, c, dt, a_log, 256, h0, mm=tf32_matmul)
+    e1 = max(float((y1 - yr).abs().max() / yr.abs().max()),
+             float((h1 - hr).abs().max() / hr.abs().max()))
+    assert e1 > 1e-4 > 10 * max(ey, eh), (e1, ey, eh)
 
 
 @pytest.fixture(scope="module")
