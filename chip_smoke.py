@@ -15,10 +15,13 @@ Phases, each printing its own lines and seconds:
               version on random cases and cases built round its chunks of
               2,048 edges, run to run and lane by lane;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
-              at head dim 64, 128 or 256, the CUDA-core lane for the rest)
-              against their plain version, with and without a local
-              window, and the CUDA-core lane's resident warps per SM,
-              registers and spills;
+              at head dims (64, 64), (128, 128), (256, 256) or (192, 128),
+              the CUDA-core lane for the rest) against their plain
+              version, with and without a local window, and the CUDA-core
+              lane's resident warps per SM, registers and spills; then at
+              DeepSeek-V3's (Dk, Dv) = (192, 128) and with PaliGemma's
+              prefix-LM mask (D in {64, 128, 256}; prefix 0, 1, a tile
+              edge, past S), both lanes, bf16 and float32;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -146,7 +149,35 @@ Phases, each printing its own lines and seconds:
               beside its plain version, the library call where there is
               one and the bound; both models' forward and decode-step
               times and the card's busy share; the roofline of both
-              prefills.
+              prefills;
+ 25. main   : DeepSeek-V3 at full width cut to 4 of 61 layers (item
+              10.4; its 3 dense layers and the first MoE layer, 15.1e9
+              random bf16 weights from --seed, 30.2 GB): the forward of
+              4 x 128 tokens through the tensor-core flash kernel at
+              (Dk, Dv) = (192, 128), H = Hkv = 128 (4 launches), its
+              routing (drops at capacity 1.25, C = 20), the plain
+              attention under the same routing against it, greedy
+              generation of 32 tokens (absorbed-matrix decode over the
+              latent cache), the decode path against the forward at every
+              position, a 2048-token prefill; a float32 copy cut to one
+              dense MLA layer (9.75 GB) through the CUDA-core lane, held
+              to impl="ref" and its decode path to 1e-4;
+ 26. timing : the flash kernel at the MLA prefill shape beside its plain
+              version, SDPA and the bound (and the CUDA-core lane in
+              float32); forward and decode-step times, the card's busy
+              share and the roofline of the prefill and decode step;
+ 27. main   : PaliGemma-3B uncut (item 10.5; 2.5e9 weights, 5.0 GB) with a
+              prefix of 256 random patch embeddings: the forward of
+              4 x (256 + 128) positions through the tensor-core kernel at
+              D = 256 with the prefix-LM mask against the plain attention,
+              a 1 x (256 + 1792) prefill, the decode path (no prefix, as
+              in the JAX package) and greedy generation of 32 tokens; a
+              float32 copy (10 GB) held to impl="ref" and its decode path
+              to 1e-4;
+ 28. timing : the flash kernel at the PaliGemma prefill shape with the
+              prefix beside its plain version, SDPA given the prefix-LM
+              mask and the bound; forward and decode-step times, the busy
+              share and the roofline of the long prefill.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -306,6 +337,16 @@ RING_WINDOW = 64
 RECUR_ARCHS = {"mamba2-2.7b": dict(prefill=(1, 2048), params=2_702_296_576),
                "recurrentgemma-2b": dict(prefill=(1, 4096),
                                          params=2_894_528_000)}
+# DeepSeek-V3 (ROADMAP Queue 1 item 10.4) at full width cut from 61 to 4
+# layers, its 3 dense layers and the first MoE layer (15.1e9 parameters,
+# 30.2 GB in bf16), and a float32 copy cut to one dense MLA layer (2.4e9,
+# 9.75 GB); PaliGemma-3B (item 10.5) uncut (2.5e9, 5.0 GB; 10 GB in
+# float32), its 256-position prefix ahead of 128 prompt tokens and of a
+# 1792-token text in the long prefill. Parameter counts: the JAX
+# package's model_defs.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
+MLA_PARAMS, MLA_F32_PARAMS = 15_111_101_440, 2_436_848_640
+VLM_ARCH, VLM_PARAMS, VLM_LONG_TEXT = "paligemma-3b", 2_508_793_856, 1792
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 RGLRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 # the paper's iteration on SGD (training/async_dp.py): p = 4 UEs at seed 0,
@@ -1960,31 +2001,35 @@ def async_main_path(g, cold, trace, smi):
     return launches
 
 
-def attention_pairs(S, T, causal, window=None):
+def attention_pairs(S, T, causal, window=None, prefix=0):
     """The allowed (query, key) pairs of one head: row i sees keys j < T
-    with j <= i where causal (top-left) and j > i - window where a window
-    is given."""
+    with j <= i or j < prefix where causal (top-left; a prefix-LM's prefix
+    is seen by every row), and j > i - window where a window is given."""
     import numpy as np
     i = np.arange(S)
-    hi = np.minimum(i + 1, T) if causal else np.full(S, T)
+    hi = (np.minimum(np.maximum(i + 1, prefix), T) if causal
+          else np.full(S, T))
     lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def attention_flops(q, k, causal, window=None):
-    """The work of one attention call: 4 * D flops per allowed (query, key)
-    pair and head (q k^T and p v)."""
+def attention_flops(q, k, causal, window=None, prefix=0, dv=None):
+    """The work of one attention call: 2 (Dk + Dv) flops per allowed
+    (query, key) pair and head (q k^T and p v; 4 D where Dv = Dk)."""
     B, H, S, D = q.shape
-    return 4.0 * B * H * D * attention_pairs(S, k.shape[2], causal, window)
+    dv = D if dv is None else dv
+    return 2.0 * B * H * (D + dv) * attention_pairs(S, k.shape[2], causal,
+                                                    window, prefix)
 
 
-def attention_bound(q, k, v, causal, window=None):
+def attention_bound(q, k, v, causal, window=None, prefix=0):
     """Least time (ms) for one attention call on these operands: q, k, v
-    read once and o written once at the HBM rate, against the work
-    (`attention_flops`) at the peak for the operands' type: dense bf16 on
-    the tensor cores, float32 on the CUDA cores."""
-    flops = attention_flops(q, k, causal, window)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    read once and o (B, H, S, Dv) written once at the HBM rate, against
+    the work (`attention_flops`) at the peak for the operands' type: dense
+    bf16 on the tensor cores, float32 on the CUDA cores."""
+    flops = attention_flops(q, k, causal, window, prefix, v.shape[-1])
+    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v))
+              + q.numel() // q.shape[-1] * v.shape[-1] * q.element_size())
     return roofline_ms(flops, nbytes, str(q.dtype)[6:])
 
 
@@ -3647,6 +3692,620 @@ def recurrent_roofline(cfg, times, smi):
           f"no collective term on one card")
 
 
+def mla_prefix_against_plain(cuda):
+    """The flash kernels at DeepSeek-V3's head dims (Dk = 192 over
+    Dv = 128; its smoke config's 24 over 16) and with PaliGemma's prefix
+    (D in {64, 128, 256}), in bf16 and float32, against their plain
+    version: lengths that are no tile multiple, S != T, prefix lengths of
+    0, 1, a tile edge and past S, the prefix beside a window and without
+    causal (where it changes nothing), and the main paths' shapes. Held
+    as `flash_against_plain` holds its cases. Returns the largest
+    |kernel - plain| per key: "mla" (the tensor-core lane at (192, 128)),
+    "prefix" (the tensor-core lane with a prefix), "f32" (the CUDA-core
+    lane)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     kernel_info,
+                                                     kernel_lane)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the CUDA-core lane at a value head dim of its own, as compiled
+    for Dk, Dv, dt in ((192, 128, f32), (24, 16, f32), (24, 16, bf16),
+                       (160, 128, bf16)):
+        info = kernel_info(Dk, dt, Dv)
+        warps = info["blocks_per_sm"] * info["threads"] // 32
+        check(info["local_bytes"] == 0 and warps >= 8,
+              f"flash f32 lane (Dk, Dv) = ({Dk}, {Dv}) {str(dt)[6:]}: "
+              f"{info['blocks_per_sm']} block(s) x {info['threads']} "
+              f"threads = {warps} warps per SM, {info['registers']} "
+              f"registers, {info['local_bytes']} spill bytes, "
+              f"{info['smem_bytes']:,} B of shared memory a block")
+    B4, S4 = YI_BATCH, YI_PROMPT
+    cases = [  # (B, H, Hkv, S, T, Dk, Dv, causal, dtype, window, prefix)
+        (1, 128, 128, 2048, 2048, 192, 128, True, bf16, None, 0),  # main
+        (B4, 128, 128, S4, S4, 192, 128, True, bf16, None, 0),
+        (B4, 128, 128, S4, S4, 192, 128, True, f32, None, 0),
+        (1, 8, 8, 1000, 1000, 192, 128, True, bf16, None, 0),
+        (1, 8, 8, 1000, 1000, 192, 128, True, f32, None, 0),
+        (1, 4, 4, 129, 129, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 1, 1, 192, 128, True, bf16, None, 0),
+        (1, 4, 2, 128, 300, 192, 128, True, bf16, None, 0),
+        (1, 4, 2, 300, 130, 192, 128, True, bf16, None, 0),
+        (1, 4, 2, 300, 130, 192, 128, True, f32, None, 0),
+        (2, 4, 4, 129, 129, 24, 16, True, f32, None, 0),    # smoke widths
+        (1, 4, 2, 150, 150, 24, 16, True, bf16, None, 0),
+        (1, 8, 1, 2048, 2048, 256, 256, True, bf16, None, 256),  # main
+        (B4, 8, 1, 256 + S4, 256 + S4, 256, 256, True, bf16, None, 256),
+        (B4, 8, 1, 256 + S4, 256 + S4, 256, 256, True, f32, None, 256),
+        (1, 4, 2, 200, 520, 64, 64, True, bf16, None, 300),     # S < T
+        (1, 4, 2, 520, 200, 128, 128, True, f32, None, 150),    # S > T
+        (1, 4, 2, 300, 300, 128, 128, True, bf16, 100, 150),    # + window
+        (1, 4, 2, 300, 300, 128, 128, True, f32, 100, 150),
+        (1, 4, 2, 300, 300, 128, 128, False, bf16, None, 150),  # no effect
+        (1, 4, 2, 300, 300, 192, 128, True, bf16, None, 150),   # MLA too
+        (2, 4, 1, 40, 40, 16, 16, True, f32, None, 8),          # smoke
+    ]
+    # prefix 0, 1, a tile edge (the tensor-core lane's kv tiles are 64
+    # rows at D = 256, else 128; the CUDA-core lane's 128), one past it,
+    # past S, at S = T = 300
+    for D in (64, 128, 256):
+        edge = 64 if D == 256 else 128
+        for dt in (bf16, f32):
+            for prefix in (0, 1, edge, edge + 1, 1000):
+                cases.append((1, 4, 2, 300, 300, D, D, True, dt, None,
+                              prefix))
+    worst = {"mla": 0.0, "prefix": 0.0, "f32": 0.0}
+    worst_rel = dict(worst)
+    for B, H, Hkv, S, T, Dk, Dv, causal, dt, window, prefix in cases:
+        g = torch.Generator(device=cuda).manual_seed(
+            S * 1000 + T + Dk + Dv + prefix)
+        q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dt)
+                   for shape in ((B, H, S, Dk), (B, Hkv, T, Dk),
+                                 (B, Hkv, T, Dv)))
+        lane = kernel_lane(dt, Dk, Dv)
+        before = dict(LAUNCHES)
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            prefix_len=prefix)
+        r = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                prefix_len=prefix)
+        torch.cuda.synchronize()
+        on_lane = (LAUNCHES["wgmma"] - before["wgmma"] == (lane == "wgmma")
+                   and LAUNCHES["fwd"] - before["fwd"] == 1)
+        tol = 1e-4 if dt == f32 else 3e-2
+        diff = (o.float() - r.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= tol + tol * r.float().abs()).all())
+        rel, lim = row_rel_err(o, r), ROW_REL_LIMIT[str(dt)[6:]]
+        check(ok and rel <= lim and on_lane and o.dtype == dt
+              and tuple(o.shape) == (B, H, S, Dv),
+              f"flash {lane} ({B},{H},{Hkv},S={S},T={T},Dk={Dk},Dv={Dv}) "
+              f"causal={causal} window={window} prefix={prefix} "
+              f"{str(dt)[6:]}: max |kernel - plain| = {err:.3g} (rtol = "
+              f"atol = {tol:g}), max row |kernel - plain| / |plain| = "
+              f"{rel:.3g} (<= {lim:g})")
+        key = ("f32" if lane == "f32" else
+               "mla" if (Dk, Dv) == (192, 128) else "prefix")
+        worst[key] = max(worst[key], err)
+        worst_rel[key] = max(worst_rel[key], rel)
+    print(f"  {len(cases)} cases; largest row-relative error per key: "
+          f"{worst_rel}")
+    return worst
+
+
+def decode_logits(model, tokens, max_len):
+    """The logits of every position of tokens (B, S) through the decode
+    path, `decode_step` from an empty cache of max_len slots, stacked
+    (B, S, padded_vocab)."""
+    import torch
+    from repro_torch.models import decode_step, init_cache
+    cache = init_cache(model.cfg, tokens.shape[0], max_len, model.device)
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, cache = decode_step(model, tokens[:, t], cache)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def mla_main_path(cuda, seed, smi):
+    """DeepSeek-V3 inference at full width (ROADMAP Queue 1 item 10.4),
+    cut from 61 to MLA_LAYERS = 4 layers (its 3 dense layers and the first
+    MoE layer: 15.1e9 random bf16 weights from `seed`, 30.2 GB) through
+    the port's entry points: the forward of 4 prompts of 128 tokens
+    through the tensor-core flash kernel at (Dk, Dv) = (192, 128), H = Hkv
+    = 128, and its routing (drops at capacity factor 1.25: groups of 512
+    tokens, C = 20); the plain attention under the kernel run's routing
+    against it (Qwen2-MoE's tolerances); greedy generation of 32 tokens
+    (absorbed-matrix decode over the latent cache); the decode path
+    against the forward at every position of 8-token prompts (drop-free),
+    each step routed as the forward routed its token; one 2048-token
+    prefill. Then the same draws in float32 cut to one dense MLA layer
+    (2.4e9 parameters, 9.75 GB): its forward through the CUDA-core lane at
+    (192, 128) against impl="ref" within 1e-4 of the largest plain logit
+    over all positions, and its decode path against its forward at every
+    position within 1e-4. Returns the flash launches of the run, the bf16
+    model and the drop share."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES, kernel_lane
+    from repro_torch.models import Transformer
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    L = cfg.n_layers
+    n_moe = sum(cfg.moe_layer(i) for i in range(L))
+    dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    check(kernel_lane(cfg.dtype(), dk, dv) == "wgmma"
+          and kernel_lane(torch.float32, dk, dv) == "f32",
+          f"{MLA_ARCH}'s attention (Dk, Dv) = ({dk}, {dv}) is on the "
+          f"tensor-core flash lane in bf16, the CUDA-core lane in float32")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=cuda, seed=seed)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == total_params(cfg) == MLA_PARAMS,
+          f"{MLA_ARCH} at full width, {L} of 61 layers "
+          f"({cfg.first_dense_layers} dense, {n_moe} MoE: {cfg.n_experts} "
+          f"experts top-{cfg.top_k}, {cfg.n_shared_experts} shared), on the "
+          f"card: {n:,} parameters, {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated ({time.perf_counter() - t0:.2f} s to draw) [{smi}]")
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT)), device=cuda)
+    long = torch.as_tensor(rng.integers(0, cfg.vocab_size, YI_PREFILL),
+                           device=cuda)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    (logits, aux), calls = moe_routing(lambda: model(prompts, impl="cuda"))
+    torch.cuda.synchronize()
+    print(f"  forward B={YI_BATCH} S={YI_PROMPT}: "
+          f"{time.perf_counter() - t0:.3f} s (first call, routing observed)")
+    check(tuple(logits.shape) == (YI_BATCH, YI_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"logits {tuple(logits.shape)} {logits.dtype}, finite")
+    share = report_routing(calls, f"routing of the forward, capacity "
+                           f"factor {cfg.capacity_factor} (groups of "
+                           f"{cfg.moe_group_size} tokens, C = "
+                           f"{capacity(cfg)})", cfg.n_experts)
+    check(len(calls) == n_moe and 0.0 <= share < 0.5
+          and abs(float(aux) - sum(c["aux"] for c in calls))
+          <= 1e-4 * float(aux) and float(aux) > 0.0,
+          f"the MoE layer routed; {100 * share:.3f}% of assignments "
+          f"dropped (< 50%); the forward's aux {float(aux):.4f} is the "
+          f"layers' sum")
+    (ref, _), _ = moe_routing(lambda: model(prompts, impl="ref"),
+                              pin=lambda i, B, S: calls[i]["idx"])
+    torch.cuda.synchronize()
+    rel = rel_err(logits, ref)
+    n_bad, n_pos, margins = top1_report(logits, ref)
+    print(f"  forward cuda vs ref (bf16), the ref routed as the kernel run: "
+          f"max|dlogits|/max|logits| = {rel:.3g}; top-1 differs at {n_bad} "
+          f"of {n_pos} (ref top-2 margins there: {margins[:6]})")
+    check(rel <= 3e-2 and n_bad <= 0.1 * n_pos,
+          f"forward impl=cuda against impl=ref in bf16 under one routing: "
+          f"relative error {rel:.3g} <= 3e-2, top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos} positions (>= 90%)")
+    del ref
+
+    eng = ServeEngine(cfg, model, max_len=YI_PROMPT + YI_GEN + 1,
+                      device=cuda)
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, YI_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = YI_PROMPT + YI_GEN - 1
+    print(f"  ServeEngine.generate {YI_BATCH} x {YI_GEN} tokens greedy after "
+          f"a {YI_PROMPT}-token prompt: {wall:.2f} s for {steps} decode "
+          f"steps ({wall / steps * 1e3:.1f} ms a step); greedy[0] "
+          f"{greedy[0, :12].tolist()} [{smi}]")
+    check(tuple(greedy.shape) == (YI_BATCH, YI_GEN)
+          and int(greedy.min()) >= 0 and int(greedy.max()) < cfg.vocab_size,
+          f"greedy tokens ({YI_BATCH}, {YI_GEN}) in [0, {cfg.vocab_size})")
+    # decode against the forward at every position, drop-free (8 positions
+    # route 32 tokens in one group, an expert takes 20), each decode step
+    # routed as the forward routed its tokens
+    short = prompts[:, :8]
+    (fwd, _), fwd_calls = moe_routing(lambda: model(short))
+    dec, _ = moe_routing(
+        lambda: decode_logits(model, short, 8),
+        pin=lambda i, B, S: fwd_calls[i % n_moe]["idx"][:, i // n_moe][:,
+                                                                      None])
+    torch.cuda.synchronize()
+    rel = rel_err(dec, fwd)
+    n_bad, n_pos, _ = top1_report(dec, fwd)
+    check(all(c["kept"] == c["n"] for c in fwd_calls) and rel <= 3e-2
+          and n_bad <= 0.1 * n_pos,
+          f"8-token prompts (no assignment dropped): the decode path "
+          f"(latent cache) against the forward at all {n_pos} positions "
+          f"under one routing, relative error {rel:.3g} <= 3e-2, top-1 "
+          f"agrees at {n_pos - n_bad}")
+    t0 = time.perf_counter()
+    (out, _), long_calls = moe_routing(lambda: model(long))
+    torch.cuda.synchronize()
+    print(f"  prefill forward B={YI_PREFILL[0]} S={YI_PREFILL[1]}: "
+          f"{time.perf_counter() - t0:.3f} s (first call, routing observed)")
+    check(bool(torch.isfinite(out).all()),
+          f"{YI_PREFILL[1]}-token prefill finite")
+    report_routing(long_calls, f"routing of the {YI_PREFILL[1]}-token "
+                   f"prefill", cfg.n_experts)
+    del logits, out, fwd, dec, eng, greedy, calls, fwd_calls, long_calls
+    free_cuda()
+
+    # the float32 copy, one dense MLA layer: the CUDA-core lane
+    cfg32 = dataclasses.replace(cfg, n_layers=1, first_dense_layers=1,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, device=cuda, seed=seed)
+    n32 = sum(p.numel() for p in model32.parameters())
+    out32, _ = model32(prompts)
+    ref32, _ = model32(prompts, impl="ref")
+    dec32 = decode_logits(model32, prompts[:, :16], 16)
+    torch.cuda.synchronize()
+    check(n32 == total_params(cfg32) == MLA_F32_PARAMS,
+          f"float32 copy cut to one dense MLA layer: {n32:,} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with "
+          f"the bf16 model")
+    for what, a, b in (
+            ("forward impl=cuda against impl=ref", out32, ref32),
+            ("decode path against the forward at every position",
+             dec32, out32[:, :16])):
+        rel = rel_err(a, b)
+        n_bad, n_pos, _ = top1_report(a, b)
+        check(rel <= 1e-4 and n_bad == 0,
+              f"f32 {what}: max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 "
+              f"agrees at all {n_pos} positions")
+    del model32, out32, ref32, dec32
+    free_cuda()
+    launches = {"wgmma": LAUNCHES["wgmma"],
+                "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"]}
+    # the bf16 forwards with impl "auto"/"cuda": prompts, 8-token prompts,
+    # 2048 tokens; the float32 forward
+    check(launches == {"wgmma": 3 * L, "f32": cfg32.n_layers},
+          f"flash launches over the main path: {launches} (3 bf16 "
+          f"forwards x {L} layers on the tensor cores, one float32 forward "
+          f"x {cfg32.n_layers} layer on the CUDA cores; decode attends over "
+          f"its latent cache without the kernel)")
+    return launches, model, share
+
+
+def flash_row(cuda, seed, smi, shape, what, sdpa_kw, **kw):
+    """The flash kernel at one main-path shape (B, H, Hkv, S = T, Dk, Dv;
+    causal, with `kw`'s prefix_len), in bf16 (the tensor-core lane) and
+    then in float32 (the CUDA-core lane), beside its plain version, one
+    SDPA call (`sdpa_kw`: its mask) and the bound. Returns the bf16 row:
+    the three times, the bound and the kernel's largest error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    B, H, Hkv, S, dk, dv = shape
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
+                   for s in ((B, H, S, dk), (B, Hkv, S, dk),
+                             (B, Hkv, S, dv)))
+        o = flash_attention(q, k, v, causal=True, **kw)
+        r = flash_attention_ref(q, k, v, causal=True, **kw)
+        err = float((o.float() - r.float()).abs().max())
+        del o, r
+        t = {"kernel": cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                       **kw), 20),
+             "plain": cuda_ms(lambda: flash_attention_ref(
+                 q, k, v, causal=True, **kw), 3),
+             "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, **sdpa_kw), 20)}
+        b_ms, b_by = attention_bound(q, k, v, True,
+                                     prefix=kw.get("prefix_len", 0))
+        print(f"  flash {kernel_lane(dt, dk, dv)} lane {what} B={B} H={H} "
+              f"Hkv={Hkv} S=T={S} (Dk, Dv) = ({dk}, {dv}) {str(dt)[6:]}: "
+              f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+              f"sdpa {t['sdpa']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
+              f"{t['sdpa'] / t['kernel']:.2f}x SDPA's speed; max |kernel - "
+              f"plain| {err:.3g} [{smi}]")
+        rows[dt] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+        del q, k, v
+    free_cuda()
+    return rows[torch.bfloat16]
+
+
+def model_times(cuda, model, seed, smi, shapes, prefix=0):
+    """The forward at each (B, S) of `shapes`, with `prefix` random prefix
+    embeddings ahead of the S tokens, timed over 3 calls after one and
+    profiled once for the card's busy share; the decode step at B = 4 over
+    16 steps after a 4-token prefill, then profiled once. Returns
+    {(B, S): forward ms, "decode": ms a step}."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step
+    from repro_torch.serving import ServeEngine
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    times = {}
+    for B, S in shapes:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device=cuda)
+        pre = (torch.as_tensor(rng.standard_normal((B, prefix, cfg.d_model)),
+                               dtype=cfg.dtype(), device=cuda)
+               if prefix else None)
+        model(tokens, prefix_embeds=pre)
+        torch.cuda.synchronize()
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model(tokens, prefix_embeds=pre)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        what = f"forward B={B} S={f'{prefix}+' if prefix else ''}{S}"
+        print(f"  {what}: {ms:.2f} ms, prefill "
+              f"{B * (prefix + S) / ms * 1e3:.0f} positions/s [{smi}]")
+        device_breakdown(lambda: model(tokens, prefix_embeds=pre), what, smi)
+        times[(B, S)] = ms
+    eng = ServeEngine(cfg, model, max_len=24, device=cuda)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (YI_BATCH, 24)),
+                             device=cuda)
+    _, cache = eng.prefill(tokens[:, :4])
+    torch.cuda.synchronize()
+    steps = 16
+    t0 = time.perf_counter()
+    for i in range(steps):
+        decode_step(model, tokens[:, 4 + i], cache)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"  decode_step B={YI_BATCH} at length 5..{4 + steps}: {ms:.2f} ms "
+          f"per step, {YI_BATCH / ms * 1e3:.1f} tokens/s [{smi}]")
+    device_breakdown(lambda: decode_step(model, tokens[:, 4 + steps], cache),
+                     f"decode_step B={YI_BATCH}", smi)
+    times["decode"] = ms
+    return times
+
+
+def print_roofline(what, flops, nbytes, ms, smi):
+    """The roofline (`repro_torch.analysis`, H100 constants) of one step
+    from its counts, beside its measured time."""
+    from repro_torch.analysis import from_counts
+    rf = from_counts(flops, nbytes)
+    print(f"  roofline of the {what}: {flops / 1e12:.4f} TFLOP, "
+          f"{nbytes / 1e9:.3f} GB -> compute {rf.compute_s * 1e3:.3f} ms, "
+          f"memory {rf.memory_s * 1e3:.3f} ms: {rf.dominant}-bound, bound "
+          f"{rf.bound_s * 1e3:.3f} ms; measured {ms:.2f} ms, "
+          f"{100 * rf.bound_s * 1e3 / ms:.1f}% of the bound [{smi}]")
+    check(rf.dominant in ("compute", "memory") and rf.collective_s == 0.0,
+          f"{what}: {rf.dominant}-bound by the H100 constants, no "
+          f"collective term on one card")
+
+
+def mla_timing(cuda, model, seed, smi):
+    """Times of the DeepSeek-V3 cut on the card: the flash kernel at the
+    MLA prefill shape (B = 1, H = Hkv = 128, S = T = 2048, (192, 128))
+    beside its plain version, SDPA (is_causal, Dv != Dk) and the bound,
+    and the CUDA-core lane there in float32; the forward at B = 4,
+    S = 128 and B = 1, S = 2048 (prefill tokens/s, the card's busy share
+    in one forward); the decode step at B = 4; the roofline of the prefill
+    and the decode step. Returns the kernel's row."""
+    from repro_torch.analysis import model_flops_cell
+    from repro_torch.analysis.flops import total_params
+    cfg = model.cfg
+    H = cfg.n_heads
+    dk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    B, S = YI_PREFILL
+    row = flash_row(cuda, seed, smi, (B, H, cfg.n_kv_heads, S, dk, dv),
+                    "MLA prefill", dict(is_causal=True))
+    times = model_times(cuda, model, seed, smi,
+                        ((YI_BATCH, YI_PROMPT), YI_PREFILL))
+    # model FLOPs (2 x active parameters a token) and the attention's;
+    # every weight read once (the decode step's einsums read every
+    # expert's), the embedding rows and the logits; for decode the latent
+    # cache
+    item = cfg.pdtype().itemsize
+    weights = total_params(cfg) * item
+    r, dr, L = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.n_layers
+    t_len = 20
+    print_roofline(
+        f"prefill B={B} S={S}",
+        model_flops_cell(cfg, dict(kind="prefill", batch=B, seq=S))
+        + 2.0 * (dk + dv) * H * attention_pairs(S, S, True) * B * L,
+        weights + B * S * (cfg.d_model + cfg.padded_vocab) * item,
+        times[YI_PREFILL], smi)
+    print_roofline(
+        f"decode step B={YI_BATCH} at length {t_len}",
+        model_flops_cell(cfg, dict(kind="decode", batch=YI_BATCH))
+        + 2.0 * (2 * r + dr) * H * YI_BATCH * t_len * L,
+        weights + YI_BATCH * (cfg.d_model + cfg.padded_vocab) * item
+        + YI_BATCH * t_len * (r + dr) * item * L, times["decode"], smi)
+    return row
+
+
+def vlm_timing(cuda, model, seed, smi):
+    """Times of PaliGemma-3B on the card: the flash kernel at its prefill
+    shape with the prefix (B = 1, H = 8, Hkv = 1, D = 256, 256 + 1792
+    positions) beside its plain version, SDPA given the prefix-LM mask as
+    a boolean mask, and the bound, and the CUDA-core lane there in
+    float32; the forward at 4 x (256 + 128) and 1 x (256 + 1792)
+    (positions/s, the card's busy share); the decode step at B = 4; the
+    roofline of the long prefill. Returns the kernel's row."""
+    import torch
+    from repro_torch.analysis import model_flops_cell
+    from repro_torch.analysis.flops import total_params
+    cfg = model.cfg
+    H, D, P = cfg.n_heads, cfg.head_dim_, cfg.prefix_len
+    S = P + VLM_LONG_TEXT
+    pos = torch.arange(S, device=cuda)
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < P)
+    row = flash_row(cuda, seed, smi, (1, H, cfg.n_kv_heads, S, D, D),
+                    f"prefix {P}", dict(attn_mask=mask, enable_gqa=True),
+                    prefix_len=P)
+    del mask
+    times = model_times(cuda, model, seed, smi,
+                        ((YI_BATCH, YI_PROMPT), (1, VLM_LONG_TEXT)),
+                        prefix=P)
+    item = cfg.pdtype().itemsize
+    print_roofline(
+        f"prefill B=1 S={S}",
+        model_flops_cell(cfg, dict(kind="prefill", batch=1, seq=S))
+        + 4.0 * H * D * attention_pairs(S, S, True, prefix=P)
+        * cfg.n_layers,
+        total_params(cfg) * item + S * (cfg.d_model + cfg.padded_vocab)
+        * item, times[(1, VLM_LONG_TEXT)], smi)
+    return row
+
+
+def vlm_main_path(cuda, seed, smi):
+    """PaliGemma-3B's backbone at full width and depth (ROADMAP Queue 1
+    item 10.5; 2.5e9 random bf16 weights from `seed`, 5.0 GB) through the
+    port's entry points, with a prefix of 256 random patch embeddings
+    (drawn from `seed`): the forward of 4 x (256 + 128) positions through
+    the tensor-core flash kernel at D = 256 with the prefix-LM mask, held
+    to the plain attention (bf16 tolerances); one 1 x (256 + 1792)
+    prefill; the decode path (no prefix, as in the JAX package) against
+    the forward's last position, and greedy generation of 32 tokens at
+    B = 4. Then the same draws in float32 (10 GB): the forward with the
+    prefix through the CUDA-core lane against impl="ref" within 1e-4 of
+    the largest plain logit over all positions, and the decode path
+    against the forward at every position of 16-token prompts within
+    1e-4. Returns the flash launches of the run and the bf16 model."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES, kernel_lane
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(VLM_ARCH)
+    L, P, D = cfg.n_layers, cfg.prefix_len, cfg.head_dim_
+    check(kernel_lane(cfg.dtype(), D) == "wgmma"
+          and kernel_lane(torch.float32, D) == "f32",
+          f"{VLM_ARCH}'s attention (MQA {cfg.n_heads} x {D} over "
+          f"{cfg.n_kv_heads} kv head) is on the tensor-core flash lane in "
+          f"bf16, the CUDA-core lane in float32")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=cuda, seed=seed)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == total_params(cfg) == VLM_PARAMS,
+          f"{VLM_ARCH} at full width and depth on the card: {n:,} "
+          f"parameters ({L} layers), {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB allocated ({time.perf_counter() - t0:.2f} s to draw) [{smi}]")
+    rng = np.random.default_rng(seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT)), device=cuda)
+    prefix = torch.as_tensor(rng.standard_normal((YI_BATCH, P, cfg.d_model)),
+                             dtype=torch.float32, device=cuda)
+    long = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, VLM_LONG_TEXT)), device=cuda)
+    long_prefix = torch.as_tensor(rng.standard_normal((1, P, cfg.d_model)),
+                                  dtype=torch.float32, device=cuda)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    logits, _ = model(prompts, prefix_embeds=prefix, impl="cuda")
+    torch.cuda.synchronize()
+    print(f"  forward B={YI_BATCH} S={P}+{YI_PROMPT}: "
+          f"{time.perf_counter() - t0:.3f} s (first call)")
+    check(LAUNCHES["wgmma"] == LAUNCHES["fwd"] == L,
+          f"bf16 forward launched the tensor-core flash kernel "
+          f"{LAUNCHES['wgmma']} times at D = {D} with the prefix and the "
+          f"CUDA-core one {LAUNCHES['fwd'] - LAUNCHES['wgmma']} times "
+          f"(n_layers = {L})")
+    check(tuple(logits.shape) == (YI_BATCH, P + YI_PROMPT, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"logits {tuple(logits.shape)} {logits.dtype}, finite")
+    ref, _ = model(prompts, prefix_embeds=prefix, impl="ref")
+    torch.cuda.synchronize()
+    rel = rel_err(logits, ref)
+    n_bad, n_pos, margins = top1_report(logits, ref)
+    print(f"  forward cuda vs ref (bf16): max|dlogits|/max|logits| = "
+          f"{rel:.3g}; top-1 differs at {n_bad} of {n_pos} positions (ref "
+          f"top-2 margins there: {margins[:6]})")
+    check(rel <= 3e-2 and n_bad <= 0.1 * n_pos,
+          f"forward with the prefix impl=cuda against impl=ref in bf16: "
+          f"relative error {rel:.3g} <= 3e-2, top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos} positions (>= 90%)")
+    del logits, ref
+    t0 = time.perf_counter()
+    out, _ = model(long, prefix_embeds=long_prefix)
+    torch.cuda.synchronize()
+    print(f"  prefill forward B=1 S={P}+{VLM_LONG_TEXT}: "
+          f"{time.perf_counter() - t0:.3f} s (first call)")
+    check(tuple(out.shape) == (1, P + VLM_LONG_TEXT, cfg.padded_vocab)
+          and bool(torch.isfinite(out).all()),
+          f"{P + VLM_LONG_TEXT}-position prefill finite")
+    del out
+    # the decode path takes no prefix, as in the JAX package
+    fwd, _ = model(prompts)
+    eng = ServeEngine(cfg, model, max_len=YI_PROMPT + YI_GEN + 1,
+                      device=cuda)
+    last, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    rel = rel_err(last, fwd[:, -1])
+    n_bad, n_pos, _ = top1_report(last, fwd[:, -1])
+    check(cache["length"] == YI_PROMPT and rel <= 3e-2
+          and n_bad <= 0.1 * n_pos,
+          f"bf16 prefill through the decode path against the forward's last "
+          f"position: relative error {rel:.3g} <= 3e-2, top-1 agrees at "
+          f"{n_pos - n_bad} of {n_pos}")
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, YI_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = YI_PROMPT + YI_GEN - 1
+    print(f"  ServeEngine.generate {YI_BATCH} x {YI_GEN} tokens greedy after "
+          f"a {YI_PROMPT}-token prompt: {wall:.2f} s for {steps} decode "
+          f"steps ({wall / steps * 1e3:.1f} ms a step); greedy[0] "
+          f"{greedy[0, :12].tolist()} [{smi}]")
+    check(tuple(greedy.shape) == (YI_BATCH, YI_GEN)
+          and int(greedy.min()) >= 0 and int(greedy.max()) < cfg.vocab_size,
+          f"greedy tokens ({YI_BATCH}, {YI_GEN}) in [0, {cfg.vocab_size})")
+    del fwd, eng, cache, last, greedy
+    free_cuda()
+
+    # the same draws in float32: the CUDA-core lane at D = 256
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, device=cuda, seed=seed)
+    out32, _ = model32(prompts, prefix_embeds=prefix)
+    ref32, _ = model32(prompts, prefix_embeds=prefix, impl="ref")
+    rel = rel_err(out32, ref32)
+    n_bad, n_pos, _ = top1_report(out32, ref32)
+    check(rel <= 1e-4 and n_bad == 0,
+          f"f32 forward with the prefix impl=cuda against impl=ref "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with "
+          f"the bf16 model): max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 "
+          f"agrees at all {n_pos} positions")
+    del out32, ref32
+    short = prompts[:, :16]
+    fwd32, _ = model32(short)
+    dec32 = decode_logits(model32, short, 16)
+    torch.cuda.synchronize()
+    rel = rel_err(dec32, fwd32)
+    n_bad, n_pos, _ = top1_report(dec32, fwd32)
+    check(rel <= 1e-4 and n_bad == 0,
+          f"f32 decode path against the forward at every position: "
+          f"max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 agrees at all "
+          f"{n_pos} positions")
+    del model32, fwd32, dec32
+    free_cuda()
+    launches = {"wgmma": LAUNCHES["wgmma"],
+                "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"]}
+    # bf16 forwards: prompts with the prefix, the long prefill, prompts
+    # without; float32: prompts with the prefix, 16-token prompts
+    check(launches == {"wgmma": 3 * L, "f32": 2 * L},
+          f"flash launches over the main path: {launches} (3 bf16 forwards "
+          f"x {L} layers on the tensor cores at D = {D}, 2 float32 "
+          f"forwards on the CUDA cores; decode attends over its cache "
+          f"without the kernel)")
+    return launches, model
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3816,6 +4475,10 @@ def main(argv=None):
 
     with phase("flash attention against its plain version"):
         flash_err = flash_against_plain(cuda)
+
+    with phase("flash attention at MLA's head dims and with a prefix, "
+               "against its plain version"):
+        mp_err = mla_prefix_against_plain(cuda)
 
     with phase("Stanford-Web graph and f64 oracles (host)"):
         t0 = time.perf_counter()
@@ -4105,6 +4768,22 @@ def main(argv=None):
             del model
             free_cuda()
 
+    with phase(f"main path: {MLA_ARCH} ({MLA_LAYERS} of 61 layers)"):
+        mla_launches, model, _ = mla_main_path(cuda, args.seed, smi)
+
+    with phase(f"timing: {MLA_ARCH} ({MLA_LAYERS} of 61 layers)"):
+        mla_row = mla_timing(cuda, model, args.seed, smi)
+        del model
+        free_cuda()
+
+    with phase(f"main path: {VLM_ARCH}"):
+        vlm_launches, model = vlm_main_path(cuda, args.seed, smi)
+
+    with phase(f"timing: {VLM_ARCH}"):
+        vlm_row = vlm_timing(cuda, model, args.seed, smi)
+        del model
+        free_cuda()
+
     t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
@@ -4157,8 +4836,10 @@ def main(argv=None):
             "replaces": TPU_KERNEL["flash"],
             "launches": flash_launches[lane] + moe_launches[lane] + sum(
                 r["launches"]["flash" if lane == "wgmma" else "flash_f32"]
-                for r in recur.values()),
-            "max_abs_err": max(flash_err[lane], row["err"]),
+                for r in recur.values()) + mla_launches[lane]
+            + vlm_launches[lane],
+            "max_abs_err": max(flash_err[lane], row["err"],
+                               mp_err["f32"] if lane == "f32" else 0.0),
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["sdpa"]})
@@ -4174,6 +4855,19 @@ def main(argv=None):
         "ms": row["kernel"], "plain_ms": row["plain"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["sdpa"]})
+    # the tensor-core lane at DeepSeek-V3's MLA prefill, (Dk, Dv) =
+    # (192, 128), and at PaliGemma-3B's, D = 256 with the prefix-LM mask
+    for name, row, launches, err in (
+            ("flash_attention_mla", mla_row, mla_launches["wgmma"],
+             mp_err["mla"]),
+            ("flash_attention_prefix", vlm_row, vlm_launches["wgmma"],
+             mp_err["prefix"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE["wgmma"],
+            "replaces": TPU_KERNEL["flash"], "launches": launches,
+            "max_abs_err": max(err, row["err"]), "ms": row["kernel"],
+            "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["sdpa"]})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
             ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),

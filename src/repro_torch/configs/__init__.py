@@ -1,17 +1,18 @@
 """Workload configs of the port: the PageRank graphs, and the registry of
 the model architectures ported so far (the dense decoders, Qwen2-MoE,
-Mamba2 and RecurrentGemma)."""
+Mamba2, RecurrentGemma, DeepSeek-V3 and PaliGemma)."""
 from __future__ import annotations
 
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import (mamba2_2p7b, minitron_4b, qwen1p5_4b, qwen2_moe_a2p7b,
-               recurrentgemma_2b, smollm_360m, yi_6b)
+from . import (deepseek_v3_671b, mamba2_2p7b, minitron_4b, paligemma_3b,
+               qwen1p5_4b, qwen2_moe_a2p7b, recurrentgemma_2b, smollm_360m,
+               yi_6b)
 from .pagerank import SMALL, STANFORD, PageRankConfig, paper_des_config
 
 _MODULES = [smollm_360m, qwen1p5_4b, minitron_4b, yi_6b, qwen2_moe_a2p7b,
-            mamba2_2p7b, recurrentgemma_2b]
+            mamba2_2p7b, recurrentgemma_2b, deepseek_v3_671b, paligemma_3b]
 
 REGISTRY: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKE_REGISTRY: Dict[str, ModelConfig] = {
@@ -19,8 +20,8 @@ SMOKE_REGISTRY: Dict[str, ModelConfig] = {
 
 ARCH_NAMES = list(REGISTRY)
 
-# the JAX package's other architectures, which this port does not run yet
-NOT_PORTED = ("paligemma-3b", "deepseek-v3-671b", "whisper-base")
+# the JAX package's other architecture, which this port does not run yet
+NOT_PORTED = ("whisper-base",)
 
 
 def _lookup(name: str, registry: Dict[str, ModelConfig]) -> ModelConfig:

@@ -141,9 +141,12 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
 
     `decoder/stack/pos{j}` leaves carry a leading repeat axis: element r is
     layer len(head) + r * len(pattern) + j of `stack_plan`.
-    `decoder/head/layer{i}` and `decoder/tail/layer{i}` are layer i;
-    `embed/tok`, `embed/out` and `final_norm` map as they are. Raises on a
-    leaf that is missing, left over or of the wrong shape."""
+    `decoder/head/layer{i}` and `decoder/tail/layer{i}` are layer i
+    (DeepSeek-V3's `first_dense_layers` are head layers, its MoE layers
+    stacked); `embed/tok`, `embed/out` and `final_norm` map as they are.
+    A layer's leaves keep their names: MLA's `attn/{w_dq, q_norm, w_uq,
+    w_dkv, kv_norm, w_kr, w_ukv, wo}` as GQA's `attn/{wq, wk, wv, wo}`.
+    Raises on a leaf that is missing, left over or of the wrong shape."""
     defs = model_defs(cfg)
     plan = stack_plan(cfg, cfg.n_layers, cfg.first_dense_layers)
     tree = dict(tree)

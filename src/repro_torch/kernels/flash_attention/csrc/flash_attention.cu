@@ -1,18 +1,21 @@
 // Flash attention forward for Hopper (sm_90a) on the CUDA cores: the lane
-// for float32 inputs and for bf16 at head dims other than 64, 128 and 256
-// (the smoke configs' 12-32). bf16 at D = 64, 128 or 256 goes to the
-// tensor-core kernel, flash_attention_wgmma.cu. Exported through a plain C
+// for float32 inputs and for bf16 at head dims other than the tensor-core
+// pairs (64, 64), (128, 128), (256, 256) and (192, 128) (the smoke
+// configs' 12-32), which go to flash_attention_wgmma.cu. Exported through a plain C
 // interface and bound to PyTorch with ctypes
 // (repro_torch/kernels/flash_attention/flash_attention.py, whose
 // kernel_lane picks the lane).
 //
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
-//   q (B, H, S, D), k and v (B, Hkv, T, D), float or bf16, contiguous;
-//   o (B, H, S, D) in q's type; G = H / Hkv.
+//   q (B, H, S, Dk), k (B, Hkv, T, Dk), v (B, Hkv, T, Dv), float or bf16,
+//   contiguous; o (B, H, S, Dv) in q's type; G = H / Hkv.
 //
 // Causal masking is aligned top-left: row i sees columns j <= i, for any S
-// and T; an optional local window keeps columns j > i - window (the JAX
-// package's _mask). Columns j >= T (the ragged tail of the last kv tile)
+// and T, and with a prefix (a prefix-LM) every column j < prefix too; an
+// optional local window then keeps columns j > i - window (the JAX
+// package's _mask). Dv may differ from Dk (DeepSeek-V3's multi-head latent
+// attention: Dk = 192, Dv = 128; its smoke config 24 and 16). Columns
+// j >= T (the ragged tail of the last kv tile)
 // and rows i >= S (the ragged tail of the last q tile) are masked inside
 // the kernel, so S and T need not be multiples of the tiles.
 //
@@ -22,9 +25,9 @@
 // Here one thread block owns one (b, h, q tile) and loops over the kv tiles
 // itself, so nothing carries across blocks. The block reads kv head h / G
 // in place: kv is never repeated in memory. Causal blocks skip the kv tiles
-// that lie wholly past their last row, as the TPU kernel's pl.when does,
-// and are scheduled longest first; with a window, a block starts at the
-// first kv tile its window reaches.
+// that lie wholly past their last row and the prefix, as the TPU kernel's
+// pl.when does, and are scheduled longest first across all heads; with a
+// window, a block starts at the first kv tile its window reaches.
 //
 // Arithmetic: q k^T and p v are f32 FMAs on the CUDA cores (no mma, wgmma
 // or TF32: this lane computes the float32 function), and the running max,
@@ -42,46 +45,52 @@
 //   128-row q tile, kv tiles of 128 keys; at D = 128 in float32 the block
 //   takes 227,328 bytes of shared memory, so one block is resident per SM,
 //   with up to 255 registers a thread. Blocks are launched longest first
-//   across all heads (the q tile is blockIdx.y, the head blockIdx.x).
-// * Shared memory: the q tile (128 x DPAD: 67,584 bytes), a ring of two
+//   across all heads (hopper.cuh's block_tile with one group: the FMAs
+//   bound this lane, so the tensor-core lane's grouping of heads by L2
+//   buys it nothing; at DeepSeek-V3's MLA prefill it read 5.81 ms
+//   against 5.58, H100 80GB HBM3 at 700 W, tools/time_flash.py).
+// * Shared memory: the q tile (128 x DKP: 67,584 bytes), a ring of two
 //   chunk buffers (34,816 bytes each), the tile of probabilities p
 //   (128 x 144 floats: 73,728 bytes) and each thread's running max and
 //   share of the denominator for its 8 rows (16,384 bytes), kept out of
-//   the registers that the 8 x 8 score and output tiles fill. D is padded
-//   up to DPAD in {64, 128} with zeros; tiles keep the inputs' type with
-//   rows 16 bytes longer than their data (16-byte reads of 8 neighbouring
-//   rows fall in distinct banks).
-// * Chunks: each kv tile streams through the ring as DPAD / 64 k chunks
-//   (128 keys x 64 of d) and two v chunks (64 keys x DPAD), 32 KB each in
+//   the registers that the 8 x 8 score and output tiles fill. Dk is padded
+//   up to DKP in {64, 128, 192, 256} and Dv up to DVP in {64, 128, 256}
+//   with zeros (DKP = DVP but at (192, 128)); tiles keep the inputs' type
+//   with rows 16 bytes longer than their data (16-byte reads of 8
+//   neighbouring rows fall in distinct banks).
+// * Chunks: each kv tile streams through the ring as DKP / 64 k chunks
+//   (128 keys x 64 of d) and two v chunks (64 keys x DVP), 32 KB each in
 //   float32: q k^T sums over the k chunks, p v over the v chunks.
 // * Copies: chunks go from global to shared memory by 16-byte cp.async
 //   (.cg, zero-filled past the tensor's edge) one chunk ahead of their use:
 //   chunk n + 1 lands while chunk n is computed on. bf16 chunks are copied
-//   raw and widened to f32 when read into registers. Unaligned operands (D
-//   not a multiple of 16 bytes, or a pointer off a 16-byte boundary) take
-//   the same loop with synchronous loads.
+//   raw and widened to f32 when read into registers. Unaligned operands
+//   (Dk or Dv not a multiple of 16 bytes, or a pointer off a 16-byte
+//   boundary) take the same loop with synchronous loads.
 // * Barriers: one block-wide barrier per chunk (chunk n has landed and
 //   everyone is done with chunk n - 1's buffer): 4 per 128 keys at
-//   DPAD = 128. The rows of p a thread reads are written by its own
+//   DKP = 128. The rows of p a thread reads are written by its own
 //   half-warp, so p needs only __syncwarp. The loop over a tile's chunks
 //   is unrolled, so the scores are dead while p v runs.
 // * Register tiles: thread (ty, tx), ty = tid / 16 and tx = tid % 16, owns
 //   rows ty + 16 i (i < 8). In q k^T it holds 8 x 8 scores (keys
 //   tx + 16 j), 16 16-byte shared-memory reads for 256 FMAs per 4-wide d
-//   step; in p v 8 x DPAD/16 outputs (columns 4 tx + 64 c + e), 16 reads
-//   for 256 FMAs per 4 keys at DPAD = 128. The 8 q and p reads of a step
+//   step; in p v 8 x DVP/16 outputs (columns 4 tx + 64 c + e), 16 reads
+//   for 256 FMAs per 4 keys at DKP = 128. The 8 q and p reads of a step
 //   are broadcasts: a warp reads 2 distinct rows. Shared memory delivers
 //   128 bytes a cycle to an SM, so a warp's 16-byte read holds it for up
 //   to 4 cycles, and a step's 16 reads hold it about as long as its 256
 //   FMAs hold the SM's four FMA pipes: the two have to overlap, and the
 //   8 x 8 tile (255 registers with the output's) is as large as fits.
 // * The output rescale runs only for a row whose max moved, and the causal,
-//   tail and window masks only on the tiles that cross the diagonal, the
-//   tail or the window's lower edge.
-// * Head dims above 128 (DPAD = 256): a q tile of 128 rows would take
-//   133 KB of shared memory in float32 and 128 output registers a thread,
-//   so the block takes 64 rows (4 a thread) and v chunks of 32 keys:
-//   181,248 bytes of shared memory in float32.
+//   tail and window masks only on the tiles that cross the diagonal (past
+//   the prefix), the tail or the window's lower edge.
+// * Head dims above 128 (DKP or DVP = 256): a q tile of 128 rows would
+//   take 133 KB of shared memory in float32 and 128 output registers a
+//   thread, so the block takes 64 rows (4 a thread) and v chunks of 32
+//   keys: 181,248 bytes of shared memory in float32. At (192, 128) the q
+//   tile of 128 rows alone would take 100 KB, so it takes 64 rows too,
+//   with three k chunks and v chunks of 64 keys: 164,864 bytes.
 
 #include <cstdint>
 
@@ -101,14 +110,14 @@ constexpr int kLDP = kBK + 16;       // p's row stride: rows ty, ty + 1 of a
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The q tile and the v chunks by padded head dim: 128 q rows (8 a thread)
-// and v chunks of 64 keys up to DPAD = 128; 64 rows (4 a thread) and 32
-// keys at 256, where the larger tiles overflow shared memory.
-template <int DPAD>
+// The q tile and the v chunks by padded head dims: 128 q rows (8 a
+// thread) up to 128, 64 rows (4 a thread) above, where the larger tiles
+// overflow shared memory; v chunks of 64 keys up to DVP = 128, 32 at 256.
+template <int DKP, int DVP>
 struct Tile {
-  static constexpr int kBQ = DPAD == 256 ? 64 : 128;   // q rows per block
+  static constexpr int kBQ = DKP > 128 || DVP > 128 ? 64 : 128;
   static constexpr int kRows = kBQ / 16;               // rows per thread
-  static constexpr int kVC = DPAD == 256 ? 32 : 64;    // keys of a v chunk
+  static constexpr int kVC = DVP == 256 ? 32 : 64;     // keys of a v chunk
 };
 
 // Row strides in elements: the data plus 16 bytes.
@@ -118,17 +127,17 @@ __host__ __device__ constexpr int ld() {
 }
 
 // Elements of one ring buffer: a k chunk (kBK x kChunk) or a v chunk
-// (kVC x DPAD), whichever is larger.
-template <typename T, int DPAD>
+// (kVC x DVP), whichever is larger.
+template <typename T, int DKP, int DVP>
 __host__ __device__ constexpr int chunk_elems() {
-  constexpr int kv = Tile<DPAD>::kVC * ld<T, DPAD>();
+  constexpr int kv = Tile<DKP, DVP>::kVC * ld<T, DVP>();
   return kBK * ld<T, kChunk>() > kv ? kBK * ld<T, kChunk>() : kv;
 }
 
-template <typename T, int DPAD>
+template <typename T, int DKP, int DVP>
 constexpr int smem_bytes() {
-  using Tl = Tile<DPAD>;
-  return (Tl::kBQ * ld<T, DPAD>() + 2 * chunk_elems<T, DPAD>()) *
+  using Tl = Tile<DKP, DVP>;
+  return (Tl::kBQ * ld<T, DKP>() + 2 * chunk_elems<T, DKP, DVP>()) *
              (int)sizeof(T) +
          (Tl::kBQ * kLDP + 2 * Tl::kRows * kThreads) * (int)sizeof(float);
 }
@@ -186,20 +195,20 @@ __device__ __forceinline__ void copy_block(T* tile, const T* src, int row0,
 }
 
 // Issue the copy of chunk `ph` of kv tile `kt` into `buf`: k chunks
-// ph < DPAD / kChunk (all kBK keys, d columns [ph * kChunk, + kChunk)),
-// then v chunks (kVC keys, all d).
-template <int DPAD, typename T>
+// ph < DKP / kChunk (all kBK keys, d columns [ph * kChunk, + kChunk) of
+// Dk), then v chunks (kVC keys, all Dv).
+template <int DKP, int DVP, typename T>
 __device__ __forceinline__ void copy_chunk(T* buf, const T* kg, const T* vg,
-                                           int kt, int ph, int Tk, int D,
-                                           bool vec) {
-  constexpr int NKC = DPAD / kChunk;
-  constexpr int VC = Tile<DPAD>::kVC;
+                                           int kt, int ph, int Tk, int Dk,
+                                           int Dv, bool vec) {
+  constexpr int NKC = DKP / kChunk;
+  constexpr int VC = Tile<DKP, DVP>::kVC;
   if (ph < NKC)
     copy_block<kBK, kChunk, ld<T, kChunk>()>(buf, kg, kt * kBK, Tk,
-                                             ph * kChunk, D, vec);
+                                             ph * kChunk, Dk, vec);
   else
-    copy_block<VC, DPAD, ld<T, DPAD>()>(
-        buf, vg, kt * kBK + (ph - NKC) * VC, Tk, 0, D, vec);
+    copy_block<VC, DVP, ld<T, DVP>()>(
+        buf, vg, kt * kBK + (ph - NKC) * VC, Tk, 0, Dv, vec);
 }
 
 // Store the first n (<= 4) of v; the loops are unrolled so that v stays in
@@ -238,7 +247,7 @@ template <bool MASK, int ROWS, int NO>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[ROWS][kCols], float* ms, float* ls, float (&acc)[ROWS][NO],
     float* ps, int ty, int tx, int q0, int k0, int Tk, bool causal,
-    int window, float scale_log2) {
+    int window, int prefix, float scale_log2) {
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     float m = ms[i * kThreads], l = ls[i * kThreads];
@@ -247,8 +256,9 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = k0 + tx + 16 * j;
-      const bool ok = !MASK || (col < Tk && (!causal || col <= row) &&
-                                (window == 0 || col > row - window));
+      const bool ok =
+          !MASK || (col < Tk && (!causal || col <= row || col < prefix) &&
+                    (window == 0 || col > row - window));
       s[i][j] = ok ? s[i][j] * scale_log2 : kNegInf;
       mt = fmaxf(mt, s[i][j]);
     }
@@ -278,50 +288,53 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-template <typename T, int DPAD>
+template <typename T, int DKP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                 int S, int Tk, int D, float scale_log2, bool causal,
-                 int window, bool vec) {
-  constexpr int kBQ = Tile<DPAD>::kBQ;
-  constexpr int kRows = Tile<DPAD>::kRows;
-  constexpr int VC = Tile<DPAD>::kVC;
-  constexpr int LDQ = ld<T, DPAD>();    // q tile and v chunks
+                 int S, int Tk, int Dk, int Dv, float scale_log2, bool causal,
+                 int window, int prefix, int group, bool vec) {
+  using Tl = Tile<DKP, DVP>;
+  constexpr int kBQ = Tl::kBQ;
+  constexpr int kRows = Tl::kRows;
+  constexpr int VC = Tl::kVC;
+  constexpr int LDQ = ld<T, DKP>();     // q tile
+  constexpr int LDV = ld<T, DVP>();     // v chunks
   constexpr int LDK = ld<T, kChunk>();  // k chunks
-  constexpr int NKC = DPAD / kChunk;    // k chunks per kv tile
+  constexpr int NKC = DKP / kChunk;     // k chunks per kv tile
   constexpr int NP = NKC + kBK / VC;    // chunks per kv tile
-  constexpr int NC = DPAD / 64;  // float4 output groups per thread and row
+  constexpr int NC = DVP / 64;   // float4 output groups per thread and row
   constexpr int NO = 4 * NC;     // outputs per thread and row
+  constexpr int kRing = chunk_elems<T, DKP, DVP>();
   extern __shared__ float4 smem4[];
   T* qs = reinterpret_cast<T*>(smem4);
   T* const ring = qs + kBQ * LDQ;  // chunk n is in ring + slot(n)
-  auto slot = [](int n) { return (n & 1) * chunk_elems<T, DPAD>(); };
-  float* ps = reinterpret_cast<float*>(qs + kBQ * LDQ +
-                                       2 * chunk_elems<T, DPAD>());
+  auto slot = [](int n) { return (n & 1) * kRing; };
+  float* ps = reinterpret_cast<float*>(qs + kBQ * LDQ + 2 * kRing);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   float* ms = ps + kBQ * kLDP + tid;  // this thread's running max, and
   float* ls = ms + kRows * kThreads;  // share of the denominator, per row
 
   const int nq = (S + kBQ - 1) / kBQ;
-  // causal q tiles near the end do the most work: blockIdx.y is the
-  // slower grid axis, so every head's longest tile launches first
-  const int qt = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  int qt, bh;
+  hopper::block_tile(nq, gridDim.x / nq, group, causal, qt, bh);
+  const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = qt * kBQ;
-  const long long q_off = (long long)bh * S * D;
-  const long long kv_off = ((long long)b * Hkv + hk) * Tk * D;
-  const T* kg = k + kv_off;
-  const T* vg = v + kv_off;
+  const long long kvh = (long long)b * Hkv + hk;
+  const T* kg = k + kvh * Tk * Dk;
+  const T* vg = v + kvh * Tk * Dv;
 
   int n_kv = (Tk + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);
+  // causal: up to the tile of the block's last row or of the prefix's
+  // last column, whichever is later
+  if (causal) n_kv = min(n_kv, max(q0 + kBQ - 1, prefix - 1) / kBK + 1);
   // the first kv tile the window reaches (0 without a window)
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
-  copy_block<kBQ, DPAD, LDQ>(qs, q + q_off, q0, S, 0, D, vec);
-  copy_chunk<DPAD>(ring, kg, vg, kt0, 0, Tk, D, vec);
+  copy_block<kBQ, DKP, LDQ>(qs, q + (long long)bh * S * Dk, q0, S, 0, Dk,
+                            vec);
+  copy_chunk<DKP, DVP>(ring, kg, vg, kt0, 0, Tk, Dk, Dv, vec);
   hopper::cp_async_commit();
 
   float acc[kRows][NO];
@@ -349,9 +362,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       hopper::cp_async_wait_all();
       __syncthreads();
       if (ph + 1 < NP)
-        copy_chunk<DPAD>(ring + slot(n + 1), kg, vg, kt, ph + 1, Tk, D, vec);
+        copy_chunk<DKP, DVP>(ring + slot(n + 1), kg, vg, kt, ph + 1, Tk, Dk,
+                             Dv, vec);
       else if (kt + 1 < n_kv)
-        copy_chunk<DPAD>(ring + slot(n + 1), kg, vg, kt + 1, 0, Tk, D, vec);
+        copy_chunk<DKP, DVP>(ring + slot(n + 1), kg, vg, kt + 1, 0, Tk, Dk,
+                             Dv, vec);
       hopper::cp_async_commit();
       const T* buf = ring + slot(n);
 
@@ -378,17 +393,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
         if (ph + 1 == NKC) {
-          // masks only where the tile crosses the tail, the diagonal or
-          // the window's lower edge
-          const bool mask = k0 + kBK > Tk ||
-                            (causal && k0 + kBK - 1 > q0) ||
-                            (window > 0 && k0 <= q0 + kBQ - 1 - window);
+          // masks only where the tile crosses the tail, the diagonal
+          // past the prefix or the window's lower edge
+          const bool mask =
+              k0 + kBK > Tk ||
+              (causal && k0 + kBK - 1 > q0 && k0 + kBK > prefix) ||
+              (window > 0 && k0 <= q0 + kBQ - 1 - window);
           if (mask)
             softmax_tile<true>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
-                               causal, window, scale_log2);
+                               causal, window, prefix, scale_log2);
           else
             softmax_tile<false>(s, ms, ls, acc, ps, ty, tx, q0, k0, Tk,
-                                causal, window, scale_log2);
+                                causal, window, prefix, scale_log2);
           __syncwarp();  // p's rows of this half-warp are written
         }
       } else {
@@ -402,7 +418,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             p4[i] = load4(pc + (ty + 16 * i) * kLDP + kk);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const T* vrow = buf + (kk + e) * LDQ + tx * 4;
+            const T* vrow = buf + (kk + e) * LDV + tx * 4;
 #pragma unroll
             for (int c = 0; c < NC; ++c) {
               const float4 vv = load4(vrow + 64 * c);
@@ -423,7 +439,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // p's rows are read before the next tile writes them
   }
 
-  // normalise and write rows < S, columns < D
+  // normalise and write rows < S, columns < Dv
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     float li = ls[i * kThreads];
@@ -434,74 +450,97 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (li == 0.f) li = 1.f;
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
-    T* orow = o + q_off + (long long)row * D;
+    T* orow = o + ((long long)bh * S + row) * Dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx * 4 + 64 * c;
-      if (col >= D) continue;
+      if (col >= Dv) continue;
       float out[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) out[e] = acc[i][4 * c + e] / li;
-      store4(orow + col, out, min(4, D - col), vec);
+      store4(orow + col, out, min(4, Dv - col), vec);
     }
   }
 }
 
-template <typename T, int DPAD>
+template <typename T, int DKP, int DVP>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(flash_fwd_kernel<T, DPAD>,
+  return cudaFuncSetAttribute(flash_fwd_kernel<T, DKP, DVP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<T, DPAD>());
+                              smem_bytes<T, DKP, DVP>());
 }
 
-template <typename T, int DPAD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int S, int Tk, int D, float scale,
-                   bool causal, int window, bool vec, cudaStream_t stream) {
-  cudaError_t err = prepare<T, DPAD>();
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int B, H, Hkv, S, Tk, Dk, Dv;
+  float scale;
+  bool causal;
+  int window, prefix;
+  bool vec;
+  cudaStream_t stream;
+};
+
+template <typename T, int DKP, int DVP>
+cudaError_t launch(const Args& a) {
+  cudaError_t err = prepare<T, DKP, DVP>();
   if (err != cudaSuccess) return err;
-  const int nq = (S + Tile<DPAD>::kBQ - 1) / Tile<DPAD>::kBQ;
-  if (nq > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(B * H, nq);
-  flash_fwd_kernel<T, DPAD><<<grid, kThreads, smem_bytes<T, DPAD>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Tk, D,
-      scale * kLog2e, causal, window, vec);
+  constexpr int kBQ = Tile<DKP, DVP>::kBQ;
+  const int nq = (a.S + kBQ - 1) / kBQ;
+  if ((long long)nq * a.B * a.H > 0x7fffffff) return cudaErrorInvalidValue;
+  const int group = a.B * a.H;  // one group: every head's longest first
+  flash_fwd_kernel<T, DKP, DVP>
+      <<<nq * a.B * a.H, kThreads, smem_bytes<T, DKP, DVP>(), a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.Hkv, a.S,
+          a.Tk, a.Dk, a.Dv, a.scale * kLog2e, a.causal, a.window, a.prefix,
+          group, a.vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int Hkv, int S, int Tk, int D,
-                       float scale, bool causal, int window, bool vec,
-                       cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
-                         window, vec, stream);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
-                          window, vec, stream);
-  return launch<T, 256>(q, k, v, o, B, H, Hkv, S, Tk, D, scale, causal,
-                        window, vec, stream);
-}
-
-template <typename T, int DPAD>
+template <typename T, int DKP, int DVP>
 cudaError_t info(int* out) {
-  cudaError_t err = prepare<T, DPAD>();
+  cudaError_t err = prepare<T, DKP, DVP>();
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<T, DPAD>);
+  err = cudaFuncGetAttributes(&attr, flash_fwd_kernel<T, DKP, DVP>);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_kernel<T, DPAD>, kThreads, smem_bytes<T, DPAD>());
+      &blocks, flash_fwd_kernel<T, DKP, DVP>, kThreads,
+      smem_bytes<T, DKP, DVP>());
   if (err != cudaSuccess) return err;
   out[0] = blocks;
   out[1] = kThreads;
   out[2] = attr.numRegs;
   out[3] = (int)attr.localSizeBytes;
-  out[4] = smem_bytes<T, DPAD>();
+  out[4] = smem_bytes<T, DKP, DVP>();
   return cudaSuccess;
+}
+
+// The instantiation that head dims (Dk, Dv) take: (192, 128) where
+// 128 < Dk <= 192 and Dv <= 128, else both padded to the larger's
+// 64, 128 or 256.
+struct Launch {
+  const Args& a;
+  template <typename T, int DKP, int DVP>
+  cudaError_t operator()() const { return launch<T, DKP, DVP>(a); }
+};
+
+struct Info {
+  int* out;
+  template <typename T, int DKP, int DVP>
+  cudaError_t operator()() const { return info<T, DKP, DVP>(out); }
+};
+
+template <typename T, typename Fn>
+cudaError_t by_dims(int Dk, int Dv, const Fn& fn) {
+  if (Dk > 128 && Dk <= 192 && Dv <= 128)
+    return fn.template operator()<T, 192, 128>();
+  const int d = Dk > Dv ? Dk : Dv;
+  if (d <= 64) return fn.template operator()<T, 64, 64>();
+  if (d <= 128) return fn.template operator()<T, 128, 128>();
+  return fn.template operator()<T, 256, 256>();
 }
 
 }  // namespace
@@ -509,41 +548,38 @@ cudaError_t info(int* out) {
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success). The caller
-// checks shapes: H % Hkv == 0, 1 <= D <= 256, S, T >= 1, contiguous
-// tensors; window 0 (none) or >= 1 with S <= T + window - 1; vec = D is a
-// multiple of 16 bytes' worth of elements and every pointer is 16-byte
-// aligned.
+// checks shapes: H % Hkv == 0, 1 <= Dk, Dv <= 256, S, T >= 1, contiguous
+// tensors; window 0 (none) or >= 1 with S <= T + window - 1; prefix >= 0
+// (0: none; read only when causal); vec = Dk and Dv are multiples of 16
+// bytes' worth of elements and every pointer is 16-byte aligned.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int Hkv, int S, int T,
-                           int D, float scale, int causal, int window,
-                           int bf16, int vec, void* stream) {
-  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 || D > 256 || S < 1 ||
-      T < 1 || B < 1 || window < 0 || (window > 0 && S > T + window - 1))
+                           int Dk, int Dv, float scale, int causal,
+                           int window, int prefix, int bf16, int vec,
+                           void* stream) {
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || Dk < 1 || Dk > 256 || Dv < 1 ||
+      Dv > 256 || S < 1 || T < 1 || B < 1 || window < 0 ||
+      (window > 0 && S > T + window - 1) || prefix < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T, D, scale,
-                                       causal != 0, window, vec != 0, s)
-           : dispatch_d<float>(q, k, v, o, B, H, Hkv, S, T, D, scale,
-                               causal != 0, window, vec != 0, s);
+  const Args a{q, k, v, o, B, H, Hkv, S, T, Dk, Dv, scale, causal != 0,
+               window, prefix, vec != 0, static_cast<cudaStream_t>(stream)};
+  const Launch go{a};
+  const cudaError_t err = bf16 ? by_dims<__nv_bfloat16>(Dk, Dv, go)
+                               : by_dims<float>(Dk, Dv, go);
   return (int)err;
 }
 
-// The kernel that head dim D and the type take, as compiled and placed on
-// the current device: out[0] resident blocks per SM, out[1] threads per
-// block, out[2] registers per thread, out[3] local (spill) bytes per
-// thread, out[4] dynamic shared memory per block. Returns a cudaError_t.
-int flash_attention_kernel_info(int D, int bf16, int* out) {
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (bf16)
-    err = D <= 64    ? info<__nv_bfloat16, 64>(out)
-          : D <= 128 ? info<__nv_bfloat16, 128>(out)
-                     : info<__nv_bfloat16, 256>(out);
-  else
-    err = D <= 64    ? info<float, 64>(out)
-          : D <= 128 ? info<float, 128>(out)
-                     : info<float, 256>(out);
+// The kernel that head dims (Dk, Dv) and the type take, as compiled and
+// placed on the current device: out[0] resident blocks per SM, out[1]
+// threads per block, out[2] registers per thread, out[3] local (spill)
+// bytes per thread, out[4] dynamic shared memory per block. Returns a
+// cudaError_t.
+int flash_attention_kernel_info(int Dk, int Dv, int bf16, int* out) {
+  if (Dk < 1 || Dk > 256 || Dv < 1 || Dv > 256)
+    return (int)cudaErrorInvalidValue;
+  const Info go{out};
+  const cudaError_t err = bf16 ? by_dims<__nv_bfloat16>(Dk, Dv, go)
+                               : by_dims<float>(Dk, Dv, go);
   return (int)err;
 }
 

@@ -1,18 +1,23 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): the bf16 lane
-// for head dims 64, 128 and 256, exported through a plain C interface and
+// for (key, value) head dims (64, 64), (128, 128), (256, 256) and
+// (192, 128), exported through a plain C interface and
 // bound to PyTorch with ctypes (repro_torch/kernels/flash_attention/
 // flash_attention.py, which picks this lane or the CUDA-core one in
 // flash_attention.cu).
 //
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
-//   q (B, H, S, D), k and v (B, Hkv, T, D), bf16, contiguous, 16-byte
-//   aligned; o (B, H, S, D) bf16; G = H / Hkv; D in {64, 128, 256}.
+//   q (B, H, S, DK), k (B, Hkv, T, DK), v (B, Hkv, T, DV), bf16,
+//   contiguous, 16-byte aligned; o (B, H, S, DV) bf16; G = H / Hkv.
 //
-// The same function as the CUDA-core lane and as the plain version: causal
-// masking aligned top-left (row i sees columns j <= i) for any S and T,
-// an optional local window (row i keeps columns j > i - window: the JAX
-// package's _mask, models/attention.py, for RecurrentGemma's local_attn
-// layers), masked scores -1e30, a row whose denominator is 0 divides by 1.
+// The same function as the CUDA-core lane and as the plain version, the
+// JAX package's _mask (models/attention.py): causal masking aligned
+// top-left (row i sees columns j <= i) for any S and T, widened by a
+// prefix (PaliGemma's prefix-LM: every row also sees the columns
+// j < prefix), then an optional local window (row i keeps columns
+// j > i - window, RecurrentGemma's local_attn layers); masked scores
+// -1e30, a row whose denominator is 0 divides by 1. (192, 128) is
+// DeepSeek-V3's multi-head latent attention: 128 + 64 rope dims of q and
+// k against 128 of v.
 //
 // Replaces repro/kernels/flash_attention/flash_attention.py::_kernel, which
 // walks a sequential (B, H, nq, nk) grid and carries the running max,
@@ -22,8 +27,12 @@
 // Hkv = 4, S = T = 2048, D = 128, causal) the work is 34.4 GFLOP (4 H D
 // per allowed query-key pair) against 0.05 GB of q, k, v and o: 0.0348 ms
 // at the 989 TFLOP/s of dense bf16 on the tensor cores, 0.016 ms of bytes
-// at 3.35 TB/s. So both products run on the tensor cores in bf16, and the
-// loads are taken off the threads that issue them:
+// at 3.35 TB/s. DeepSeek-V3's MLA prefill (B = 1, H = Hkv = 128,
+// S = T = 2048, DK = 192, DV = 128: 2 (DK + DV) = 640 FLOP a pair and
+// head) is 171.9 GFLOP, 0.174 ms; PaliGemma-3B's (H = 8, Hkv = 1, D = 256,
+// a 256-position prefix) 17.5 GFLOP, 0.0177 ms. So both products run on
+// the tensor cores in bf16, and the loads are taken off the threads that
+// issue them:
 //
 // * One thread block per (b, h, 128-row q tile), 384 threads in three
 //   warpgroups. Warpgroup 0 is the producer: it gives up registers
@@ -33,11 +42,12 @@
 //   compiled, fewer than a consumer's 128 floats of O beside S and P
 //   need, so that head dim takes one consumer warpgroup: 256 threads, a
 //   64-row q tile, up to 255 registers a thread and no setmaxnreg.
-// * TMA with 3-D tensor maps, (D, S, B*H) for q and o and (D, T, B*Hkv)
-//   for k and v, so a box never crosses into another head: rows past S or
-//   T load as zeros and the store of o drops rows >= S. A bf16 row of
-//   D = 128 is 256 bytes, more than the 128-byte swizzle span, so every
-//   tile is loaded as D / 64 panels of 64 columns.
+// * TMA with 3-D tensor maps, (DK, S, B*H) for q, (DV, S, B*H) for o,
+//   (DK, T, B*Hkv) for k and (DV, T, B*Hkv) for v, so a box never crosses
+//   into another head: rows past S or T load as zeros and the store of o
+//   drops rows >= S. A bf16 row of 128 columns is 256 bytes, more than
+//   the 128-byte swizzle span, so every tile is loaded as panels of 64
+//   columns: DK / 64 for q and k, DV / 64 for v and o.
 // * A ring of 2 stages of kBK kv rows (K and V), each with a full barrier
 //   for K, one for V and an empty barrier: the producer runs up to two
 //   tiles ahead, and a consumer starts q k^T as soon as K has landed.
@@ -45,25 +55,40 @@
 //   2 x (K 32 KB + V 32 KB) = 160 KB. At D = 256 two stages of 128 rows
 //   would take 256 KB beside Q, over the 227 KB a block may use, so kBK
 //   = 64 there: Q (64 rows) 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.
+//   At (192, 128): Q 48 KB + 2 x (K 48 KB + V 32 KB) = 208 KB, so two
+//   consumers and kBK = 128 as at D = 128.
 // * S = Q K^T is wgmma m64n{kBK}k16 with both operands in shared memory
-//   (K-major: D contiguous as stored), D / 16 k-steps. O += P V is wgmma
-//   m64nDk16 with P from registers: the f32 accumulator of S, rounded to
-//   bf16 and packed in pairs, is already the register layout of the next
-//   product's A operand. V is read MN-major (D contiguous) with the
-//   transpose bit set. At D = 256 a consumer thread holds 128 floats of O
-//   and 32 of S.
+//   (K-major: DK contiguous as stored), DK / 16 k-steps (12 at DK = 192).
+//   O += P V is wgmma m64n{DV}k16 with P from registers: the f32
+//   accumulator of S, rounded to bf16 and packed in pairs, is already the
+//   register layout of the next product's A operand. V is read MN-major
+//   (DV contiguous) with the transpose bit set. At D = 256 a consumer
+//   thread holds 128 floats of O and 32 of S; at (192, 128) 64 and 64, as
+//   at D = 128.
 // * The softmax stays in f32 registers: the 4 threads that share a row in
 //   the accumulator layout reduce its max and sum by shuffles; exp2f on
 //   scores pre-scaled by scale * log2(e); O is rescaled only when a row's
 //   max moves. The causal and column (j >= T) masks are applied only on
 //   tiles that cross the diagonal or the tail; causal blocks skip whole
-//   tiles past their last row and the longest tiles launch first. With a
-//   window, a q tile starting at row q0 begins its kv loop at the tile of
-//   column max(0, q0 - window + 1), and the window's mask is applied only
-//   on the tiles that cross its lower edge; window = 0 (none) keeps the
-//   causal path's loop bounds and masks as they were.
+//   tiles past their last row. Blocks run in groups of heads whose k and
+//   v fit in L2 together (hopper.cuh's block_tile), the longest tiles of
+//   a group first: at DeepSeek-V3's 128 kv heads k and v are 168 MB, and
+//   an order that runs every head's q tile t before any head's t - 1
+//   reads them from device memory once per q tile (0.517 ms a prefill,
+//   0.342 in groups of 19 heads; H100 80GB HBM3 at 700 W,
+//   tools/time_flash.py); where every head's k and v fit, the group is
+//   all heads, longest tiles first. With a
+//   prefix the kv loop runs to the later of the tile of the last row and
+//   the tile of column prefix - 1, and the diagonal's mask spares the
+//   columns j < prefix: a tile wholly inside the prefix is not masked.
+//   With a window, a q tile starting at row q0 begins its kv loop at the
+//   tile of column max(0, q0 - window + 1), and the window's mask is
+//   applied only on the tiles that cross its lower edge; window = 0 (none)
+//   and prefix = 0 keep the causal path's loop bounds and masks as they
+//   were.
 // * Epilogue: O / l in bf16 is staged, swizzled, over the warpgroup's own
-//   rows of the Q tile and written with one TMA store per panel.
+//   rows of the Q tile (DV <= DK: its DV / 64 panels fit in Q's) and
+//   written with one TMA store per panel.
 //
 // The tensor maps are encoded on the host at every call; the driver's
 // cuTensorMapEncodeTiled is taken through cudaGetDriverEntryPointByVersion,
@@ -93,26 +118,30 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kErrNoEncode = 100000;    // driver entry point not found
 constexpr int kErrEncode = 100001;      // + CUresult of the encode
 
-template <int D>
+template <int DK, int DV>
 struct Layout {
   // consumer warpgroups of 64 q rows each: one at D = 256, where a thread
   // needs more registers than a 384-thread block leaves it
-  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kConsumers = DK == 256 ? 1 : 2;
   static constexpr int kThreads = 128 * (1 + kConsumers);  // + producer
   static constexpr int kBQ = 64 * kConsumers;   // q rows per block
   // kv rows per ring stage: two stages of 128 rows do not fit at D = 256
-  static constexpr int kBK = D == 256 ? 64 : 128;
-  static constexpr int kPanels = D / kPanel;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;  // one K or one V tile
+  static constexpr int kBK = DK == 256 ? 64 : 128;
+  static constexpr int kPanelsK = DK / kPanel;  // of q and k
+  static constexpr int kPanelsV = DV / kPanel;  // of v and o
+  static constexpr int kQBytes = kBQ * DK * 2;
+  static constexpr int kKBytes = kBK * DK * 2;  // one K tile
+  static constexpr int kVBytes = kBK * DV * 2;  // one V tile
   // Q | K[kStages] | V[kStages] | barriers, each tile 1024-byte aligned;
   // panel p of a tile of R rows starts at p * R * 128
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kQBytes;
-  static constexpr int kVOff = kKOff + kStages * kKVBytes;
-  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kVBytes;
   static constexpr int kBars = 1 + 3 * kStages;
   static constexpr int kSmem = kBarOff + 8 * kBars + 1024;  // align slack
+  static_assert(DV <= DK, "o is staged over the q tile");
+  static_assert(kSmem <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -167,15 +196,19 @@ __device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
   wgmma_ss_n64(s, da, db, scale_d);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
+// PREFIX: a prefix-LM mask (prefix > 0) is compiled apart, so that the
+// causal path's loop bounds and masks stay as they were without one (its
+// tests cost the causal path 4% at D = 256, H100 80GB HBM3 at 700 W,
+// tools/time_flash.py)
+template <int DK, int DV, bool PREFIX>
+__global__ void __launch_bounds__(Layout<DK, DV>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o, int H,
                        int Hkv, int S, int T, float scale_log2, int causal,
-                       int window) {
-  using L = Layout<D>;
+                       int window, int prefix, int group) {
+  using L = Layout<DK, DV>;
   constexpr int kBK = L::kBK;
   constexpr int kBQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
@@ -189,13 +222,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   auto empty = [&](int st) { return q_full + 8u * (1 + 2 * kStages + st); };
 
   const int nq = (S + kBQ - 1) / kBQ;
-  // causal q tiles near the end do the most work: launch them first
-  const int qt = causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y;
-  const int bh = blockIdx.x;  // b * H + h; neighbours share a kv head
+  int qt, bh;  // bh = b * H + h; neighbours share a kv head
+  block_tile(nq, gridDim.x / nq, group, causal, qt, bh);
   const int bhk = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int q0 = qt * kBQ;
   const int nk = (T + kBK - 1) / kBK;
-  const int n_kv = causal ? min(nk, (q0 + kBQ - 1) / kBK + 1) : nk;
+  // causal: up to the tile of the block's last row or of the prefix's last
+  // column, whichever is later
+  const int last = PREFIX ? max(q0 + kBQ - 1, prefix - 1) : q0 + kBQ - 1;
+  const int n_kv = causal ? min(nk, last / kBK + 1) : nk;
   // the first kv tile the window reaches (0 without a window); the ring's
   // stage and phase count from it
   const int kt0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
@@ -219,23 +254,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
+      for (int p = 0; p < L::kPanelsK; ++p)
         tma_load_3d(sQ + p * kBQ * kPanelRow, &tm_q, q_full, p * kPanel, q0,
                     bh);
       for (int kt = kt0; kt < n_kv; ++kt) {
         const int st = (kt - kt0) % kStages;
         // the first round finds every stage empty (parity 1 passes)
         mbar_wait(empty(st), (((kt - kt0) / kStages) & 1) ^ 1);
-        const uint32_t k_dst = sK + st * L::kKVBytes;
-        const uint32_t v_dst = sV + st * L::kKVBytes;
-        mbar_expect_tx(k_full(st), L::kKVBytes);
+        const uint32_t k_dst = sK + st * L::kKBytes;
+        const uint32_t v_dst = sV + st * L::kVBytes;
+        mbar_expect_tx(k_full(st), L::kKBytes);
 #pragma unroll
-        for (int p = 0; p < L::kPanels; ++p)
+        for (int p = 0; p < L::kPanelsK; ++p)
           tma_load_3d(k_dst + p * kBK * kPanelRow, &tm_k, k_full(st),
                       p * kPanel, kt * kBK, bhk);
-        mbar_expect_tx(v_full(st), L::kKVBytes);
+        mbar_expect_tx(v_full(st), L::kVBytes);
 #pragma unroll
-        for (int p = 0; p < L::kPanels; ++p)
+        for (int p = 0; p < L::kPanelsV; ++p)
           tma_load_3d(v_dst + p * kBK * kPanelRow, &tm_v, v_full(st),
                       p * kPanel, kt * kBK, bhk);
       }
@@ -252,9 +287,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = q0 + 64 * c + 16 * warp + lane / 4;
     const int col0 = 2 * (lane % 4);
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};
 
@@ -266,13 +301,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t parity = ((kt - kt0) / kStages) & 1;
       const int k0 = kt * kBK;
 
-      // S = Q K^T: D / 16 k-steps, 4 per 64-column panel
+      // S = Q K^T: DK / 16 k-steps, 4 per 64-column panel
       float s[kBK / 2];
-      const uint64_t dk = make_desc(sK + st * L::kKVBytes, 16, 1024);
+      const uint64_t dk = make_desc(sK + st * L::kKBytes, 16, 1024);
       mbar_wait(k_full(st), parity);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
+      for (int ks = 0; ks < DK / 16; ++ks) {
         const uint32_t qoff = (ks / 4) * kBQ * kPanelRow + (ks % 4) * 32;
         const uint32_t koff = (ks / 4) * kBK * kPanelRow + (ks % 4) * 32;
         wgmma_qk<kBK>(s, dq + (qoff >> 4), dk + (koff >> 4), ks > 0);
@@ -281,13 +316,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       fence_operands(s);
 
-      // masks, only where a tile crosses the diagonal or the kv tail
-      if (k0 + kBK > T || (causal && k0 + kBK - 1 > q0 + 64 * c)) {
+      // masks, only where a tile crosses the kv tail or the diagonal past
+      // the prefix (columns j < prefix are seen by every row)
+      if (k0 + kBK > T || (causal && k0 + kBK - 1 > q0 + 64 * c &&
+                           (!PREFIX || k0 + kBK > prefix))) {
 #pragma unroll
         for (int r = 0; r < kBK / 2; ++r) {
           const int col = k0 + 8 * (r / 4) + col0 + (r % 2);
           const int row = row0 + 8 * ((r % 4) / 2);
-          if (col >= T || (causal && col > row)) s[r] = kNegInf;
+          if (col >= T || (causal && col > row && (!PREFIX || col >= prefix)))
+            s[r] = kNegInf;
         }
       }
       // and the window's, only where a tile crosses its lower edge for
@@ -332,7 +370,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rsum[h];
       if (moved) {
 #pragma unroll
-        for (int r = 0; r < D / 2; ++r) o[r] *= alpha[(r % 4) / 2];
+        for (int r = 0; r < DV / 2; ++r) o[r] *= alpha[(r % 4) / 2];
       }
 
       // P in bf16: k-step kk of P V takes accumulator columns
@@ -345,15 +383,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 
       // O += P V: kBK / 16 k-steps of 16 kv rows (2048 bytes) each; the
-      // D / 64 panels of V are kBK * 128 bytes apart (LBO)
+      // DV / 64 panels of V are kBK * 128 bytes apart (LBO)
       const uint64_t dv =
-          make_desc(sV + st * L::kKVBytes, kBK * kPanelRow, 1024);
+          make_desc(sV + st * L::kVBytes, kBK * kPanelRow, 1024);
       mbar_wait(v_full(st), parity);
       wgmma_fence();
       fence_operands(o);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_pv<D>(o, pa[kk], dv + ((kk * 16 * kPanelRow) >> 4));
+        wgmma_pv<DV>(o, pa[kk], dv + ((kk * 16 * kPanelRow) >> 4));
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(o);
@@ -372,8 +410,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const uint32_t so = sQ + 64 * c * kPanelRow;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + col0;  // within D
+    for (int j = 0; j < DV / 8; ++j) {
+      const int col = 8 * j + col0;  // within DV
       const uint32_t panel = so + (col / kPanel) * kBQ * kPanelRow;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -388,7 +426,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     named_barrier(1 + c, 128);
     if (tid == 0 && q0 + 64 * c < S) {
 #pragma unroll
-      for (int p = 0; p < L::kPanels; ++p)
+      for (int p = 0; p < L::kPanelsV; ++p)
         tma_store_3d(&tm_o, so + p * kBQ * kPanelRow, p * kPanel,
                      q0 + 64 * c, bh);
       tma_store_commit_and_wait();
@@ -440,28 +478,31 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
   return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int T, float scale, bool causal,
-           int window, cudaStream_t stream) {
+           int window, int prefix, cudaStream_t stream) {
+  using L = Layout<DK, DV>;
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return kErrNoEncode;
   CUtensorMap tq, tk, tv, to;
-  int err = encode(fn, &tq, q, D, S, B * H, Layout<D>::kBQ);
-  if (!err) err = encode(fn, &tk, k, D, T, B * Hkv, Layout<D>::kBK);
-  if (!err) err = encode(fn, &tv, v, D, T, B * Hkv, Layout<D>::kBK);
-  if (!err) err = encode(fn, &to, o, D, S, B * H, 64);
+  int err = encode(fn, &tq, q, DK, S, B * H, L::kBQ);
+  if (!err) err = encode(fn, &tk, k, DK, T, B * Hkv, L::kBK);
+  if (!err) err = encode(fn, &tv, v, DV, T, B * Hkv, L::kBK);
+  if (!err) err = encode(fn, &to, o, DV, S, B * H, 64);
   if (err) return err;
-  constexpr int smem = Layout<D>::kSmem;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  constexpr int smem = L::kSmem;
+  auto kernel = prefix > 0 ? flash_fwd_wgmma_kernel<DK, DV, true>
+                            : flash_fwd_wgmma_kernel<DK, DV, false>;
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
-  using L = Layout<D>;
-  const dim3 grid(B * H, (S + L::kBQ - 1) / L::kBQ);
-  kernel<<<grid, L::kThreads, smem, stream>>>(tq, tk, tv, to, H, Hkv, S, T,
-                                              scale * kLog2e, causal ? 1 : 0,
-                                              window);
+  const int nq = (S + L::kBQ - 1) / L::kBQ;
+  if ((long long)nq * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int group = l2_heads(B * H, H / Hkv, T, DK, DV, 2);
+  kernel<<<nq * B * H, L::kThreads, smem, stream>>>(
+      tq, tk, tv, to, H, Hkv, S, T, scale * kLog2e, causal ? 1 : 0, window,
+      prefix, group);
   return (int)cudaGetLastError();
 }
 
@@ -471,24 +512,32 @@ extern "C" {
 
 // Returns 0 on success, a cudaError_t after the launch, or an error of the
 // tensor-map encode (see flash_attention_wgmma_error_string). The caller
-// checks shapes, types and alignment: bf16, D in {64, 128, 256},
-// H % Hkv == 0, S, T >= 1, contiguous tensors on 16-byte boundaries;
-// window 0 (none) or >= 1 with S <= T + window - 1.
+// checks shapes, types and alignment: bf16, (DK, DV) in {(64, 64),
+// (128, 128), (256, 256), (192, 128)}, H % Hkv == 0, S, T >= 1,
+// contiguous tensors on 16-byte boundaries; window 0 (none) or >= 1 with
+// S <= T + window - 1; prefix >= 0 (0: none; read only when causal).
 int flash_attention_wgmma_launch(const void* q, const void* k,
                                  const void* v, void* o, int B, int H,
-                                 int Hkv, int S, int T, int D, float scale,
-                                 int causal, int window, void* stream) {
+                                 int Hkv, int S, int T, int DK, int DV,
+                                 float scale, int causal, int window,
+                                 int prefix, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || T < 1 ||
-      window < 0 || (window > 0 && S > T + window - 1) ||
-      (S + 63) / 64 > 65535)
+      window < 0 || (window > 0 && S > T + window - 1) || prefix < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, o, B, H, Hkv, S, T, scale,
-                                 causal != 0, window, s);
-  if (D == 128) return launch<128>(q, k, v, o, B, H, Hkv, S, T, scale,
-                                   causal != 0, window, s);
-  if (D == 256) return launch<256>(q, k, v, o, B, H, Hkv, S, T, scale,
-                                   causal != 0, window, s);
+  const bool c = causal != 0;
+  if (DK == 64 && DV == 64)
+    return launch<64, 64>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
+                          prefix, s);
+  if (DK == 128 && DV == 128)
+    return launch<128, 128>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
+                            prefix, s);
+  if (DK == 256 && DV == 256)
+    return launch<256, 256>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
+                            prefix, s);
+  if (DK == 192 && DV == 128)
+    return launch<192, 128>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
+                            prefix, s);
   return (int)cudaErrorInvalidValue;
 }
 

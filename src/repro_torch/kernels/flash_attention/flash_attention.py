@@ -1,35 +1,45 @@
 """ctypes wrapper of the hand-written flash-attention CUDA kernels, the
 prefill forward's attention. Two lanes, both hand-written for sm_90a:
 
-* "wgmma" (csrc/flash_attention_wgmma.cu): bf16 with head dim 64, 128 or
-  256, every full-width config the port serves. q k^T and p v run on the
-  tensor cores (wgmma, p rounded to bf16), k and v arrive by TMA into a
-  shared-memory ring, one producer and two consumer warpgroups on a
-  128-row q tile, kv tiles of 128 rows. At head dim 256
-  (RecurrentGemma-2B) one consumer warpgroup on a 64-row q tile, whose
-  threads may then hold O's 128 floats in registers, and kv tiles of 64
-  rows, since two stages of 128 would not fit in shared memory.
-* "f32" (csrc/flash_attention.cu): float32, and bf16 at any other head dim
-  (the smoke configs' 12-32): the arithmetic in f32 FMAs on the CUDA cores.
-  One block of 256 threads (8 warps) per 128-row q tile (64 rows at head
-  dims above 128), kv tiles of 128 keys streamed as 32 KB chunks (k in
-  64-column slices, then v in 64-key slices, 32 above 128) through a
-  two-buffer ring by 16-byte cp.async, each chunk copied while the one
-  before is computed on; one block barrier per chunk; 8 x 8 scores and
-  outputs per thread, p in shared memory per half-warp. 227,328 bytes of
-  shared memory at D = 128 in float32: one block per SM. `kernel_info`
-  reports its occupancy, registers and spills as compiled.
+* "wgmma" (csrc/flash_attention_wgmma.cu): bf16 with (key, value) head
+  dims (64, 64), (128, 128), (256, 256) or (192, 128) (DeepSeek-V3's
+  multi-head latent attention), every full-width config the port serves.
+  q k^T and p v run on the tensor cores (wgmma, p rounded to bf16), k and
+  v arrive by TMA into a shared-memory ring, one producer and two
+  consumer warpgroups on a 128-row q tile, kv tiles of 128 rows. At head
+  dim 256 (RecurrentGemma-2B, PaliGemma-3B) one consumer warpgroup on a
+  64-row q tile, whose threads may then hold O's 128 floats in registers,
+  and kv tiles of 64 rows, since two stages of 128 would not fit in
+  shared memory. At (192, 128) q and k are three 64-column panels and v
+  two: 208 KB of shared memory with two consumers and 128-row kv tiles.
+* "f32" (csrc/flash_attention.cu): float32, and bf16 at any other pair
+  of head dims (the smoke configs' 12-32): the arithmetic in f32 FMAs on
+  the CUDA cores. One block of 256 threads (8 warps) per 128-row q tile
+  (64 rows at head dims above 128), kv tiles of 128 keys streamed as
+  32 KB chunks (k in 64-column slices, then v in 64-key slices, 32 above
+  128) through a two-buffer ring by 16-byte cp.async, each chunk copied
+  while the one before is computed on; one block barrier per chunk; 8 x 8
+  scores and outputs per thread, p in shared memory per half-warp.
+  227,328 bytes of shared memory at D = 128 in float32: one block per
+  SM. `kernel_info` reports its occupancy, registers and spills as
+  compiled.
 
-`kernel_lane` picks the lane from the dtype and the head dim alone. This is
-dispatch between two kernels, not a fallback: a bf16 tensor of head dim 64,
-128 or 256 only ever goes to the tensor-core kernel, and a failed build or
-launch raises.
+`kernel_lane` picks the lane from the dtype and the two head dims alone.
+This is dispatch between two kernels, not a fallback: a bf16 tensor whose
+head dims are one of the tensor-core pairs only ever goes to the
+tensor-core kernel, and a failed build or launch raises.
 
-Both lanes take an optional local window (RecurrentGemma's `local_attn`
-layers): row i keeps columns j > i - window besides the causal j <= i, the
-JAX package's `_mask`. A q tile starts its kv loop at the first tile its
-window reaches and masks only the tiles that cross the window's lower
-edge; window=None runs the causal path as it was.
+Both lanes take the JAX package's `_mask` (models/attention.py): an
+optional local window (RecurrentGemma's `local_attn` layers: row i keeps
+columns j > i - window besides the causal j <= i) and a prefix
+(PaliGemma's prefix-LM: with causal, every row also sees the columns
+j < prefix_len), and a value head dim of its own (MLA: Dk = 192 over
+Dv = 128). A q tile starts its kv loop at the first tile its window
+reaches, ends it at the last tile that holds a column it sees (its own
+last row or the prefix's last column, whichever is later), and masks
+only the tiles that cross the window's lower edge, the diagonal past the
+prefix or the kv tail; window=None and prefix_len=0 run the causal path
+as it was.
 
 The kernels replace the JAX package's Pallas `_kernel`
 (repro/kernels/flash_attention/flash_attention.py): online-softmax
@@ -46,10 +56,11 @@ from typing import Optional
 import torch
 
 from .. import build
-from .ref import check_window
+from .ref import check_prefix, check_window
 
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128, 256)
+# the tensor-core lane's (key, value) head dims
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 # Launches: "fwd" counts every forward launch of either lane, "wgmma" those
 # of the tensor-core lane; one added where a kernel is launched, and
@@ -57,12 +68,16 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 LAUNCHES = {"fwd": 0, "wgmma": 0}
 
 
-def kernel_lane(dtype: torch.dtype, head_dim: int) -> str:
-    """"wgmma" for bfloat16 with head_dim in WGMMA_HEAD_DIMS = (64, 128,
-    256) (the tensor-core kernel; one consumer warpgroup and 64-row tiles
-    at 256), else "f32" (the CUDA-core kernel: 256 threads per 128-row q
-    tile, 64-row above head dim 128, k and v by cp.async, f32 FMAs)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+def kernel_lane(dtype: torch.dtype, head_dim: int,
+                v_head_dim: Optional[int] = None) -> str:
+    """"wgmma" for bfloat16 whose (key, value) head dims are in
+    WGMMA_HEAD_DIMS = (64, 64), (128, 128), (256, 256), (192, 128) (the
+    tensor-core kernel; one consumer warpgroup and 64-row tiles at 256),
+    else "f32" (the CUDA-core kernel: 256 threads per 128-row q tile,
+    64-row above head dim 128, k and v by cp.async, f32 FMAs).
+    v_head_dim defaults to head_dim."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if dtype == torch.bfloat16 and (head_dim, dv) in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "f32"
 
@@ -81,30 +96,35 @@ def check_aligned(**tensors: torch.Tensor) -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_kernel_info.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
     lib.flash_attention_kernel_info.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
-    """The CUDA-core lane's kernel for this head dim and dtype, as compiled
-    and placed on the current CUDA device: resident blocks per SM, threads
-    per block, registers per thread, local (spill) bytes per thread and
-    dynamic shared memory per block."""
+def kernel_info(head_dim: int, dtype: torch.dtype,
+                v_head_dim: Optional[int] = None) -> dict:
+    """The CUDA-core lane's kernel for these head dims (v_head_dim defaults
+    to head_dim) and dtype, as compiled and placed on the current CUDA
+    device: resident blocks per SM, threads per block, registers per
+    thread, local (spill) bytes per thread and dynamic shared memory per
+    block."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"float32 or bfloat16, got {dtype}")
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {head_dim} outside [1, {MAX_HEAD_DIM}]")
+    dv = head_dim if v_head_dim is None else v_head_dim
+    for d in (head_dim, dv):
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     lib = _lib()
     out = (ctypes.c_int * 5)()
     err = lib.flash_attention_kernel_info(
-        head_dim, int(dtype == torch.bfloat16), out)
+        head_dim, dv, int(dtype == torch.bfloat16), out)
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel_info failed: error {err} "
                            f"({lib.flash_attention_error_string(err).decode()})")
@@ -117,8 +137,8 @@ def kernel_info(head_dim: int, dtype: torch.dtype) -> dict:
 def _wgmma_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_wgmma")
     lib.flash_attention_wgmma_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.flash_attention_wgmma_launch.restype = ctypes.c_int
     lib.flash_attention_wgmma_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
@@ -128,16 +148,20 @@ def _wgmma_lib() -> ctypes.CDLL:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Attention on the card.
 
-    q: (B, H, S, D); k, v: (B, Hkv, T, D) with H % Hkv == 0, all float32 or
-    all bfloat16, contiguous, on one CUDA device; 1 <= D <= 256, any S and T.
-    causal masks top-left (row i sees columns j <= i); window (None, or
-    >= 1 with S <= T + window - 1 so that every row sees a column) keeps
-    columns j > i - window. scale defaults to D ** -0.5. Returns
-    (B, H, S, D) in q's dtype. The lane is `kernel_lane(q.dtype, D)`; the
-    tensor-core lane also needs q, k and v on 16-byte boundaries.
+    q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv) with
+    H % Hkv == 0, all float32 or all bfloat16, contiguous, on one CUDA
+    device; 1 <= Dk, Dv <= 256, any S and T. causal masks top-left (row i
+    sees columns j <= i) and, with prefix_len > 0, lets every row see the
+    columns j < prefix_len as well (without causal the prefix changes
+    nothing); window (None, or >= 1 with S <= T + window - 1 so that every
+    row sees a column) keeps columns j > i - window. scale defaults to
+    Dk ** -0.5. Returns (B, H, S, Dv) in q's dtype. The lane is
+    `kernel_lane(q.dtype, Dk, Dv)`; the tensor-core lane also needs q, k
+    and v on 16-byte boundaries.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -153,23 +177,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 4-D (B, heads, seq, D)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    B, H, S, D = q.shape
+    B, H, S, Dk = q.shape
     _, Hkv, T, _ = k.shape
-    if (k.shape[0] != B or k.shape[3] != D or tuple(v.shape) != tuple(k.shape)
+    Dv = v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != Dk
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])
             or Hkv == 0 or H % Hkv):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
-    lane = kernel_lane(q.dtype, D)
-    o = torch.empty_like(q)
+    for d in (Dk, Dv):
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    check_prefix(prefix_len)
+    lane = kernel_lane(q.dtype, Dk, Dv)
+    o = q.new_empty((B, H, S, Dv))
     if o.numel() == 0:
         return o
     if T == 0:
         return o.zero_()
     check_window(S, T, window)
-    scale = D ** -0.5 if scale is None else float(scale)
+    scale = Dk ** -0.5 if scale is None else float(scale)
     win = 0 if window is None else int(window)  # 0: no window
+    # the prefix only widens the causal mask
+    prefix = min(int(prefix_len), T) if causal else 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if lane == "wgmma":
@@ -177,16 +207,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _wgmma_lib()
             err = lib.flash_attention_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, D, scale, int(causal), win, stream)
+                Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix, stream)
             error_string = lib.flash_attention_wgmma_error_string
         else:
             vec_elems = 16 // q.element_size()
-            vec = D % vec_elems == 0 and all(
-                t.data_ptr() % 16 == 0 for t in (q, k, v, o))
+            vec = (Dk % vec_elems == 0 and Dv % vec_elems == 0 and all(
+                t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
             lib = _lib()
             err = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, D, scale, int(causal), win,
+                Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix,
                 int(q.dtype == torch.bfloat16), int(vec), stream)
             error_string = lib.flash_attention_error_string
     if err != 0:

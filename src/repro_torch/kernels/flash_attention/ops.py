@@ -19,13 +19,13 @@ from .ref import flash_attention_ref
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: Optional[float] = None,
-              window: Optional[int] = None,
+              window: Optional[int] = None, prefix_len: int = 0,
               impl: str = "auto") -> torch.Tensor:
-    """q: (B, H, S, D); k, v: (B, Hkv, T, D). Returns (B, H, S, D) in q's
-    dtype; causal masks top-left (row i sees columns j <= i), and a window
+    """q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv). Returns
+    (B, H, S, Dv) in q's dtype; causal masks top-left (row i sees columns
+    j <= i, and with a prefix every column j < prefix_len), and a window
     keeps columns j > i - window."""
-    if resolve_impl(impl, q) == "cuda":
-        return flash_attention(q, k, v, causal=causal, scale=scale,
-                               window=window)
-    return flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                               window=window)
+    fn = (flash_attention if resolve_impl(impl, q) == "cuda"
+          else flash_attention_ref)
+    return fn(q, k, v, causal=causal, scale=scale, window=window,
+              prefix_len=prefix_len)

@@ -1,18 +1,17 @@
-"""Attention for the decoder: GQA/MQA/MHA projections, the full and the
-local-window prefill self-attention through the flash-attention kernel,
-and one-token attention over a KV cache.
+"""Attention for the decoder: GQA/MQA/MHA projections, the full, the
+local-window and the prefix-LM prefill self-attention through the
+flash-attention kernel, DeepSeek's multi-head latent attention (MLA), and
+one-token attention over a KV cache or MLA's latent cache.
 
 Two compute paths, as in the JAX package:
-  * `gqa_attention` — prefill: `kernels.flash_attention.attention`, which
-    launches the hand-written CUDA kernel for CUDA tensors (the JAX package
-    runs `flash_attn_jnp` here and names its Pallas kernel as the 1:1
-    replacement on the TPU; both are the same top-left causal function,
-    and the kernel takes `_mask`'s local window as well);
-  * `decode_attn` — one query token over a cache, an einsum over T with
-    masking.
-
-Prefix-LM masks, query offsets and MLA are not ported yet (ROADMAP.md,
-Queue 1 item 10): they raise rather than run a plain path.
+  * `gqa_attention` and `mla_attention` — prefill:
+    `kernels.flash_attention.attention`, which launches the hand-written
+    CUDA kernel for CUDA tensors (the JAX package runs `flash_attn_jnp`
+    here and names its Pallas kernel as the 1:1 replacement on the TPU;
+    both are the same top-left causal function, and the kernel takes
+    `_mask`'s local window and prefix and MLA's value head dim as well);
+  * `decode_attn` and `mla_decode` — one query token over a cache, einsums
+    over T with masking (MLA's absorbed into the latent space).
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ from typing import Mapping, Optional
 import torch
 
 from ..kernels.flash_attention import attention
-from .blocks import rope
+from .blocks import rmsnorm, rmsnorm_def, rope
 from .config import ModelConfig
 from .param import ParamDef
 
@@ -43,6 +42,23 @@ def attn_defs(cfg: ModelConfig) -> dict:
         d["bk"] = ParamDef((Hkv * dh,), dt, init="zeros")
         d["bv"] = ParamDef((Hkv * dh,), dt, init="zeros")
     return d
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    dt = cfg.pdtype()
+    D, H = cfg.d_model, cfg.n_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "w_dq": ParamDef((D, cfg.q_lora_rank), dt),
+        "q_norm": rmsnorm_def(cfg.q_lora_rank, dt),
+        "w_uq": ParamDef((cfg.q_lora_rank, H * qk), dt),
+        "w_dkv": ParamDef((D, cfg.kv_lora_rank), dt),
+        "kv_norm": rmsnorm_def(cfg.kv_lora_rank, dt),
+        "w_kr": ParamDef((D, cfg.qk_rope_dim), dt),
+        "w_ukv": ParamDef(
+            (cfg.kv_lora_rank, H * (cfg.qk_nope_dim + cfg.v_head_dim)), dt),
+        "wo": ParamDef((H * cfg.v_head_dim, D), dt),
+    }
 
 
 # ---------------------------------------------------------------- masks ----
@@ -107,17 +123,99 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
                   prefix_len: int = 0, impl: str = "auto") -> torch.Tensor:
     """Prefill self-attention for one layer, full or within a local
-    `window` (row i sees positions (i - window, i]). On a CUDA tensor
-    (impl "auto" or "cuda") it launches the flash-attention kernel once."""
-    if prefix_len:
-        raise NotImplementedError(
-            "prefix-LM masks are not ported yet (ROADMAP.md, Queue 1 "
-            "item 10)")
+    `window` (row i sees positions (i - window, i]); with `prefix_len`
+    every row also sees the first prefix_len positions (a prefix-LM). On a
+    CUDA tensor (impl "auto" or "cuda") it launches the flash-attention
+    kernel once."""
     B, S, _ = x.shape
     q, k, v = gqa_project(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                  causal=causal, window=window, impl=impl)
+                  causal=causal, window=window, prefix_len=prefix_len,
+                  impl=impl)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim_)
+    return o @ p["wo"]
+
+
+# ------------------------------------------------------------------ MLA ----
+def mla_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                  cfg: ModelConfig, *, positions: torch.Tensor,
+                  impl: str = "auto") -> torch.Tensor:
+    """DeepSeek multi-head latent attention, prefill form: q and kv through
+    their low-rank projections, the one rope'd key of dr dims broadcast
+    over the H heads beside each head's dn, and causal attention with key
+    head dim dn + dr over value head dim dv, scaled by (dn + dr) ** -0.5.
+    On a CUDA tensor (impl "auto" or "cuda") it launches the
+    flash-attention kernel once (bf16 at (192, 128): the tensor cores)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, S, H, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rmsnorm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # (B,S,r)
+    k_rope = rope((x @ p["w_kr"])[:, None], positions,
+                  cfg.rope_theta)                                # (B,1,S,dr)
+    kv = (c_kv @ p["w_ukv"]).reshape(B, S, H, dn + dv).transpose(1, 2)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+
+    k = torch.cat([k_nope, k_rope.expand(B, H, S, dr)], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention(qh, k, v.contiguous(), causal=True,
+                  scale=(dn + dr) ** -0.5, impl=impl)
+    o = o.transpose(1, 2).reshape(B, S, H * dv)
+    return o @ p["wo"]
+
+
+def mla_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+               cfg: ModelConfig, *, c_cache: torch.Tensor,
+               kr_cache: torch.Tensor, length: int) -> torch.Tensor:
+    """Absorbed-matrix MLA decode: attention runs in the latent space, the
+    cache stores kv_lora_rank + qk_rope_dim numbers per token.
+
+    x: (B, 1, D) normed input of the token at position length - 1;
+    c_cache: (B, T, r); kr_cache: (B, T, dr). Writes the token's latent
+    and rope'd key into slot min(length - 1, T - 1) of the caches in place
+    (past T the last slot is overwritten, as the JAX package's clamped
+    dynamic_update_slice does) and attends over the slots < length.
+    Returns the output (B, 1, D)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    dn, dr, dv, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    pos = length - 1
+    position = torch.arange(pos, pos + 1, device=x.device)
+
+    cq = rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, 1, H, dn + dr).transpose(1, 2)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, position, cfg.rope_theta)
+
+    w_ukv = p["w_ukv"].reshape(r, H, dn + dv)
+    w_uk = w_ukv[..., :dn]                    # (r, H, dn)
+    w_uv = w_ukv[..., dn:]                    # (r, H, dv)
+    # absorb W_uk into the query: q_lat = q_nope @ W_uk^T  -> (B,H,1,r)
+    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope, w_uk)
+
+    new_c = rmsnorm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)  # (B,1,r)
+    new_kr = rope(x @ p["w_kr"], position, cfg.rope_theta)       # (B,1,dr)
+    T = c_cache.shape[1]
+    slot = min(pos, T - 1)
+    c_cache[:, slot] = new_c[:, 0]
+    kr_cache[:, slot] = new_kr[:, 0]
+
+    c32 = c_cache.float()
+    s = (torch.einsum("bhqr,btr->bhqt", q_lat.float(), c32)
+         + torch.einsum("bhqd,btd->bhqt", q_rope.float(), kr_cache.float())
+         ) * ((dn + dr) ** -0.5)
+    valid = torch.arange(T, device=x.device) < length
+    s = s.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqt,btr->bhqr", w, c32)
+    o = torch.einsum("bhqr,rhd->bhqd", o_lat.to(x.dtype), w_uv)
+    o = o.transpose(1, 2).reshape(B, 1, H * dv)
     return o @ p["wo"]

@@ -16,10 +16,15 @@ Cache kinds, one dict a layer:
               dynamic_update_slice does
   local_attn  ring KV cache of min(t_max, local_window) slots, slot
               pos % t_cache, and the slot-position vector; never full
+  mla         latent cache c (B, t_max, kv_lora_rank) and rope'd key cache
+              kr (B, t_max, qk_rope_dim) of DeepSeek's attention layers
+              (either kind); past t_max the last slot is overwritten, as
+              for "attn"
   ssd         SSDCache's fields: the (B, H, P, N) state and the conv tails
   rglru       LRUCache's fields: the (B, W) state and the conv tail
-MLA's latent cache and the encoder's cross cache wait for their layers
-(ROADMAP.md, Queue 1 item 10).
+The encoder's cross cache waits for its layers (ROADMAP.md, Queue 1 item
+10). The decode path takes no prefix, as in the JAX package: a prefix-LM's
+prefix enters through the prefill forward only.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Mapping
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import NEG_INF, _mask, gqa_project
+from .attention import NEG_INF, _mask, gqa_project, mla_decode
 from .blocks import embed_lookup, logits_out, rmsnorm, rope
 from .config import ModelConfig
 from .rglru import LRUCache, rglru_init_cache, rglru_step
@@ -42,6 +47,13 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, t_max: int,
         return ssd_init_cache(cfg, batch, cfg.dtype(), dev)._asdict()
     if kind == "rglru":
         return rglru_init_cache(cfg, batch, cfg.dtype(), dev)._asdict()
+    if cfg.use_mla:
+        return {
+            "c": torch.zeros((batch, t_max, cfg.kv_lora_rank),
+                             dtype=cfg.dtype(), device=dev),
+            "kr": torch.zeros((batch, t_max, cfg.qk_rope_dim),
+                              dtype=cfg.dtype(), device=dev),
+        }
     t = min(t_max, cfg.local_window) if kind == "local_attn" else t_max
     shape = (batch, cfg.n_kv_heads, t, cfg.head_dim_)
     return {
@@ -57,8 +69,9 @@ def init_cache(cfg: ModelConfig, batch: int, t_max: int,
     Attention caches: k, v (batch, Hkv, slots, dh) in the compute dtype
     and slot_pos (slots,) int32, the position held in each slot, -1 while
     empty; t_max slots for "attn", min(t_max, local_window) for the ring
-    of "local_attn". Recurrent states are float32, conv tails in the
-    compute dtype."""
+    of "local_attn". MLA's: c (batch, t_max, kv_lora_rank) and kr (batch,
+    t_max, qk_rope_dim) in the compute dtype. Recurrent states are
+    float32, conv tails in the compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = [_layer_cache(cfg, kind, batch, t_max, dev)
@@ -71,9 +84,12 @@ def _attn_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
                kind: str) -> torch.Tensor:
     """h: (B, 1, D) normed input. Writes the slot of position length - 1
     into cache_l (slot pos % slots in the ring of "local_attn"; in a full
-    "attn" cache the last slot, min(pos, slots - 1), as the JAX package's
-    dynamic_update_slice clamps its start) and returns the attention output
-    (B, 1, D)."""
+    "attn" cache or MLA's latent cache the last slot, min(pos, slots - 1),
+    as the JAX package's dynamic_update_slice clamps its start) and
+    returns the attention output (B, 1, D)."""
+    if cfg.use_mla:
+        return mla_decode(p, h, cfg, c_cache=cache_l["c"],
+                          kr_cache=cache_l["kr"], length=length)
     B = h.shape[0]
     pos = length - 1                                    # current position
     t_cache = cache_l["k"].shape[2]

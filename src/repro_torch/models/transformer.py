@@ -1,15 +1,19 @@
 """The decoder: embedding, a stack of layers, final norm and output
 projection. Each layer mixes over time by its kind, "attn" (full causal
-attention), "local_attn" (attention within `local_window`), "rglru"
+attention; DeepSeek's multi-head latent attention where the config has
+`use_mla`), "local_attn" (attention within `local_window`), "rglru"
 (RecurrentGemma's recurrence) or "ssd" (Mamba-2's scan), then adds an MLP
-or a mixture of experts where the config has one (`d_ff > 0`).
+or a mixture of experts where the config has one (`d_ff > 0`; the first
+`first_dense_layers` layers stay dense). A prefix-LM (PaliGemma) takes
+precomputed prefix embeddings ahead of the tokens, which every position
+attends to.
 
 The JAX package stacks layers of one signature and scans over them; here
 the layers are an `nn.ModuleList` walked by a Python loop, and the JAX
 layout (`stack_plan`) is kept only to carry its parameters across
-(`interop.lm_params_from_arrays`). MLA, encoder-decoder and prefix-LM
-models are not ported yet (ROADMAP.md, Queue 1 item 10): building one
-raises NotImplementedError.
+(`interop.lm_params_from_arrays`). Encoder-decoder models are not ported
+yet (ROADMAP.md, Queue 1 item 10): building one raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from .attention import attn_defs, gqa_attention
+from .attention import attn_defs, gqa_attention, mla_attention, mla_defs
 from .blocks import (embed_defs, embed_lookup, logits_out, mlp_apply,
                      mlp_defs, rmsnorm, rmsnorm_def)
 from .config import ModelConfig
@@ -35,14 +39,8 @@ KINDS = ("attn", "local_attn", "rglru", "ssd")
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.use_mla:
-        raise NotImplementedError(f"multi-head latent attention "
-                                  f"{_NOT_PORTED}")
     if cfg.is_encdec:
         raise NotImplementedError(f"encoder-decoder models {_NOT_PORTED}")
-    if cfg.prefix_len:
-        raise NotImplementedError(f"prefix embeddings (prefix-LM) "
-                                  f"{_NOT_PORTED}")
     other = sorted(set(cfg.layer_kinds()) - set(KINDS))
     if other:
         raise NotImplementedError(f"layer kinds {other} {_NOT_PORTED}")
@@ -52,12 +50,13 @@ def check_supported(cfg: ModelConfig) -> None:
 def layer_defs(cfg: ModelConfig, kind: str = "attn",
                is_moe: bool = False) -> dict:
     """One layer of `kind`: norm1 and its mixer ("attn" for both attention
-    kinds, "rglru" or "ssd"), then norm2 + the mixture of experts (is_moe)
-    or norm2 + MLP when d_ff > 0."""
+    kinds, MLA's projections where cfg.use_mla, "rglru" or "ssd"), then
+    norm2 + the mixture of experts (is_moe) or norm2 + MLP when
+    d_ff > 0."""
     dt = cfg.pdtype()
     d = {"norm1": rmsnorm_def(cfg.d_model, dt)}
     if kind in ("attn", "local_attn"):
-        d["attn"] = attn_defs(cfg)
+        d["attn"] = mla_defs(cfg) if cfg.use_mla else attn_defs(cfg)
     elif kind == "rglru":
         d["rglru"] = rglru_defs(cfg)
     elif kind == "ssd":
@@ -165,24 +164,29 @@ class DecoderLayer(nn.Module):
         return x, None
 
     def mix(self, h: torch.Tensor, positions: torch.Tensor,
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", prefix_len: int = 0) -> torch.Tensor:
         """The time mixing of the normed input h (B, S, D): one flash
-        launch, `ssd_scan` or `rglru_scan` call on the card."""
+        launch, `ssd_scan` or `rglru_scan` call on the card. MLA takes no
+        prefix, as in the JAX package."""
         cfg = self.cfg
         if self.kind == "rglru":
             return rglru_apply(self.rglru, h, cfg, impl=impl)
         if self.kind == "ssd":
             return ssd_apply(self.ssd, h, cfg, impl=impl)
+        if cfg.use_mla:
+            return mla_attention(self.attn, h, cfg, positions=positions,
+                                 impl=impl)
         window = cfg.local_window if self.kind == "local_attn" else None
         return gqa_attention(self.attn, h, cfg, positions=positions,
-                             window=window, impl=impl)
+                             window=window, prefix_len=prefix_len,
+                             impl=impl)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                impl: str = "auto"
+                impl: str = "auto", prefix_len: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The layer's output and its MoE aux loss (None when dense)."""
         h = rmsnorm(x, self.norm1, self.cfg.norm_eps)
-        x = x + self.mix(h, positions, impl)
+        x = x + self.mix(h, positions, impl, prefix_len)
         return self.ffn(x)
 
 
@@ -219,23 +223,32 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
-    def forward(self, tokens, impl: str = "auto"
+    def forward(self, tokens, prefix_embeds=None, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Prefill forward. tokens: (B, S) integer tensor or array.
-        Returns (logits (B, S, padded_vocab) in the compute dtype, aux): aux
-        is the float32 sum of the MoE layers' load-balance losses (0 for a
-        dense model). Each layer's time mixing calls its kernel's wrapper
-        once on the card (impl "auto" or "cuda": flash attention, one
-        launch; `ssd_scan` or `rglru_scan`, two); impl="ref" runs their
-        plain versions."""
+        """Prefill forward. tokens: (B, S) integer tensor or array;
+        prefix_embeds: None or (B, P, d_model) precomputed embeddings (a
+        VLM's image patches) placed ahead of the tokens, not scaled as the
+        token embeddings are, which every position attends to (the
+        prefix-LM mask); positions run over all P + S.
+        Returns (logits (B, P + S, padded_vocab) in the compute dtype,
+        aux): aux is the float32 sum of the MoE layers' load-balance
+        losses (0 for a dense model). Each layer's time mixing calls its
+        kernel's wrapper once on the card (impl "auto" or "cuda": flash
+        attention, one launch; `ssd_scan` or `rglru_scan`, two);
+        impl="ref" runs their plain versions."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = embed_lookup(self.embed["tok"], tokens, cfg.d_model)
         x = x.to(cfg.dtype())
-        positions = torch.arange(tokens.shape[1], device=self.device)
+        prefix_len = 0
+        if prefix_embeds is not None:
+            prefix = torch.as_tensor(prefix_embeds, device=self.device)
+            x = torch.cat([prefix.to(cfg.dtype()), x], dim=1)
+            prefix_len = prefix.shape[1]
+        positions = torch.arange(x.shape[1], device=self.device)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            x, a = layer(x, positions, impl)
+            x, a = layer(x, positions, impl, prefix_len)
             if a is not None:
                 aux = aux + a
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)

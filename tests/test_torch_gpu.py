@@ -520,6 +520,167 @@ def test_flash_window_none_keeps_causal_bits(cuda):
         assert torch.equal(a, b), D
 
 
+# MLA's value head dim (DeepSeek-V3: Dk = 192, Dv = 128; its smoke config
+# 24, 16) and the prefix-LM mask (PaliGemma-3B: H = 8, Hkv = 1, D = 256, a
+# prefix of 256) on both lanes
+MLA_PREFIX_CASES = [  # (B, H, Hkv, S, T, Dk, Dv, causal, dtype, window, prefix)
+    (1, 128, 128, 2048, 2048, 192, 128, True, BF16, None, 0),  # deepseek-v3
+    (4, 128, 128, 128, 128, 192, 128, True, BF16, None, 0),
+    (1, 4, 2, 1000, 1000, 192, 128, True, BF16, None, 0),   # ragged
+    (1, 4, 4, 129, 129, 192, 128, False, BF16, None, 0),
+    (1, 4, 1, 1, 1, 192, 128, True, BF16, None, 0),          # ragged 1
+    (1, 4, 2, 128, 256, 192, 128, True, BF16, None, 0),      # causal S < T
+    (1, 4, 2, 256, 130, 192, 128, True, BF16, None, 0),      # causal S > T
+    (1, 4, 2, 300, 300, 192, 128, True, F32, None, 0),       # CUDA-core lane
+    (1, 4, 2, 129, 1000, 192, 128, True, F32, None, 0),
+    (2, 4, 4, 129, 129, 24, 16, True, F32, None, 0),         # smoke dims
+    (1, 4, 2, 150, 150, 24, 16, True, BF16, None, 0),
+    (1, 8, 1, 2048, 2048, 256, 256, True, BF16, None, 256),  # paligemma-3b
+    (4, 8, 1, 384, 384, 256, 256, True, BF16, None, 256),
+    (1, 4, 1, 300, 300, 256, 256, True, BF16, None, 1),
+    (1, 4, 1, 300, 300, 256, 256, True, BF16, None, 64),     # a tile edge
+    (1, 4, 1, 300, 300, 256, 256, True, BF16, None, 129),
+    (1, 4, 1, 300, 300, 256, 256, True, BF16, None, 1000),   # past S
+    (1, 4, 2, 300, 300, 128, 128, True, BF16, None, 128),    # a tile edge
+    (1, 4, 2, 300, 300, 128, 128, True, BF16, None, 200),
+    (1, 4, 2, 1000, 1000, 64, 64, True, BF16, None, 77),
+    (1, 4, 2, 200, 520, 64, 64, True, BF16, None, 300),      # S < T
+    (1, 4, 2, 300, 300, 192, 128, True, BF16, None, 150),    # MLA + prefix
+    (1, 4, 2, 300, 300, 128, 128, True, BF16, 100, 150),     # + window
+    (1, 4, 2, 300, 300, 128, 128, False, BF16, None, 150),   # no effect
+    (1, 4, 1, 300, 300, 256, 256, True, F32, None, 129),     # CUDA-core lane
+    (1, 4, 2, 300, 300, 128, 128, True, F32, None, 128),
+    (1, 4, 2, 1000, 1000, 64, 64, True, F32, None, 77),
+    (2, 4, 1, 40, 40, 16, 16, True, F32, None, 8),           # smoke dims
+    (1, 4, 2, 300, 300, 128, 128, True, F32, 100, 150),
+    (1, 4, 2, 300, 300, 192, 128, True, F32, None, 150),
+]
+
+
+def _qkv_dv(rng, B, H, Hkv, S, T, Dk, Dv, dtype, device):
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device=device)
+    return t(B, H, S, Dk), t(B, Hkv, T, Dk), t(B, Hkv, T, Dv)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,dtype,window,prefix",
+                         MLA_PREFIX_CASES)
+def test_flash_mla_and_prefix_match_plain(cuda, B, H, Hkv, S, T, Dk, Dv,
+                                          causal, dtype, window, prefix):
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    rng = np.random.default_rng(S * 1000 + T + Dk + Dv + prefix)
+    q, k, v = _qkv_dv(rng, B, H, Hkv, S, T, Dk, Dv, dtype, cuda)
+    before = dict(LAUNCHES)
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        prefix_len=prefix)
+    torch.cuda.synchronize()
+    tensor_cores = kernel_lane(dtype, Dk, Dv) == "wgmma"
+    assert tensor_cores == (dtype == BF16 and (Dk, Dv) in (
+        (64, 64), (128, 128), (256, 256), (192, 128)))
+    assert LAUNCHES["fwd"] == before["fwd"] + 1
+    assert LAUNCHES["wgmma"] == before["wgmma"] + int(tensor_cores)
+    assert o.shape == (B, H, S, Dv) and o.dtype == dtype
+    # the tolerances of test_flash_kernel_matches_plain
+    tol = 1e-4 if dtype == F32 else 3e-2
+    r = flash_attention_ref(q, k, v, causal=causal, window=window,
+                            prefix_len=prefix).float()
+    torch.testing.assert_close(o.float(), r, rtol=tol, atol=tol)
+    rel = float(((o.float() - r).norm(dim=-1) / r.norm(dim=-1)).max())
+    assert rel <= ROW_REL_LIMIT[dtype], (
+        f"max row |kernel - plain| / |plain| = {rel:.3g}")
+
+
+def test_flash_prefix_one_keeps_causal_bits(cuda):
+    """Every causal row sees column 0, so a prefix of 1 masks as none does:
+    the same bits on both lanes, and a binding prefix changes them."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(8)
+    for Dk, Dv, dtype in ((256, 256, BF16), (192, 128, BF16),
+                          (128, 128, F32)):
+        q, k, v = _qkv_dv(rng, 1, 4, 2, 500, 500, Dk, Dv, dtype, cuda)
+        a = flash_attention(q, k, v, causal=True)
+        assert torch.equal(a, flash_attention(q, k, v, causal=True,
+                                               prefix_len=1)), Dk
+        b = flash_attention(q, k, v, causal=True, prefix_len=200)
+        assert not torch.equal(a, b) and torch.equal(a[:, :, 200:],
+                                                     b[:, :, 200:]), Dk
+
+
+@pytest.mark.parametrize("Dk,Dv,dtype", [(192, 128, F32), (24, 16, F32),
+                                         (160, 128, BF16)])
+def test_flash_f32_lane_occupancy_dv(cuda, Dk, Dv, dtype):
+    """The CUDA-core lane at a value head dim of its own (MLA's (192, 128)
+    in float32, its smoke config's (24, 16)) keeps 8 warps resident per SM
+    and spills nothing."""
+    from repro_torch.kernels.flash_attention import kernel_info
+    info = kernel_info(Dk, dtype, Dv)
+    assert info["blocks_per_sm"] * info["threads"] // 32 >= 8, info
+    assert info["local_bytes"] == 0, info
+
+
+def test_flash_wrapper_refuses_bad_dv_and_prefix(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 4, 8, 24), device=cuda)
+    k = torch.zeros((1, 2, 8, 24), device=cuda)
+    with pytest.raises(ValueError):      # v's T differs from k's
+        flash_attention(q, k, torch.zeros((1, 2, 7, 16), device=cuda))
+    with pytest.raises(ValueError):      # Dv past 256
+        flash_attention(q, k, torch.zeros((1, 2, 8, 257), device=cuda))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, torch.zeros((1, 2, 8, 16), device=cuda),
+                        prefix_len=-1)
+    o = flash_attention(q, k, torch.zeros((1, 2, 8, 16), device=cuda))
+    assert o.shape == (1, 4, 8, 16)
+    # B * H past 65,535: the grid is 1-D
+    many = torch.zeros((65536, 1, 1, 16), device=cuda)
+    assert flash_attention(many, many, many).shape == many.shape
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "paligemma-3b"])
+def test_mla_and_prefix_smoke_forward_through_kernel(cuda, arch):
+    """The DeepSeek-V3 smoke model (MLA at Dk = 24, Dv = 16; a dense layer,
+    then MoE) and the PaliGemma smoke model with a prefix of 8 embeddings:
+    the forward launches the flash kernel once per layer on the CUDA-core
+    lane and agrees with the plain version (float32, no TF32), and the
+    engine's prefill through the decode path (MLA's latent cache) agrees
+    with the forward's last position where no prefix is given (8-token
+    prompts, which the MoE routes without drops in both)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config(arch)
+    model = Transformer(cfg, device=cuda, seed=0)
+    rng = np.random.default_rng(0)
+    # 64 tokens: two of the smoke MoE's groups of 32
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                             device=cuda)
+    prefix = None
+    if cfg.prefix_len:
+        prefix = torch.as_tensor(rng.standard_normal(
+            (2, cfg.prefix_len, cfg.d_model)), dtype=torch.float32,
+            device=cuda)
+    for pre in (prefix, None):
+        before = dict(LAUNCHES)
+        logits, _ = model(tokens, prefix_embeds=pre)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fwd"] == before["fwd"] + cfg.n_layers
+        assert LAUNCHES["wgmma"] == before["wgmma"]
+        ref, _ = model(tokens, prefix_embeds=pre, impl="ref")
+        torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-4)
+    # 8-token prompts: 16 tokens route drop-free in the forward too
+    eng = ServeEngine(cfg, model, max_len=40, device=cuda)
+    last, _ = eng.prefill(tokens[:, :8])
+    torch.testing.assert_close(last, model(tokens[:, :8])[0][:, -1],
+                               rtol=1e-4, atol=1e-4)
+    a = eng.generate(tokens[:, :8], 6, temperature=0.0)
+    assert torch.equal(a, eng.generate(tokens[:, :8], 6, temperature=0.0))
+
+
 # ---------------------------------------------------------------------------
 # the SSD and RG-LRU scans
 # ---------------------------------------------------------------------------

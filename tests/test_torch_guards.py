@@ -225,10 +225,13 @@ def test_training_and_moe_default_to_cuda():
 
 
 def test_lm_unported_paths_raise():
-    """Prefix-LM masks still raise. A local window, which raised until
-    RecurrentGemma's local_attn layers were ported, now runs: it equals
-    the full attention where the window covers the sequence and differs
-    where it binds."""
+    """A local window and a prefix-LM mask, which raised until
+    RecurrentGemma's local_attn layers and PaliGemma's prefix were ported,
+    now run: a window equals the full attention where it covers the
+    sequence and differs where it binds; a prefix equals the causal
+    attention where it covers nothing (one position, which every causal
+    row sees already) and differs where it binds, in the prefix's rows
+    only."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.attention import gqa_attention
     from repro_torch.models import Transformer
@@ -244,9 +247,13 @@ def test_lm_unported_paths_raise():
                            window=2)
     assert torch.equal(full, wide) and not torch.allclose(full, narrow)
     torch.testing.assert_close(narrow[:, :2], full[:, :2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
-                      prefix_len=2)
+    one = gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                        prefix_len=1)
+    two = gqa_attention(model.layers[0].attn, x, cfg, positions=pos,
+                        prefix_len=2)
+    assert torch.equal(full, one) and not torch.allclose(full[:, :1],
+                                                         two[:, :1])
+    torch.testing.assert_close(two[:, 2:], full[:, 2:])
 
 
 def test_cuda_impl_refuses_cpu_tensors():

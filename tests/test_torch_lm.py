@@ -223,17 +223,18 @@ def test_moe_config_resolves():
                                   "whisper-base", "paligemma-3b"])
 def test_unported_archs_raise(arch):
     """The architectures not ported yet raise, in the registry and in the
-    model. Mamba2 and RecurrentGemma were among them until their layers
-    were ported: their configs now resolve, equal the JAX package's, and
-    build a model, while the same smoke config with a layer kind the port
-    lacks (MLA) still raises."""
+    model. Mamba2, RecurrentGemma, DeepSeek-V3 (MLA) and PaliGemma (the
+    prefix-LM) were among them until their layers were ported: their
+    configs now resolve, equal the JAX package's, and build a model, while
+    the same smoke config with a field the port lacks (an encoder,
+    `n_enc_layers`) still raises. Only Whisper raises in the registry."""
     cfg = ModelConfig(**dataclasses.asdict(J_SMOKE[arch]))
-    if arch in ("mamba2-2.7b", "recurrentgemma-2b"):
+    if arch != "whisper-base":
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(j_get_config(arch))
         assert get_smoke_config(arch) == cfg
         assert Transformer(cfg, device=CPU).cfg == cfg
-        cfg = dataclasses.replace(cfg, use_mla=True)
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
     else:
         with pytest.raises(KeyError, match="ROADMAP"):
             get_config(arch)
