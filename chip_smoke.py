@@ -21,7 +21,16 @@ Phases, each printing its own lines and seconds:
               lane's resident warps per SM, registers and spills; then at
               DeepSeek-V3's (Dk, Dv) = (192, 128) and with PaliGemma's
               prefix-LM mask (D in {64, 128, 256}; prefix 0, 1, a tile
-              edge, past S), both lanes, bf16 and float32;
+              edge, past S), both lanes, bf16 and float32; then the
+              backward kernel (flash_attention_bwd.cu: dq, dk, dv) against
+              its plain version over causal and not, S != T both ways
+              (Whisper's cross shape 448 x 1,500 among them), ragged
+              lengths, G in {1, 3, 8}, D in {64, 128, 256} and
+              (192, 128), a window and a prefix, bf16 and float32, each
+              run twice for the same bits; the forward's tensor-core lane
+              at 448 x 1,500 not causal; the backward timed at
+              SmolLM-360M's and Yi-6B's training shapes beside its plain
+              version, SDPA's backward and the gradient's own bound;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -177,7 +186,23 @@ Phases, each printing its own lines and seconds:
  28. timing : the flash kernel at the PaliGemma prefill shape with the
               prefix beside its plain version, SDPA given the prefix-LM
               mask and the bound; forward and decode-step times, the busy
-              share and the roofline of the long prefill.
+              share and the roofline of the long prefill;
+ 29. main   : Whisper-base uncut (item 10.6; 70.7e6 random bf16 weights):
+              ServeEngine encodes 4 requests of 1,500 random frame
+              embeddings once and generates 64 tokens each through the
+              cross cache; a forward of 1 x 448 tokens over 1,500 frames
+              (6 encoder, 6 causal and 6 cross launches on the tensor
+              cores); encode ms, tokens/s and the busy share; a float32
+              copy held to impl="ref" and its decode path to its forward;
+ 30. main   : training SmolLM-360M uncut in bf16 through
+              `repro_torch.launch.train`'s main (items 10.7-10.8): 5 steps
+              at batch 8 x 2048 with a checkpoint directory, then resumed
+              from its checkpoint for 2 more; the loss of each step (it
+              must fall), ms a step, tokens/s, peak memory, the backward
+              kernel's calls and its share of a profiled step; one step of
+              a 2-layer float32 copy with impl="cuda" against impl="ref";
+ 31. main   : training Whisper-base uncut, 5 steps at batch 8, 448 tokens
+              over 448 frames; the loss must fall.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -187,6 +212,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4306,6 +4332,559 @@ def vlm_main_path(cuda, seed, smi):
     return launches, model
 
 
+# ---------------------------------------------------------------------------
+# Whisper-base and the training path (ROADMAP Queue 1 items 10.6-10.8)
+# ---------------------------------------------------------------------------
+FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu")
+FLASH_BWD_REPLACES = ("none: the Pallas kernel (src/repro/kernels/"
+                      "flash_attention/flash_attention.py:97) has no "
+                      "backward; the JAX package differentiates "
+                      "flash_attn_jnp (src/repro/models/attention.py:79) "
+                      "with XLA's autodiff")
+# the backward timed at SmolLM-360M's and Yi-6B's training shapes:
+# (what, B, H, Hkv, S = T, D), causal, bf16
+BWD_TIMED = (("SmolLM-360M", 8, 15, 5, 2048, 64),
+             ("Yi-6B", 1, 32, 4, 2048, 128))
+WHISPER_ARCH, WHISPER_PARAMS = "whisper-base", 70_664_192
+# Whisper's 30 s window is 1,500 frames; the decoder's 448-token context
+WHISPER_FRAMES, WHISPER_CTX = 1500, 448
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 4, 4, 64
+WHISPER_FWD_REPS = 5            # warm forwards timed after the first
+TRAIN_ARCH, TRAIN_PARAMS = "smollm-360m", 361_821_120
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME = 8, 2048, 5, 2
+WHISPER_TRAIN_SEQ = 448
+# the kernel-against-plain check of a train step: a float32 copy cut to 2
+# layers at B = 2, S = 1024
+TRAIN_CHECK = dict(n_layers=2, batch=2, seq=1024)
+
+
+def flash_bwd_against_plain(cuda):
+    """The backward kernel against its plain version on the card over
+    BWD_CASES (dq, dk, dv; o from the plain forward), two runs compared
+    bit for bit, one count a call; and the forward's missing tensor-core
+    case, bf16 not causal 448 x 1,500 at D = 64 (Whisper's cross
+    attention). Returns the largest |kernel - plain| over the cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    from repro_torch.kernels.flash_attention.bwd_cases import (BWD_CASES,
+                                                               BWD_LIMIT,
+                                                               DTYPES,
+                                                               bwd_errors)
+    worst = 0.0
+    for B, H, Hkv, S, T, Dk, Dv, causal, dt, window, prefix in BWD_CASES:
+        g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + Dk)
+        q, k, v = (torch.randn(s, generator=g, device=cuda).to(DTYPES[dt])
+                   for s in ((B, H, S, Dk), (B, Hkv, T, Dk),
+                             (B, Hkv, T, Dv)))
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        o = flash_attention_ref(q, k, v, **kw)
+        do = torch.randn(o.shape, generator=g, device=cuda).to(DTYPES[dt])
+        before = LAUNCHES["bwd"]
+        got = flash_attention_bwd(q, k, v, o, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, do, **kw)
+        ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, ref, T)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        worst = max(worst, *(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(got, ref)))
+        zero = "; dq, dk are 0 exactly: absolute" if T == 1 else ""
+        check(max(errs) <= BWD_LIMIT[dt] and same
+              and LAUNCHES["bwd"] == before + 2,
+              f"flash bwd ({B},{H},{Hkv},S={S},T={T},Dk={Dk},Dv={Dv}) "
+              f"causal={causal} window={window} prefix={prefix} {dt}: "
+              f"max |kernel - plain| / max |plain| of dq, dk, dv = "
+              f"{', '.join(f'{e:.3g}' for e in errs)} (<= "
+              f"{BWD_LIMIT[dt]:g}{zero}); two runs bit for bit equal")
+        del q, k, v, o, do, got, again, ref
+    g = torch.Generator(device=cuda).manual_seed(448)
+    q = torch.randn((2, 8, WHISPER_CTX, 64), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 8, WHISPER_FRAMES, 64), generator=g,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = dict(LAUNCHES)
+    o = flash_attention(q, k, v, causal=False)
+    r = flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err, rel = float((o.float() - r.float()).abs().max()), row_rel_err(o, r)
+    check(kernel_lane(torch.bfloat16, 64) == "wgmma"
+          and LAUNCHES["wgmma"] == before["wgmma"] + 1
+          and rel <= ROW_REL_LIMIT["bfloat16"],
+          f"flash wgmma forward, Whisper's cross attention (2, 8, S = "
+          f"{WHISPER_CTX}, T = {WHISPER_FRAMES}, D = 64) not causal bf16: "
+          f"max |kernel - plain| = {err:.3g}, max row |kernel - plain| / "
+          f"|plain| = {rel:.3g} (<= {ROW_REL_LIMIT['bfloat16']:g})")
+    del q, k, v, o, r
+    free_cuda()
+    return worst
+
+
+def flash_bwd_bound(q, k, v, causal=True):
+    """Least time (ms) for one backward call: the gradient's own work,
+    4 (Dk + Dv) flops an allowed (query, key) pair and head (dP = dO v^T,
+    dS k, dS^T q, P^T dO), at the peak for the operands' type, against q,
+    k, v, o, dO read and dq, dk, dv written once at the HBM rate."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    flops = 4.0 * B * H * (dk + dv) * attention_pairs(S, k.shape[2],
+                                                      causal)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) + \
+        2 * q.numel() // dk * dv * q.element_size()
+    return roofline_ms(flops, nbytes, str(q.dtype)[6:])
+
+
+def flash_bwd_timing(cuda, seed, smi):
+    """The backward kernel at BWD_TIMED's training shapes (bf16, causal):
+    kernel, plain version, the backward of one
+    scaled_dot_product_attention call (is_causal, enable_gqa) alone, and
+    the bound. Returns {what: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+    from repro_torch.kernels.flash_attention.bwd_cases import (BWD_LIMIT,
+                                                               bwd_errors)
+    rows = {}
+    for what, B, H, Hkv, S, D in BWD_TIMED:
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=g, device=cuda).to(
+            torch.bfloat16) for s in ((B, H, S, D), (B, Hkv, S, D),
+                                      (B, Hkv, S, D)))
+        o = flash_attention(q, k, v)
+        do = torch.randn(o.shape, generator=g, device=cuda).to(o.dtype)
+        got = flash_attention_bwd(q, k, v, o, do)
+        ref = flash_attention_bwd_ref(q, k, v, o, do)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, ref))
+        errs = bwd_errors(got, ref, S)
+        check(max(errs) <= BWD_LIMIT["bf16"],
+              f"flash bwd at {what}'s training shape ({B},{H},{Hkv},S=T={S},"
+              f"D={D}) causal bf16: max |kernel - plain| / max |plain| of "
+              f"dq, dk, dv = {', '.join(f'{e:.3g}' for e in errs)} (<= "
+              f"{BWD_LIMIT['bf16']:g})")
+        del got, ref
+        free_cuda()
+        t = {"kernel": cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do),
+                               5),
+             "plain": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o,
+                                                              do), 2)}
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            os_, (qs, ks, vs), do, retain_graph=True), 5)
+        b_ms, b_by = flash_bwd_bound(q, k, v)
+        print(f"  flash bwd {what} B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
+              f"causal bf16: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, SDPA backward {t['sdpa_bwd']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / t['kernel']:.1f}% of bound, "
+              f"{t['sdpa_bwd'] / t['kernel']:.3f}x SDPA's speed; max "
+              f"|kernel - plain| {err:.3g} [{smi}]")
+        rows[what] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+        del q, k, v, o, do, qs, ks, vs, os_
+        free_cuda()
+    return rows
+
+
+def attention_dispatch_cost(cuda, smi, calls=200):
+    """Host cost of the autograd Function `FlashAttention` against the
+    direct call that `attention` makes where no input needs a gradient (the
+    reason `attention` keeps both): 1 x 8 x 16 x 64 bf16 causal
+    (launch-bound), `calls` calls back to back then one synchronize, in the
+    order direct, Function, Function, direct. Returns (direct, Function)
+    microseconds a call, the lower of each pair."""
+    import torch
+    from repro_torch.kernels.flash_attention import FlashAttention, attention
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn((1, 8, 16, 64), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    fns = {"direct": lambda: attention(q, k, v),
+           "Function": lambda: FlashAttention.apply(q, k, v, True, None,
+                                                    None, 0, "cuda")}
+    us = {name: [] for name in fns}
+    for name in ("direct", "Function", "Function", "direct"):
+        fns[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        torch.cuda.synchronize()
+        us[name].append((time.perf_counter() - t0) * 1e6 / calls)
+    direct, function = min(us["direct"]), min(us["Function"])
+    print(f"  attention's dispatch, 1 x 8 x 16 x 64 bf16 causal, {calls} "
+          f"calls back to back: attention (the kernel directly) {direct:.2f}"
+          f" us a call, FlashAttention.apply {function:.2f} us "
+          f"({function - direct:+.2f} us; a Whisper-base forward makes 18 "
+          f"such calls: {18 * (function - direct) / 1e3:+.4f} ms) [{smi}]")
+    return direct, function
+
+
+def flash_counts():
+    """The flash launch counts by lane, and the backward's calls."""
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    return {"wgmma": LAUNCHES["wgmma"],
+            "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"],
+            "bwd": LAUNCHES["bwd"]}
+
+
+def zero_flash_counts():
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def whisper_main_path(cuda, seed, smi):
+    """Whisper-base uncut (ROADMAP Queue 1 item 10.6; 70.7e6 random bf16
+    weights from `seed`) through the port's entry points: ServeEngine
+    encodes 4 requests of 1,500 random frame embeddings each (Whisper's 30
+    s window) once, then greedy generation of 64 tokens after a 4-token
+    prompt through the cross cache; a forward of 1 x 448 tokens over 1,500
+    frames (6 encoder launches not causal, 6 causal and 6 cross decoder
+    launches, all on the tensor-core lane); the card's busy share of the
+    forward and of decode steps. Then a float32 copy: its forward (the
+    CUDA-core lane) held to impl="ref" within 1e-4 of the largest plain
+    logit, and its decode path to its forward at every position of
+    16-token prompts within 1e-4. Returns the flash launches by lane."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel_lane
+    from repro_torch.models import Transformer, decode_step
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(WHISPER_ARCH)
+    L, E, D = cfg.n_layers, cfg.n_enc_layers, cfg.head_dim_
+    model = Transformer(cfg, device=cuda, seed=seed)
+    n = sum(p.numel() for p in model.parameters())
+    check(n == total_params(cfg) == WHISPER_PARAMS
+          and kernel_lane(cfg.dtype(), D) == "wgmma",
+          f"{WHISPER_ARCH} at full width and depth on the card: {n:,} "
+          f"parameters ({E} encoder + {L} decoder layers, {cfg.n_heads} x "
+          f"{D} heads: the tensor-core flash lane in bf16) [{smi}]")
+    rng = np.random.default_rng(seed)
+    frames = torch.as_tensor(rng.standard_normal(
+        (WHISPER_REQUESTS, WHISPER_FRAMES, cfg.d_model)),
+        dtype=cfg.dtype(), device=cuda)
+    prompts = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (WHISPER_REQUESTS, WHISPER_PROMPT)), device=cuda)
+    ctx = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, WHISPER_CTX)),
+                          device=cuda)
+
+    zero_flash_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, model, max_len=WHISPER_PROMPT + WHISPER_GEN + 1,
+                      device=cuda, enc_inputs=frames)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    model.encode(frames)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    check(flash_counts()["wgmma"] == 2 * E
+          and tuple(eng.enc_out.shape) == (WHISPER_REQUESTS, WHISPER_FRAMES,
+                                           cfg.d_model),
+          f"encoder over {WHISPER_REQUESTS} x {WHISPER_FRAMES} frames: "
+          f"{first:.2f} ms in the engine (first call), {enc_ms:.2f} ms "
+          f"again; {E} tensor-core launches each (not causal) [{smi}]")
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, WHISPER_GEN, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = WHISPER_PROMPT + WHISPER_GEN - 1
+    check(tuple(greedy.shape) == (WHISPER_REQUESTS, WHISPER_GEN)
+          and int(greedy.min()) >= 0 and int(greedy.max()) < cfg.vocab_size,
+          f"ServeEngine.generate {WHISPER_REQUESTS} x {WHISPER_GEN} tokens "
+          f"greedy after a {WHISPER_PROMPT}-token prompt over the cross "
+          f"cache: {wall:.3f} s for {steps} decode steps "
+          f"({wall / steps * 1e3:.2f} ms a step, "
+          f"{WHISPER_REQUESTS * WHISPER_GEN / wall:.1f} generated tokens/s, "
+          f"prefill included); greedy[0] {greedy[0, :12].tolist()} [{smi}]")
+    cache = eng.new_cache(WHISPER_REQUESTS)
+    for t in range(WHISPER_PROMPT):
+        decode_step(model, prompts[:, t], cache)
+    device_breakdown(lambda: [decode_step(model, greedy[:, i], cache)
+                              for i in range(8)],
+                     f"8 decode steps B={WHISPER_REQUESTS}", smi)
+    before = flash_counts()
+    t0 = time.perf_counter()
+    logits, _ = model(ctx, enc_inputs=frames[:1])
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    after = flash_counts()
+    warm = []
+    for _ in range(WHISPER_FWD_REPS):
+        t0 = time.perf_counter()
+        model(ctx, enc_inputs=frames[:1])
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms = sorted(warm)[len(warm) // 2]
+    check(after["wgmma"] - before["wgmma"] == E + 2 * L
+          and after["f32"] == before["f32"]
+          and tuple(logits.shape) == (1, WHISPER_CTX, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"forward 1 x {WHISPER_CTX} tokens over {WHISPER_FRAMES} frames: "
+          f"{fwd_ms:.2f} ms warm (median of {WHISPER_FWD_REPS}: "
+          f"{', '.join(f'{t:.2f}' for t in warm)}; {first:.2f} ms the first "
+          f"call), {E} encoder + {L} causal + {L} cross launches on the "
+          f"tensor-core lane, none on the CUDA cores; logits finite [{smi}]")
+    device_breakdown(lambda: model(ctx, enc_inputs=frames[:1]),
+                     f"forward 1 x {WHISPER_CTX} over {WHISPER_FRAMES} "
+                     f"frames", smi)
+    del eng, cache, logits, greedy
+    free_cuda()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = Transformer(cfg32, device=cuda, seed=seed)
+    f32 = frames[:2, :300].float()
+    short = prompts[:2].repeat(1, 4)                    # 16 tokens
+    out32, _ = model32(short, enc_inputs=f32)
+    ref32, _ = model32(short, enc_inputs=f32, impl="ref")
+    rel = rel_err(out32, ref32)
+    n_bad, n_pos, _ = top1_report(out32, ref32)
+    check(rel <= 1e-4 and n_bad == 0,
+          f"f32 forward impl=cuda against impl=ref: max|d|/max|logits| = "
+          f"{rel:.3g} <= 1e-4, top-1 agrees at all {n_pos} positions")
+    eng = ServeEngine(cfg32, model32, max_len=16, device=cuda,
+                      enc_inputs=f32)
+    cache = eng.new_cache(2)
+    dec = torch.stack([decode_step(model32, short[:, t], cache)[0]
+                       for t in range(short.shape[1])], dim=1)
+    rel = rel_err(dec, out32)
+    n_bad, n_pos, _ = top1_report(dec, out32)
+    check(rel <= 1e-4 and n_bad == 0,
+          f"f32 decode path through the cross cache against the forward at "
+          f"every position: max|d|/max|logits| = {rel:.3g} <= 1e-4, top-1 "
+          f"agrees at all {n_pos} positions")
+    launches = flash_counts()
+    # bf16: the engine's encoder, the timed encoder, the forward, its warm
+    # runs and its profiled run; float32: one forward, the engine's encoder
+    check(launches == {"wgmma": 2 * E + (2 + WHISPER_FWD_REPS) * (E + 2 * L),
+                       "f32": (E + 2 * L) + E, "bwd": 0},
+          f"flash launches over the main path: {launches}")
+    del model, model32, eng, cache, out32, ref32, dec
+    free_cuda()
+    return launches, enc_ms
+
+
+def _train_step_probe(smi, profile_call=2):
+    """A wrapper of `launch.train.make_train_step` that times each step on
+    the host around a synchronize, and runs call `profile_call` under
+    torch.profiler: the step's device time and the backward kernel's
+    share of it. Returns (wrapper, record)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    real = train.make_train_step
+    rec = {"ms": [], "bwd_share": None, "profiled": None}
+
+    def wrapped(model, opt_cfg, *a, **kw):
+        step = real(model, opt_cfg, *a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(rec["ms"]) == profile_call:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                kern = [e for e in prof.events()
+                        if e.device_type == DeviceType.CUDA]
+                total = sum(e.time_range.elapsed_us() for e in kern)
+                bwd = sum(e.time_range.elapsed_us() for e in kern
+                          if "flash_bwd" in e.name)
+                fwd = sum(e.time_range.elapsed_us() for e in kern
+                          if "flash_fwd" in e.name)
+                rec["bwd_share"] = (bwd / total if total else None)
+                rec["profiled"] = len(rec["ms"])
+                by_name = {}
+                for e in kern:
+                    by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                            + e.time_range.elapsed_us())
+                print(f"  step {len(rec['ms'])} profiled: {len(kern)} "
+                      f"kernels, {total / 1e3:.2f} ms of device time, the "
+                      f"flash backward kernels {bwd / 1e3:.2f} ms "
+                      f"({100 * bwd / max(total, 1):.1f}%), the flash "
+                      f"forward {fwd / 1e3:.2f} ms [{smi}]")
+                for name, us in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1])[:6]:
+                    print(f"    {us / 1e3:8.3f} ms  {name}")
+            else:
+                out = step(state, batch)
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    return wrapped, rec
+
+
+def percent(share):
+    return "(not measured)" if share is None else f"{100 * share:.1f}%"
+
+
+def run_trainer(argv, smi):
+    """launch.train.main(argv) with each step timed (`_train_step_probe`).
+    Returns (losses, per-step ms, the median ms of the steps after the
+    first that were not profiled, the backward's share of a profiled
+    step's device time, wall s)."""
+    from repro_torch.launch import train
+    wrapped, rec = _train_step_probe(smi)
+    real = train.make_train_step
+    train.make_train_step = wrapped
+    t0 = time.perf_counter()
+    try:
+        losses = train.main(argv)
+    finally:
+        train.make_train_step = real
+    ms = rec["ms"]
+    plain = sorted(t for i, t in enumerate(ms)
+                   if i and i != rec["profiled"])
+    steady = plain[len(plain) // 2] if plain else float("nan")
+    return (losses, ms, steady, rec["bwd_share"],
+            time.perf_counter() - t0)
+
+
+def train_main_path(cuda, seed, smi):
+    """SmolLM-360M uncut in bf16 (361,821,120 parameters; AdamW's float32
+    moments 2.9 GB) trained through `python -m repro_torch.launch.train`'s
+    main: TRAIN_STEPS steps at --batch 8 --seq 2048 with a checkpoint
+    directory, then resumed from its checkpoint for TRAIN_RESUME more
+    steps. The loss of each step (it must fall), ms a step, tokens/s, peak
+    memory, the backward kernel's calls (one per layer and step) and its
+    share of a profiled step's device time. Then one step's loss and
+    gradients with impl="cuda" against impl="ref" on a float32 copy cut to
+    TRAIN_CHECK (2 layers at B = 2, S = 1024): the loss within 1e-5
+    relative, every gradient leaf within 1e-4 of its largest element.
+    Returns (flash launches by lane, row for the record)."""
+    import tempfile
+
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.models import Transformer
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import lm_loss
+
+    cfg = get_config(TRAIN_ARCH)
+    check(total_params(cfg) == TRAIN_PARAMS,
+          f"{TRAIN_ARCH}: {TRAIN_PARAMS:,} parameters, {cfg.n_layers} "
+          f"layers, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}")
+    common = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--seed", str(seed), "--log-every", "1",
+              "--ckpt-every", str(TRAIN_STEPS)]
+    zero_flash_counts()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as ckpt:
+        losses, ms, steady, share, wall = run_trainer(
+            common + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], smi)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        free_cuda()
+        more, ms2, _, _, wall2 = run_trainer(
+            common + ["--steps", str(TRAIN_STEPS + TRAIN_RESUME),
+                      "--ckpt-dir", ckpt], smi)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"  losses {[round(x, 4) for x in losses]}, resumed "
+          f"{[round(x, 4) for x in more]}; step ms {[round(x, 1) for x in ms]}"
+          f" then {[round(x, 1) for x in ms2]}")
+    check(len(losses) == TRAIN_STEPS and len(more) == TRAIN_RESUME
+          and all(map(math.isfinite, losses + more))
+          and losses[-1] < losses[0] and more[-1] < losses[0],
+          f"{TRAIN_ARCH} trained {TRAIN_STEPS} steps at B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ} bf16: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"then resumed from its step-{TRAIN_STEPS} checkpoint for "
+          f"{TRAIN_RESUME} more ({more[0]:.4f}, {more[-1]:.4f}); {steady:.1f}"
+          f" ms a step (median of the unprofiled steps after the first; "
+          f"first {ms[0]:.1f} ms), "
+          f"{tokens / steady * 1e3:.0f} tokens/s; run walls {wall:.1f} s and"
+          f" {wall2:.1f} s with the checkpoints; peak "
+          f"{peak:.2f} GB allocated [{smi}]")
+    launches = flash_counts()
+    steps = TRAIN_STEPS + TRAIN_RESUME
+    check(launches["bwd"] == cfg.n_layers * steps
+          and launches["wgmma"] == 2 * cfg.n_layers * steps
+          and launches["f32"] == 0 and share is not None,
+          f"flash over the runs: {launches} (each of {steps} steps: "
+          f"{cfg.n_layers} forward launches, {cfg.n_layers} more "
+          f"recomputed under remat, {cfg.n_layers} backward calls); the "
+          f"backward kernels took {percent(share)} of a profiled step's "
+          f"device time")
+    free_cuda()
+
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=TRAIN_CHECK["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    model = Transformer(cfg32, device=cuda, seed=seed, trainable=True)
+    pipe = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_CHECK["seq"],
+                                      global_batch=TRAIN_CHECK["batch"],
+                                      seed=seed))
+    batch = make_batch(pipe, cfg32, 0, device=cuda)
+    leaves = tree_leaves(model.param_tree())
+    out = {}
+    for impl in ("cuda", "ref"):
+        loss, _ = lm_loss(model, batch, impl=impl)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    (lc, gc), (lr, gr) = out["cuda"], out["ref"]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(gc, gr))
+    check(abs(lc - lr) <= 1e-5 * abs(lr) and worst <= 1e-4,
+          f"one step of {cfg32.n_layers} float32 layers at "
+          f"B={TRAIN_CHECK['batch']} S={TRAIN_CHECK['seq']}, impl=cuda "
+          f"against impl=ref: loss {lc:.6f} vs {lr:.6f}, every gradient "
+          f"leaf within {worst:.3g} of its largest element (<= 1e-4)")
+    del model, out, gc, gr, leaves, batch
+    free_cuda()
+    row = dict(step_ms=steady, tokens_s=tokens / steady * 1e3,
+               bwd_share=share, peak_gb=peak, losses=losses + more)
+    return launches, row
+
+
+def whisper_train_main_path(cuda, seed, smi):
+    """Whisper-base uncut trained TRAIN_STEPS steps through the launcher's
+    main at batch 8, 448 tokens over 448 frames (`enc_seq_ratio` 1.0):
+    the loss must fall; ms a step; the backward kernel's calls (encoder,
+    decoder self and cross attention, every layer and step)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER_ARCH)
+    zero_flash_counts()
+    losses, ms, steady, share, _ = run_trainer(
+        ["--arch", WHISPER_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+         str(WHISPER_TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--seed",
+         str(seed), "--log-every", "1"], smi)
+    calls = cfg.n_enc_layers + 2 * cfg.n_layers
+    launches = flash_counts()
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0]
+          and launches["bwd"] == calls * TRAIN_STEPS
+          and launches["wgmma"] == 2 * calls * TRAIN_STEPS,
+          f"{WHISPER_ARCH} trained {TRAIN_STEPS} steps at B={TRAIN_BATCH}, "
+          f"{WHISPER_TRAIN_SEQ} tokens over {WHISPER_TRAIN_SEQ} frames: loss "
+          f"{[round(x, 4) for x in losses]}; {steady:.1f} ms a step (median "
+          f"of the unprofiled steps after the first; first {ms[0]:.1f} ms), "
+          f"{TRAIN_BATCH * WHISPER_TRAIN_SEQ / steady * 1e3:.0f} decoder "
+          f"tokens/s; the backward kernels {percent(share)} of a profiled "
+          f"step's device time; flash {launches} [{smi}]")
+    free_cuda()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4479,6 +5058,12 @@ def main(argv=None):
     with phase("flash attention at MLA's head dims and with a prefix, "
                "against its plain version"):
         mp_err = mla_prefix_against_plain(cuda)
+
+    with phase("flash attention backward against its plain version"):
+        bwd_err = flash_bwd_against_plain(cuda)
+        print(f"  card: {smi}")
+        bwd_rows = flash_bwd_timing(cuda, args.seed, smi)
+        attention_dispatch_cost(cuda, smi)
 
     with phase("Stanford-Web graph and f64 oracles (host)"):
         t0 = time.perf_counter()
@@ -4784,6 +5369,17 @@ def main(argv=None):
         del model
         free_cuda()
 
+    with phase(f"main path: {WHISPER_ARCH}"):
+        whisper_launches, _ = whisper_main_path(cuda, args.seed, smi)
+
+    with phase(f"main path: training {TRAIN_ARCH}"):
+        train_launches, _ = train_main_path(cuda, args.seed, smi)
+
+    with phase(f"main path: training {WHISPER_ARCH}"):
+        wtrain_launches = whisper_train_main_path(cuda, args.seed, smi)
+    lm_launches = {k: whisper_launches[k] + train_launches[k]
+                   + wtrain_launches[k] for k in whisper_launches}
+
     t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
     for accum in ("f32", "kahan"):
@@ -4837,7 +5433,7 @@ def main(argv=None):
             "launches": flash_launches[lane] + moe_launches[lane] + sum(
                 r["launches"]["flash" if lane == "wgmma" else "flash_f32"]
                 for r in recur.values()) + mla_launches[lane]
-            + vlm_launches[lane],
+            + vlm_launches[lane] + lm_launches[lane],
             "max_abs_err": max(flash_err[lane], row["err"],
                                mp_err["f32"] if lane == "f32" else 0.0),
             "ms": row["kernel"], "plain_ms": row["plain"],
@@ -4868,6 +5464,17 @@ def main(argv=None):
             "max_abs_err": max(err, row["err"]), "ms": row["kernel"],
             "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["sdpa"]})
+    # the backward kernel at SmolLM-360M's training shape; its launches
+    # over the three Whisper and training main paths
+    row = bwd_rows["SmolLM-360M"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+        "launches": lm_launches["bwd"],
+        "max_abs_err": max(bwd_err, *(r["err"] for r in bwd_rows.values())),
+        "ms": row["kernel"], "plain_ms": row["plain"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["sdpa_bwd"]})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
             ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),

@@ -21,7 +21,13 @@ Ported so far:
     CUDA kernel, the KV-cache decode step and the batched ServeEngine;
   * the paper's iteration applied to SGD (`training`: asynchronous
     parameter-sharded SGD on the DES, and the local-SGD step), and the
-    roofline and parameter/FLOP accounting (`analysis`).
+    roofline and parameter/FLOP accounting (`analysis`);
+  * the rest of the LM scaffold: Mamba2 and RecurrentGemma (hand kernels
+    for their scans), DeepSeek-V3's latent attention, PaliGemma's
+    prefix-LM and Whisper's encoder-decoder with its cross cache; and
+    training (AdamW, the train step, the data pipeline, checkpoints and
+    `launch.train`), every attention's gradient through a hand-written
+    flash backward kernel.
 
 Entry points run on the CUDA card unless given `device="cpu"`.
 """

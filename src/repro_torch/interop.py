@@ -16,7 +16,7 @@ from .graph.google import GoogleOperator
 from .kernels.bsr_spmv.ops import BSRMatrix, HybridBSR
 from .models.config import ModelConfig
 from .models.param import match_defs
-from .models.transformer import model_defs, stack_plan
+from .models.transformer import encoder_config, model_defs, stack_plan
 from .streaming.delta import EdgeDelta
 from .streaming.incremental import RankState
 
@@ -134,25 +134,14 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
-    """The port's parameter tree (the shape of `models.model_defs(cfg)`,
-    CPU tensors) from the JAX package's LM parameter tree with numpy
-    leaves.
-
-    `decoder/stack/pos{j}` leaves carry a leading repeat axis: element r is
-    layer len(head) + r * len(pattern) + j of `stack_plan`.
-    `decoder/head/layer{i}` and `decoder/tail/layer{i}` are layer i
-    (DeepSeek-V3's `first_dense_layers` are head layers, its MoE layers
-    stacked); `embed/tok`, `embed/out` and `final_norm` map as they are.
-    A layer's leaves keep their names: MLA's `attn/{w_dq, q_norm, w_uq,
-    w_dkv, kv_norm, w_kr, w_ukv, wo}` as GQA's `attn/{wq, wk, wv, wo}`.
-    Raises on a leaf that is missing, left over or of the wrong shape."""
-    defs = model_defs(cfg)
-    plan = stack_plan(cfg, cfg.n_layers, cfg.first_dense_layers)
-    tree = dict(tree)
-    dec = dict(tree.pop("decoder"))
-    layers = [None] * cfg.n_layers
-    head, stack, tail = (dict(dec.pop(g, {})) for g in
+def _stacked_layers(cfg: ModelConfig, group: Mapping, n_layers: int,
+                    first_dense: int, where: str) -> list:
+    """The layers of one of the JAX package's scanned stacks ({"head",
+    "stack", "tail"}) in order. Raises on a layer left over."""
+    plan = stack_plan(cfg, n_layers, first_dense)
+    group = dict(group)
+    layers = [None] * n_layers
+    head, stack, tail = (dict(group.pop(g, {})) for g in
                          ("head", "stack", "tail"))
     for i in plan.head + plan.tail:
         layers[i] = (head if i in plan.head else tail).pop(f"layer{i}")
@@ -161,16 +150,57 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
         for r in range(plan.repeats):
             layers[len(plan.head) + r * len(plan.pattern) + j] = _index(
                 stacked, r)
-    left = [f"decoder/{g}/{k}" for g, d in
+    left = [f"{where}/{g}/{k}" for g, d in
             (("head", head), ("stack", stack), ("tail", tail)) for k in d]
-    left += [f"decoder/{k}" for k in dec]
+    left += [f"{where}/{k}" for k in group]
     if left:
         raise KeyError(f"parameters left over: {left}")
-    ours = {"embed": tree.pop("embed"), "layers": layers,
+    return layers
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
+    """The port's parameter tree (the shape of `models.model_defs(cfg)`,
+    CPU tensors of the arrays' dtypes) from the JAX package's LM parameter
+    tree with numpy leaves.
+
+    `decoder/stack/pos{j}` leaves carry a leading repeat axis: element r is
+    layer len(head) + r * len(pattern) + j of `stack_plan`.
+    `decoder/head/layer{i}` and `decoder/tail/layer{i}` are layer i
+    (DeepSeek-V3's `first_dense_layers` are head layers, its MoE layers
+    stacked); `embed/tok`, `embed/out` and `final_norm` map as they are.
+    An encoder-decoder's `encoder` is laid out as `decoder` is (over
+    `n_enc_layers`, no dense head) and its `enc_norm` maps as it is; its
+    decoder layers carry `norm_cross` and `cross/{wq, wk, wv, wo}`.
+    A layer's leaves keep their names: MLA's `attn/{w_dq, q_norm, w_uq,
+    w_dkv, kv_norm, w_kr, w_ukv, wo}` as GQA's `attn/{wq, wk, wv, wo}`.
+    Raises on a leaf that is missing, left over or of the wrong shape."""
+    defs = model_defs(cfg)
+    tree = dict(tree)
+    ours = {"embed": tree.pop("embed"),
+            "layers": _stacked_layers(cfg, tree.pop("decoder"),
+                                      cfg.n_layers, cfg.first_dense_layers,
+                                      "decoder"),
             "final_norm": tree.pop("final_norm")}
+    if cfg.is_encdec:
+        ours["encoder"] = _stacked_layers(
+            encoder_config(cfg), tree.pop("encoder"), cfg.n_enc_layers, 0,
+            "encoder")
+        ours["enc_norm"] = tree.pop("enc_norm")
     if tree:
         raise KeyError(f"parameters left over: {sorted(tree)}")
     return match_defs(defs, ours, lambda d, a: _tensor(a))
+
+
+def opt_state_from_arrays(cfg: ModelConfig, tree: Mapping) -> dict:
+    """The port's AdamW state (`training.optimizer.init_opt_state`'s
+    shape: {"m", "v"} trees shaped like `models.model_defs(cfg)`, "step"
+    an int32 scalar) from the JAX package's, with numpy leaves: its moment
+    trees are laid out as its parameters are (`lm_params_from_arrays`)."""
+    _check_keys(tree, ("m", "v", "step"), "optimizer state")
+    return {"m": lm_params_from_arrays(cfg, tree["m"]),
+            "v": lm_params_from_arrays(cfg, tree["v"]),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32)}
 
 
 def _index(tree, r: int):

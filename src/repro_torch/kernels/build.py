@@ -35,6 +35,9 @@ SOURCES: Dict[str, Path] = {
     # the tensor-core lane (bf16, head dim 64, 128 or 256)
     "flash_attention_wgmma": (_KERNELS / "flash_attention" / "csrc"
                               / "flash_attention_wgmma.cu"),
+    # the gradient of both lanes (training)
+    "flash_attention_bwd": (_KERNELS / "flash_attention" / "csrc"
+                            / "flash_attention_bwd.cu"),
     # Mamba-2's chunked scan and RecurrentGemma's gated recurrence
     "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",

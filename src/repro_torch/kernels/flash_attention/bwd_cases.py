@@ -1,0 +1,60 @@
+"""The backward kernel's checks against its plain version on the card: one
+list of cases, their limits and their error measure, read by chip_smoke.py's
+"flash attention backward against its plain version" phase and by
+tests/test_torch_gpu.py."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+# (B, H, Hkv, S, T, Dk, Dv, causal, dtype, window, prefix)
+BWD_CASES = [
+    (1, 4, 2, 128, 128, 64, 64, True, "f32", None, 0),
+    (2, 4, 4, 100, 77, 64, 64, False, "f32", None, 0),        # S > T
+    (1, 8, 8, 448, 1500, 64, 64, False, "bf16", None, 0),     # Whisper cross
+    (1, 8, 8, 448, 1500, 64, 64, False, "f32", None, 0),
+    (8, 8, 8, 448, 448, 64, 64, True, "bf16", None, 0),       # Whisper's
+    (8, 8, 8, 448, 448, 64, 64, False, "bf16", None, 0),      # training
+    (1, 4, 2, 77, 300, 64, 64, True, "f32", None, 0),         # causal S < T
+    (1, 4, 2, 300, 77, 128, 128, True, "f32", None, 0),       # causal S > T
+    (1, 4, 1, 1, 1, 64, 64, True, "f32", None, 0),            # ragged
+    (1, 4, 2, 33, 33, 128, 128, True, "f32", None, 0),        # 1 / 33 / 129
+    (1, 4, 2, 129, 129, 64, 64, False, "bf16", None, 0),
+    (1, 3, 3, 200, 200, 64, 64, True, "bf16", None, 0),       # G = 1
+    (1, 15, 5, 256, 256, 64, 64, True, "bf16", None, 0),      # G = 3
+    (1, 8, 1, 300, 300, 128, 128, True, "bf16", None, 0),     # G = 8
+    (1, 4, 2, 200, 200, 256, 256, True, "bf16", None, 0),     # D = 256
+    (1, 4, 2, 200, 200, 256, 256, True, "f32", None, 0),
+    (1, 4, 4, 200, 200, 192, 128, True, "bf16", None, 0),     # MLA
+    (1, 4, 4, 129, 129, 192, 128, True, "f32", None, 0),
+    (1, 8, 1, 500, 500, 128, 128, True, "f32", 100, 0),       # window
+    (1, 4, 2, 300, 300, 64, 64, False, "bf16", 64, 0),
+    (1, 4, 2, 300, 300, 128, 128, True, "f32", None, 37),     # prefix
+    (1, 4, 2, 300, 300, 256, 256, True, "bf16", None, 129),
+    (1, 4, 2, 300, 300, 64, 64, True, "bf16", 77, 150),       # both
+    (2, 4, 4, 40, 40, 16, 16, True, "f32", None, 0),          # smoke dims
+    (2, 4, 4, 40, 40, 24, 16, True, "f32", None, 0),
+    (1, 4, 1, 40, 40, 16, 16, True, "f32", None, 8),
+    (1, 32, 4, 1024, 1024, 128, 128, True, "bf16", None, 0),  # Yi-6B heads
+    (2, 15, 5, 512, 512, 64, 64, True, "bf16", None, 0),      # SmolLM heads
+]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# bwd_errors' bound: float32 rounds in another order; bf16 writes its
+# gradients rounded to bf16 (one ulp is 3.9e-3 of an element; the
+# forward's row error is 4e-3)
+BWD_LIMIT = {"f32": 1e-5, "bf16": 1e-2}
+
+
+def bwd_errors(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],
+               T: int) -> list:
+    """max |kernel - plain| of dq, dk and dv, each over the plain
+    gradient's largest element. With T = 1 every row sees one key, so the
+    softmax has no gradient and dq, dk are 0 in exact arithmetic: their
+    plain values are rounding noise, and their errors stay absolute."""
+    errs = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = float((a.float() - b.float()).abs().max())
+        scale = 1.0 if T == 1 and i < 2 else float(b.float().abs().max())
+        errs.append(err / scale if err else 0.0)
+    return errs

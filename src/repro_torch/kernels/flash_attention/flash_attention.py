@@ -46,12 +46,20 @@ The kernels replace the JAX package's Pallas `_kernel`
 attention with GQA read in place and top-left causal masking, extended to
 any S and T. The wrapper only launches; the dispatch between the kernels
 and their plain version (ref.py) is in `ops.attention`.
+
+`flash_attention_bwd` (csrc/flash_attention_bwd.cu) is the gradient of
+both lanes' function, dq, dk and dv, on the CUDA cores in f32 for float32
+and bf16 at any head dims up to 256: two launches, dq with each row's
+log-sum-exp and Delta, then dk and dv per kv tile over its group's heads,
+with no atomics (repeats agree bit for bit). The Pallas kernel has no
+backward; `ops.attention` reaches this one through a
+torch.autograd.Function.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,9 +71,10 @@ MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 # Launches: "fwd" counts every forward launch of either lane, "wgmma" those
-# of the tensor-core lane; one added where a kernel is launched, and
-# nowhere else (chip_smoke.py reads them to show the model ran here).
-LAUNCHES = {"fwd": 0, "wgmma": 0}
+# of the tensor-core lane, "bwd" every call of the backward kernel (its two
+# launches); one added where a kernel is launched, and nowhere else
+# (chip_smoke.py reads them to show the model ran here).
+LAUNCHES = {"fwd": 0, "wgmma": 0, "bwd": 0}
 
 
 def kernel_lane(dtype: torch.dtype, head_dim: int,
@@ -226,3 +235,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lane == "wgmma":
         LAUNCHES["wgmma"] += 1
     return o
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        window: Optional[int] = None, prefix_len: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `flash_attention` on the card: (dq, dk, dv) in the
+    inputs' dtype and shapes, given its inputs, its output o and dO, the
+    gradient of the loss with respect to o (B, H, S, Dv). The same
+    arguments and checks as `flash_attention`, o and dO of q's dtype and
+    contiguous too. Two launches on the current stream (counted once in
+    LAUNCHES["bwd"]) with a float32 workspace of 2 B H S."""
+    tensors = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    for name, t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
+                             f"got {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"q, k, v, o and do must share a dtype: {name} "
+                            f"is {t.dtype}, q is {q.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be 4-D (B, heads, seq, D)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, H, S, Dk = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != Dk
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])
+            or Hkv == 0 or H % Hkv
+            or tuple(o.shape) != (B, H, S, Dv) or do.shape != o.shape):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}")
+    for d in (Dk, Dv):
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    check_prefix(prefix_len)
+    if B == 0 or S == 0 or T == 0:
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    check_window(S, T, window)
+    scale = Dk ** -0.5 if scale is None else float(scale)
+    win = 0 if window is None else int(window)
+    prefix = min(int(prefix_len), T) if causal else 0
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    work = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            work.data_ptr(), B, H, Hkv, S, T, Dk, Dv, scale, int(causal),
+            win, prefix, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: error {err} "
+            f"({lib.flash_attention_bwd_error_string(err).decode()})")
+    LAUNCHES["bwd"] += 1
+    return dq, dk, dv

@@ -1,10 +1,18 @@
-"""The attention entry point: dispatch between the CUDA kernel and its
-plain version.
+"""The attention entry point: dispatch between the CUDA kernels and their
+plain versions, forward and backward.
 
-`impl`: "cuda" launches the hand-written kernel and needs CUDA tensors;
-"ref" runs the plain PyTorch version on any device; "auto" picks "cuda"
+`impl`: "cuda" launches the hand-written kernels and needs CUDA tensors;
+"ref" runs the plain PyTorch versions on any device; "auto" picks "cuda"
 for CUDA tensors and "ref" for CPU tensors. A CUDA tensor under "auto"
-always goes to the kernel: there is no fallback.
+always goes to the kernels: there is no fallback.
+
+Where q, k or v requires a gradient (and autograd is on), the call goes
+through `FlashAttention`, a torch.autograd.Function whose forward is the
+same dispatch and whose backward is the backward kernel under "cuda" and
+its plain version (`flash_attention_bwd_ref`) under "ref". Otherwise the
+forward is called directly: `FlashAttention.apply` costs the host 7-17 us
+a call more on an H100 machine (chip_smoke.py's `attention_dispatch_cost`),
+and inference forwards are host-bound.
 """
 from __future__ import annotations
 
@@ -13,8 +21,34 @@ from typing import Optional
 import torch
 
 from .. import resolve_impl
-from .flash_attention import flash_attention
-from .ref import flash_attention_ref
+from .flash_attention import flash_attention, flash_attention_bwd
+from .ref import flash_attention_bwd_ref, flash_attention_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: apply(q, k, v, causal, scale, window,
+    prefix_len, impl) with impl already resolved to "cuda" or "ref". Saves
+    q, k, v and the output for the backward, which recomputes the scores
+    (no (S, T) residual is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, prefix_len, impl):
+        fwd = flash_attention if impl == "cuda" else flash_attention_ref
+        o = fwd(q, k, v, causal=causal, scale=scale, window=window,
+                prefix_len=prefix_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(causal=causal, scale=scale, window=window,
+                        prefix_len=prefix_len)
+        ctx.impl = impl
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = (flash_attention_bwd if ctx.impl == "cuda"
+               else flash_attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,9 +57,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               impl: str = "auto") -> torch.Tensor:
     """q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv). Returns
     (B, H, S, Dv) in q's dtype; causal masks top-left (row i sees columns
-    j <= i, and with a prefix every column j < prefix_len), and a window
-    keeps columns j > i - window."""
-    fn = (flash_attention if resolve_impl(impl, q) == "cuda"
-          else flash_attention_ref)
+    j <= i, and with a prefix every column j < prefix), and a window
+    keeps columns j > i - window. Differentiable in q, k and v through
+    `FlashAttention` where any of them requires a gradient."""
+    impl = resolve_impl(impl, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, window,
+                                    prefix_len, impl)
+    fn = flash_attention if impl == "cuda" else flash_attention_ref
     return fn(q, k, v, causal=causal, scale=scale, window=window,
               prefix_len=prefix_len)

@@ -1,8 +1,8 @@
-"""Plain PyTorch version of the flash-attention kernel: the same function,
-in one pass over the full score matrix."""
+"""Plain PyTorch versions of the flash-attention kernels: the forward and
+its gradient, each in one pass over the full score matrix."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,29 +28,22 @@ def check_prefix(prefix_len: int) -> None:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, scale: Optional[float] = None,
-                        window: Optional[int] = None,
-                        prefix_len: int = 0) -> torch.Tensor:
-    """q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv) with
-    H % Hkv == 0; query head h reads kv head h // (H // Hkv). Math in
-    float32. The mask is the JAX package's `_mask`: causal keeps
-    `cols <= rows` (aligned top-left for any S and T) or, with a prefix,
-    `cols < prefix_len` too (a prefix-LM: the prefix attends both ways);
-    a window then keeps only `cols > rows - window`; without causal the
-    prefix changes nothing. Masked scores are -1e30 and a row whose
-    denominator is 0 divides by 1. Returns (B, H, S, Dv) in q's dtype."""
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """float64 for float64 inputs (gradcheck), else float32."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _weights(q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float,
+             window: Optional[int], prefix_len: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """exp(s - max s) (B, Hkv, G, S, T) of the masked scores s in the
+    compute dtype, and its row sums (B, Hkv, G, S, 1), a sum of 0 replaced
+    by 1."""
     B, H, S, Dk = q.shape
     _, Hkv, T, _ = k.shape
-    Dv = v.shape[-1]
-    G = H // Hkv
-    scale = Dk ** -0.5 if scale is None else scale
-    check_prefix(prefix_len)
-    if T == 0:
-        return q.new_zeros((B, H, S, Dv))
-    check_window(S, T, window)
-    qg = q.float().reshape(B, Hkv, G, S, Dk)
-    s = torch.einsum("bhgsd,bhtd->bhgst", qg, k.float()) * scale
+    cd = _compute_dtype(q)
+    qg = q.to(cd).reshape(B, Hkv, H // Hkv, S, Dk)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg, k.to(cd)) * scale
     if causal or window is not None:
         rows = torch.arange(S, device=q.device)[:, None]
         cols = torch.arange(T, device=q.device)[None, :]
@@ -64,6 +57,73 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~ok, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    l = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = torch.einsum("bhgst,bhtd->bhgsd", p, v.float()) / l
+    return p, torch.where(l == 0.0, torch.ones_like(l), l)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        window: Optional[int] = None,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv) with
+    H % Hkv == 0; query head h reads kv head h // (H // Hkv). Math in
+    float32 (float64 for float64 inputs). The mask is the JAX package's
+    `_mask`: causal keeps `cols <= rows` (aligned top-left for any S and
+    T) or, with a prefix, `cols < prefix_len` too (a prefix-LM: the prefix
+    attends both ways); a window then keeps only `cols > rows - window`;
+    without causal the prefix changes nothing. Masked scores are -1e30 and
+    a row whose denominator is 0 divides by 1. Returns (B, H, S, Dv) in
+    q's dtype."""
+    B, H, S, Dk = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[-1]
+    scale = Dk ** -0.5 if scale is None else scale
+    check_prefix(prefix_len)
+    if T == 0:
+        return q.new_zeros((B, H, S, Dv))
+    check_window(S, T, window)
+    p, l = _weights(q, k, causal, scale, window, prefix_len)
+    o = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(p.dtype)) / l
     return o.reshape(B, H, S, Dv).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None,
+                            prefix_len: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of `flash_attention_ref` written out in closed form
+    over the full score matrix, in float32 (float64 for float64 inputs):
+    given its inputs, its output o and do = dL/do (B, H, S, Dv),
+
+        P = softmax(scale q k^T) (masked), dP = do v^T,
+        Delta = rowsum(do o), dS = P (dP - Delta),
+        dq = scale dS k, dk = scale dS^T q, dv = P^T do,
+
+    dk and dv of a kv head summed over its G query heads. Returns (dq, dk,
+    dv) in the dtypes of q, k and v. The plain version of the backward
+    kernel (`flash_attention_bwd`)."""
+    B, H, S, Dk = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // Hkv
+    scale = Dk ** -0.5 if scale is None else scale
+    check_prefix(prefix_len)
+    if T == 0 or S == 0:
+        return q.new_zeros(q.shape), k.new_zeros(k.shape), v.new_zeros(v.shape)
+    check_window(S, T, window)
+    p, l = _weights(q, k, causal, scale, window, prefix_len)
+    p = p / l
+    cd = p.dtype
+    qg = q.to(cd).reshape(B, Hkv, G, S, Dk)
+    dog = do.to(cd).reshape(B, Hkv, G, S, Dv)
+    delta = (dog * o.to(cd).reshape(B, Hkv, G, S, Dv)).sum(-1, keepdim=True)
+    dp = torch.einsum("bhgsd,bhtd->bhgst", dog, v.to(cd))
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgst,bhtd->bhgsd", ds, k.to(cd)) * scale
+    dk = torch.einsum("bhgst,bhgsd->bhtd", ds, qg) * scale
+    dv = torch.einsum("bhgst,bhgsd->bhtd", p, dog)
+    return (dq.reshape(B, H, S, Dk).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -4,7 +4,9 @@
         --batch 4 --prompt-len 16 --gen 32
 
 Weights are random, drawn from --seed. --device cpu runs the plain path on
-the CPU (use it with --smoke).
+the CPU (use it with --smoke). An encoder-decoder (--arch whisper-base)
+encodes ENC_FRAMES random frame embeddings per request, drawn from --seed,
+before it decodes.
 """
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from ..configs import get_config, get_smoke_config
 from ..device import resolve_device
 from ..models.transformer import Transformer
 from ..serving.engine import ServeEngine
+
+# frame embeddings per request of an encoder-decoder: Whisper's 30 s window
+ENC_FRAMES = 1500
 
 
 def main(argv=None):
@@ -36,9 +41,20 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
     model = Transformer(cfg, device=dev, seed=args.seed)
-    eng = ServeEngine(cfg, model, max_len=args.prompt_len + args.gen + 1,
-                      device=dev)
     rng = np.random.default_rng(args.seed)
+    enc = None
+    if cfg.is_encdec:
+        enc = torch.as_tensor(rng.standard_normal(
+            (args.batch, ENC_FRAMES, cfg.d_model)), dtype=cfg.dtype(),
+            device=dev)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, model, max_len=args.prompt_len + args.gen + 1,
+                      device=dev, enc_inputs=enc)
+    if enc is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        print(f"encoded {args.batch} x {ENC_FRAMES} frames in "
+              f"{time.perf_counter() - t0:.3f}s")
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)),
         device=dev)

@@ -1,10 +1,12 @@
-"""Attention for the decoder: GQA/MQA/MHA projections, the full, the
-local-window and the prefix-LM prefill self-attention through the
-flash-attention kernel, DeepSeek's multi-head latent attention (MLA), and
-one-token attention over a KV cache or MLA's latent cache.
+"""Attention: GQA/MQA/MHA projections, the full, the local-window and the
+prefix-LM prefill self-attention through the flash-attention kernel, an
+encoder-decoder's cross attention over the encoder's output,
+DeepSeek's multi-head latent attention (MLA), and one-token attention
+over a KV cache (the cross cache among them) or MLA's latent cache.
 
 Two compute paths, as in the JAX package:
-  * `gqa_attention` and `mla_attention` — prefill:
+  * `gqa_attention`, `cross_attention` and `mla_attention` — prefill and
+    training:
     `kernels.flash_attention.attention`, which launches the hand-written
     CUDA kernel for CUDA tensors (the JAX package runs `flash_attn_jnp`
     here and names its Pallas kernel as the 1:1 replacement on the TPU;
@@ -135,6 +137,36 @@ def gqa_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                   causal=causal, window=window, prefix_len=prefix_len,
                   impl=impl)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim_)
+    return o @ p["wo"]
+
+
+# -------------------------------------------------------- cross attention --
+def cross_kv(p: Mapping[str, torch.Tensor], enc_out: torch.Tensor,
+             cfg: ModelConfig):
+    """k, v (B, Hkv, S_enc, dh) of the encoder's output enc_out (B, S_enc,
+    D): no bias, no rope (the JAX package's `_cross_attention`)."""
+    B, Se, _ = enc_out.shape
+    Hkv, dh = cfg.n_kv_heads, cfg.head_dim_
+    k = (enc_out @ p["wk"]).reshape(B, Se, Hkv, dh).transpose(1, 2)
+    v = (enc_out @ p["wv"]).reshape(B, Se, Hkv, dh).transpose(1, 2)
+    return k, v
+
+
+def cross_attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    enc_out: torch.Tensor, cfg: ModelConfig, *,
+                    impl: str = "auto") -> torch.Tensor:
+    """A decoder layer's attention over the encoder's output: q from the
+    normed decoder state x (B, S, D), k and v from enc_out (B, S_enc, D),
+    no rope, not causal: every decoder position sees every frame. On a
+    CUDA tensor (impl "auto" or "cuda") one flash launch, S over T =
+    S_enc."""
+    B, S, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim_
+    q = (x @ p["wq"]).reshape(B, S, H, dh).transpose(1, 2)
+    k, v = cross_kv(p, enc_out, cfg)
+    o = attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                  causal=False, impl=impl)
+    o = o.transpose(1, 2).reshape(B, S, H * dh)
     return o @ p["wo"]
 
 

@@ -22,18 +22,21 @@ Cache kinds, one dict a layer:
               for "attn"
   ssd         SSDCache's fields: the (B, H, P, N) state and the conv tails
   rglru       LRUCache's fields: the (B, W) state and the conv tail
-The encoder's cross cache waits for its layers (ROADMAP.md, Queue 1 item
-10). The decode path takes no prefix, as in the JAX package: a prefix-LM's
-prefix enters through the prefill forward only.
+An encoder-decoder's cache also holds `cross`, one {"k", "v"} per decoder
+layer: the encoder output's keys and values (B, Hkv, S_enc, dh), built
+once by `init_cache` and never updated. The decode path takes no prefix,
+as in the JAX package: a prefix-LM's prefix enters through the prefill
+forward only.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .attention import NEG_INF, _mask, gqa_project, mla_decode
+from .attention import (NEG_INF, _mask, cross_kv, decode_attn, gqa_project,
+                        mla_decode)
 from .blocks import embed_lookup, logits_out, rmsnorm, rope
 from .config import ModelConfig
 from .rglru import LRUCache, rglru_init_cache, rglru_step
@@ -64,19 +67,35 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, t_max: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, t_max: int,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None,
+               enc_out: Optional[torch.Tensor] = None,
+               model: Optional[Transformer] = None) -> dict:
     """{"layers": one cache dict per layer, by its kind, "length": 0}.
     Attention caches: k, v (batch, Hkv, slots, dh) in the compute dtype
     and slot_pos (slots,) int32, the position held in each slot, -1 while
     empty; t_max slots for "attn", min(t_max, local_window) for the ring
     of "local_attn". MLA's: c (batch, t_max, kv_lora_rank) and kr (batch,
     t_max, qk_rope_dim) in the compute dtype. Recurrent states are
-    float32, conv tails in the compute dtype."""
+    float32, conv tails in the compute dtype.
+    An encoder-decoder needs enc_out (batch, S_enc, d_model), the
+    encoder's output, and the model whose decoder layers' cross
+    projections make `cross`: {"k", "v"} (batch, Hkv, S_enc, dh) per
+    layer, computed here once."""
     check_supported(cfg)
     dev = resolve_device(device)
     layers = [_layer_cache(cfg, kind, batch, t_max, dev)
               for kind in cfg.layer_kinds()]
-    return {"layers": layers, "length": 0}
+    cache = {"layers": layers, "length": 0}
+    if cfg.is_encdec:
+        if enc_out is None or model is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its cache "
+                             f"needs enc_out and the model")
+        enc_out = torch.as_tensor(enc_out, device=dev).to(cfg.dtype())
+        with torch.no_grad():
+            cache["cross"] = [
+                dict(zip(("k", "v"), cross_kv(layer.cross, enc_out, cfg)))
+                for layer in model.layers]
+    return cache
 
 
 def _attn_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
@@ -116,8 +135,21 @@ def _attn_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
     return o @ p["wo"]
 
 
+def _cross_step(p: Mapping[str, torch.Tensor], h: torch.Tensor,
+                kv: dict, cfg: ModelConfig) -> torch.Tensor:
+    """h: (B, 1, D) normed input; attends over all S_enc keys and values
+    of the cross cache (not causal)."""
+    B = h.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim_
+    q = (h @ p["wq"]).reshape(B, 1, H, dh).transpose(1, 2)
+    o = decode_attn(q, kv["k"], kv["v"], cache_len=kv["k"].shape[2])
+    o = o.reshape(B, 1, H * dh).to(h.dtype)
+    return o @ p["wo"]
+
+
 def _layer_step(layer: DecoderLayer, cache_l: dict, x: torch.Tensor,
-                length: int) -> torch.Tensor:
+                length: int, cross: Optional[dict] = None
+                ) -> torch.Tensor:
     cfg = layer.cfg
     h = rmsnorm(x, layer.norm1, cfg.norm_eps)
     if layer.kind == "ssd":
@@ -129,6 +161,9 @@ def _layer_step(layer: DecoderLayer, cache_l: dict, x: torch.Tensor,
     else:
         h = _attn_step(layer.attn, h, cache_l, cfg, length, layer.kind)
     x = x + h
+    if cross is not None:
+        h = rmsnorm(x, layer.norm_cross, cfg.norm_eps)
+        x = x + _cross_step(layer.cross, h, cross, cfg)
     # the MoE layer routes the B tokens of the step as one group, as the
     # JAX package's decode step does; its aux loss is dropped
     return layer.ffn(x)[0]
@@ -138,14 +173,16 @@ def decode_step(model: Transformer, token, cache: dict):
     """token: (B,) integers. Returns (logits (B, padded_vocab), cache),
     the cache updated in place. The recurrent layers move their states
     through their scans: the kernels on the card, the plain versions on
-    the CPU."""
+    the CPU. An encoder-decoder's layers attend over the cross cache after
+    their self attention."""
     cfg = model.cfg
     length = cache["length"] + 1
     token = torch.as_tensor(token, device=model.device).long()
     x = embed_lookup(model.embed["tok"], token[:, None], cfg.d_model)
     x = x.to(cfg.dtype())
-    for layer, cache_l in zip(model.layers, cache["layers"]):
-        x = _layer_step(layer, cache_l, x, length)
+    cross = cache.get("cross", [None] * len(model.layers))
+    for layer, cache_l, kv in zip(model.layers, cache["layers"], cross):
+        x = _layer_step(layer, cache_l, x, length, kv)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     cache["length"] = length
     return logits_out(model.embed, x, cfg)[:, 0], cache

@@ -1,6 +1,9 @@
 """Batched serving engine: prefill (token-by-token through the cache —
-exactly consistent with decode by construction) + sampled generation."""
+exactly consistent with decode by construction) + sampled generation. An
+encoder-decoder's encoder runs once, when the engine is built."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -12,17 +15,35 @@ from ..models.transformer import Transformer
 
 class ServeEngine:
     """Serves one model on one device (None = the CUDA card; raises without
-    one). The model is moved there if it is not."""
+    one). The model is moved there if it is not.
+
+    An encoder-decoder (Whisper) encodes `enc_inputs` (B or 1, S_enc,
+    d_model) frame embeddings once, here, or zeros of (1, 16, d_model)
+    without them, as the JAX package does; every cache then carries the
+    encoder output's cross keys and values, the output broadcast over the
+    batch where it has one row."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
-                 max_len: int = 512, device: DeviceLike = None):
+                 max_len: int = 512, device: DeviceLike = None,
+                 enc_inputs=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.max_len = max_len
+        self.enc_out: Optional[torch.Tensor] = None
+        if cfg.is_encdec:
+            if enc_inputs is None:
+                enc_inputs = torch.zeros((1, 16, cfg.d_model),
+                                         dtype=cfg.dtype())
+            with torch.no_grad():
+                self.enc_out = self.model.encode(enc_inputs)
 
     def new_cache(self, batch: int) -> dict:
-        return init_cache(self.cfg, batch, self.max_len, self.device)
+        enc = self.enc_out
+        if enc is not None and enc.shape[0] != batch:
+            enc = enc.expand((batch,) + tuple(enc.shape[1:]))
+        return init_cache(self.cfg, batch, self.max_len, self.device,
+                          enc_out=enc, model=self.model)
 
     def prefill(self, tokens, cache=None):
         """tokens: (B, S). Feeds the prompt through the decode path; returns

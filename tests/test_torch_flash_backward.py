@@ -1,0 +1,154 @@
+"""The flash-attention gradient on the CPU: the plain backward
+(`flash_attention_bwd_ref`, the backward kernel's plain version) against
+`jax.vjp` of the JAX package's `flash_attn_jnp` (its model path's
+attention, differentiated by XLA) and against torch.autograd through the
+plain forward; and `attention`'s torch.autograd.Function on its plain lane.
+
+Cases: causal and not, S != T both ways (Whisper's cross attention is
+S < T, not causal), ragged lengths off the JAX chunks, GQA (G = 1, 3, 4),
+a local window, a prefix, and MLA's (Dk, Dv) = (24, 16) (the smoke
+config's; DeepSeek-V3's (192, 128) at full width). Tolerance: 2e-5 of each
+gradient's largest element in float32 (summation order differs), 1e-10
+against torch.autograd in float64. At T = 1 the exact dq and dk are 0 (the
+one key has weight 1 whatever its score) and both sides leave the rounding
+of dP - Delta there, so those two are held to the same numbers absolutely.
+The Function passes torch.autograd.gradcheck in float64 on the plain lane.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import flash_attn_jnp
+from repro_torch.kernels.flash_attention import (FlashAttention, attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_ref)
+
+# (B, H, Hkv, S, T, Dk, Dv, causal, window, prefix)
+CASES = [
+    (2, 4, 2, 40, 40, 16, 16, True, None, 0),
+    (1, 4, 4, 33, 33, 16, 16, False, None, 0),
+    (2, 6, 2, 20, 56, 16, 16, False, None, 0),     # cross: S < T
+    (1, 3, 1, 45, 17, 16, 16, True, None, 0),      # causal S > T
+    (1, 3, 1, 17, 45, 16, 16, True, None, 0),      # causal S < T
+    (1, 4, 1, 50, 50, 8, 8, True, 9, 0),           # window
+    (1, 4, 2, 30, 30, 16, 16, True, None, 7),      # prefix
+    (1, 4, 2, 30, 30, 16, 16, True, 6, 12),        # prefix and window
+    (2, 4, 4, 24, 24, 24, 16, True, None, 0),      # MLA's Dk != Dv
+    (1, 2, 1, 1, 1, 16, 16, True, None, 0),
+]
+
+
+def _draw(B, H, Hkv, S, T, Dk, Dv, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(dtype) for s in (
+        (B, H, S, Dk), (B, Hkv, T, Dk), (B, Hkv, T, Dv), (B, H, S, Dv)))
+
+
+def _close(ours, ref, tol, T):
+    """dq, dk, dv within tol of each plain gradient's largest element; at
+    T = 1, dq and dk (0 in exact arithmetic) within tol absolutely."""
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert a.shape == b.shape
+        scale = 1.0 if T == 1 and i < 2 else np.abs(b).max()
+        assert np.abs(a - b).max() <= tol * scale
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,window,prefix", CASES)
+def test_plain_backward_matches_jax_vjp(B, H, Hkv, S, T, Dk, Dv, causal,
+                                        window, prefix):
+    q, k, v, do = _draw(B, H, Hkv, S, T, Dk, Dv, seed=S * T + Dk)
+    o, vjp = jax.vjp(lambda a, b, c: flash_attn_jnp(
+        a, b, c, causal=causal, window=window, prefix_len=prefix,
+        chunk_q=16, chunk_k=16), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    to = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
+                             prefix_len=prefix)
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), rtol=2e-5,
+                               atol=2e-5)
+    ours = flash_attention_bwd_ref(tq, tk, tv, to, tdo, causal=causal,
+                                   window=window, prefix_len=prefix)
+    _close([t.numpy() for t in ours], [np.asarray(r) for r in ref], 2e-5, T)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,window,prefix", CASES)
+def test_plain_backward_matches_autograd(B, H, Hkv, S, T, Dk, Dv, causal,
+                                         window, prefix):
+    """In float64 against torch.autograd through the plain forward, and
+    the Function's gradients on the plain lane are the plain backward's."""
+    arrays = _draw(B, H, Hkv, S, T, Dk, Dv, seed=S + T, dtype=np.float64)
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays[:3])
+    do = torch.from_numpy(arrays[3])
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o = flash_attention_ref(q, k, v, **kw)
+    auto = torch.autograd.grad(o, (q, k, v), do)
+    ours = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                   o.detach(), do, **kw)
+    _close([t.numpy() for t in ours], [t.numpy() for t in auto], 1e-10, T)
+    of = attention(q, k, v, impl="ref", **kw)
+    assert of.grad_fn is not None and "FlashAttention" in type(
+        of.grad_fn).__name__
+    fn = torch.autograd.grad(of, (q, k, v), do)
+    for a, b in zip(fn, ours):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=3),
+                                dict(causal=True, prefix_len=2)])
+def test_function_gradcheck(kw):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).requires_grad_()
+               for s in ((1, 4, 5, 6), (1, 2, 7, 6), (1, 2, 7, 4)))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: attention(a, b, c, impl="ref", **kw), (q, k, v))
+
+
+def test_no_grad_path_bypasses_function():
+    """Without a gradient to take, `attention` calls the forward directly
+    (inference costs what it did); bf16 gradients come back in bf16."""
+    q, k, v, do = (torch.from_numpy(a) for a in _draw(1, 4, 2, 9, 9, 8, 8,
+                                                       seed=1))
+    assert attention(q, k, v).grad_fn is None
+    qb, kb, vb = (t.bfloat16().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        assert attention(qb, kb, vb).grad_fn is None
+    o = attention(qb, kb, vb)
+    grads = torch.autograd.grad(o, (qb, kb, vb), do.bfloat16())
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    ref = flash_attention_bwd_ref(qb.detach(), kb.detach(), vb.detach(),
+                                  o.detach(), do.bfloat16())
+    for a, b in zip(grads, ref):
+        assert torch.equal(a, b)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The backward kernel runs only on CUDA tensors: on the CPU it
+    raises, and impl="cuda" through the Function raises too."""
+    q, k, v, do = (torch.from_numpy(a) for a in _draw(1, 2, 1, 4, 4, 8, 8,
+                                                       seed=2))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, do, do)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FlashAttention.apply(q.requires_grad_(), k, v, True, None, None, 0,
+                             "cuda")
+
+
+def test_bwd_errors_scale():
+    """The card's measure of the backward against its plain version: each
+    error over the plain gradient's largest element, and absolute for dq
+    and dk at T = 1, where they are 0 in exact arithmetic."""
+    from repro_torch.kernels.flash_attention.bwd_cases import bwd_errors
+    ref = [torch.full((2, 3), 0.5), torch.full((2, 3), 1e-7),
+           torch.full((2, 3), 4.0)]
+    got = [r + 0.01 for r in ref]
+    assert bwd_errors(got, ref, 7) == pytest.approx(
+        [0.02, 1e5, 0.0025], rel=1e-4)      # float32's rounding of + 0.01
+    assert bwd_errors(got, ref, 1) == pytest.approx(
+        [0.01, 0.01, 0.0025], rel=1e-4)
+    assert bwd_errors(ref, ref, 7) == [0.0, 0.0, 0.0]

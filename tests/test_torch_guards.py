@@ -52,6 +52,11 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.models.ssm, repro_torch.models.rglru\n"
         "import repro_torch.configs.mamba2_2p7b\n"
         "import repro_torch.configs.recurrentgemma_2b\n"
+        "import repro_torch.configs.whisper_base, repro_torch.data\n"
+        "import repro_torch.data.pipeline, repro_torch.launch.train\n"
+        "import repro_torch.training.optimizer\n"
+        "import repro_torch.training.train_step\n"
+        "import repro_torch.training.checkpoint\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -277,3 +282,32 @@ def test_cycle_graph_uniform_on_cpu():
             r = solve(op, tol=1e-9 if backend == "bsr" else 1e-12,
                       backend=backend, device="cpu")
             np.testing.assert_allclose(r.x, 1.0 / 37, rtol=1e-6)
+
+
+def test_lm_training_defaults_to_cuda():
+    """The training path's entry points (the launcher, make_batch, a
+    trainable model, Whisper's engine) resolve their device at entry
+    (None: the card) and raise without one; with device="cpu" they run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.launch import train
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeEngine
+    if torch.cuda.is_available():
+        return
+    cfg = get_smoke_config("whisper-base")
+    pipe = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                      global_batch=2))
+    model = Transformer(cfg, device="cpu")
+    for call in (lambda: train.main(["--arch", "whisper-base", "--smoke",
+                                     "--steps", "1"]),
+                 lambda: make_batch(pipe, cfg, 0),
+                 lambda: Transformer(cfg, trainable=True),
+                 lambda: ServeEngine(cfg, model)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    batch = make_batch(pipe, cfg, 0, device="cpu")
+    assert batch["enc_inputs"].shape == (2, 8, cfg.d_model)
+    assert len(train.main(["--arch", "whisper-base", "--smoke", "--steps",
+                           "1", "--batch", "2", "--seq", "8", "--device",
+                           "cpu"])) == 1

@@ -222,24 +222,31 @@ def test_moe_config_resolves():
                                   "recurrentgemma-2b", "deepseek-v3-671b",
                                   "whisper-base", "paligemma-3b"])
 def test_unported_archs_raise(arch):
-    """The architectures not ported yet raise, in the registry and in the
-    model. Mamba2, RecurrentGemma, DeepSeek-V3 (MLA) and PaliGemma (the
-    prefix-LM) were among them until their layers were ported: their
-    configs now resolve, equal the JAX package's, and build a model, while
-    the same smoke config with a field the port lacks (an encoder,
-    `n_enc_layers`) still raises. Only Whisper raises in the registry."""
+    """The architectures that raised until their layers were ported (the
+    name is kept from then): Mamba2, RecurrentGemma, DeepSeek-V3 (MLA),
+    PaliGemma (the prefix-LM) and Whisper (the encoder-decoder). Each
+    config now resolves, full width and smoke, equals the JAX package's
+    field for field, and builds a model (Whisper's with its encoder)."""
     cfg = ModelConfig(**dataclasses.asdict(J_SMOKE[arch]))
-    if arch != "whisper-base":
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(j_get_config(arch))
-        assert get_smoke_config(arch) == cfg
-        assert Transformer(cfg, device=CPU).cfg == cfg
-        cfg = dataclasses.replace(cfg, n_enc_layers=2)
-    else:
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg, device=CPU)
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(j_get_config(arch))
+    assert get_smoke_config(arch) == cfg
+    model = Transformer(cfg, device=CPU)
+    assert model.cfg == cfg
+    assert (model.encoder is not None) == (arch == "whisper-base")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
+def test_training_scan_kinds_raise(arch):
+    """The "ssd" and "rglru" kinds have no backward kernel yet: building
+    their models trainable raises, naming the ROADMAP item; inference
+    builds as before."""
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
+                                                  "item 10"):
+        Transformer(cfg, device=CPU, trainable=True)
+    assert not any(p.requires_grad
+                   for p in Transformer(cfg, device=CPU).parameters())
 
 
 def test_full_kv_cache_matches_reference(pairs):
