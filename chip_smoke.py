@@ -22,15 +22,21 @@ Phases, each printing its own lines and seconds:
               DeepSeek-V3's (Dk, Dv) = (192, 128) and with PaliGemma's
               prefix-LM mask (D in {64, 128, 256}; prefix 0, 1, a tile
               edge, past S), both lanes, bf16 and float32; then the
-              backward kernel (flash_attention_bwd.cu: dq, dk, dv) against
-              its plain version over causal and not, S != T both ways
-              (Whisper's cross shape 448 x 1,500 among them), ragged
-              lengths, G in {1, 3, 8}, D in {64, 128, 256} and
-              (192, 128), a window and a prefix, bf16 and float32, each
-              run twice for the same bits; the forward's tensor-core lane
-              at 448 x 1,500 not causal; the backward timed at
-              SmolLM-360M's and Yi-6B's training shapes beside its plain
-              version, SDPA's backward and the gradient's own bound;
+              backward's two lanes (flash_attention_bwd_wgmma.cu on the
+              tensor cores for bf16 at (64, 64) and (128, 128),
+              flash_attention_bwd.cu on the CUDA cores for the rest: dq,
+              dk, dv) against their plain version over causal and not,
+              S != T both ways (Whisper's cross shape 448 x 1,500 among
+              them), ragged lengths, S = 1, T = 1, G in {1, 3, 8}, D in
+              {64, 128, 256} and (192, 128), a window and a prefix, bf16
+              and float32, each run twice for the same bits; the
+              tensor-core cases also from the tensor-core forward's o and
+              log-sum-exp (held to the plain one); the forward's
+              tensor-core lane at 448 x 1,500 not causal; the tensor-core
+              backward timed at SmolLM-360M's and Yi-6B's training shapes,
+              the CUDA-core lane in float32 at SmolLM-360M's, each beside
+              its plain version, SDPA's backward and the gradient's own
+              bound;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -199,8 +205,9 @@ Phases, each printing its own lines and seconds:
               at batch 8 x 2048 with a checkpoint directory, then resumed
               from its checkpoint for 2 more; the loss of each step (it
               must fall), ms a step, tokens/s, peak memory, the backward
-              kernel's calls and its share of a profiled step; one step of
-              a 2-layer float32 copy with impl="cuda" against impl="ref";
+              kernel's calls (every one on the tensor-core lane) and its
+              share of a profiled step; one step of a 2-layer float32 copy
+              with impl="cuda" (the CUDA-core backward) against impl="ref";
  31. main   : training Whisper-base uncut, 5 steps at batch 8, 448 tokens
               over 448 frames; the loss must fall.
 
@@ -4335,8 +4342,13 @@ def vlm_main_path(cuda, seed, smi):
 # ---------------------------------------------------------------------------
 # Whisper-base and the training path (ROADMAP Queue 1 items 10.6-10.8)
 # ---------------------------------------------------------------------------
-FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention_bwd.cu")
+# the backward's lanes: the tensor cores (bf16 at (64, 64), (128, 128))
+# and the CUDA cores (the rest)
+FLASH_BWD_SOURCE = {
+    "wgmma": ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd_wgmma.cu"),
+    "f32": ("src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu")}
 FLASH_BWD_REPLACES = ("none: the Pallas kernel (src/repro/kernels/"
                       "flash_attention/flash_attention.py:97) has no "
                       "backward; the JAX package differentiates "
@@ -4360,13 +4372,17 @@ TRAIN_CHECK = dict(n_layers=2, batch=2, seq=1024)
 
 
 def flash_bwd_against_plain(cuda):
-    """The backward kernel against its plain version on the card over
-    BWD_CASES (dq, dk, dv; o from the plain forward), two runs compared
-    bit for bit, one count a call; and the forward's missing tensor-core
-    case, bf16 not causal 448 x 1,500 at D = 64 (Whisper's cross
-    attention). Returns the largest |kernel - plain| over the cases."""
+    """The backward's two lanes against their plain version on the card
+    over BWD_CASES (dq, dk, dv; o from the plain forward, no lse), two
+    runs compared bit for bit, one count a call on the lane `bwd_lane`
+    names; each tensor-core case again from the tensor-core forward's o
+    and lse (`return_lse`, the lse held to the plain one within
+    LSE_LIMIT), as training feeds it; and the forward's missing
+    tensor-core case, bf16 not causal 448 x 1,500 at D = 64 (Whisper's
+    cross attention). Returns the largest |kernel - plain| over the cases
+    of each backward lane."""
     import torch
-    from repro_torch.kernels.flash_attention import (LAUNCHES,
+    from repro_torch.kernels.flash_attention import (LAUNCHES, bwd_lane,
                                                      flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
@@ -4375,8 +4391,25 @@ def flash_bwd_against_plain(cuda):
     from repro_torch.kernels.flash_attention.bwd_cases import (BWD_CASES,
                                                                BWD_LIMIT,
                                                                DTYPES,
+                                                               LSE_LIMIT,
                                                                bwd_errors)
-    worst = 0.0
+
+    def run(q, k, v, o, do, kw, lse=None):
+        """Two calls and the plain backward: (errors, same bits, the
+        largest |kernel - plain|, launches by lane)."""
+        before = dict(LAUNCHES)
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        return (bwd_errors(got, ref, k.shape[2]),
+                all(torch.equal(a, c) for a, c in zip(got, again)),
+                max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, ref)),
+                {key: LAUNCHES[key] - before[key]
+                 for key in ("bwd", "bwd_wgmma")})
+
+    worst = {"wgmma": 0.0, "f32": 0.0}
     for B, H, Hkv, S, T, Dk, Dv, causal, dt, window, prefix in BWD_CASES:
         g = torch.Generator(device=cuda).manual_seed(S * 1000 + T + Dk)
         q, k, v = (torch.randn(s, generator=g, device=cuda).to(DTYPES[dt])
@@ -4385,24 +4418,32 @@ def flash_bwd_against_plain(cuda):
         kw = dict(causal=causal, window=window, prefix_len=prefix)
         o = flash_attention_ref(q, k, v, **kw)
         do = torch.randn(o.shape, generator=g, device=cuda).to(DTYPES[dt])
-        before = LAUNCHES["bwd"]
-        got = flash_attention_bwd(q, k, v, o, do, **kw)
-        again = flash_attention_bwd(q, k, v, o, do, **kw)
-        ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
-        torch.cuda.synchronize()
-        errs = bwd_errors(got, ref, T)
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
-        worst = max(worst, *(float((a.float() - b.float()).abs().max())
-                             for a, b in zip(got, ref)))
+        lane = bwd_lane(q.dtype, Dk, Dv)
+        want = {"bwd": 2, "bwd_wgmma": 2 if lane == "wgmma" else 0}
+        errs, same, err, counts = run(q, k, v, o, do, kw)
+        worst[lane] = max(worst[lane], err)
         zero = "; dq, dk are 0 exactly: absolute" if T == 1 else ""
-        check(max(errs) <= BWD_LIMIT[dt] and same
-              and LAUNCHES["bwd"] == before + 2,
-              f"flash bwd ({B},{H},{Hkv},S={S},T={T},Dk={Dk},Dv={Dv}) "
-              f"causal={causal} window={window} prefix={prefix} {dt}: "
-              f"max |kernel - plain| / max |plain| of dq, dk, dv = "
+        check(max(errs) <= BWD_LIMIT[dt] and same and counts == want,
+              f"flash bwd {lane} lane ({B},{H},{Hkv},S={S},T={T},Dk={Dk},"
+              f"Dv={Dv}) causal={causal} window={window} prefix={prefix} "
+              f"{dt}: max |kernel - plain| / max |plain| of dq, dk, dv = "
               f"{', '.join(f'{e:.3g}' for e in errs)} (<= "
-              f"{BWD_LIMIT[dt]:g}{zero}); two runs bit for bit equal")
-        del q, k, v, o, do, got, again, ref
+              f"{BWD_LIMIT[dt]:g}{zero}); two runs bit for bit equal; "
+              f"calls {counts}")
+        if lane == "wgmma":
+            ok, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+            lse_err = float((lse - lse_ref).abs().max())
+            errs, same, err, counts = run(q, k, v, ok, do, kw, lse=lse)
+            worst[lane] = max(worst[lane], err)
+            check(lse_err <= LSE_LIMIT and max(errs) <= BWD_LIMIT[dt]
+                  and same and counts == want,
+                  f"  the same from the tensor-core forward's o and lse "
+                  f"(lse within {lse_err:.3g} of the plain one, <= "
+                  f"{LSE_LIMIT:g}): {', '.join(f'{e:.3g}' for e in errs)}"
+                  f"{zero}; two runs bit for bit equal")
+            del ok, lse, lse_ref
+        del q, k, v, o, do
     g = torch.Generator(device=cuda).manual_seed(448)
     q = torch.randn((2, 8, WHISPER_CTX, 64), generator=g,
                     device=cuda).to(torch.bfloat16)
@@ -4440,56 +4481,72 @@ def flash_bwd_bound(q, k, v, causal=True):
 
 
 def flash_bwd_timing(cuda, seed, smi):
-    """The backward kernel at BWD_TIMED's training shapes (bf16, causal):
-    kernel, plain version, the backward of one
-    scaled_dot_product_attention call (is_causal, enable_gqa) alone, and
-    the bound. Returns {what: row}."""
+    """The backward at BWD_TIMED's training shapes (causal): the
+    tensor-core lane in bf16 at both, given the tensor-core forward's lse
+    as training gives it (and without, rebuilding it), and the CUDA-core
+    lane in float32 at SmolLM-360M's; each beside its plain version, the
+    backward of one scaled_dot_product_attention call (is_causal,
+    enable_gqa) alone in the same dtype, and the bound at that dtype's
+    peak. Returns {(lane, what): row}."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_lane,
+                                                     flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref)
     from repro_torch.kernels.flash_attention.bwd_cases import (BWD_LIMIT,
                                                                bwd_errors)
     rows = {}
-    for what, B, H, Hkv, S, D in BWD_TIMED:
+    timed = [("wgmma", torch.bfloat16, shape) for shape in BWD_TIMED]
+    timed.append(("f32", torch.float32, BWD_TIMED[0]))
+    for lane, dtype, (what, B, H, Hkv, S, D) in timed:
+        check(bwd_lane(dtype, D) == lane, f"{dtype} at D = {D}: {lane}")
         g = torch.Generator(device=cuda).manual_seed(seed)
-        q, k, v = (torch.randn(s, generator=g, device=cuda).to(
-            torch.bfloat16) for s in ((B, H, S, D), (B, Hkv, S, D),
-                                      (B, Hkv, S, D)))
-        o = flash_attention(q, k, v)
-        do = torch.randn(o.shape, generator=g, device=cuda).to(o.dtype)
-        got = flash_attention_bwd(q, k, v, o, do)
+        q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+                   for s in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+        if lane == "wgmma":
+            o, lse = flash_attention(q, k, v, return_lse=True)
+        else:
+            o, lse = flash_attention(q, k, v), None
+        do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse)
         ref = flash_attention_bwd_ref(q, k, v, o, do)
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, ref))
         errs = bwd_errors(got, ref, S)
-        check(max(errs) <= BWD_LIMIT["bf16"],
-              f"flash bwd at {what}'s training shape ({B},{H},{Hkv},S=T={S},"
-              f"D={D}) causal bf16: max |kernel - plain| / max |plain| of "
-              f"dq, dk, dv = {', '.join(f'{e:.3g}' for e in errs)} (<= "
-              f"{BWD_LIMIT['bf16']:g})")
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        check(max(errs) <= BWD_LIMIT[dt],
+              f"flash bwd {lane} lane at {what}'s training shape ({B},{H},"
+              f"{Hkv},S=T={S},D={D}) causal {dt}: max |kernel - plain| / "
+              f"max |plain| of dq, dk, dv = "
+              f"{', '.join(f'{e:.3g}' for e in errs)} (<= "
+              f"{BWD_LIMIT[dt]:g})")
         del got, ref
         free_cuda()
-        t = {"kernel": cuda_ms(lambda: flash_attention_bwd(q, k, v, o, do),
-                               5),
+        t = {"kernel": cuda_ms(lambda: flash_attention_bwd(
+                 q, k, v, o, do, lse=lse), 5),
              "plain": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o,
                                                               do), 2)}
+        if lane == "wgmma":
+            t["no_lse"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, o,
+                                                              do), 5)
         qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
         os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                              enable_gqa=True)
         t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             os_, (qs, ks, vs), do, retain_graph=True), 5)
         b_ms, b_by = flash_bwd_bound(q, k, v)
-        print(f"  flash bwd {what} B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
-              f"causal bf16: kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms, SDPA backward {t['sdpa_bwd']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}); kernel at "
-              f"{100 * b_ms / t['kernel']:.1f}% of bound, "
+        extra = (f" (without the forward's lse, rebuilt: {t['no_lse']:.4f}"
+                 f" ms)" if lane == "wgmma" else "")
+        print(f"  flash bwd {lane} lane, {what} B={B} H={H} Hkv={Hkv} "
+              f"S=T={S} D={D} causal {dt}: kernel {t['kernel']:.4f} ms"
+              f"{extra}, plain {t['plain']:.4f} ms, SDPA backward "
+              f"{t['sdpa_bwd']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
               f"{t['sdpa_bwd'] / t['kernel']:.3f}x SDPA's speed; max "
               f"|kernel - plain| {err:.3g} [{smi}]")
-        rows[what] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
-        del q, k, v, o, do, qs, ks, vs, os_
+        rows[(lane, what)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+        del q, k, v, o, do, lse, qs, ks, vs, os_
         free_cuda()
     return rows
 
@@ -4528,11 +4585,12 @@ def attention_dispatch_cost(cuda, smi, calls=200):
 
 
 def flash_counts():
-    """The flash launch counts by lane, and the backward's calls."""
+    """The flash launch counts by lane, and the backward's calls (all, and
+    the tensor-core lane's)."""
     from repro_torch.kernels.flash_attention import LAUNCHES
     return {"wgmma": LAUNCHES["wgmma"],
             "f32": LAUNCHES["fwd"] - LAUNCHES["wgmma"],
-            "bwd": LAUNCHES["bwd"]}
+            "bwd": LAUNCHES["bwd"], "bwd_wgmma": LAUNCHES["bwd_wgmma"]}
 
 
 def zero_flash_counts():
@@ -4670,7 +4728,7 @@ def whisper_main_path(cuda, seed, smi):
     # bf16: the engine's encoder, the timed encoder, the forward, its warm
     # runs and its profiled run; float32: one forward, the engine's encoder
     check(launches == {"wgmma": 2 * E + (2 + WHISPER_FWD_REPS) * (E + 2 * L),
-                       "f32": (E + 2 * L) + E, "bwd": 0},
+                       "f32": (E + 2 * L) + E, "bwd": 0, "bwd_wgmma": 0},
           f"flash launches over the main path: {launches}")
     del model, model32, eng, cache, out32, ref32, dec
     free_cuda()
@@ -4817,13 +4875,14 @@ def train_main_path(cuda, seed, smi):
     launches = flash_counts()
     steps = TRAIN_STEPS + TRAIN_RESUME
     check(launches["bwd"] == cfg.n_layers * steps
+          and launches["bwd_wgmma"] == launches["bwd"]
           and launches["wgmma"] == 2 * cfg.n_layers * steps
           and launches["f32"] == 0 and share is not None,
           f"flash over the runs: {launches} (each of {steps} steps: "
           f"{cfg.n_layers} forward launches, {cfg.n_layers} more "
-          f"recomputed under remat, {cfg.n_layers} backward calls); the "
-          f"backward kernels took {percent(share)} of a profiled step's "
-          f"device time")
+          f"recomputed under remat, {cfg.n_layers} backward calls, every "
+          f"one on the tensor-core lane); the backward kernels took "
+          f"{percent(share)} of a profiled step's device time")
     free_cuda()
 
     cfg32 = dataclasses.replace(
@@ -4837,18 +4896,25 @@ def train_main_path(cuda, seed, smi):
     batch = make_batch(pipe, cfg32, 0, device=cuda)
     leaves = tree_leaves(model.param_tree())
     out = {}
+    before = flash_counts()
     for impl in ("cuda", "ref"):
         loss, _ = lm_loss(model, batch, impl=impl)
         out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    # the float32 step's calls: the CUDA-core lanes, forward and backward
+    f32_calls = {key: n - before[key] for key, n in flash_counts().items()}
     (lc, gc), (lr, gr) = out["cuda"], out["ref"]
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                  1e-30)
                 for a, b in zip(gc, gr))
-    check(abs(lc - lr) <= 1e-5 * abs(lr) and worst <= 1e-4,
+    check(abs(lc - lr) <= 1e-5 * abs(lr) and worst <= 1e-4
+          and f32_calls["bwd"] == cfg32.n_layers
+          and f32_calls["bwd_wgmma"] == 0 and f32_calls["wgmma"] == 0,
           f"one step of {cfg32.n_layers} float32 layers at "
           f"B={TRAIN_CHECK['batch']} S={TRAIN_CHECK['seq']}, impl=cuda "
           f"against impl=ref: loss {lc:.6f} vs {lr:.6f}, every gradient "
-          f"leaf within {worst:.3g} of its largest element (<= 1e-4)")
+          f"leaf within {worst:.3g} of its largest element (<= 1e-4); "
+          f"flash calls {f32_calls} (the CUDA-core lanes)")
+    launches = {key: n + f32_calls[key] for key, n in launches.items()}
     del model, out, gc, gr, leaves, batch
     free_cuda()
     row = dict(step_ms=steady, tokens_s=tokens / steady * 1e3,
@@ -4873,6 +4939,7 @@ def whisper_train_main_path(cuda, seed, smi):
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
           and losses[-1] < losses[0]
           and launches["bwd"] == calls * TRAIN_STEPS
+          and launches["bwd_wgmma"] == launches["bwd"]
           and launches["wgmma"] == 2 * calls * TRAIN_STEPS,
           f"{WHISPER_ARCH} trained {TRAIN_STEPS} steps at B={TRAIN_BATCH}, "
           f"{WHISPER_TRAIN_SEQ} tokens over {WHISPER_TRAIN_SEQ} frames: loss "
@@ -5464,17 +5531,23 @@ def main(argv=None):
             "max_abs_err": max(err, row["err"]), "ms": row["kernel"],
             "plain_ms": row["plain"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["sdpa"]})
-    # the backward kernel at SmolLM-360M's training shape; its launches
-    # over the three Whisper and training main paths
-    row = bwd_rows["SmolLM-360M"]
-    kernels.append({
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
-        "launches": lm_launches["bwd"],
-        "max_abs_err": max(bwd_err, *(r["err"] for r in bwd_rows.values())),
-        "ms": row["kernel"], "plain_ms": row["plain"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["sdpa_bwd"]})
+    # the backward's lanes at SmolLM-360M's training shape (the tensor
+    # cores in bf16, the CUDA cores in float32); their calls over the
+    # Whisper and training main paths (the CUDA-core lane's: the float32
+    # train step)
+    for lane, name, launches in (
+            ("wgmma", "flash_attention_bwd_wgmma", lm_launches["bwd_wgmma"]),
+            ("f32", "flash_attention_bwd",
+             lm_launches["bwd"] - lm_launches["bwd_wgmma"])):
+        row = bwd_rows[(lane, "SmolLM-360M")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE[lane],
+            "replaces": FLASH_BWD_REPLACES, "launches": launches,
+            "max_abs_err": max(bwd_err[lane], *(
+                r["err"] for (ln, _), r in bwd_rows.items() if ln == lane)),
+            "ms": row["kernel"], "plain_ms": row["plain"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["sdpa_bwd"]})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
             ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),

@@ -32,12 +32,17 @@ SOURCES: Dict[str, Path] = {
     # the CUDA-core lane (float32, and bf16 at other head dims)
     "flash_attention": (_KERNELS / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
-    # the tensor-core lane (bf16, head dim 64, 128 or 256)
+    # the tensor-core lane (bf16, (Dk, Dv) (64, 64), (128, 128), (256, 256)
+    # or (192, 128))
     "flash_attention_wgmma": (_KERNELS / "flash_attention" / "csrc"
                               / "flash_attention_wgmma.cu"),
-    # the gradient of both lanes (training)
+    # the gradient of both lanes (training): float32, and bf16 at other
+    # head dims, on the CUDA cores
     "flash_attention_bwd": (_KERNELS / "flash_attention" / "csrc"
                             / "flash_attention_bwd.cu"),
+    # the gradient's tensor-core lane (bf16, head dim 64 or 128)
+    "flash_attention_bwd_wgmma": (_KERNELS / "flash_attention" / "csrc"
+                                  / "flash_attention_bwd_wgmma.cu"),
     # Mamba-2's chunked scan and RecurrentGemma's gated recurrence
     "ssd_scan": _KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "rglru_scan": _KERNELS / "rglru_scan" / "csrc" / "rglru_scan.cu",

@@ -1,5 +1,6 @@
-from .flash_attention import (LAUNCHES, MAX_HEAD_DIM, WGMMA_HEAD_DIMS,
-                              check_aligned, flash_attention,
-                              flash_attention_bwd, kernel_info, kernel_lane)
+from .flash_attention import (LAUNCHES, MAX_HEAD_DIM, WGMMA_BWD_HEAD_DIMS,
+                              WGMMA_HEAD_DIMS, bwd_lane, check_aligned,
+                              flash_attention, flash_attention_bwd,
+                              kernel_info, kernel_lane)
 from .ops import FlashAttention, attention
 from .ref import flash_attention_bwd_ref, flash_attention_ref

@@ -8,6 +8,8 @@ from typing import Sequence
 
 import torch
 
+from .flash_attention import bwd_lane
+
 # (B, H, Hkv, S, T, Dk, Dv, causal, dtype, window, prefix)
 BWD_CASES = [
     (1, 4, 2, 128, 128, 64, 64, True, "f32", None, 0),
@@ -38,12 +40,37 @@ BWD_CASES = [
     (1, 4, 1, 40, 40, 16, 16, True, "f32", None, 8),
     (1, 32, 4, 1024, 1024, 128, 128, True, "bf16", None, 0),  # Yi-6B heads
     (2, 15, 5, 512, 512, 64, 64, True, "bf16", None, 0),      # SmolLM heads
+    # the tensor-core lane's edges (bf16 at (64, 64) and (128, 128)):
+    # ragged S and T, S = 1, T = 1, causal S < T and S > T, G in {1, 3, 8}
+    # at both head dims (G = 8 at B Hkv = 1: the heads split over blocks),
+    # window, prefix, both, not causal
+    (1, 4, 2, 200, 333, 64, 64, False, "bf16", None, 0),
+    (1, 4, 2, 77, 300, 128, 128, True, "bf16", None, 0),
+    (1, 4, 2, 300, 77, 64, 64, True, "bf16", None, 0),
+    (2, 4, 2, 1, 200, 64, 64, False, "bf16", None, 0),
+    (1, 4, 2, 1, 1, 128, 128, True, "bf16", None, 0),
+    (1, 4, 1, 100, 1, 128, 128, True, "bf16", None, 0),
+    (1, 8, 1, 300, 300, 64, 64, True, "bf16", None, 0),
+    (1, 3, 3, 200, 200, 128, 128, False, "bf16", None, 0),
+    (1, 15, 5, 333, 333, 128, 128, True, "bf16", None, 0),
+    (1, 8, 1, 500, 500, 128, 128, True, "bf16", 100, 0),
+    (1, 4, 2, 300, 300, 128, 128, False, "bf16", 64, 0),
+    (1, 4, 2, 300, 300, 128, 128, True, "bf16", None, 37),
+    (1, 4, 2, 300, 300, 64, 64, True, "bf16", None, 129),
+    (1, 4, 2, 300, 300, 128, 128, True, "bf16", 77, 150),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the cases the tensor-core backward takes: each also runs with the tensor-core forward's o and lse
+WGMMA_BWD_CASES = [c for c in BWD_CASES
+                   if bwd_lane(DTYPES[c[8]], c[5], c[6]) == "wgmma"]
 # bwd_errors' bound: float32 rounds in another order; bf16 writes its
 # gradients rounded to bf16 (one ulp is 3.9e-3 of an element; the
 # forward's row error is 4e-3)
 BWD_LIMIT = {"f32": 1e-5, "bf16": 1e-2}
+# the tensor-core forward's lse against the plain one, absolute in base-2
+# units (a relative error of P of 6.9e-5): the scores' float32 sums run in
+# another order
+LSE_LIMIT = 1e-4
 
 
 def bwd_errors(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor],

@@ -59,9 +59,10 @@
 // What bounds it: operations. The gradient's own work is 4 (Dk + Dv) flops
 // a (query, key) pair (dP, dS k, dS^T q and P^T dO); this design also
 // recomputes q k^T twice and dO v^T once, 2 (5 Dk + 3 Dv) flops a pair
-// in all, on the CUDA cores (67 TFLOP/s). Tensor cores, the forward saving
-// its log-sum-exp, and one fused pass are the redesign's work (ROADMAP.md,
-// Queue 2).
+// in all, on the CUDA cores (67 TFLOP/s). bf16 at head dims (64, 64) and
+// (128, 128) takes the tensor-core lane instead
+// (flash_attention_bwd_wgmma.cu, with the forward's log-sum-exp); this
+// kernel is the lane of float32 and of bf16 at other head dims.
 
 #include <cstdint>
 

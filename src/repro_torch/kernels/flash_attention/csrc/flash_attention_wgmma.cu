@@ -88,7 +88,10 @@
 //   were.
 // * Epilogue: O / l in bf16 is staged, swizzled, over the warpgroup's own
 //   rows of the Q tile (DV <= DK: its DV / 64 panels fit in Q's) and
-//   written with one TMA store per panel.
+//   written with one TMA store per panel. For training (the LSE
+//   instantiations) each row's base-2 log-sum-exp goes to a float32
+//   (B, H, S) array too, which the tensor-core backward
+//   (flash_attention_bwd_wgmma.cu) reads in place of rebuilding it.
 //
 // The tensor maps are encoded on the host at every call; the driver's
 // cuTensorMapEncodeTiled is taken through cudaGetDriverEntryPointByVersion,
@@ -96,9 +99,7 @@
 
 #include <cstdint>
 
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
 #include "hopper.cuh"
 
@@ -113,10 +114,6 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Errors that are not CUDA runtime errors.
-constexpr int kErrNoEncode = 100000;    // driver entry point not found
-constexpr int kErrEncode = 100001;      // + CUresult of the encode
 
 template <int DK, int DV>
 struct Layout {
@@ -199,15 +196,19 @@ __device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
 // PREFIX: a prefix-LM mask (prefix > 0) is compiled apart, so that the
 // causal path's loop bounds and masks stay as they were without one (its
 // tests cost the causal path 4% at D = 256, H100 80GB HBM3 at 700 W,
-// tools/time_flash.py)
-template <int DK, int DV, bool PREFIX>
+// tools/time_flash.py). LSE: the training forward also writes each row's
+// base-2 log-sum-exp of the scaled scores, m scale log2(e) + log2(l), as
+// float32 (B, H, S) into `lse` for the backward; inference compiles
+// without it and leaves `lse` unread.
+template <int DK, int DV, bool PREFIX, bool LSE>
 __global__ void __launch_bounds__(Layout<DK, DV>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       const __grid_constant__ CUtensorMap tm_o, int H,
-                       int Hkv, int S, int T, float scale_log2, int causal,
-                       int window, int prefix, int group) {
+                       const __grid_constant__ CUtensorMap tm_o,
+                       float* __restrict__ lse, int H, int Hkv, int S, int T,
+                       float scale_log2, int causal, int window, int prefix,
+                       int group) {
   using L = Layout<DK, DV>;
   constexpr int kBK = L::kBK;
   constexpr int kBQ = L::kBQ;
@@ -408,6 +409,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       inv[h] = l[h] == 0.f ? 1.f : 1.f / l[h];
     }
+    if constexpr (LSE) {
+      // a row's 4 threads hold the same m and l; one writes
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < S)
+            lse[(long long)bh * S + row] =
+                l[h] > 0.f ? m[h] * scale_log2 + log2f(l[h]) : 0.f;
+        }
+      }
+    }
     const uint32_t so = sQ + 64 * c * kPanelRow;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
@@ -434,53 +447,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D map (D, rows, heads) of a contiguous bf16 tensor, read and written
-// in boxes of 64 columns x box_rows rows of one head, 128B-swizzled.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
-           int rows, int heads, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
-}
-
 template <int DK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Hkv, int S, int T, float scale, bool causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, int T, float scale, bool causal,
            int window, int prefix, cudaStream_t stream) {
   using L = Layout<DK, DV>;
   const EncodeTiled fn = encode_fn();
@@ -492,8 +461,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (!err) err = encode(fn, &to, o, DV, S, B * H, 64);
   if (err) return err;
   constexpr int smem = L::kSmem;
-  auto kernel = prefix > 0 ? flash_fwd_wgmma_kernel<DK, DV, true>
-                            : flash_fwd_wgmma_kernel<DK, DV, false>;
+  auto kernel =
+      lse != nullptr
+          ? (prefix > 0 ? flash_fwd_wgmma_kernel<DK, DV, true, true>
+                        : flash_fwd_wgmma_kernel<DK, DV, false, true>)
+          : (prefix > 0 ? flash_fwd_wgmma_kernel<DK, DV, true, false>
+                        : flash_fwd_wgmma_kernel<DK, DV, false, false>);
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
@@ -501,8 +474,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if ((long long)nq * B * H > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int group = l2_heads(B * H, H / Hkv, T, DK, DV, 2);
   kernel<<<nq * B * H, L::kThreads, smem, stream>>>(
-      tq, tk, tv, to, H, Hkv, S, T, scale * kLog2e, causal ? 1 : 0, window,
-      prefix, group);
+      tq, tk, tv, to, lse, H, Hkv, S, T, scale * kLog2e, causal ? 1 : 0,
+      window, prefix, group);
   return (int)cudaGetLastError();
 }
 
@@ -515,29 +488,31 @@ extern "C" {
 // checks shapes, types and alignment: bf16, (DK, DV) in {(64, 64),
 // (128, 128), (256, 256), (192, 128)}, H % Hkv == 0, S, T >= 1,
 // contiguous tensors on 16-byte boundaries; window 0 (none) or >= 1 with
-// S <= T + window - 1; prefix >= 0 (0: none; read only when causal).
+// S <= T + window - 1; prefix >= 0 (0: none; read only when causal);
+// lse null, or B * H * S floats that take each row's base-2 log-sum-exp.
 int flash_attention_wgmma_launch(const void* q, const void* k,
-                                 const void* v, void* o, int B, int H,
-                                 int Hkv, int S, int T, int DK, int DV,
-                                 float scale, int causal, int window,
+                                 const void* v, void* o, void* lse, int B,
+                                 int H, int Hkv, int S, int T, int DK,
+                                 int DV, float scale, int causal, int window,
                                  int prefix, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || S < 1 || T < 1 ||
       window < 0 || (window > 0 && S > T + window - 1) || prefix < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0;
+  float* l = static_cast<float*>(lse);
   if (DK == 64 && DV == 64)
-    return launch<64, 64>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
-                          prefix, s);
+    return launch<64, 64>(q, k, v, o, l, B, H, Hkv, S, T, scale, c,
+                          window, prefix, s);
   if (DK == 128 && DV == 128)
-    return launch<128, 128>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
-                            prefix, s);
+    return launch<128, 128>(q, k, v, o, l, B, H, Hkv, S, T, scale, c,
+                            window, prefix, s);
   if (DK == 256 && DV == 256)
-    return launch<256, 256>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
-                            prefix, s);
+    return launch<256, 256>(q, k, v, o, l, B, H, Hkv, S, T, scale, c,
+                            window, prefix, s);
   if (DK == 192 && DV == 128)
-    return launch<192, 128>(q, k, v, o, B, H, Hkv, S, T, scale, c, window,
-                            prefix, s);
+    return launch<192, 128>(q, k, v, o, l, B, H, Hkv, S, T, scale, c,
+                            window, prefix, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX for the flash-attention
 // kernels: mbarriers, TMA tile copies, wgmma shared-memory descriptors and
 // the wgmma instructions, and warpgroup register reallocation for the
-// tensor-core kernel (flash_attention_wgmma.cu); 16-byte cp.async copies
-// for the CUDA-core kernel (flash_attention.cu).
+// tensor-core kernels (flash_attention_wgmma.cu, the forward;
+// flash_attention_bwd_wgmma.cu, the backward), with the host's encoding of
+// their tensor maps; 16-byte cp.async copies for the CUDA-core kernel
+// (flash_attention.cu).
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
 // a row of 64 bf16 (128 bytes) per line, the 16-byte chunk c of row r
@@ -12,6 +14,9 @@
 #pragma once
 
 #include <cstdint>
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_runtime.h>
 
 namespace hopper {
 
@@ -87,6 +92,17 @@ __device__ __forceinline__ void tma_store_3d(const void* map, uint32_t src,
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
          "r"(c2)
       : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of contiguous global memory at `src`
+// (16-byte aligned) into shared memory; completion is counted on `bar` in
+// bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void tma_store_commit_and_wait() {
@@ -368,6 +384,57 @@ inline int l2_heads(int BH, int G, int T, int DK, int DV, int elem) {
   const long long per_kv = (long long)T * (DK + DV) * elem;
   const long long g = kL2GroupBytes * G / (per_kv > 0 ? per_kv : 1);
   return (int)(g < 1 ? 1 : g > BH ? BH : g);
+}
+
+// --------------------------------------------------------- tensor maps --
+// Errors of the host's tensor-map encoding, beside cudaError_t values.
+constexpr int kErrNoEncode = 100000;    // driver entry point not found
+constexpr int kErrEncode = 100001;      // + CUresult of the encode
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, taken through the runtime so that
+// the library is not linked against libcuda; null if there is none.
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map (D, rows, heads) of a contiguous bf16 tensor, read and written
+// in boxes of 64 columns x box_rows rows of one head, 128B-swizzled.
+inline int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
+                  int rows, int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64u, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(ptr), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + (int)r;
 }
 
 }  // namespace hopper

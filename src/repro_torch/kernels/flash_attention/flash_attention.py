@@ -47,12 +47,26 @@ attention with GQA read in place and top-left causal masking, extended to
 any S and T. The wrapper only launches; the dispatch between the kernels
 and their plain version (ref.py) is in `ops.attention`.
 
-`flash_attention_bwd` (csrc/flash_attention_bwd.cu) is the gradient of
-both lanes' function, dq, dk and dv, on the CUDA cores in f32 for float32
-and bf16 at any head dims up to 256: two launches, dq with each row's
-log-sum-exp and Delta, then dk and dv per kv tile over its group's heads,
-with no atomics (repeats agree bit for bit). The Pallas kernel has no
-backward; `ops.attention` reaches this one through a
+`flash_attention_bwd` is the gradient of both lanes' function, dq, dk and
+dv, with no atomics (repeats agree bit for bit), in two lanes that
+`bwd_lane` picks from the dtype and the head dims alone:
+
+* "wgmma" (csrc/flash_attention_bwd_wgmma.cu): bf16 at (64, 64) and
+  (128, 128), every training path of the port. dq first (one block a
+  128-row q tile, K and V through a TMA ring; it also forms each row's
+  Delta), then dk and dv (one block a 128-key tile, Q and dO through a
+  TMA ring over the group's heads; at D = 128 in two passes, dK then dV,
+  so that a thread never holds both), every product by `wgmma`; with few
+  kv heads the group's heads split over blocks whose float32 partials a
+  third launch adds in a fixed order. Given the forward's log-sum-exp
+  (`flash_attention(..., return_lse=True)` on the tensor-core lane), the
+  dq launch uses it; without it the launch rebuilds it first, one q k^T
+  product a pair.
+* "f32" (csrc/flash_attention_bwd.cu): float32, and bf16 at other head
+  dims up to 256, on the CUDA cores in f32: dq with each row's
+  log-sum-exp (always rebuilt) and Delta, then dk and dv per kv tile.
+
+The Pallas kernel has no backward; `ops.attention` reaches these through a
 torch.autograd.Function.
 """
 from __future__ import annotations
@@ -70,11 +84,15 @@ MAX_HEAD_DIM = 256
 # the tensor-core lane's (key, value) head dims
 WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
+# the tensor-core backward lane's (key, value) head dims
+WGMMA_BWD_HEAD_DIMS = ((64, 64), (128, 128))
+
 # Launches: "fwd" counts every forward launch of either lane, "wgmma" those
-# of the tensor-core lane, "bwd" every call of the backward kernel (its two
-# launches); one added where a kernel is launched, and nowhere else
+# of the tensor-core lane, "bwd" every call of the backward (its two or
+# three launches) on either lane, "bwd_wgmma" those of the tensor-core
+# backward; one added where a kernel is launched, and nowhere else
 # (chip_smoke.py reads them to show the model ran here).
-LAUNCHES = {"fwd": 0, "wgmma": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "wgmma": 0, "bwd": 0, "bwd_wgmma": 0}
 
 
 def kernel_lane(dtype: torch.dtype, head_dim: int,
@@ -87,6 +105,18 @@ def kernel_lane(dtype: torch.dtype, head_dim: int,
     v_head_dim defaults to head_dim."""
     dv = head_dim if v_head_dim is None else v_head_dim
     if dtype == torch.bfloat16 and (head_dim, dv) in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "f32"
+
+
+def bwd_lane(dtype: torch.dtype, head_dim: int,
+             v_head_dim: Optional[int] = None) -> str:
+    """The backward's lane: "wgmma" for bfloat16 whose (key, value) head
+    dims are in WGMMA_BWD_HEAD_DIMS = (64, 64), (128, 128) (the
+    tensor-core kernel), else "f32" (the CUDA-core kernel: float32, and
+    bf16 at other head dims up to 256). v_head_dim defaults to head_dim."""
+    dv = head_dim if v_head_dim is None else v_head_dim
+    if dtype == torch.bfloat16 and (head_dim, dv) in WGMMA_BWD_HEAD_DIMS:
         return "wgmma"
     return "f32"
 
@@ -146,7 +176,7 @@ def kernel_info(head_dim: int, dtype: torch.dtype,
 def _wgmma_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_wgmma")
     lib.flash_attention_wgmma_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.flash_attention_wgmma_launch.restype = ctypes.c_int
     lib.flash_attention_wgmma_error_string.argtypes = [ctypes.c_int]
@@ -158,7 +188,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    prefix_len: int = 0, return_lse: bool = False):
     """Attention on the card.
 
     q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv) with
@@ -170,7 +200,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row sees a column) keeps columns j > i - window. scale defaults to
     Dk ** -0.5. Returns (B, H, S, Dv) in q's dtype. The lane is
     `kernel_lane(q.dtype, Dk, Dv)`; the tensor-core lane also needs q, k
-    and v on 16-byte boundaries.
+    and v on 16-byte boundaries. return_lse=True (the tensor-core lane
+    only: the CUDA-core lane raises) returns (o, lse) with lse (B, H, S)
+    float32, each row's base-2 log-sum-exp of its scaled scores,
+    log2(sum_j exp2(scale log2(e) q_i . k_j)), for the backward.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -199,11 +232,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     check_prefix(prefix_len)
     lane = kernel_lane(q.dtype, Dk, Dv)
+    if return_lse and lane != "wgmma":
+        raise ValueError(f"return_lse needs the tensor-core lane (bf16 at "
+                         f"(Dk, Dv) in {WGMMA_HEAD_DIMS}); {q.dtype} at "
+                         f"({Dk}, {Dv}) takes the {lane} lane")
     o = q.new_empty((B, H, S, Dv))
-    if o.numel() == 0:
-        return o
-    if T == 0:
-        return o.zero_()
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if o.numel() == 0 or T == 0:
+        o.zero_()
+        return (o, lse.zero_()) if return_lse else o
     check_window(S, T, window)
     scale = Dk ** -0.5 if scale is None else float(scale)
     win = 0 if window is None else int(window)  # 0: no window
@@ -215,8 +253,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             check_aligned(q=q, k=k, v=v, o=o)
             lib = _wgmma_lib()
             err = lib.flash_attention_wgmma_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, H, Hkv, S, T, Dk,
+                Dv, scale, int(causal), win, prefix, stream)
             error_string = lib.flash_attention_wgmma_error_string
         else:
             vec_elems = 16 // q.element_size()
@@ -234,7 +273,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["fwd"] += 1
     if lane == "wgmma":
         LAUNCHES["wgmma"] += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 @functools.cache
@@ -249,17 +288,37 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_wgmma_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd_wgmma")
+    lib.flash_attention_bwd_wgmma_workspace_bytes.argtypes = (
+        [ctypes.c_int] * 7)
+    lib.flash_attention_bwd_wgmma_workspace_bytes.restype = ctypes.c_longlong
+    lib.flash_attention_bwd_wgmma_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.flash_attention_bwd_wgmma_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_wgmma_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_wgmma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
-                        window: Optional[int] = None, prefix_len: int = 0
+                        window: Optional[int] = None, prefix_len: int = 0,
+                        lse: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of `flash_attention` on the card: (dq, dk, dv) in the
     inputs' dtype and shapes, given its inputs, its output o and dO, the
     gradient of the loss with respect to o (B, H, S, Dv). The same
     arguments and checks as `flash_attention`, o and dO of q's dtype and
-    contiguous too. Two launches on the current stream (counted once in
-    LAUNCHES["bwd"]) with a float32 workspace of 2 B H S."""
+    contiguous too. lse: None, or the forward's (B, H, S) float32 from
+    `flash_attention(..., return_lse=True)`, which the tensor-core lane
+    reads in place of rebuilding it (the CUDA-core lane always rebuilds
+    it). The lane is `bwd_lane(q.dtype, Dk, Dv)`; counted once in
+    LAUNCHES["bwd"] (and in LAUNCHES["bwd_wgmma"] on the tensor-core
+    lane), whatever its launches; a float32 workspace from torch.empty."""
     tensors = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
     for name, t in tensors:
         if not t.is_cuda or t.device != q.device:
@@ -285,6 +344,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
                          f"{tuple(o.shape)}, do {tuple(do.shape)}")
+    if lse is not None and (lse.device != q.device
+                            or lse.dtype != torch.float32
+                            or tuple(lse.shape) != (B, H, S)
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
+                         f"{(B, H, S)} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     for d in (Dk, Dv):
         if not 1 <= d <= MAX_HEAD_DIM:
             raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
@@ -295,19 +361,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = Dk ** -0.5 if scale is None else float(scale)
     win = 0 if window is None else int(window)
     prefix = min(int(prefix_len), T) if causal else 0
+    lane = bwd_lane(q.dtype, Dk, Dv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    work = torch.empty(2 * B * H * S, dtype=torch.float32, device=q.device)
-    lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            work.data_ptr(), B, H, Hkv, S, T, Dk, Dv, scale, int(causal),
-            win, prefix, int(q.dtype == torch.bfloat16), stream)
+        if lane == "wgmma":
+            check_aligned(q=q, k=k, v=v, o=o, do=do)
+            lib = _bwd_wgmma_lib()
+            nbytes = lib.flash_attention_bwd_wgmma_workspace_bytes(
+                B, H, Hkv, S, T, Dk, Dv)
+            work = torch.empty(nbytes // 4, dtype=torch.float32,
+                               device=q.device)
+            err = lib.flash_attention_bwd_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), None if lse is None else lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+                B, H, Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix,
+                stream)
+            error_string = lib.flash_attention_bwd_wgmma_error_string
+        else:
+            work = torch.empty(2 * B * H * S, dtype=torch.float32,
+                               device=q.device)
+            lib = _bwd_lib()
+            err = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                work.data_ptr(), B, H, Hkv, S, T, Dk, Dv, scale,
+                int(causal), win, prefix, int(q.dtype == torch.bfloat16),
+                stream)
+            error_string = lib.flash_attention_bwd_error_string
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention_bwd launch failed: error {err} "
-            f"({lib.flash_attention_bwd_error_string(err).decode()})")
+        raise RuntimeError(f"flash_attention_bwd ({lane} lane) launch "
+                           f"failed: error {err} "
+                           f"({error_string(err).decode()})")
     LAUNCHES["bwd"] += 1
+    if lane == "wgmma":
+        LAUNCHES["bwd_wgmma"] += 1
     return dq, dk, dv

@@ -2,11 +2,13 @@
 its gradient, each in one pass over the full score matrix."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
+LOG2E = math.log2(math.e)
 
 
 def check_window(S: int, T: int, window: Optional[int]) -> None:
@@ -33,12 +35,10 @@ def _compute_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _weights(q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float,
-             window: Optional[int], prefix_len: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """exp(s - max s) (B, Hkv, G, S, T) of the masked scores s in the
-    compute dtype, and its row sums (B, Hkv, G, S, 1), a sum of 0 replaced
-    by 1."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float,
+            window: Optional[int], prefix_len: int) -> torch.Tensor:
+    """The masked scores scale q k^T (B, Hkv, G, S, T) in the compute
+    dtype, masked entries -1e30."""
     B, H, S, Dk = q.shape
     _, Hkv, T, _ = k.shape
     cd = _compute_dtype(q)
@@ -55,15 +55,29 @@ def _weights(q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float,
         if window is not None:
             ok = ok & (cols > rows - window)
         s = s.masked_fill(~ok, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return s
+
+
+def _softmax_parts(s: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Of scores s: each row's max m, exp(s - m), and its row sums l (a
+    sum of 0 replaced by 1), all with a kept last axis."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    return p, torch.where(l == 0.0, torch.ones_like(l), l)
+    return m, p, torch.where(l == 0.0, torch.ones_like(l), l)
+
+
+def _lse2(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """Each row's base-2 log-sum-exp from its max and sum, the quantity
+    the tensor-core kernels save: (m + ln l) log2(e)."""
+    return (m + torch.log(l)) * LOG2E
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None,
                         window: Optional[int] = None,
-                        prefix_len: int = 0) -> torch.Tensor:
+                        prefix_len: int = 0, return_lse: bool = False):
     """q: (B, H, S, Dk); k: (B, Hkv, T, Dk); v: (B, Hkv, T, Dv) with
     H % Hkv == 0; query head h reads kv head h // (H // Hkv). Math in
     float32 (float64 for float64 inputs). The mask is the JAX package's
@@ -72,18 +86,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attends both ways); a window then keeps only `cols > rows - window`;
     without causal the prefix changes nothing. Masked scores are -1e30 and
     a row whose denominator is 0 divides by 1. Returns (B, H, S, Dv) in
-    q's dtype."""
+    q's dtype; with return_lse, (o, lse) and lse (B, H, S) in the compute
+    dtype, each row's base-2 log-sum-exp of its masked scaled scores (as
+    the tensor-core kernel returns it; 0 where T = 0)."""
     B, H, S, Dk = q.shape
     _, Hkv, T, _ = k.shape
     Dv = v.shape[-1]
     scale = Dk ** -0.5 if scale is None else scale
     check_prefix(prefix_len)
     if T == 0:
-        return q.new_zeros((B, H, S, Dv))
+        o = q.new_zeros((B, H, S, Dv))
+        lse = torch.zeros((B, H, S), dtype=_compute_dtype(q),
+                          device=q.device)
+        return (o, lse) if return_lse else o
     check_window(S, T, window)
-    p, l = _weights(q, k, causal, scale, window, prefix_len)
+    m, p, l = _softmax_parts(_scores(q, k, causal, scale, window,
+                                     prefix_len))
     o = torch.einsum("bhgst,bhtd->bhgsd", p, v.to(p.dtype)) / l
-    return o.reshape(B, H, S, Dv).to(q.dtype)
+    o = o.reshape(B, H, S, Dv).to(q.dtype)
+    if return_lse:
+        return o, _lse2(m, l).reshape(B, H, S)
+    return o
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
@@ -91,20 +114,24 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             do: torch.Tensor, causal: bool = True,
                             scale: Optional[float] = None,
                             window: Optional[int] = None,
-                            prefix_len: int = 0
+                            prefix_len: int = 0,
+                            lse: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The gradient of `flash_attention_ref` written out in closed form
     over the full score matrix, in float32 (float64 for float64 inputs):
     given its inputs, its output o and do = dL/do (B, H, S, Dv),
 
-        P = softmax(scale q k^T) (masked), dP = do v^T,
-        Delta = rowsum(do o), dS = P (dP - Delta),
+        P = exp2(log2(e) scale q k^T - lse) (masked: softmax(scale q k^T)),
+        dP = do v^T, Delta = rowsum(do o), dS = P (dP - Delta),
         dq = scale dS k, dk = scale dS^T q, dv = P^T do,
 
-    dk and dv of a kv head summed over its G query heads. Returns (dq, dk,
-    dv) in the dtypes of q, k and v. The plain version of the backward
-    kernel (`flash_attention_bwd`)."""
+    dk and dv of a kv head summed over its G query heads; lse (B, H, S),
+    each row's base-2 log-sum-exp, is the given one (the forward's
+    `return_lse`) or, when None, rebuilt as the forward forms it, so that
+    the forward's lse gives the same bits as none. Returns (dq, dk, dv) in
+    the dtypes of q, k and v. The plain version of the backward kernels
+    (`flash_attention_bwd`)."""
     B, H, S, Dk = q.shape
     _, Hkv, T, _ = k.shape
     Dv = v.shape[-1]
@@ -114,9 +141,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     if T == 0 or S == 0:
         return q.new_zeros(q.shape), k.new_zeros(k.shape), v.new_zeros(v.shape)
     check_window(S, T, window)
-    p, l = _weights(q, k, causal, scale, window, prefix_len)
-    p = p / l
-    cd = p.dtype
+    s = _scores(q, k, causal, scale, window, prefix_len)
+    cd = s.dtype
+    if lse is None:
+        m, _, l = _softmax_parts(s)
+        lse2 = _lse2(m, l)
+    else:
+        lse2 = lse.to(cd).reshape(B, Hkv, G, S, 1)
+    p = torch.exp2(s * LOG2E - lse2)
     qg = q.to(cd).reshape(B, Hkv, G, S, Dk)
     dog = do.to(cd).reshape(B, Hkv, G, S, Dv)
     delta = (dog * o.to(cd).reshape(B, Hkv, G, S, Dv)).sum(-1, keepdim=True)

@@ -13,6 +13,13 @@ against torch.autograd in float64. At T = 1 the exact dq and dk are 0 (the
 one key has weight 1 whatever its score) and both sides leave the rounding
 of dP - Delta there, so those two are held to the same numbers absolutely.
 The Function passes torch.autograd.gradcheck in float64 on the plain lane.
+
+The log-sum-exp the tensor-core lanes carry from the forward to the
+backward: the plain forward's `return_lse` against torch.logsumexp of the
+masked scores in float64 (base 2, 1e-5 absolute: float32 sums), the plain
+backward given it equal bit for bit to the one without (it rebuilds the
+same quantity the same way) and to `jax.vjp` within 2e-5, the Function
+carrying it under "ref", and `bwd_lane`'s dispatch.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ import torch
 
 from repro.models.attention import flash_attn_jnp
 from repro_torch.kernels.flash_attention import (FlashAttention, attention,
+                                                 bwd_lane,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
@@ -134,6 +142,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                                        seed=2))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, k, v, do, do)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, do, do,
+                            lse=torch.zeros(q.shape[:3]))
     with pytest.raises(ValueError, match="CUDA tensor"):
         FlashAttention.apply(q.requires_grad_(), k, v, True, None, None, 0,
                              "cuda")
@@ -152,3 +163,93 @@ def test_bwd_errors_scale():
     assert bwd_errors(got, ref, 1) == pytest.approx(
         [0.01, 0.01, 0.0025], rel=1e-4)
     assert bwd_errors(ref, ref, 7) == [0.0, 0.0, 0.0]
+
+
+def _masked_scores64(q, k, causal, window, prefix, scale=None):
+    """scale q k^T in float64 with the JAX package's mask as -inf, per
+    query head (GQA read in place): (B, H, S, T)."""
+    B, H, S, Dk = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    scale = Dk ** -0.5 if scale is None else scale
+    kk = np.repeat(k.astype(np.float64), H // Hkv, axis=1)
+    s = np.einsum("bhsd,bhtd->bhst", q.astype(np.float64), kk) * scale
+    rows, cols = np.arange(S)[:, None], np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if causal:
+        ok = (cols <= rows) | (cols < prefix)
+    if window is not None:
+        ok &= cols > rows - window
+    return np.where(ok, s, -np.inf)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,window,prefix", CASES)
+def test_plain_forward_lse_is_logsumexp(B, H, Hkv, S, T, Dk, Dv, causal,
+                                        window, prefix):
+    """return_lse gives o unchanged and each row's base-2 log-sum-exp of
+    its masked scaled scores: torch.logsumexp in float64 over ln 2."""
+    q, k, v, _ = _draw(B, H, Hkv, S, T, Dk, Dv, seed=S * 7 + T)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    assert torch.equal(o, flash_attention_ref(tq, tk, tv, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    want = torch.logsumexp(torch.from_numpy(
+        _masked_scores64(q, k, causal, window, prefix)), dim=-1) / np.log(2)
+    np.testing.assert_allclose(lse.double().numpy(), want.numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,window,prefix", CASES)
+def test_plain_backward_given_lse_matches_jax_vjp(B, H, Hkv, S, T, Dk, Dv,
+                                                  causal, window, prefix):
+    """The plain backward given the forward's lse: the same bits as
+    without it, and within 2e-5 of jax.vjp(flash_attn_jnp) as there."""
+    q, k, v, do = _draw(B, H, Hkv, S, T, Dk, Dv, seed=S * T + Dk)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attn_jnp(
+        a, b, c, causal=causal, window=window, prefix_len=prefix,
+        chunk_q=16, chunk_k=16), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    to, lse = flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    given = flash_attention_bwd_ref(tq, tk, tv, to, tdo, lse=lse, **kw)
+    rebuilt = flash_attention_bwd_ref(tq, tk, tv, to, tdo, **kw)
+    for a, b in zip(given, rebuilt):
+        assert torch.equal(a, b)
+    _close([t.numpy() for t in given], [np.asarray(r) for r in ref], 2e-5,
+           T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_carries_lse_under_ref(dtype):
+    """`FlashAttention` on the plain lane saves the forward's lse beside
+    q, k, v and o and hands it to the plain backward."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _draw(
+        1, 4, 2, 13, 13, 16, 16, seed=3))
+    q.requires_grad_()
+    o = attention(q, k, v, impl="ref", window=5)
+    saved = o.grad_fn.saved_tensors
+    _, lse = flash_attention_ref(q.detach(), k, v, return_lse=True,
+                                 window=5)
+    assert len(saved) == 5 and torch.equal(saved[4], lse)
+    (dq,) = torch.autograd.grad(o, (q,), do)
+    ref = flash_attention_bwd_ref(q.detach(), k, v, o.detach(), do,
+                                  window=5, lse=lse)
+    assert torch.equal(dq, ref[0])
+
+
+@pytest.mark.parametrize("dtype,dk,dv,lane", [
+    (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 256, 256, "f32"), (torch.bfloat16, 192, 128, "f32"),
+    (torch.bfloat16, 96, 96, "f32"), (torch.bfloat16, 64, 128, "f32"),
+    (torch.float32, 64, 64, "f32"), (torch.float32, 128, 128, "f32"),
+    (torch.float16, 64, 64, "f32")])
+def test_bwd_lane_dispatch(dtype, dk, dv, lane):
+    """The backward's lane from the dtype and head dims alone: the tensor
+    cores for bf16 at (64, 64) and (128, 128), the CUDA cores for the
+    rest (the forward's tensor-core lane also takes (256, 256) and
+    (192, 128), whose gradients stay on the CUDA cores)."""
+    assert bwd_lane(dtype, dk, dv) == lane
+    if dk == dv:
+        assert bwd_lane(dtype, dk) == lane

@@ -13,9 +13,8 @@ import torch
 from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
                                           bsr_spmv_ref, build_bsr,
                                           kernel_path, pad_x)
-from repro_torch.kernels.flash_attention.bwd_cases import (BWD_CASES,
-                                                           BWD_LIMIT, DTYPES,
-                                                           bwd_errors)
+from repro_torch.kernels.flash_attention.bwd_cases import (
+    BWD_CASES, BWD_LIMIT, DTYPES, LSE_LIMIT, WGMMA_BWD_CASES, bwd_errors)
 
 pytestmark = pytest.mark.gpu
 
@@ -1808,9 +1807,10 @@ def test_moe_smoke_model_on_card(cuda):
 def test_flash_bwd_matches_plain(cuda, B, H, Hkv, S, T, Dk, Dv, causal,
                                  dtype, window, prefix):
     """dq, dk and dv of the backward kernel against the plain backward on
-    the same inputs (o from the plain forward), one count a call, and a
-    second call gives the same bits (no atomics)."""
-    from repro_torch.kernels.flash_attention import (LAUNCHES,
+    the same inputs (o from the plain forward, no lse: the tensor-core
+    lane rebuilds it), one count a call on the lane `bwd_lane` names, and
+    a second call gives the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES, bwd_lane,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_ref)
@@ -1821,17 +1821,74 @@ def test_flash_bwd_matches_plain(cuda, B, H, Hkv, S, T, Dk, Dv, causal,
     o = flash_attention_ref(q, k, v, **kw)
     do = torch.as_tensor(rng.standard_normal(o.shape), dtype=dtype,
                          device=cuda)
-    before = LAUNCHES["bwd"]
+    before = dict(LAUNCHES)
     got = flash_attention_bwd(q, k, v, o, do, **kw)
     again = flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["bwd"] == before + 2
+    assert LAUNCHES["bwd"] == before["bwd"] + 2
+    wgmma = bwd_lane(dtype, Dk, Dv) == "wgmma"
+    assert LAUNCHES["bwd_wgmma"] == before["bwd_wgmma"] + 2 * wgmma
     ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
     for name, a, b, c, err in zip("qkv", got, ref, again,
                                   bwd_errors(got, ref, T)):
         assert a.dtype == dtype and a.shape == b.shape
         assert torch.equal(a, c), f"d{name} differs between two runs"
         assert err <= limit, f"d{name}: {err:.3g}"
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,dtype,window,prefix",
+                         WGMMA_BWD_CASES)
+def test_flash_bwd_wgmma_with_forward_lse(cuda, B, H, Hkv, S, T, Dk, Dv,
+                                          causal, dtype, window, prefix):
+    """The tensor-core lane fed as training feeds it: o and lse from the
+    tensor-core forward (`return_lse`), the lse within LSE_LIMIT of the
+    plain forward's; the gradients against the plain backward over the
+    same o within the bf16 limit, two runs bit for bit."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(S * 1000 + T + Dk + Dv + prefix + 1)
+    q, k, v = _qkv_dv(rng, B, H, Hkv, S, T, Dk, Dv, BF16, cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    before = dict(LAUNCHES)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    assert float((lse - lse_ref).abs().max()) <= LSE_LIMIT
+    do = torch.as_tensor(rng.standard_normal(o.shape), dtype=BF16,
+                         device=cuda)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wgmma"] == before["wgmma"] + 1
+    assert LAUNCHES["bwd_wgmma"] == before["bwd_wgmma"] + 2
+    ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    for name, a, c, err in zip("qkv", got, again, bwd_errors(got, ref, T)):
+        assert torch.equal(a, c), f"d{name} differs between two runs"
+        assert err <= BWD_LIMIT["bf16"], f"d{name}: {err:.3g}"
+
+
+def test_flash_return_lse_needs_tensor_core_lane(cuda):
+    """return_lse is the tensor-core forward's: the CUDA-core lane
+    (float32, or bf16 at head dims it does not take) raises, and a bad lse
+    for the backward is refused."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="tensor-core lane"):
+        flash_attention(q, q, q, return_lse=True)
+    with pytest.raises(ValueError, match="tensor-core lane"):
+        flash_attention(q[..., :32].contiguous().bfloat16(),
+                        q[..., :32].contiguous().bfloat16(),
+                        q[..., :32].contiguous().bfloat16(), return_lse=True)
+    qb = q.bfloat16()
+    o, lse = flash_attention(qb, qb, qb, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(qb, qb, qb, o, o, lse=lse[:, :1])
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(qb, qb, qb, o, o, lse=lse.double())
 
 
 def test_flash_cross_shape_forward_bf16(cuda):

@@ -14,11 +14,15 @@ Yi-6B (1, 32, 4, 2048, 128, 128) in bf16 and float32, Qwen2-MoE-A2.7B
 (1, 16, 16, 2048, 128, 128), RecurrentGemma-2B (1, 10, 1, 4096, 256, 256)
 with its window of 2048 and without, DeepSeek-V3's MLA (1, 128, 128, 2048,
 192, 128) in bf16 and float32, and PaliGemma-3B (1, 8, 1, 2048, 256, 256)
-with its prefix of 256 in bf16 and float32. A shape the checkout does not
-take (no value head dim of its own, no prefix) is skipped. Prints one
-JSON line: by shape, the kernel's milliseconds a call and its largest
-error against the plain version, with the card's name and power limit
-from nvidia-smi.
+with its prefix of 256 in bf16 and float32. Then the backward
+(`flash_attention_bwd`, dq, dk, dv) in bf16 at chip_smoke's BWD_TIMED
+training shapes, SmolLM-360M (8, 15, 5, 2048, 64) and Yi-6B (1, 32, 4,
+2048, 128), causal, given the forward's log-sum-exp where the checkout's
+forward returns one (`return_lse`), as training calls it. A shape the
+checkout does not take (no value head dim of its own, no prefix) is
+skipped. Prints one JSON line: by shape, the kernel's milliseconds a call
+and its largest error against the plain version, with the card's name
+and power limit from nvidia-smi.
 """
 import argparse
 import json
@@ -41,6 +45,9 @@ SHAPES = {  # name: (B, H, Hkv, S, Dk, Dv, dtype, keyword arguments)
     "prefix_f32": (1, 8, 1, 2048, 256, 256, "float32",
                    {"prefix_len": 256}),
 }
+# the backward's shapes: name: (B, H, Hkv, S = T, D), bf16, causal
+BWD_SHAPES = {"smollm_bwd_bf16": (8, 15, 5, 2048, 64),
+              "yi_bwd_bf16": (1, 32, 4, 2048, 128)}
 
 
 def main(argv=None):
@@ -57,6 +64,8 @@ def main(argv=None):
         return 1
     import repro_torch
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
                                                      flash_attention_ref)
     cuda = torch.device("cuda")
     times = {}
@@ -78,6 +87,27 @@ def main(argv=None):
             lambda: flash_attention(q, k, v, causal=True, **kw), 20),
             "err": err}
         del q, k, v
+        torch.cuda.empty_cache()
+    for name, (B, H, Hkv, S, D) in BWD_SHAPES.items():
+        g = torch.Generator(device=cuda).manual_seed(args.seed)
+        q, k, v = (torch.randn(shape, generator=g, device=cuda).to(
+            torch.bfloat16) for shape in ((B, H, S, D), (B, Hkv, S, D),
+                                          (B, Hkv, S, D)))
+        try:
+            o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            given = {"lse": lse}
+        except TypeError:       # a checkout whose forward saves no lse
+            o, given = flash_attention(q, k, v, causal=True), {}
+        do = torch.randn(o.shape, generator=g, device=cuda).to(o.dtype)
+        got = flash_attention_bwd(q, k, v, o, do, **given)
+        ref = flash_attention_bwd_ref(q, k, v, o, do)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, ref))
+        del got, ref
+        times[name] = {"kernel": chip_smoke.cuda_ms(
+            lambda: flash_attention_bwd(q, k, v, o, do, **given), 10),
+            "err": err, "lse_given": bool(given)}
+        del q, k, v, o, do, given
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
