@@ -36,7 +36,16 @@ Phases, each printing its own lines and seconds:
               backward timed at SmolLM-360M's and Yi-6B's training shapes,
               the CUDA-core lane in float32 at SmolLM-360M's, each beside
               its plain version, SDPA's backward and the gradient's own
-              bound;
+              bound; then the RG-LRU scan's backward
+              (rglru_scan_bwd_kernel: du, dga, dgi, db_a, db_i, dlam, dh0)
+              against its plain version over `kernels/rglru_scan/
+              bwd_cases.py` (RecurrentGemma-2B's width at S = 1, 129,
+              4096, 16384 and 32768, ragged W, h0, the clamp of m), each
+              run twice for the same bits, and timed at 1 x 4096 and
+              1 x 32768 x 2560 beside its plain version and its byte
+              bound; the flash backward at RecurrentGemma-2B's training
+              shape (bf16, D = 256, window 2048: the CUDA-core lane)
+              beside SDPA's backward with the window as a mask;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -209,7 +218,15 @@ Phases, each printing its own lines and seconds:
               share of a profiled step; one step of a 2-layer float32 copy
               with impl="cuda" (the CUDA-core backward) against impl="ref";
  31. main   : training Whisper-base uncut, 5 steps at batch 8, 448 tokens
-              over 448 frames; the loss must fall.
+              over 448 frames; the loss must fall;
+ 32. main   : training RecurrentGemma-2B uncut in bf16 (item 10.9) through
+              the launcher's main, 5 steps at batch 1 x 4096 (the window
+              of 2048 binds); the loss must fall; ms a step, tokens/s,
+              peak memory, the RG-LRU backward's calls (18 a step) and
+              the flash backward's (8 a step) and their shares of a
+              profiled step; one step of a float32 copy cut to one cycle
+              (rglru, rglru, local_attn) with impl="cuda" against
+              impl="ref".
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -4466,7 +4483,7 @@ def flash_bwd_against_plain(cuda):
     return worst
 
 
-def flash_bwd_bound(q, k, v, causal=True):
+def flash_bwd_bound(q, k, v, causal=True, window=None):
     """Least time (ms) for one backward call: the gradient's own work,
     4 (Dk + Dv) flops an allowed (query, key) pair and head (dP = dO v^T,
     dS k, dS^T q, P^T dO), at the peak for the operands' type, against q,
@@ -4474,7 +4491,7 @@ def flash_bwd_bound(q, k, v, causal=True):
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     flops = 4.0 * B * H * (dk + dv) * attention_pairs(S, k.shape[2],
-                                                      causal)
+                                                      causal, window)
     nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) + \
         2 * q.numel() // dk * dv * q.element_size()
     return roofline_ms(flops, nbytes, str(q.dtype)[6:])
@@ -4738,14 +4755,15 @@ def whisper_main_path(cuda, seed, smi):
 def _train_step_probe(smi, profile_call=2):
     """A wrapper of `launch.train.make_train_step` that times each step on
     the host around a synchronize, and runs call `profile_call` under
-    torch.profiler: the step's device time and the backward kernel's
-    share of it. Returns (wrapper, record)."""
+    torch.profiler: the step's device time and the share of it taken by
+    each group of STEP_KERNELS (the backward kernels). Returns (wrapper,
+    record)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train
     real = train.make_train_step
-    rec = {"ms": [], "bwd_share": None, "profiled": None}
+    rec = {"ms": [], "shares": dict.fromkeys(STEP_KERNELS), "profiled": None}
 
     def wrapped(model, opt_cfg, *a, **kw):
         step = real(model, opt_cfg, *a, **kw)
@@ -4761,24 +4779,27 @@ def _train_step_probe(smi, profile_call=2):
                 kern = [e for e in prof.events()
                         if e.device_type == DeviceType.CUDA]
                 total = sum(e.time_range.elapsed_us() for e in kern)
-                bwd = sum(e.time_range.elapsed_us() for e in kern
-                          if "flash_bwd" in e.name)
+                us = {what: sum(e.time_range.elapsed_us() for e in kern
+                                if any(n in e.name for n in names))
+                      for what, names in STEP_KERNELS.items()}
                 fwd = sum(e.time_range.elapsed_us() for e in kern
                           if "flash_fwd" in e.name)
-                rec["bwd_share"] = (bwd / total if total else None)
+                rec["shares"] = {what: (t / total if total else None)
+                                 for what, t in us.items()}
                 rec["profiled"] = len(rec["ms"])
                 by_name = {}
                 for e in kern:
                     by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
                                             + e.time_range.elapsed_us())
                 print(f"  step {len(rec['ms'])} profiled: {len(kern)} "
-                      f"kernels, {total / 1e3:.2f} ms of device time, the "
-                      f"flash backward kernels {bwd / 1e3:.2f} ms "
-                      f"({100 * bwd / max(total, 1):.1f}%), the flash "
-                      f"forward {fwd / 1e3:.2f} ms [{smi}]")
-                for name, us in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1])[:6]:
-                    print(f"    {us / 1e3:8.3f} ms  {name}")
+                      f"kernels, {total / 1e3:.2f} ms of device time; "
+                      + ", ".join(f"the {what} kernels {t / 1e3:.2f} ms "
+                                  f"({100 * t / max(total, 1):.1f}%)"
+                                  for what, t in us.items())
+                      + f"; the flash forward {fwd / 1e3:.2f} ms [{smi}]")
+                for name, t in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:6]:
+                    print(f"    {t / 1e3:8.3f} ms  {name}")
             else:
                 out = step(state, batch)
                 torch.cuda.synchronize()
@@ -4795,8 +4816,8 @@ def percent(share):
 def run_trainer(argv, smi):
     """launch.train.main(argv) with each step timed (`_train_step_probe`).
     Returns (losses, per-step ms, the median ms of the steps after the
-    first that were not profiled, the backward's share of a profiled
-    step's device time, wall s)."""
+    first that were not profiled, the backward kernels' shares of a
+    profiled step's device time by STEP_KERNELS' groups, wall s)."""
     from repro_torch.launch import train
     wrapped, rec = _train_step_probe(smi)
     real = train.make_train_step
@@ -4810,7 +4831,7 @@ def run_trainer(argv, smi):
     plain = sorted(t for i, t in enumerate(ms)
                    if i and i != rec["profiled"])
     steady = plain[len(plain) // 2] if plain else float("nan")
-    return (losses, ms, steady, rec["bwd_share"],
+    return (losses, ms, steady, rec["shares"],
             time.perf_counter() - t0)
 
 
@@ -4849,8 +4870,9 @@ def train_main_path(cuda, seed, smi):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     with tempfile.TemporaryDirectory() as ckpt:
-        losses, ms, steady, share, wall = run_trainer(
+        losses, ms, steady, shares, wall = run_trainer(
             common + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], smi)
+        share = shares["flash backward"]
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         free_cuda()
         more, ms2, _, _, wall2 = run_trainer(
@@ -4930,10 +4952,11 @@ def whisper_train_main_path(cuda, seed, smi):
     from repro_torch.configs import get_config
     cfg = get_config(WHISPER_ARCH)
     zero_flash_counts()
-    losses, ms, steady, share, _ = run_trainer(
+    losses, ms, steady, shares, _ = run_trainer(
         ["--arch", WHISPER_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
          str(WHISPER_TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--seed",
          str(seed), "--log-every", "1"], smi)
+    share = shares["flash backward"]
     calls = cfg.n_enc_layers + 2 * cfg.n_layers
     launches = flash_counts()
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
@@ -4950,6 +4973,302 @@ def whisper_train_main_path(cuda, seed, smi):
           f"step's device time; flash {launches} [{smi}]")
     free_cuda()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU backward and RecurrentGemma-2B training (ROADMAP Queue 1 item
+# 10.9, Queue 2 item 3)
+# ---------------------------------------------------------------------------
+RGLRU_BWD_REPLACES = ("none: src/repro/models/rglru.py:44-75 (_lru_coeffs "
+                      "and lax.associative_scan, differentiated by XLA's "
+                      "autodiff)")
+RECUR_TRAIN_ARCH = "recurrentgemma-2b"
+# one sequence of 4096 tokens, so that the local attention's window of
+# 2048 binds
+RECUR_TRAIN_BATCH, RECUR_TRAIN_SEQ = 1, 4096
+# the kernel-against-plain check of a train step: one cycle of the pattern
+# (rglru, rglru, local_attn) of a float32 copy at B = 1, S = 4096
+RECUR_TRAIN_CHECK = dict(n_layers=3, batch=1, seq=4096)
+# the RG-LRU backward timed at RecurrentGemma-2B's width over these
+# lengths (bf16 u), the first its training shape
+RGLRU_BWD_TIMED = (4096, 32768)
+# the flash backward at RecurrentGemma-2B's local attention in training:
+# (B, H, Hkv, S = T, D, window), bf16, causal: the CUDA-core lane
+RG_FLASH_BWD = (1, 10, 1, 4096, 256, 2048)
+# float32 operations of the RG-LRU backward per element: the gates again
+# (two sigmoids, log a, a, a^2, m, dm/d(log a): ~18), the carry (2),
+# d(log a) (6), dga and dgi (10), du (2), the sums (4), the composites (3)
+RGLRU_BWD_FLOPS_PER_ELEMENT = 45
+# the train step's kernels reported apart in a profiled step: what ->
+# substrings of their kernels' names
+STEP_KERNELS = {"flash backward": ("flash_bwd",),
+                "RG-LRU backward": ("rglru_scan_bwd", "rglru_bwd_sum")}
+
+
+def rglru_bwd_against_plain(cuda):
+    """The RG-LRU backward kernel against its plain version on the card
+    over `kernels/rglru_scan/bwd_cases.py`'s cases (the forward kernel's
+    h, as training saves it): each gradient within its limit, two calls
+    bit for bit equal, one count in "bwd" a call. Returns the largest
+    |kernel - plain| over the cases and gradients."""
+    import torch
+    from repro_torch.kernels.rglru_scan import (LAUNCHES,
+                                                rglru_scan_bwd_kernel,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_kernel)
+    from repro_torch.kernels.rglru_scan.bwd_cases import (BWD_CASES, GRADS,
+                                                          bwd_errors,
+                                                          bwd_inputs,
+                                                          bwd_limits)
+    worst = 0.0
+    for B, S, W, dt, h0, clamp in BWD_CASES:
+        args, dh = bwd_inputs(B, S, W, dt, h0, clamp, cuda, S + W)
+        h = rglru_scan_kernel(*args)
+        before = LAUNCHES["bwd"]
+        got = rglru_scan_bwd_kernel(*args[:6], h, dh, args[6])
+        again = rglru_scan_bwd_kernel(*args[:6], h, dh, args[6])
+        ref = rglru_scan_bwd_ref(*args[:6], h, dh, args[6])
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, ref)
+        pairs = [(n, e, lim) for n, e, lim in zip(GRADS, errs,
+                                                  bwd_limits(dt))
+                 if e is not None]
+        same = all(a is c or torch.equal(a, c) for a, c in zip(got, again))
+        worst = max([worst] + [float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, ref) if b is not None])
+        check(all(e <= lim for _, e, lim in pairs) and same
+              and LAUNCHES["bwd"] == before + 2,
+              f"rglru bwd ({B}, S={S}, W={W}) {dt} u, h0 {h0}, clamp "
+              f"{clamp}: max |kernel - plain| / max |plain| "
+              + ", ".join(f"{n} {e:.3g} (<= {lim:g})" for n, e, lim in pairs)
+              + "; two runs bit for bit equal")
+        del args, dh, h, got, again, ref
+    free_cuda()
+    return worst
+
+
+def rglru_bwd_bound(u, h0=None):
+    """Least time (ms) of one RG-LRU backward: u, ga, gi, h and dh read and
+    du, dga and dgi written once (28 bytes an element with bf16 u), b_a,
+    b_i and lam read and their gradients written (and h0 read, dh0
+    written, where given), against ~45 float32 operations an element."""
+    n, W = u.numel(), u.shape[-1]
+    nbytes = 2 * n * (u.element_size() + 4 + 4) + 2 * n * 4 + 6 * W * 4
+    if h0 is not None:
+        nbytes += 2 * h0.numel() * 4
+    return roofline_ms(RGLRU_BWD_FLOPS_PER_ELEMENT * n, nbytes, "float32")
+
+
+def rglru_bwd_timing(cuda, seed, smi):
+    """The RG-LRU backward at RecurrentGemma-2B's width, 1 x S x 2560 with
+    bf16 u for each S of RGLRU_BWD_TIMED (4096: its training shape; 32768:
+    512 chunks folded through group composites): the kernel, its plain
+    version and the byte bound; no one PyTorch call computes it. Returns
+    {S: row}."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_kernel,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_kernel)
+    from repro_torch.kernels.rglru_scan.bwd_cases import (bwd_errors,
+                                                          bwd_inputs,
+                                                          bwd_limits)
+    rows = {}
+    for S in RGLRU_BWD_TIMED:
+        args, dh = bwd_inputs(1, S, 2560, "bf16", False, False, cuda, seed)
+        h = rglru_scan_kernel(*args)
+        got = rglru_scan_bwd_kernel(*args[:6], h, dh)
+        ref = rglru_scan_bwd_ref(*args[:6], h, dh)
+        errs = bwd_errors(got, ref)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[:6], ref[:6]))
+        check(all(e <= lim for e, lim in zip(errs[:6], bwd_limits("bf16"))),
+              f"rglru bwd at 1 x {S} x 2560 bf16: "
+              f"{', '.join(f'{e:.3g}' for e in errs[:6])}")
+        del got, ref
+        t = {"kernel": cuda_ms(lambda: rglru_scan_bwd_kernel(
+                 *args[:6], h, dh), 20),
+             "plain": cuda_ms(lambda: rglru_scan_bwd_ref(*args[:6], h, dh),
+                              3)}
+        b_ms, b_by = rglru_bwd_bound(args[0])
+        print(f"  rglru bwd 1 x {S} x 2560, bf16 u: kernel "
+              f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); "
+              f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound; max "
+              f"|kernel - plain| {err:.3g} [{smi}]")
+        rows[S] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+        del args, dh, h
+        free_cuda()
+    return rows
+
+
+def flash_bwd_window_timing(cuda, seed, smi):
+    """The flash backward at RecurrentGemma-2B's local attention in
+    training (RG_FLASH_BWD: bf16, D = 256, one kv head, window 2048,
+    causal; the CUDA-core lane), beside its plain version, the backward of
+    one scaled_dot_product_attention call with the window as a boolean
+    mask, and the bound of the window's pairs (4 (Dk + Dv) flops each at
+    bf16's peak). Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (bwd_lane,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+    from repro_torch.kernels.flash_attention.bwd_cases import (BWD_LIMIT,
+                                                               bwd_errors)
+    B, H, Hkv, S, D, window = RG_FLASH_BWD
+    check(bwd_lane(torch.bfloat16, D) == "f32",
+          f"bf16 at D = {D}: the CUDA-core backward lane")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    o = flash_attention(q, k, v, window=window)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, o, do, window=window)
+    ref = flash_attention_bwd_ref(q, k, v, o, do, window=window)
+    errs = bwd_errors(got, ref, S)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    check(max(errs) <= BWD_LIMIT["bf16"],
+          f"flash bwd at RecurrentGemma-2B's training shape ({B},{H},{Hkv},"
+          f"S=T={S},D={D}) window {window} bf16: max |kernel - plain| / "
+          f"max |plain| of dq, dk, dv = {', '.join(f'{e:.3g}' for e in errs)}"
+          f" (<= {BWD_LIMIT['bf16']:g})")
+    del got, ref
+    free_cuda()
+    i = torch.arange(S, device=cuda)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         enable_gqa=True)
+    t = {"kernel": cuda_ms(lambda: flash_attention_bwd(
+             q, k, v, o, do, window=window), 5),
+         "plain": cuda_ms(lambda: flash_attention_bwd_ref(
+             q, k, v, o, do, window=window), 2),
+         "sdpa_bwd": cuda_ms(lambda: torch.autograd.grad(
+             os_, (qs, ks, vs), do, retain_graph=True), 5)}
+    b_ms, b_by = flash_bwd_bound(q, k, v, window=window)
+    print(f"  flash bwd f32 lane, RecurrentGemma-2B B={B} H={H} Hkv={Hkv} "
+          f"S=T={S} D={D} window {window} bf16: kernel {t['kernel']:.4f} "
+          f"ms, plain {t['plain']:.4f} ms, SDPA backward (the window as a "
+          f"boolean mask) {t['sdpa_bwd']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {attention_pairs(S, S, True, window):,} pairs a head); "
+          f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
+          f"{t['sdpa_bwd'] / t['kernel']:.3f}x SDPA's speed; max "
+          f"|kernel - plain| {err:.3g} [{smi}]")
+    del q, k, v, o, do, qs, ks, vs, os_, mask
+    free_cuda()
+    return dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+
+
+def zero_lru_counts():
+    from repro_torch.kernels.rglru_scan import LAUNCHES
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def recurrent_train_main_path(cuda, seed, smi):
+    """RecurrentGemma-2B uncut in bf16 (2,894,528,000 parameters; AdamW's
+    float32 moments 23.2 GB) trained through `launch.train`'s main for
+    TRAIN_STEPS steps at --batch 1 --seq 4096, where the window of 2048
+    binds: the loss of each step (it must fall), ms a step, tokens/s, peak
+    memory, the RG-LRU backward's calls (one per rglru layer and step) and
+    the flash backward's (one per local_attn layer and step), and their
+    shares of a profiled step's device time. Then one step's loss and
+    gradients with impl="cuda" against impl="ref" on a float32 copy cut
+    to RECUR_TRAIN_CHECK (one cycle: rglru, rglru, local_attn; B = 1,
+    S = 4096): the loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest element. Returns (the RG-LRU launches, the flash
+    launches by lane, row for the record)."""
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.models import Transformer
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import lm_loss
+
+    cfg = get_config(RECUR_TRAIN_ARCH)
+    kinds = cfg.layer_kinds()
+    n_lru, n_att = kinds.count("rglru"), kinds.count("local_attn")
+    check(total_params(cfg) == RECUR_ARCHS[RECUR_TRAIN_ARCH]["params"]
+          and cfg.remat,
+          f"{RECUR_TRAIN_ARCH}: {total_params(cfg):,} parameters, {n_lru} "
+          f"rglru + {n_att} local_attn layers (window {cfg.local_window}), "
+          f"each recomputed in the backward (remat)")
+    zero_flash_counts()
+    zero_lru_counts()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, ms, steady, shares, wall = run_trainer(
+        ["--arch", RECUR_TRAIN_ARCH, "--batch", str(RECUR_TRAIN_BATCH),
+         "--seq", str(RECUR_TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+         "--seed", str(seed), "--log-every", "1"], smi)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    lru, flash = dict(LRU), flash_counts()
+    tokens = RECUR_TRAIN_BATCH * RECUR_TRAIN_SEQ
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0],
+          f"{RECUR_TRAIN_ARCH} trained {TRAIN_STEPS} steps at "
+          f"B={RECUR_TRAIN_BATCH} S={RECUR_TRAIN_SEQ} bf16: loss "
+          f"{[round(x, 4) for x in losses]}; {steady:.1f} ms a step (median "
+          f"of the unprofiled steps after the first; first {ms[0]:.1f} ms; "
+          f"all {[round(x, 1) for x in ms]}), {tokens / steady * 1e3:.0f} "
+          f"tokens/s; run wall {wall:.1f} s; peak {peak:.2f} GB allocated "
+          f"[{smi}]")
+    check(lru == {"scan": 2 * n_lru * TRAIN_STEPS, "step": 0,
+                  "bwd": n_lru * TRAIN_STEPS}
+          and flash == {"wgmma": 2 * n_att * TRAIN_STEPS, "f32": 0,
+                        "bwd": n_att * TRAIN_STEPS, "bwd_wgmma": 0}
+          and None not in shares.values(),
+          f"launches over the run: rglru {lru}, flash {flash} (each of "
+          f"{TRAIN_STEPS} steps: {n_lru} RG-LRU forwards, {n_lru} more "
+          f"recomputed under remat, {n_lru} backward calls; {n_att} flash "
+          f"forwards on the tensor cores, {n_att} recomputed, {n_att} "
+          f"backward calls on the CUDA-core lane); of a profiled step's "
+          f"device time the RG-LRU backward took "
+          f"{percent(shares['RG-LRU backward'])}, the flash backward "
+          f"{percent(shares['flash backward'])}")
+    free_cuda()
+
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=RECUR_TRAIN_CHECK["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    model = Transformer(cfg32, device=cuda, seed=seed, trainable=True)
+    pipe = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=RECUR_TRAIN_CHECK["seq"],
+        global_batch=RECUR_TRAIN_CHECK["batch"], seed=seed))
+    batch = make_batch(pipe, cfg32, 0, device=cuda)
+    leaves = tree_leaves(model.param_tree())
+    out = {}
+    before = (dict(LRU), flash_counts())
+    for impl in ("cuda", "ref"):
+        loss, _ = lm_loss(model, batch, impl=impl)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    f32_lru = {key: n - before[0][key] for key, n in LRU.items()}
+    f32_flash = {key: n - before[1][key] for key, n in flash_counts().items()}
+    (lc, gc), (lr, gr) = out["cuda"], out["ref"]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for a, b in zip(gc, gr))
+    kinds32 = cfg32.layer_kinds()
+    check(abs(lc - lr) <= 1e-5 * abs(lr) and worst <= 1e-4
+          and f32_lru["bwd"] == kinds32.count("rglru")
+          and f32_flash["bwd"] == kinds32.count("local_attn")
+          and f32_flash["bwd_wgmma"] == 0,
+          f"one step of a float32 copy cut to {kinds32} at "
+          f"B={RECUR_TRAIN_CHECK['batch']} S={RECUR_TRAIN_CHECK['seq']}, "
+          f"impl=cuda against impl=ref: loss {lc:.6f} vs {lr:.6f}, every "
+          f"gradient leaf within {worst:.3g} of its largest element (<= "
+          f"1e-4); rglru calls {f32_lru}, flash calls {f32_flash}")
+    del model, out, gc, gr, leaves, batch
+    free_cuda()
+    lru = {key: n + f32_lru[key] for key, n in lru.items()}
+    flash = {key: n + f32_flash[key] for key, n in flash.items()}
+    row = dict(step_ms=steady, tokens_s=tokens / steady * 1e3, shares=shares,
+               peak_gb=peak, losses=losses)
+    return lru, flash, row
 
 
 def main(argv=None):
@@ -5131,6 +5450,13 @@ def main(argv=None):
         print(f"  card: {smi}")
         bwd_rows = flash_bwd_timing(cuda, args.seed, smi)
         attention_dispatch_cost(cuda, smi)
+
+    with phase("RG-LRU backward against its plain version; the backward "
+               "kernels timed at RecurrentGemma-2B's training shapes"):
+        lru_bwd_err = rglru_bwd_against_plain(cuda)
+        print(f"  card: {smi}")
+        lru_bwd_rows = rglru_bwd_timing(cuda, args.seed, smi)
+        rg_flash_bwd = flash_bwd_window_timing(cuda, args.seed, smi)
 
     with phase("Stanford-Web graph and f64 oracles (host)"):
         t0 = time.perf_counter()
@@ -5444,8 +5770,13 @@ def main(argv=None):
 
     with phase(f"main path: training {WHISPER_ARCH}"):
         wtrain_launches = whisper_train_main_path(cuda, args.seed, smi)
+
+    with phase(f"main path: training {RECUR_TRAIN_ARCH}"):
+        rtrain_lru, rtrain_flash, _ = recurrent_train_main_path(
+            cuda, args.seed, smi)
     lm_launches = {k: whisper_launches[k] + train_launches[k]
-                   + wtrain_launches[k] for k in whisper_launches}
+                   + wtrain_launches[k] + rtrain_flash[k]
+                   for k in whisper_launches}
 
     t, b_ms, b_by, errs = rows_out[(DEFAULT_BM, 1)]
     kernels = []
@@ -5512,7 +5843,8 @@ def main(argv=None):
     kernels.append({
         "name": "flash_attention_d256", "route": "cuda",
         "source": FLASH_SOURCE["wgmma"], "replaces": TPU_KERNEL["flash"],
-        "launches": recur["recurrentgemma-2b"]["launches"]["flash"],
+        "launches": recur["recurrentgemma-2b"]["launches"]["flash"]
+        + rtrain_flash["wgmma"],
         "max_abs_err": max(flash_err["d256"], row["err"],
                            recur_rows["flash_d256"]["err"]),
         "ms": row["kernel"], "plain_ms": row["plain"],
@@ -5548,6 +5880,26 @@ def main(argv=None):
             "ms": row["kernel"], "plain_ms": row["plain"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["sdpa_bwd"]})
+    # the CUDA-core lane at RecurrentGemma-2B's local attention in
+    # training (bf16, D = 256, window 2048); its calls there
+    kernels.append({
+        "name": "flash_attention_bwd_d256", "route": "cuda",
+        "source": FLASH_BWD_SOURCE["f32"], "replaces": FLASH_BWD_REPLACES,
+        "launches": rtrain_flash["bwd"] - rtrain_flash["bwd_wgmma"],
+        "max_abs_err": max(bwd_err["f32"], rg_flash_bwd["err"]),
+        "ms": rg_flash_bwd["kernel"], "plain_ms": rg_flash_bwd["plain"],
+        "bound_ms": rg_flash_bwd["bound_ms"],
+        "bound_by": rg_flash_bwd["bound_by"],
+        "library_ms": rg_flash_bwd["sdpa_bwd"]})
+    row = lru_bwd_rows[RGLRU_BWD_TIMED[0]]
+    kernels.append({
+        "name": "rglru_scan_bwd", "route": "cuda", "source": RGLRU_SOURCE,
+        "replaces": RGLRU_BWD_REPLACES, "launches": rtrain_lru["bwd"],
+        "max_abs_err": max(lru_bwd_err, *(r["err"]
+                                          for r in lru_bwd_rows.values())),
+        "ms": row["kernel"], "plain_ms": row["plain"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
             ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),
@@ -5558,7 +5910,8 @@ def main(argv=None):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[key],
-            "launches": recur[arch]["launches"][key],
+            "launches": recur[arch]["launches"][key]
+            + (rtrain_lru["scan"] if key == "rglru" else 0),
             "max_abs_err": max(
                 recur[arch]["err"]["step" if "step" in key else "scan"],
                 row["err"]),

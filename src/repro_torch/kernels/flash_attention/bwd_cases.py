@@ -32,6 +32,7 @@ BWD_CASES = [
     (1, 4, 4, 129, 129, 192, 128, True, "f32", None, 0),
     (1, 8, 1, 500, 500, 128, 128, True, "f32", 100, 0),       # window
     (1, 4, 2, 300, 300, 64, 64, False, "bf16", 64, 0),
+    (1, 10, 1, 1024, 1024, 256, 256, True, "bf16", 512, 0),   # RG's heads
     (1, 4, 2, 300, 300, 128, 128, True, "f32", None, 37),     # prefix
     (1, 4, 2, 300, 300, 256, 256, True, "bf16", None, 129),
     (1, 4, 2, 300, 300, 64, 64, True, "bf16", 77, 150),       # both

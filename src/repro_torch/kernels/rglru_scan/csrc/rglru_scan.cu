@@ -60,6 +60,22 @@
 //   a few float32 ulps.
 // * rglru_step_kernel, S = 1 (a decode step): one thread a (b, w),
 //   h = a h0 + b; one launch and no workspace.
+//
+// The backward (rglru_scan_bwd_kernel, training) replaces no TPU kernel
+// either: the JAX package differentiates _lru_coeffs and the associative
+// scan with XLA's autodiff. Given dh it computes du, dga, dgi, and db_a,
+// db_i, dlam (sums over B and S) and dh0, from the reverse recurrence
+// g_t = dh_t + a_{t+1} g_{t+1}. Bytes bound it too: u, ga, gi, dh and the
+// forward's h read, du, dga and dgi written, 28 bytes an element with bf16
+// u against some 45 flops. So it is the forward's one pass run in reverse:
+// the reverse step x -> a_t (x + dh_t), x the carry a_{t+1} g_{t+1}, is
+// an affine map as the forward's step is, so the same composites, words
+// and fold (carry_in) carry it, the blocks taking chunks by ticket from
+// the last; each thread reads h_{t-1} from the forward's output instead
+// of running the forward again. The bias and lam gradients are sums over
+// every step: each block writes its 64 steps' sums, and a second small
+// launch (rglru_bwd_sum_kernel) adds them in a fixed order, so no atomic
+// adds a value and the bits repeat.
 
 #include <cstdint>
 
@@ -127,13 +143,98 @@ __device__ __forceinline__ unsigned long long peek(
   return v;
 }
 
+// folds words i0 .. i1 - 1 of a list (addr(i): word i's address) in
+// order into (ra, rh), reading 8 at a time, each again until it is set
+template <typename Addr>
+__device__ __forceinline__ void fold_words(int i0, int i1, bool live,
+                                           Addr addr, float& ra,
+                                           float& rh) {
+  for (int kk0 = i0; kk0 < i1; kk0 += kFold) {
+    unsigned long long v[kFold];
+#pragma unroll
+    for (int i = 0; i < kFold; ++i)
+      v[i] = live && kk0 + i < i1 ? peek(addr(kk0 + i)) : pack(1.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < kFold; ++i) {
+      while (v[i] == kUnset) v[i] = peek(addr(kk0 + i));
+      const float pa = __uint_as_float((unsigned)v[i]);
+      const float ph = __uint_as_float((unsigned)(v[i] >> 32));
+      rh = fmaf(pa, rh, ph);
+      ra *= pa;
+    }
+  }
+}
+
+// The carry into segment j of chunk k, both counted in the order the
+// scan runs, from each segment's composite (A, hs) (the product of its a,
+// and its state from a zero start): the chunk's composite, its segments
+// folded in order, published as one word at cp[k W]; for the last chunk
+// of a group the group's composite too, at gp[(k / G) W], before it waits
+// on any other group (only chunks two groups on read it); then hin (the
+// state before the scan's first step, read by warp 0) folded through the
+// composites of the groups before the last one and then those of the
+// chunks since (the last group's and its own group's earlier ones): warp
+// j folds a contiguous range of that list and the 8 ranges are folded in
+// order, a fixed order for a given k; then through the chunk's segments
+// before j. Every thread of the block calls it (it synchronises).
+// kGrouped false: one group (G = nch), compiled without the groups' code.
+template <bool kGrouped>
+__device__ __forceinline__ float carry_in(float A, float hs, float hin,
+                                          int k, int j, int c, bool live,
+                                          int G, int nch,
+                                          unsigned long long* cp,
+                                          unsigned long long* gp,
+                                          long long W) {
+  __shared__ float seg_a[kG][kCw], seg_h[kG][kCw];   // the segments
+  __shared__ float rng_a[kG][kCw], rng_h[kG][kCw];   // ranges of chunks
+  __shared__ float carry[kCw];
+  seg_a[j][c] = A;
+  seg_h[j][c] = hs;
+  __syncthreads();
+  if (j == 0 && live) {
+    float ca = 1.f, ch = 0.f;
+#pragma unroll
+    for (int s = 0; s < kG; ++s) {
+      ch = fmaf(seg_a[s][c], ch, seg_h[s][c]);
+      ca *= seg_a[s][c];
+    }
+    publish(cp + k * W, pack(ca, ch));
+  }
+  const int ngr = (nch + G - 1) / G, gk = k / G;
+  float ra = 1.f, rh = 0.f;
+  if (kGrouped && j == 0 && live && k == gk * G + G - 1 && gk + 2 < ngr) {
+    fold_words(gk * G, k + 1, live,
+               [&](int kk) { return cp + kk * W; }, ra, rh);
+    publish(gp + gk * W, pack(ra, rh));
+    ra = 1.f;
+    rh = 0.f;
+  }
+  const int ng = kGrouped ? max(gk - 1, 0) : 0, c0 = ng * G;
+  const int m = ng + (k - c0);
+  const int per = (m + kG - 1) / kG, i1 = min(m, (j + 1) * per);
+  fold_words(j * per, i1, live, [&](int i) {
+    return kGrouped && i < ng ? gp + i * W : cp + (c0 + i - ng) * W;
+  }, ra, rh);
+  rng_a[j][c] = ra;
+  rng_h[j][c] = rh;
+  __syncthreads();
+  if (j == 0) {
+    float h = hin;
+#pragma unroll
+    for (int r = 0; r < kG; ++r) h = fmaf(rng_a[r][c], h, rng_h[r][c]);
+    carry[c] = h;
+  }
+  __syncthreads();
+  float h = carry[c];
+  for (int s = 0; s < j; ++s) h = fmaf(seg_a[s][c], h, seg_h[s][c]);
+  return h;
+}
+
 // One block a (b, chunk, 32 channels), taken by ticket in the order the
 // blocks start: chunk by chunk, so every ticket of chunk k - 1 is below
 // every ticket of chunk k. comp (B, nch, W): the chunks' composites; grp
 // (B, ngr, W): the composites of the groups of G chunks; comp, grp and the
 // ticket filled with ones by the caller (the ticket then counts from -1).
-// kGrouped false: one group (G = nch), whose fold is compiled without the
-// groups' code and registers.
 template <typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 4)
 rglru_scan_kernel(const T* __restrict__ u, const float* __restrict__ ga,
@@ -145,9 +246,6 @@ rglru_scan_kernel(const T* __restrict__ u, const float* __restrict__ ga,
                   unsigned long long* __restrict__ comp,
                   unsigned long long* __restrict__ grp,
                   int* __restrict__ ticket, int B, int S, int W, int G) {
-  __shared__ float seg_a[kG][kCw], seg_h[kG][kCw];   // the segments
-  __shared__ float rng_a[kG][kCw], rng_h[kG][kCw];   // ranges of chunks
-  __shared__ float carry[kCw];
   __shared__ int order;
   if (threadIdx.x == 0) order = atomicAdd(ticket, 1) + 1;
   __syncthreads();
@@ -190,83 +288,10 @@ rglru_scan_kernel(const T* __restrict__ u, const float* __restrict__ ga,
     hs = fmaf(a[i], hs, bb[i]);
     A *= a[i];
   }
-  seg_a[j][c] = A;
-  seg_h[j][c] = hs;
-  __syncthreads();
-
-  // publish the chunk's composite, its segments folded in order
-  unsigned long long* cp = comp + (long long)b * nch * W + w;   // chunk kk
-                                                                // at kk W
-  const int ngr = (nch + G - 1) / G, gk = k / G;
-  unsigned long long* gp = grp + (long long)b * ngr * W + w;    // group gg
-                                                                // at gg W
-  if (j == 0 && live) {
-    float ca = 1.f, ch = 0.f;
-#pragma unroll
-    for (int s = 0; s < kG; ++s) {
-      ch = fmaf(seg_a[s][c], ch, seg_h[s][c]);
-      ca *= seg_a[s][c];
-    }
-    publish(cp + (long long)k * W, pack(ca, ch));
-  }
-
-  // folds words i0 .. i1 - 1 of a list (addr(i): word i's address) in
-  // order into (ra, rh), reading 8 at a time, each again until it is set
-  float ra = 1.f, rh = 0.f;
-  auto fold = [&](int i0, int i1, auto addr) {
-    for (int kk0 = i0; kk0 < i1; kk0 += kFold) {
-      unsigned long long v[kFold];
-#pragma unroll
-      for (int i = 0; i < kFold; ++i)
-        v[i] = live && kk0 + i < i1 ? peek(addr(kk0 + i)) : pack(1.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < kFold; ++i) {
-        while (v[i] == kUnset) v[i] = peek(addr(kk0 + i));
-        const float pa = __uint_as_float((unsigned)v[i]);
-        const float ph = __uint_as_float((unsigned)(v[i] >> 32));
-        rh = fmaf(pa, rh, ph);
-        ra *= pa;
-      }
-    }
-  };
-
-  // the last chunk of a group publishes the group's composite, its chunks
-  // folded in order (its own word read back), before it waits on any other
-  // group; only chunks two groups on read it
-  if (kGrouped && j == 0 && live && k == gk * G + G - 1 && gk + 2 < ngr) {
-    fold(gk * G, k + 1, [&](int kk) { return cp + (long long)kk * W; });
-    publish(gp + (long long)gk * W, pack(ra, rh));
-    ra = 1.f;
-    rh = 0.f;
-  }
-
-  // the chunk's carry-in: h0 through the composites of the groups before
-  // the last one, then those of the chunks since (the last group's and its
-  // own group's earlier ones: a group's composite is read only from two
-  // groups on, by when its fold is as a rule done). Warp j folds a
-  // contiguous range of that list and the 8 ranges are folded in order: a
-  // fixed order for a given k.
-  const int ng = kGrouped ? max(gk - 1, 0) : 0, c0 = ng * G;
-  const int m = ng + (k - c0);
-  const int per = (m + kG - 1) / kG, i1 = min(m, (j + 1) * per);
-  fold(j * per, i1, [&](int i) {
-    return kGrouped && i < ng ? gp + (long long)i * W
-                              : cp + (long long)(c0 + i - ng) * W;
-  });
-  rng_a[j][c] = ra;
-  rng_h[j][c] = rh;
-  __syncthreads();
-  if (j == 0) {
-    float h = hin;
-#pragma unroll
-    for (int r = 0; r < kG; ++r) h = fmaf(rng_a[r][c], h, rng_h[r][c]);
-    carry[c] = h;
-  }
-  __syncthreads();
-
-  // the segment's carry-in, then its steps
-  float h = carry[c];
-  for (int s = 0; s < j; ++s) h = fmaf(seg_a[s][c], h, seg_h[s][c]);
+  const int ngr = (nch + G - 1) / G;
+  float h = carry_in<kGrouped>(A, hs, hin, k, j, c, live, G, nch,
+                               comp + (long long)b * nch * W + w,
+                               grp + (long long)b * ngr * W + w, W);
 #pragma unroll
   for (int i = 0; i < kL; ++i) {
     h = fmaf(a[i], h, bb[i]);
@@ -291,6 +316,153 @@ rglru_step_kernel(const T* __restrict__ u, const float* __restrict__ ga,
   coeffs(to_f(u[e]), ga[e], gi[e], b_a[w], b_i[w], log_sigmoid(lam[w]), a,
          bb);
   out[e] = fmaf(a, h0 != nullptr ? h0[e] : 0.f, bb);
+}
+
+__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+// The backward: the forward's blocks and fold run in reverse. The
+// gradient g_t = dh_t + a_{t+1} g_{t+1} enters step t as the carry
+// x = a_{t+1} g_{t+1} and leaves it as a_t (dh_t + x): the affine map
+// x -> a_t x + a_t dh_t, the forward's form, so `carry_in` folds it with
+// chunks and segments counted from the end (chunk kr = nch - 1 - k,
+// segment kG - 1 - j). Blocks take chunks by ticket from the last; a
+// thread holds its segment's inputs in registers, reads h_{t-1} from the
+// forward's output (h0 or 0 before the first step), runs its steps from
+// the last with the carry, and writes du, dga and dgi. The sums of dga,
+// dgi and d(log a) r over its 64 steps go to part (3, B, nch, W), added
+// over the steps from the last, then over the segments in order;
+// rglru_bwd_sum_kernel adds those in order. No atomics but the ticket.
+template <typename T, bool kGrouped>
+__global__ void __launch_bounds__(kThreads, 3)
+rglru_scan_bwd_kernel(const T* __restrict__ u, const float* __restrict__ ga,
+                      const float* __restrict__ gi,
+                      const float* __restrict__ b_a,
+                      const float* __restrict__ b_i,
+                      const float* __restrict__ lam,
+                      const float* __restrict__ h0,
+                      const float* __restrict__ h,
+                      const float* __restrict__ dh, T* __restrict__ du,
+                      float* __restrict__ dga, float* __restrict__ dgi,
+                      float* __restrict__ dh0, float* __restrict__ part,
+                      unsigned long long* __restrict__ comp,
+                      unsigned long long* __restrict__ grp,
+                      int* __restrict__ ticket, int B, int S, int W,
+                      int G) {
+  __shared__ float red[3][kG][kCw];
+  __shared__ int order;
+  if (threadIdx.x == 0) order = atomicAdd(ticket, 1) + 1;
+  __syncthreads();
+  const int tiles = (W + kCw - 1) / kCw;
+  const int nch = (S + kChunk - 1) / kChunk;
+  const int kr = order / (tiles * B), tile = order % (tiles * B) / B,
+            b = order % B;
+  const int k = nch - 1 - kr;
+  const int c = threadIdx.x % kCw, j = threadIdx.x / kCw;
+  const int w = tile * kCw + c;
+  const bool live = w < W;
+  const int t0 = k * kChunk + j * kL;
+  const long long base = (long long)b * S * W + w;
+
+  float vu[kL], vga[kL], vgi[kL], vdh[kL], hp[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const int t = t0 + i;
+    const bool ok = live && t < S;
+    const long long idx = base + (long long)t * W;
+    vu[i] = ok ? to_f(u[idx]) : 0.f;
+    vga[i] = ok ? ga[idx] : 0.f;
+    vgi[i] = ok ? gi[idx] : 0.f;
+    vdh[i] = ok ? dh[idx] : 0.f;
+    hp[i] = !ok ? 0.f
+            : t > 0 ? h[idx - W]
+            : h0 != nullptr ? h0[(long long)b * W + w] : 0.f;
+  }
+  const float ba = live ? b_a[w] : 0.f, bi = live ? b_i[w] : 0.f;
+  const float la0 = live ? log_sigmoid(lam[w]) : 0.f;
+  float a[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i)   // past the end: the identity step
+    a[i] = live && t0 + i < S ? expf(kC * sigmoid(vga[i] + ba) * la0) : 1.f;
+  float A = 1.f, xs = 0.f;
+#pragma unroll
+  for (int i = kL - 1; i >= 0; --i) {
+    xs = fmaf(a[i], xs, a[i] * vdh[i]);
+    A *= a[i];
+  }
+  const int ngr = (nch + G - 1) / G;
+  float x = carry_in<kGrouped>(A, xs, 0.f, kr, kG - 1 - j, c, live, G, nch,
+                               comp + (long long)b * nch * W + w,
+                               grp + (long long)b * ngr * W + w, W);
+
+  float sa = 0.f, si = 0.f, sl = 0.f;
+#pragma unroll
+  for (int i = kL - 1; i >= 0; --i) {
+    if (live && t0 + i < S) {
+      const long long idx = base + (long long)(t0 + i) * W;
+      const float g = vdh[i] + x;
+      const float r = sigmoid(vga[i] + ba);
+      const float ii = sigmoid(vgi[i] + bi);
+      const float a2 = expf(2.f * (kC * r * la0));
+      const float one_minus = 1.f - a2;
+      const float m = sqrtf(fmaxf(one_minus, 1e-12f));
+      const float dm = one_minus >= 1e-12f ? -a2 / m : 0.f;
+      const float dlog_a = g * hp[i] * a[i] + g * ii * vu[i] * dm;
+      const float vdga = dlog_a * kC * la0 * r * (1.f - r);
+      const float vdgi = g * m * vu[i] * ii * (1.f - ii);
+      from_f(g * m * ii, du + idx);
+      dga[idx] = vdga;
+      dgi[idx] = vdgi;
+      sa += vdga;
+      si += vdgi;
+      sl += dlog_a * r;
+      x = a[i] * g;
+    }
+  }
+  if (t0 == 0 && live && dh0 != nullptr) dh0[(long long)b * W + w] = x;
+  red[0][j][c] = sa;
+  red[1][j][c] = si;
+  red[2][j][c] = sl;
+  __syncthreads();
+  if (j < 3 && live) {
+    float s = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kG; ++jj) s += red[j][jj][c];
+    part[(((long long)j * B + b) * nch + k) * W + w] = s;
+  }
+}
+
+// db_a, db_i and dlam = (the sum of d(log a) r) 8 sigmoid(-lam): part's R
+// = B nch rows of each, warp j adding a contiguous range in order and the
+// 8 ranges then added in order; a block a 32 channels
+__global__ void __launch_bounds__(kThreads)
+rglru_bwd_sum_kernel(const float* __restrict__ part,
+                     const float* __restrict__ lam, float* __restrict__ d_ba,
+                     float* __restrict__ d_bi, float* __restrict__ d_lam,
+                     int R, int W) {
+  __shared__ float red[3][kG][kCw];
+  const int c = threadIdx.x % kCw, j = threadIdx.x / kCw;
+  const int w = blockIdx.x * kCw + c;
+  const bool live = w < W;
+  const int per = (R + kG - 1) / kG, r0 = j * per, r1 = min(R, r0 + per);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    float s = 0.f;
+    if (live)
+      for (int r = r0; r < r1; ++r) s += part[((long long)q * R + r) * W + w];
+    red[q][j][c] = s;
+  }
+  __syncthreads();
+  if (j < 3 && live) {
+    float s = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kG; ++jj) s += red[j][jj][c];
+    if (j == 0) d_ba[w] = s;
+    else if (j == 1) d_bi[w] = s;
+    else d_lam[w] = s * kC * sigmoid(-lam[w]);
+  }
 }
 
 // G, the chunks a group. Up to kG kFold = 64 chunks, one group: a chunk's
@@ -332,6 +504,43 @@ cudaError_t launch(const void* u, const float* ga, const float* gi,
   return cudaGetLastError();
 }
 
+// The words (ticket, chunk and group composites) at the front of the
+// backward's workspace, to be filled with ones, then its partial sums.
+long long bwd_flag_bytes(int B, int S, int W) {
+  const long long nch = (S + kChunk - 1) / kChunk;
+  const int G = group_size(S);
+  const long long ngr = (nch + G - 1) / G;
+  return kTicketBytes + 8LL * B * (nch + ngr) * W;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* u, const float* ga, const float* gi,
+                       const float* b_a, const float* b_i, const float* lam,
+                       const float* h0, const float* h, const float* dh,
+                       void* work, void* du, float* dga, float* dgi,
+                       float* d_ba, float* d_bi, float* d_lam, float* dh0,
+                       int B, int S, int W, cudaStream_t stream) {
+  const long long nch = (S + kChunk - 1) / kChunk;
+  const long long tiles = (W + kCw - 1) / kCw;
+  const int G = group_size(S);
+  int* ticket = static_cast<int*>(work);
+  auto* comp = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(work) + kTicketBytes);
+  float* part = reinterpret_cast<float*>(static_cast<char*>(work) +
+                                         bwd_flag_bytes(B, S, W));
+  auto kernel = G < nch ? rglru_scan_bwd_kernel<T, true>
+                        : rglru_scan_bwd_kernel<T, false>;
+  kernel<<<(unsigned)(B * nch * tiles), kThreads, 0, stream>>>(
+      static_cast<const T*>(u), ga, gi, b_a, b_i, lam, h0, h, dh,
+      static_cast<T*>(du), dga, dgi, dh0, part, comp, comp + B * nch * W,
+      ticket, B, S, W, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rglru_bwd_sum_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(
+      part, lam, d_ba, d_bi, d_lam, (int)(B * nch), W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -366,6 +575,45 @@ int rglru_scan_launch(const void* u, const void* ga, const void* gi,
                                    f(h0), o, work, B, S, W, s)
            : launch<float>(u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), o,
                            work, B, S, W, s);
+  return (int)err;
+}
+
+// The backward's workspace: bytes in all, and the leading bytes of it the
+// caller fills with ones (the ticket and the composites); the rest, the
+// partial sums (3, B, nch, W) float32, needs no filling.
+long long rglru_scan_bwd_workspace_bytes(int B, int S, int W) {
+  const long long nch = (S + kChunk - 1) / kChunk;
+  return bwd_flag_bytes(B, S, W) + 12LL * B * nch * W;
+}
+
+long long rglru_scan_bwd_flag_bytes(int B, int S, int W) {
+  return bwd_flag_bytes(B, S, W);
+}
+
+// The gradient of rglru_scan_launch's h from dh (B, S, W) float32 and the
+// forward's output h: du (u's type), dga, dgi (B, S, W), d_ba, d_bi,
+// d_lam (W,) float32 and, where h0 is given, dh0 (B, W). Returns 0 or the
+// cudaError_t of a launch; two launches a call (the scan, then the sums).
+int rglru_scan_bwd_launch(const void* u, const void* ga, const void* gi,
+                          const void* b_a, const void* b_i, const void* lam,
+                          const void* h0, const void* h, const void* dh,
+                          void* work, void* du, void* dga, void* dgi,
+                          void* d_ba, void* d_bi, void* d_lam, void* dh0,
+                          int B, int S, int W, int bf16, void* stream) {
+  if (B < 1 || S < 1 || W < 1 || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  const cudaError_t err =
+      bf16 ? launch_bwd<__nv_bfloat16>(
+                 u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), f(h),
+                 f(dh), work, du, o(dga), o(dgi), o(d_ba), o(d_bi),
+                 o(d_lam), o(dh0), B, S, W, s)
+           : launch_bwd<float>(
+                 u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), f(h),
+                 f(dh), work, du, o(dga), o(dgi), o(d_ba), o(d_bi),
+                 o(d_lam), o(dh0), B, S, W, s);
   return (int)err;
 }
 

@@ -14,6 +14,17 @@ once and the bits are the same on every call. A
 call is one launch, and adds one to the count "scan"; at S = 1 a step
 kernel with no workspace, counted in "step".
 
+The backward (`rglru_scan_bwd_kernel`, the same file) runs the forward's
+blocks and fold in reverse: the gradient's carry a_{t+1} g_{t+1} is an
+affine map of the later chunk's, as h is of the earlier one's, so the
+chunks' composites are published and folded as in the forward, from the
+last chunk to the first; each block reads h_{t-1} from the forward's
+output and writes du, dga and dgi, and its partial sums of db_a, db_i and
+dlam, which a second launch adds in a fixed order. No atomics add a
+value, so the bits are the same on every call. A call is two launches and
+adds one to "bwd". `RGLRUScan` is the torch.autograd.Function over the
+forward and the backward.
+
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
 plain version on any device; "auto" picks "cuda" for CUDA tensors and
 "ref" for CPU tensors. A CUDA tensor under "auto" always goes to the
@@ -23,16 +34,46 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import build, resolve_impl
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
-# Launches: one added for each kernel launch, where it is launched, and
-# nowhere else (chip_smoke.py reads it to show a model ran here).
-LAUNCHES = {"scan": 0, "step": 0}
+# Launches: one added for each kernel call, where it is launched, and
+# nowhere else (chip_smoke.py reads it to show a model ran here); a
+# backward call ("bwd") is two launches.
+LAUNCHES = {"scan": 0, "step": 0, "bwd": 0}
+
+
+def _check_operands(u, ga, gi, b_a, b_i, lam, h0, **more):
+    """Raise on operands the kernels do not take: u (B, S, W) float32 or
+    bfloat16; ga, gi and every (B, S, W) tensor of `more` float32, the
+    rest float32 of their shapes; all contiguous on u's CUDA device."""
+    if u.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
+    f32 = dict(ga=ga, gi=gi, b_a=b_a, b_i=b_i, lam=lam, **more)
+    if h0 is not None:
+        f32["h0"] = h0
+    for name, t in f32.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if u.ndim != 3:
+        raise ValueError(f"u must be (B, S, W), got {tuple(u.shape)}")
+    B, S, W = u.shape
+    if (any(t.shape != u.shape for t in (ga, gi, *more.values()))
+            or any(t.shape != (W,) for t in (b_a, b_i, lam))
+            or (h0 is not None and h0.shape != (B, W))):
+        raise ValueError(
+            f"shape mismatch: u {tuple(u.shape)}, "
+            + ", ".join(f"{n} {tuple(t.shape)}" for n, t in f32.items()))
+    for name, t in dict(u=u, **f32).items():
+        if not t.is_cuda or t.device != u.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {u.device}, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 @functools.cache
@@ -43,6 +84,13 @@ def _lib() -> ctypes.CDLL:
     lib.rglru_scan_launch.restype = ctypes.c_int
     lib.rglru_scan_workspace_bytes.argtypes = [ctypes.c_int] * 3
     lib.rglru_scan_workspace_bytes.restype = ctypes.c_longlong
+    lib.rglru_scan_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.rglru_scan_bwd_launch.restype = ctypes.c_int
+    for fn in (lib.rglru_scan_bwd_workspace_bytes,
+               lib.rglru_scan_bwd_flag_bytes):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
     lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -55,31 +103,8 @@ def rglru_scan_kernel(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     `rglru_scan_ref`. u: (B, S, W) float32 or bfloat16; ga, gi: (B, S, W)
     float32; b_a, b_i, lam: (W,) float32; h0: (B, W) float32 or None. All
     contiguous on one CUDA device. Returns h (B, S, W) float32."""
-    if u.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
-    f32 = dict(ga=ga, gi=gi, b_a=b_a, b_i=b_i, lam=lam)
-    if h0 is not None:
-        f32["h0"] = h0
-    for name, t in f32.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if u.ndim != 3:
-        raise ValueError(f"u must be (B, S, W), got {tuple(u.shape)}")
+    _check_operands(u, ga, gi, b_a, b_i, lam, h0)
     B, S, W = u.shape
-    if (ga.shape != u.shape or gi.shape != u.shape
-            or any(t.shape != (W,) for t in (b_a, b_i, lam))
-            or (h0 is not None and h0.shape != (B, W))):
-        raise ValueError(f"shape mismatch: u {tuple(u.shape)}, ga "
-                         f"{tuple(ga.shape)}, gi {tuple(gi.shape)}, b_a/b_i/"
-                         f"lam {[tuple(t.shape) for t in (b_a, b_i, lam)]}"
-                         + ("" if h0 is None else
-                            f", h0 {tuple(h0.shape)}"))
-    for name, t in dict(u=u, **f32).items():
-        if not t.is_cuda or t.device != u.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {u.device}, "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     out = torch.empty((B, S, W), dtype=torch.float32, device=u.device)
     if out.numel() == 0:
         return out
@@ -114,3 +139,78 @@ def rglru_scan(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     if resolve_impl(impl, u) == "cuda":
         return rglru_scan_kernel(u, ga, gi, b_a, b_i, lam, h0)
     return rglru_scan_ref(u, ga, gi, b_a, b_i, lam, h0)
+
+
+def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
+                          gi: torch.Tensor, b_a: torch.Tensor,
+                          b_i: torch.Tensor, lam: torch.Tensor,
+                          h: torch.Tensor, dh: torch.Tensor,
+                          h0: Optional[torch.Tensor] = None
+                          ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The RG-LRU's gradient on the card; the arguments and results of
+    `rglru_scan_bwd_ref`: the forward's operands (as `rglru_scan_kernel`
+    takes them), its output h and the output's gradient dh, both (B, S,
+    W) float32 and contiguous. Returns (du in u's dtype, dga, dgi, db_a,
+    db_i, dlam, dh0 or None). Two launches, one count in "bwd"."""
+    _check_operands(u, ga, gi, b_a, b_i, lam, h0, h=h, dh=dh)
+    B, S, W = u.shape
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.empty_like(u)
+    dga, dgi = torch.empty((B, S, W), **f32), torch.empty((B, S, W), **f32)
+    d_ba, d_bi, d_lam = (torch.empty((W,), **f32) for _ in range(3))
+    dh0 = None if h0 is None else torch.empty((B, W), **f32)
+    lib = _lib()
+    work = torch.empty((lib.rglru_scan_bwd_workspace_bytes(B, S, W),),
+                       dtype=torch.uint8, device=u.device)
+    # the ticket and the chunks' composites, all ones: unset
+    work[:lib.rglru_scan_bwd_flag_bytes(B, S, W)].fill_(255)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.rglru_scan_bwd_launch(
+            *(t.data_ptr() for t in (u, ga, gi, b_a, b_i, lam)),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            dh.data_ptr(), work.data_ptr(),
+            *(t.data_ptr() for t in (du, dga, dgi, d_ba, d_bi, d_lam)),
+            None if dh0 is None else dh0.data_ptr(), B, S, W,
+            int(u.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.rglru_scan_error_string(err).decode()
+        raise RuntimeError(f"rglru_scan backward launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES["bwd"] += 1
+    return du, dga, dgi, d_ba, d_bi, d_lam, dh0
+
+
+def rglru_scan_bwd(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
+                   b_a: torch.Tensor, b_i: torch.Tensor, lam: torch.Tensor,
+                   h: torch.Tensor, dh: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, impl: str = "auto"
+                   ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The RG-LRU's gradient (`rglru_scan_bwd_ref` for the arguments and
+    results), through the kernel ("cuda") or the plain version ("ref")."""
+    fn = (rglru_scan_bwd_kernel if resolve_impl(impl, u) == "cuda"
+          else rglru_scan_bwd_ref)
+    return fn(u, ga, gi, b_a, b_i, lam, h, dh, h0)
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU with its gradient: apply(u, ga, gi, b_a, b_i, lam, h0,
+    impl) with impl already resolved to "cuda" or "ref". Saves the
+    operands and the output h, which the backward reads for h_{t-1}; the
+    backward is the kernel under "cuda" and the plain backward under
+    "ref", and returns a gradient for every tensor input (dh0 None
+    without h0)."""
+
+    @staticmethod
+    def forward(ctx, u, ga, gi, b_a, b_i, lam, h0, impl):
+        h = rglru_scan(u, ga, gi, b_a, b_i, lam, h0, impl=impl)
+        ctx.save_for_backward(u, ga, gi, b_a, b_i, lam, h0, h)
+        ctx.impl = impl
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        u, ga, gi, b_a, b_i, lam, h0, h = ctx.saved_tensors
+        grads = rglru_scan_bwd(u, ga, gi, b_a, b_i, lam, h,
+                               dh.float().contiguous(), h0, impl=ctx.impl)
+        return (*grads, None)

@@ -7,7 +7,11 @@ linear recurrence run through `kernels.rglru_scan`: the hand-written CUDA
 kernel for CUDA tensors (gates fused, a chunked sequential scan), its
 plain version (the JAX package's `_lru_coeffs` and a doubling scan, the
 algebra of its `associative_scan`) for CPU tensors. The two gate products
-u @ w_a and u @ w_i stay matrix products.
+u @ w_a and u @ w_i stay matrix products. Where an input requires a
+gradient the recurrence goes through `RGLRUScan`, whose backward is the
+backward kernel (or its plain version); otherwise the forward is called
+directly, as `attention` does (`apply` costs the host microseconds a
+call).
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ from typing import Mapping, NamedTuple, Tuple
 
 import torch
 
-from ..kernels.rglru_scan import rglru_scan
+from ..kernels import resolve_impl
+from ..kernels.rglru_scan import RGLRUScan, rglru_scan
 from .blocks import _gelu
 from .config import ModelConfig
 from .param import ParamDef
@@ -46,10 +51,15 @@ def rglru_defs(cfg: ModelConfig) -> dict:
 
 def _recurrence(p: Mapping[str, torch.Tensor], u: torch.Tensor,
                 h0, impl: str = "auto") -> torch.Tensor:
-    """h (B, S, W) float32 from the conv output u (B, S, W)."""
+    """h (B, S, W) float32 from the conv output u (B, S, W);
+    differentiable in u, the gate products and the biases."""
     u = u.contiguous()
-    return rglru_scan(u, (u @ p["w_a"]).float(), (u @ p["w_i"]).float(),
-                      p["b_a"], p["b_i"], p["lam"], h0=h0, impl=impl)
+    args = (u, (u @ p["w_a"]).float(), (u @ p["w_i"]).float(), p["b_a"],
+            p["b_i"], p["lam"], h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args):
+        return RGLRUScan.apply(*args, resolve_impl(impl, u))
+    return rglru_scan(*args, impl=impl)
 
 
 def rglru_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,

@@ -17,7 +17,7 @@ layout (`stack_plan`) is kept only to carry its parameters across
 (`interop.lm_params_from_arrays`). Built with `trainable=True` the
 parameters require gradients and, where the config has `remat`, each
 layer is recomputed in the backward pass (`torch.utils.checkpoint`); the
-"ssd" and "rglru" kinds have no backward kernel yet and refuse to train.
+"ssd" kind has no backward kernel yet and refuses to train.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from .ssm import ssd_apply, ssd_defs
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 10)"
 KINDS = ("attn", "local_attn", "rglru", "ssd")
 # the layer kinds whose scan kernels have no backward yet
-NO_BACKWARD = ("ssd", "rglru")
+NO_BACKWARD = ("ssd",)
 
 
 def check_supported(cfg: ModelConfig, trainable: bool = False) -> None:
@@ -269,8 +269,8 @@ class Transformer(nn.Module):
     means the CUDA card and raises without one. Parameters require
     gradients only with `trainable=True` (then a given tree is copied,
     since training updates the parameters in place); inference leaves them
-    frozen. Training a model with "ssd" or "rglru" layers raises
-    NotImplementedError: their scan kernels have no backward yet.
+    frozen. Training a model with "ssd" layers raises
+    NotImplementedError: their scan kernel has no backward yet.
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,

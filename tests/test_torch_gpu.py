@@ -15,6 +15,7 @@ from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
                                           kernel_path, pad_x)
 from repro_torch.kernels.flash_attention.bwd_cases import (
     BWD_CASES, BWD_LIMIT, DTYPES, LSE_LIMIT, WGMMA_BWD_CASES, bwd_errors)
+from repro_torch.kernels.rglru_scan import bwd_cases as lru_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -866,6 +867,95 @@ def test_rglru_scan_refuses_bad_operands(cuda):
     with pytest.raises(ValueError):
         rglru_scan_kernel(u, ga, gi, b_a, b_i, lam,
                           h0=torch.zeros((2, 16), device=cuda))
+
+
+@pytest.mark.parametrize("B,S,W,dtype,h0,clamp", lru_bwd.BWD_CASES)
+def test_rglru_scan_bwd_matches_plain(cuda, B, S, W, dtype, h0, clamp):
+    """The backward kernel against the plain backward on the same inputs
+    and the forward kernel's h (as training saves it): each gradient
+    within its limit (`bwd_cases.bwd_limits`), two calls bit for bit
+    equal (no atomics add a value), one count in "bwd" a call."""
+    from repro_torch.kernels.rglru_scan import (LAUNCHES,
+                                                rglru_scan_bwd_kernel,
+                                                rglru_scan_bwd_ref,
+                                                rglru_scan_kernel)
+    args, dh = lru_bwd.bwd_inputs(B, S, W, dtype, h0, clamp, cuda, S + W)
+    h = rglru_scan_kernel(*args)
+    before = dict(LAUNCHES)
+    got = rglru_scan_bwd_kernel(*args[:6], h, dh, args[6])
+    again = rglru_scan_bwd_kernel(*args[:6], h, dh, args[6])
+    torch.cuda.synchronize()
+    assert LAUNCHES == dict(before, bwd=before["bwd"] + 2)
+    ref = rglru_scan_bwd_ref(*args[:6], h, dh, args[6])
+    for name, a, b, c, err, limit in zip(
+            lru_bwd.GRADS, got, ref, again, lru_bwd.bwd_errors(got, ref),
+            lru_bwd.bwd_limits(dtype)):
+        if b is None:
+            assert a is None and c is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, c), f"{name} differs between two runs"
+        assert err <= limit, f"{name}: {err:.3g}"
+
+
+def test_rglru_scan_bwd_refuses_bad_operands(cuda):
+    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd,
+                                                rglru_scan_bwd_kernel)
+    rng = np.random.default_rng(0)
+    u, ga, gi, b_a, b_i, lam, _ = _lru_inputs(rng, 1, 8, 16, F32, cuda)
+    h, dh = torch.zeros_like(ga), torch.ones_like(ga)
+    with pytest.raises(TypeError):
+        rglru_scan_bwd_kernel(u, ga, gi, b_a, b_i, lam, h, dh.bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_kernel(u, ga, gi, b_a, b_i, lam, h[:, :4], dh)
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_kernel(u, ga, gi, b_a, b_i, lam, h, dh.cpu())
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_kernel(u, ga, gi, b_a, b_i, lam, h,
+                              torch.ones((1, 16, 8), device=cuda)
+                              .transpose(1, 2))
+    with pytest.raises(ValueError):
+        rglru_scan_bwd_kernel(u, ga, gi, b_a, b_i, lam, h, dh,
+                              h0=torch.zeros((2, 16), device=cuda))
+    with pytest.raises(ValueError):
+        rglru_scan_bwd(*(t.cpu() for t in (u, ga, gi, b_a, b_i, lam, h,
+                                           dh)), impl="cuda")
+
+
+def test_recurrent_smoke_train_step_kernels_match_plain(cuda):
+    """One step of the smoke RecurrentGemma's loss and gradients through
+    the kernels (the RG-LRU forward and backward, the flash forward and
+    backward with the window) against impl="ref" on the same weights
+    (float32): the loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest element; one backward call per layer of each
+    kind."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.kernels.flash_attention import LAUNCHES as FLASH
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.models import Transformer
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import lm_loss
+    cfg = get_smoke_config("recurrentgemma-2b")
+    kinds = cfg.layer_kinds()
+    model = Transformer(cfg, device=cuda, seed=0, trainable=True)
+    pipe = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=100,
+                                      global_batch=2))
+    batch = make_batch(pipe, cfg, 0, device=cuda)
+    leaves = tree_leaves(model.param_tree())
+    out = {}
+    for impl in ("cuda", "ref"):
+        before = (FLASH["bwd"], LRU["bwd"])
+        loss, _ = lm_loss(model, batch, impl=impl)
+        out[impl] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        on = impl == "cuda"
+        assert (FLASH["bwd"] - before[0], LRU["bwd"] - before[1]) == (
+            on * kinds.count("local_attn"), on * kinds.count("rglru"))
+    (lc, gc), (lr, gr) = out["cuda"], out["ref"]
+    assert float(lc) == pytest.approx(float(lr), rel=1e-5)
+    for a, b in zip(gc, gr):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])

@@ -39,8 +39,11 @@ from repro.models.transformer import model_defs as j_model_defs
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.interop import lm_params_from_arrays
-from repro_torch.kernels.rglru_scan import (linear_scan, lru_coeffs,
-                                            rglru_scan, rglru_scan_ref)
+from repro_torch.kernels.rglru_scan import (RGLRUScan, linear_scan,
+                                            lru_coeffs, rglru_gate_grads,
+                                            rglru_scan, rglru_scan_bwd,
+                                            rglru_scan_bwd_ref,
+                                            rglru_scan_ref)
 from repro_torch.models import (ModelConfig, Transformer, decode_step,
                                 stack_plan)
 from repro_torch.models import rglru
@@ -121,21 +124,19 @@ def test_scan_carries_h0():
         rglru_scan(u, ga, gi, b_a, b_i, lam, impl="cuda")
 
 
-def rglru_chunked(u, ga, gi, b_a, b_i, lam, h0=None, chunk=64, seg=8,
-                  warps=8):
-    """The one-pass RG-LRU of kernels/rglru_scan/csrc/rglru_scan.cu in plain
-    PyTorch, its fold order included: `lru_coeffs` once; time in chunks
-    of `chunk` steps, each cut into segments of `seg`; a segment's
-    composite (the product of a, and h from a zero start) and the chunk's,
-    its segments folded in order; past 64 chunks, groups of G =
-    ceil(sqrt(nch)) chunks (else one group of all), a group's composite
-    its chunks' folded in order; the carry into chunk
-    k is h0 folded through the list of the composites of the groups
-    before the last one and then those of every chunk since, as `warps`
-    contiguous ranges (ceil(len / warps) words each), each range folded
-    in order, then the ranges in order; a segment runs its steps from the
-    chunk's carry folded through the segments before it."""
-    a, bb = lru_coeffs(u, ga, gi, b_a, b_i, lam)
+def chunked_scan(a, bb, h0=None, chunk=64, seg=8, warps=8):
+    """h_t = a_t h_{t-1} + bb_t along dim 1 of (B, S, W) in the fold order
+    of kernels/rglru_scan/csrc/rglru_scan.cu: time in chunks of `chunk`
+    steps, each cut into segments of `seg`; a segment's composite (the
+    product of a, and h from a zero start) and the chunk's, its segments
+    folded in order; past 64 chunks, groups of G = ceil(sqrt(nch)) chunks
+    (else one group of all), a group's composite its chunks' folded in
+    order; the carry into chunk k is h0 folded through the list of the
+    composites of the groups before the last one and then those of every
+    chunk since, as `warps` contiguous ranges (ceil(len / warps) words
+    each), each range folded in order, then the ranges in order; a segment
+    runs its steps from the chunk's carry folded through the segments
+    before it."""
     B, S, W = a.shape
     nch = -(-S // chunk)
     G = nch if nch <= 64 else math.isqrt(nch - 1) + 1
@@ -178,6 +179,64 @@ def rglru_chunked(u, ga, gi, b_a, b_i, lam, h0=None, chunk=64, seg=8,
     return out
 
 
+def rglru_chunked(u, ga, gi, b_a, b_i, lam, h0=None):
+    """The one-pass RG-LRU of kernels/rglru_scan/csrc/rglru_scan.cu in plain
+    PyTorch, its fold order included: `lru_coeffs` once, then
+    `chunked_scan`."""
+    return chunked_scan(*lru_coeffs(u, ga, gi, b_a, b_i, lam), h0)
+
+
+def kernel_order_sum(x, chunk=64, seg=8, warps=8):
+    """The backward kernel's sum of x (B, S, W) over B and S: each
+    segment's steps from the last, the chunk's segments in order, then the
+    B nch chunk sums (b-major) as `warps` contiguous ranges, each in
+    order, the ranges in order."""
+    B, S, W = x.shape
+    nch = -(-S // chunk)
+    xp = torch.cat([x, torch.zeros((B, nch * chunk - S, W))], dim=1)
+    xp = xp.reshape(B, nch, chunk // seg, seg, W)
+    segs = torch.zeros((B, nch, chunk // seg, W))
+    for i in reversed(range(seg)):
+        segs = segs + xp[:, :, :, i]
+    rows = torch.zeros((B, nch, W))
+    for j in range(chunk // seg):
+        rows = rows + segs[:, :, j]
+    rows = rows.reshape(B * nch, W)
+    per = -(-rows.shape[0] // warps)
+    total = torch.zeros(W)
+    for j in range(warps):
+        part = torch.zeros(W)
+        for r in rows[j * per:(j + 1) * per]:
+            part = part + r
+        total = total + part
+    return total
+
+
+def rglru_bwd_chunked(u, ga, gi, b_a, b_i, lam, h, dh, h0=None, chunk=64):
+    """The RG-LRU backward kernel of csrc/rglru_scan.cu in plain PyTorch:
+    the reverse step x -> a_t (x + dh_t) (x the carry a_{t+1} g_{t+1}
+    from the later steps) is the forward's kind of affine map, so time is
+    padded with identity steps to whole chunks, reversed, and folded by
+    `chunked_scan` (chunks taken from the last, segments within a chunk
+    from the last); g_t = dh_t + the carry into step t; the gates' chain
+    rule elementwise (`rglru_gate_grads`); db_a, db_i and dlam summed in
+    the kernel's order (`kernel_order_sum`). The results of
+    `rglru_scan_bwd_ref`."""
+    a, _ = lru_coeffs(u, ga, gi, b_a, b_i, lam)
+    B, S, W = a.shape
+    pad = -S % chunk
+    ap = torch.cat([a, torch.ones((B, pad, W))], dim=1)
+    bp = torch.cat([a * dh, torch.zeros((B, pad, W))], dim=1)
+    x_out = chunked_scan(ap.flip(1), bp.flip(1), chunk=chunk).flip(1)
+    g = dh + torch.cat([x_out[:, 1:], torch.zeros((B, 1, W))],
+                       dim=1)[:, :S]
+    du, dga, dgi, dlr, dh0 = rglru_gate_grads(u, ga, gi, b_a, b_i, lam, h,
+                                              g, h0)
+    dlam = kernel_order_sum(dlr) * 8.0 * torch.sigmoid(-lam)
+    return (du, dga, dgi, kernel_order_sum(dga), kernel_order_sum(dgi),
+            dlam, dh0)
+
+
 @pytest.mark.parametrize("S,h0", [(7, True), (64, False), (65, True),
                                   (1000, True), (4096, False),
                                   (8192, True)])
@@ -207,6 +266,139 @@ def test_one_pass_fold_order_matches_plain(S, h0):
         hs = a[:, t] * hs + bb[:, t]
         seq[:, t] = hs
     close(h.numpy(), seq.numpy())
+
+
+def _scan_inputs(rng, B, S, W, dtype=torch.float32, h0=False,
+                 clamp=False):
+    """Seeded operands of the scan; `clamp` drives the first half of the
+    steps to ga + b_a <= -30, where r ~ 0, a rounds to 1 and the clamp of
+    m = sqrt(max(1 - a^2, 1e-12)) holds."""
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32))
+    u, ga, gi = t(B, S, W).to(dtype), t(B, S, W), t(B, S, W)
+    b_a, b_i, lam = t(W, scale=0.5), t(W, scale=0.5), t(W) + 1.0
+    if clamp:
+        ga[:, :S // 2] = -30.0 - b_a - ga[:, :S // 2].abs()
+    return u, ga, gi, b_a, b_i, lam, t(B, W) if h0 else None
+
+
+def grads_close(got, ref, rel=1e-5, du_rel=None):
+    """Each gradient within `rel` of its reference's largest element (du
+    within `du_rel` where given: one bf16 rounding of each element)."""
+    for n, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, n
+        close(a.float().numpy(), b.float().numpy(),
+              du_rel if n == 0 and du_rel else rel)
+
+
+@pytest.mark.parametrize("dtype,h0,clamp", [
+    (torch.float32, False, False), (torch.float32, True, False),
+    (torch.bfloat16, False, False), (torch.bfloat16, True, False),
+    (torch.float32, True, True), (torch.bfloat16, False, True)])
+def test_scan_bwd_ref_matches_autograd(dtype, h0, clamp):
+    """The plain backward (the formulas written out, a reverse doubling
+    scan) against torch.autograd of the plain forward, float32 sums in
+    another order: every gradient within 1e-5 of its largest element, du
+    in bf16 within 1e-2 (one bf16 rounding of each side). Where the clamp
+    of m holds its gradient is 0, as autograd's. The autograd Function
+    under "ref" returns the same bits, and the dispatch refuses "cuda"
+    for CPU tensors."""
+    rng = np.random.default_rng(31 + 2 * h0 + clamp)
+    args = _scan_inputs(rng, 2, 77, 40, dtype, h0, clamp)
+    if clamp:
+        a, _ = lru_coeffs(*args[:6])
+        assert bool((1.0 - a ** 2 < 1e-12).any())
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in args]
+    h = rglru_scan_ref(*leaves)
+    dh = torch.from_numpy(rng.standard_normal(h.shape).astype(np.float32))
+    auto = torch.autograd.grad(h, [t for t in leaves if t is not None], dh)
+    ref = (*auto, None) if not h0 else auto
+    got = rglru_scan_bwd_ref(*args[:6], h.detach(), dh, args[6])
+    grads_close(got, ref, du_rel=1e-2 if dtype == torch.bfloat16 else None)
+    h2 = RGLRUScan.apply(*leaves, "ref")
+    assert torch.equal(h2, h.detach())
+    fn = torch.autograd.grad(h2, [t for t in leaves if t is not None], dh)
+    assert all(torch.equal(a, b) for a, b in zip(fn, got))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_bwd(*args[:6], h.detach(), dh, args[6], impl="cuda")
+
+
+@pytest.mark.parametrize("S,h0", [(7, True), (64, False), (200, True),
+                                  (4097, False), (8192, True)])
+def test_bwd_fold_order_matches_plain(S, h0):
+    """The backward kernel's design (the reverse carry folded as the
+    forward's, chunks from the last, in groups past 64 chunks; the sums in
+    its fixed order) against the plain backward: du, dga, dgi and dh0
+    within 1e-5 of their largest elements, the kernel tests' limit, and
+    db_a, db_i, dlam within 1e-5 too (the card's limit for them is 1e-4):
+    from one segment to 64 chunks (one group), 65 (groups of 9, S = 4097)
+    and 128 (groups of 12)."""
+    rng = np.random.default_rng(S + 1)
+    args = _scan_inputs(rng, 2, S, 24, h0=h0)
+    h = rglru_scan_ref(*args)
+    dh = torch.from_numpy(rng.standard_normal(h.shape).astype(np.float32))
+    grads_close(rglru_bwd_chunked(*args[:6], h, dh, args[6]),
+                rglru_scan_bwd_ref(*args[:6], h, dh, args[6]))
+
+
+def _jax_scan_loss(jp, u, dh):
+    """sum(h dh) of the JAX package's recurrence over the conv output u."""
+    def combine(l, r):
+        return l[0] * r[0], r[0] * l[1] + r[1]
+    _, h = jax.lax.associative_scan(combine, jrglru._lru_coeffs(jp, u),
+                                    axis=1)
+    return jnp.sum(h * dh)
+
+
+def test_scan_grads_match_jax(layer):
+    """The recurrence with its gradient (`RGLRUScan` under "ref", the gate
+    products by autograd) against jax.grad of the JAX package's
+    `_lru_coeffs` and associative scan: the gradients of u, w_a, w_i,
+    b_a, b_i and lam within 1e-5 of their largest elements."""
+    jcfg, cfg, jp, p = layer
+    rng = np.random.default_rng(8)
+    u = rng.standard_normal((2, 45, cfg.lru_width_)).astype(np.float32)
+    dh = rng.standard_normal(u.shape).astype(np.float32)
+    names = ("w_a", "w_i", "b_a", "b_i", "lam")
+    jg = jax.jit(jax.grad(
+        lambda uu, q: _jax_scan_loss(dict(jp, **q), uu, dh),
+        argnums=(0, 1)))(jnp.asarray(u), {k: jp[k] for k in names})
+    ut = torch.from_numpy(u).requires_grad_()
+    q = {k: p[k].clone().requires_grad_() for k in names}
+    h = RGLRUScan.apply(ut, ut @ q["w_a"], ut @ q["w_i"], q["b_a"],
+                        q["b_i"], q["lam"], None, "ref")
+    got = torch.autograd.grad(h, [ut, *q.values()],
+                              torch.from_numpy(dh))
+    close(got[0].numpy(), jg[0])
+    for k, g in zip(names, got[1:]):
+        close(g.numpy(), jg[1][k])
+
+
+def test_rglru_apply_grads_match_jax(layer):
+    """Every gradient of the layer (its nine parameters and the input x)
+    against jax.grad of the JAX package's `rglru_apply`, on the same
+    seeded inputs and output gradient: within 2e-5 of each one's largest
+    element (GRAD_TOL of tests/test_torch_training.py)."""
+    jcfg, cfg, jp, p = layer
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 33, cfg.d_model)).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    jgx, jgp = jax.jit(jax.grad(
+        lambda xx, q: jnp.sum(jrglru.rglru_apply(q, xx, jcfg) * dy),
+        argnums=(0, 1)))(jnp.asarray(x), jp)
+    xt = torch.from_numpy(x).requires_grad_()
+    q = {k: v.clone().requires_grad_() for k, v in p.items()}
+    y = rglru.rglru_apply(q, xt, cfg)
+    got = torch.autograd.grad(y, [xt, *q.values()], torch.from_numpy(dy))
+    close(got[0].numpy(), jgx, 2e-5)
+    assert set(q) == set(jgp)
+    for k, g in zip(q, got[1:]):
+        close(g.numpy(), jgp[k], 2e-5)
 
 
 def test_rglru_apply_matches_reference(layer):

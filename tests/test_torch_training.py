@@ -12,7 +12,7 @@ launches the kernel on the card.
 Tolerances:
   * loss: 1e-5 relative (float32 sums in another order);
   * gradients: every leaf within 2e-5 of its own largest element (measured
-    2.2e-6 at worst over the five smoke configs);
+    2.2e-6 at worst over the five smoke configs before RecurrentGemma's);
   * AdamW against the JAX package's update on the same gradients: 1e-6 on
     parameters and moments (elementwise float32 math, the same formula);
   * train steps: parameters within rtol 1e-4 / atol 2e-5 of the JAX
@@ -52,7 +52,7 @@ from repro_torch.training.train_step import (lm_loss, make_eval_step,
 
 CPU = torch.device("cpu")
 ARCHS = ["smollm-360m", "whisper-base", "qwen2-moe-a2.7b",
-         "deepseek-v3-671b", "paligemma-3b"]
+         "deepseek-v3-671b", "paligemma-3b", "recurrentgemma-2b"]
 GRAD_TOL = 2e-5
 
 
@@ -84,8 +84,9 @@ def test_loss_and_grads_match(arch):
     """lm_loss and the gradient of every parameter leaf against
     jax.value_and_grad of the JAX package's lm_loss: a dense decoder,
     Whisper (encoder, cross attention), Qwen2-MoE (the aux loss),
-    DeepSeek-V3 (MLA, Dk != Dv) and PaliGemma (the prefix, dropped from
-    the labels)."""
+    DeepSeek-V3 (MLA, Dk != Dv), PaliGemma (the prefix, dropped from
+    the labels) and RecurrentGemma (the RG-LRU's backward, the local
+    window's)."""
     jcfg, cfg, jp = _setup(arch)
     jb, batch = _batch(jcfg)
     (jl, jparts), jg = jax.jit(jax.value_and_grad(
@@ -248,7 +249,8 @@ def _check_params(model, cfg, jparams, g0, lr_sum):
 
 @pytest.mark.parametrize("arch,accum", [("smollm-360m", 1),
                                         ("smollm-360m", 2),
-                                        ("whisper-base", 2)])
+                                        ("whisper-base", 2),
+                                        ("recurrentgemma-2b", 1)])
 def test_train_steps_match(arch, accum):
     """Three make_train_step steps (accum_steps micro-batches) against the
     JAX package's from the same weights and optimizer state: the loss, ce,
