@@ -40,7 +40,7 @@ SOURCES: Dict[str, Path] = {
     # head dims, on the CUDA cores
     "flash_attention_bwd": (_KERNELS / "flash_attention" / "csrc"
                             / "flash_attention_bwd.cu"),
-    # the gradient's tensor-core lane (bf16, head dim 64 or 128)
+    # the gradient's tensor-core lane (bf16, head dim 64, 128 or 256)
     "flash_attention_bwd_wgmma": (_KERNELS / "flash_attention" / "csrc"
                                   / "flash_attention_bwd_wgmma.cu"),
     # Mamba-2's chunked scan and RecurrentGemma's gated recurrence

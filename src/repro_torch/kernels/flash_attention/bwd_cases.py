@@ -59,6 +59,22 @@ BWD_CASES = [
     (1, 4, 2, 300, 300, 128, 128, True, "bf16", None, 37),
     (1, 4, 2, 300, 300, 64, 64, True, "bf16", None, 129),
     (1, 4, 2, 300, 300, 128, 128, True, "bf16", 77, 150),
+    # the same edges at (256, 256) (one consumer warpgroup, 64-row q tiles
+    # and 64-key tiles): G = 10 at B Hkv = 1 is RecurrentGemma's
+    (1, 4, 2, 200, 333, 256, 256, False, "bf16", None, 0),
+    (1, 4, 2, 77, 300, 256, 256, True, "bf16", None, 0),
+    (1, 4, 2, 300, 77, 256, 256, True, "bf16", None, 0),
+    (2, 4, 2, 1, 200, 256, 256, False, "bf16", None, 0),
+    (1, 4, 2, 1, 1, 256, 256, True, "bf16", None, 0),
+    (1, 4, 1, 100, 1, 256, 256, True, "bf16", None, 0),
+    (1, 3, 3, 200, 200, 256, 256, True, "bf16", None, 0),
+    (1, 8, 1, 300, 300, 256, 256, True, "bf16", None, 0),
+    (1, 10, 1, 333, 333, 256, 256, True, "bf16", None, 0),
+    (1, 10, 1, 500, 500, 256, 256, True, "bf16", 100, 0),
+    (1, 4, 2, 300, 300, 256, 256, False, "bf16", 64, 0),
+    (1, 4, 2, 300, 300, 256, 256, True, "bf16", None, 37),
+    (1, 4, 2, 300, 300, 256, 256, True, "bf16", 77, 150),
+    (1, 4, 2, 129, 129, 256, 256, False, "bf16", None, 0),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the cases the tensor-core backward takes: each also runs with the tensor-core forward's o and lse

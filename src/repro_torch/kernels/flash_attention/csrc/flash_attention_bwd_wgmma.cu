@@ -1,7 +1,7 @@
 // Flash attention backward on Hopper's tensor cores (sm_90a): the bf16 lane
-// of the gradient at (key, value) head dims (64, 64) and (128, 128),
-// exported through a plain C interface and bound to PyTorch with ctypes
-// (repro_torch/kernels/flash_attention/flash_attention.py,
+// of the gradient at (key, value) head dims (64, 64), (128, 128) and
+// (256, 256), exported through a plain C interface and bound to PyTorch
+// with ctypes (repro_torch/kernels/flash_attention/flash_attention.py,
 // flash_attention_bwd, which picks this lane or the CUDA-core one in
 // flash_attention_bwd.cu by `bwd_lane`).
 //
@@ -30,18 +30,31 @@
 // What bounds it: operations. The gradient's own work is 4 (Dk + Dv) FLOP
 // a visible (query, key) pair (dP, dS k, dS^T q, P^T dO): at SmolLM-360M's
 // training shape (B = 8, H = 15, Hkv = 5, S = T = 2048, D = 64, causal)
-// 1.289e11 FLOP, 0.130 ms at bf16's 989 TFLOP/s, against 0.03 ms of bytes.
-// So every product runs on the tensor cores (wgmma, bf16 operands, f32
-// sums) and the tiles arrive by TMA into shared-memory rings, as in the
-// forward (flash_attention_wgmma.cu), in three launches on one stream:
+// 1.289e11 FLOP, 0.130 ms at bf16's 989 TFLOP/s, against 0.03 ms of bytes;
+// at RecurrentGemma-2B's (B = 1, H = 10, Hkv = 1, S = T = 4096, D = 256,
+// window 2048: 6,292,480 pairs a head) 1.289e11 FLOP, 0.130 ms. So every
+// product runs on the tensor cores (wgmma, bf16 operands, f32 sums) and
+// the tiles arrive by TMA into shared-memory rings, as in the forward
+// (flash_attention_wgmma.cu), in three launches on one stream. A block is
+// a producer warpgroup (one thread issues every TMA copy) and consumers(D)
+// consumer warpgroups of 64 rows (launch B) or 64 keys (launch A) each:
+// two at D = 64 and 128 (384 threads; setmaxnreg gives the producer 24
+// registers and each consumer 240), one at D = 256 (256 threads, up to 255
+// registers a thread, no setmaxnreg). At D = 256 a 64-row f32 accumulator
+// is 128 registers a thread, and a 384-thread block caps ptxas at 168 (as
+// in the forward), so one consumer warpgroup a block; and the 128-row
+// tiles of the two-consumer layouts would not fit in shared memory there
+// either (launch B: Q and dO 2 x 64 KB beside a ring of K and V, 4 x
+// 32 KB).
 //
 // * Launch B, dq (flash_bwd_dq_wgmma_kernel), first. One block per
-//   (b, h, 128-row q tile), ordered as the forward's (hopper.cuh's
-//   block_tile), 384 threads: a producer warpgroup (setmaxnreg 24, one
-//   thread issues every TMA copy) and two consumer warpgroups (240) of 64
-//   rows each. Q and dO of the tile are resident; K and V stream through
-//   a 2-stage ring of 64 keys (128-key stages spill at D = 64: S and dP
-//   would be 64 + 64 floats a thread beside dQ's). Each consumer forms its
+//   (b, h, q tile of 64 consumers(D) rows), ordered as the forward's
+//   (hopper.cuh's block_tile). Q and dO of the tile are resident; K and V
+//   stream through a 2-stage ring of 64 keys (128-key stages spill at
+//   D = 64: S and dP would be 64 + 64 floats a thread beside dQ's; at
+//   D = 256: Q, dO 32 KB each + 2 x (K, V 32 KB each) = 192 KB, and a
+//   consumer thread holds dQ's 128 floats beside 32 + 32 of S and dP).
+//   Each consumer forms its
 //   rows' Delta from o and dO in device memory (the 4 threads of a row
 //   read interleaved 16-byte chunks, then two shuffles), and takes the
 //   rows' lse from the forward or, without one, rebuilds it by a first
@@ -56,8 +69,8 @@
 //   Q tile's own rows by TMA. The block also writes its rows' lse and
 //   Delta, f32, into a workspace padded to 128 rows a head, for launch A.
 // * Launch A, dk and dv (flash_bwd_dkv_wgmma_kernel). One block per
-//   (b, kv head, head split, 128-key tile), longest first (causal: tile 0
-//   sees every q row), the same three warpgroups; each consumer owns 64
+//   (b, kv head, head split, key tile of 64 consumers(D) keys), longest
+//   first (causal: tile 0 sees every q row); each consumer owns 64
 //   keys. K and V of the tile stay in shared memory; Q, dO (64 rows) and
 //   their rows' lse and Delta (two 256-byte bulk copies from the
 //   workspace) stream through a 2-stage ring, over the split's query heads
@@ -69,12 +82,14 @@
 //   Q read MN-major. At D = 128 dK and dV would be 64 + 64 floats a
 //   thread beside 32 + 32 of S^T and dP^T, more than a thread of a
 //   384-thread block gets (a one-pass build spills and runs slower on an
-//   H100), so there the q tiles stream twice, dK
+//   H100), and at D = 256 they would be 128 + 128, more than the 255 a
+//   thread may have; so there the q tiles stream twice, dK
 //   accumulated in the first pass and dV in the second (one more S^T
-//   product a pair); that is also why this lane stops at 128 (the bf16
-//   (256, 256) and (192, 128) gradients stay on the CUDA-core lane). dK
-//   scale and dV leave through the V and K tiles' own rows by TMA (in the
-//   two-pass order, V is done with when dK is).
+//   product a pair; column halves of dK and dV, one a pass, would
+//   recompute both S^T and dP^T in each pass). dK scale and dV leave
+//   through the V and K tiles' own rows by TMA (in the two-pass order, V
+//   is done with when dK is). (192, 128), DeepSeek-V3's MLA, stays on
+//   the CUDA-core lane: no path of the port trains it.
 // * Grid size: a head split divides the G query heads of a kv head among
 //   `nsplit` blocks, the least divisor of G that gives launch A at least
 //   two blocks an SM (264 on an H100), else G. With one split dk and dv
@@ -82,13 +97,19 @@
 //   partials into the workspace and launch C (flash_bwd_dkv_sum_kernel)
 //   adds them in split order and rounds. SmolLM-360M (B Hkv = 40, 16 key
 //   tiles: 640 blocks) and Whisper-base take one split; Yi-6B's timed
-//   shape (B Hkv = 4: 64 blocks on 132 SMs) takes 8.
+//   shape (B Hkv = 4: 64 blocks on 132 SMs) takes 8; RecurrentGemma-2B's
+//   (one kv head, G = 10, 64 key tiles of 64 at T = 4096) takes 5.
+// * Windows: launch B's kv loop starts at the tile of the window's first
+//   column for the block's first row, and launch A's q loop stops at the
+//   tile of the window's last row for the block's last key, so the tiles
+//   wholly outside the window (half the causal ones at RecurrentGemma-2B's
+//   shape) are never loaded or computed.
 // * Deterministic, no atomics: every output element is written by one
 //   thread and summed in a fixed order, so two runs agree bit for bit.
 //   FA2/FA3 do 5 products a pair, accumulating dq by atomics in launch
 //   A; recomputing S and dP in launch B costs 7 products a pair instead
-//   (2 (4 Dk + 3 Dv) FLOP, 1.75x the gradient's own 4 (Dk + Dv)) and
-//   keeps repeats bit for bit.
+//   (2 (4 Dk + 3 Dv) FLOP, 1.75x the gradient's own 4 (Dk + Dv); 8 in the
+//   two-pass order) and keeps repeats bit for bit.
 // * Masks only where a tile crosses the causal diagonal past the prefix,
 //   the window's lower edge or a ragged tail. A consumer runs the products
 //   of a tile none of its pairs sees too (the mask zeroes it): a wgmma
@@ -99,7 +120,17 @@
 //   S and dP before waiting for the tile before's last products, launch
 //   A's blocks in groups of heads whose Q and dO fit in L2, rings of 3 or
 //   4 stages, 128-key stages in launch B, and a producer warp in place of
-//   the producer warpgroup.
+//   the producer warpgroup. At D = 256: two consumer warpgroups sharing
+//   launch A's 64 keys, one accumulating dK and one dV over one stream of
+//   q tiles (half the Q and dO traffic of the two passes): ptxas compiles
+//   a 384-thread block to 168 registers a thread even under setmaxnreg,
+//   so it spilled and serialised every wgmma. A block's tiles come from
+//   L2 at 3.7-4.2 TB/s at RecurrentGemma-2B's shape on an H100
+//   (chip_smoke.py's "its launches" line): the next step is TMA multicast
+//   across a
+//   cluster of blocks that read the same K and V (launch B: the q heads
+//   of one kv head) or the same Q and dO (launch A: neighbouring key
+//   tiles).
 
 #include <cstdint>
 #include <type_traits>
@@ -114,7 +145,6 @@ using namespace hopper;
 
 constexpr int kPanel = 64;     // bf16 columns per 128-byte swizzled panel
 constexpr int kPanelRow = 128; // bytes per panel row
-constexpr int kThreads = 384;  // producer + two consumer warpgroups
 constexpr int kStages = 2;     // ring stages (3 or 4 gained nothing)
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -122,11 +152,17 @@ constexpr int kRowPad = 128;   // the workspace's rows a head: S padded
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Consumer warpgroups a block: one at D = 256, where a thread's 128 floats
+// of one accumulator beside S and dP need more registers than a 384-thread
+// block leaves it; two elsewhere.
+__host__ __device__ constexpr int consumers(int D) { return D == 256 ? 1 : 2; }
+__host__ __device__ constexpr int block_threads(int D) { return 128 * (1 + consumers(D)); }
+
 // Launch B: Q | dO | K[kStages] | V[kStages] | barriers, each tile
 // 1024-byte aligned; panel p of a tile of R rows starts at p * R * 128.
 template <int D>
 struct DqLayout {
-  static constexpr int kBQ = 128;               // q rows a block
+  static constexpr int kBQ = 64 * consumers(D); // q rows a block
   static constexpr int kBK = 64;                // keys a ring stage
   static constexpr int kPanels = D / kPanel;
   static constexpr int kQBytes = kBQ * D * 2;   // Q, and dO
@@ -145,7 +181,7 @@ struct DqLayout {
 // barriers.
 template <int D>
 struct DkvLayout {
-  static constexpr int kBK = 128;               // keys a block
+  static constexpr int kBK = 64 * consumers(D); // keys a block
   static constexpr int kBQ = 64;                // q rows a ring stage
   static constexpr int kPanels = D / kPanel;
   static constexpr int kKBytes = kBK * D * 2;   // K, and V
@@ -226,6 +262,13 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
   wgmma_rs_n128(d, a, db, 1);
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(d, a, db, 1);
+}
+
 // d = A B^T over D columns: A's 64 rows and B's N rows, both K-major in
 // tiles of a_rows and b_rows rows (the panel strides), D / 16 k-steps.
 template <int N, int D>
@@ -265,7 +308,7 @@ __device__ __forceinline__ void stage_bf16(uint32_t dst, int tile_rows,
 
 // ---------------------------------------------------------- launch B: dq
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(block_threads(D), 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -309,7 +352,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int st = 0; st < kStages; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(empty(st), 2 * 128);  // every consumer thread releases
+      // every consumer thread releases
+      mbar_init(empty(st), consumers(D) * 128);
     }
     mbar_fence_init();
   }
@@ -318,7 +362,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------------------------------------------------- producer
-    reg_dealloc<kProducerRegs>();
+    if constexpr (consumers(D) == 2) reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, 2 * L::kQBytes);
 #pragma unroll
@@ -352,7 +396,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
   // ----------------------------------------------------------- consumers
-  reg_alloc<kConsumerRegs>();
+  if constexpr (consumers(D) == 2) reg_alloc<kConsumerRegs>();
   const int c = wg - 1;  // rows q0 + 64 c + [0, 64)
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
@@ -658,13 +702,13 @@ __device__ __forceinline__ void dkv_store(const float (&acc)[D / 2],
   }
 }
 
-// TWO_PASS (at D = 128, see the note at the top): the q tiles stream
-// twice, dK accumulated in the first pass and dV in the second, so that a
-// consumer thread never holds both.
-constexpr bool two_pass(int D) { return D == 128; }
+// TWO_PASS (at D = 128 and 256, see the note at the top): the q tiles
+// stream twice, dK accumulated in the first pass and dV in the second, so
+// that a consumer thread never holds both.
+constexpr bool two_pass(int D) { return D >= 128; }
 
 template <int D, bool TWO_PASS>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(block_threads(D), 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -717,7 +761,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(kv_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), 2 * 128);
+      mbar_init(empty(st), consumers(D) * 128);
     }
     mbar_fence_init();
   }
@@ -726,7 +770,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---------------------------------------------------------- producer
-    reg_dealloc<kProducerRegs>();
+    if constexpr (consumers(D) == 2) reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, 2 * L::kKBytes);
 #pragma unroll
@@ -759,7 +803,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
   // ----------------------------------------------------------- consumers
-  reg_alloc<kConsumerRegs>();
+  if constexpr (consumers(D) == 2) reg_alloc<kConsumerRegs>();
   const int c = wg - 1;  // keys k0 + 64 c + [0, 64)
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
@@ -863,13 +907,13 @@ __global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ part,
 }
 
 // Head splits of launch A: the least divisor of G giving at least two
-// blocks an SM, else G.
-int head_splits(int B, int Hkv, int G, int T) {
+// blocks an SM, else G (key tiles of 64 consumers(D) keys).
+int head_splits(int B, int Hkv, int G, int T, int D) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles =
-      (long long)((T + DkvLayout<64>::kBK - 1) / DkvLayout<64>::kBK) * B * Hkv;
+  const int bk = 64 * consumers(D);
+  const long long tiles = (long long)((T + bk - 1) / bk) * B * Hkv;
   for (int s = 1; s < G; ++s)
     if (G % s == 0 && tiles * s >= 2ll * sms) return s;
   return G;
@@ -880,7 +924,7 @@ long long s_padded(int S) {
 }
 
 long long workspace_bytes(int B, int H, int Hkv, int S, int T, int D) {
-  const int nsplit = head_splits(B, Hkv, H / Hkv, T);
+  const int nsplit = head_splits(B, Hkv, H / Hkv, T, D);
   long long bytes = 2ll * B * H * s_padded(S) * 4;
   if (nsplit > 1) bytes += 2ll * nsplit * B * Hkv * T * D * 4;
   return bytes;
@@ -923,7 +967,7 @@ int launch(const Args& a) {
   float* ws_delta = ws_lse + (long long)BH * s_pad;
   float* part = ws_delta + (long long)BH * s_pad;
   const int G = a.H / a.Hkv;
-  const int nsplit = head_splits(a.B, a.Hkv, G, a.T);
+  const int nsplit = head_splits(a.B, a.Hkv, G, a.T, D);
   const float scale_log2 = a.scale * kLog2e;
 
   auto* kb = flash_bwd_dq_wgmma_kernel<D>;
@@ -935,7 +979,7 @@ int launch(const Args& a) {
   if (nq * BH > 0x7fffffff || nk * BHkv * nsplit > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const int group = l2_heads(BH, G, a.T, D, D, 2);
-  kb<<<(int)(nq * BH), kThreads, LB::kSmem, a.stream>>>(
+  kb<<<(int)(nq * BH), block_threads(D), LB::kSmem, a.stream>>>(
       tq, tk, tv, tdo, tdq, static_cast<const __nv_bfloat16*>(a.o),
       static_cast<const __nv_bfloat16*>(a.dout), a.lse, ws_lse, ws_delta,
       a.H, a.Hkv, a.S, a.T, s_pad, a.scale, scale_log2, a.causal, a.window,
@@ -947,7 +991,8 @@ int launch(const Args& a) {
   cerr = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               LA::kSmem);
   if (cerr != cudaSuccess) return (int)cerr;
-  ka<<<(int)(nk * BHkv * nsplit), kThreads, LA::kSmem, a.stream>>>(
+  ka<<<(int)(nk * BHkv * nsplit), block_threads(D), LA::kSmem,
+       a.stream>>>(
       tqa, tka, tva, tdoa, tdk, tdv, ws_lse, ws_delta, part, a.H, a.Hkv,
       a.S, a.T, s_pad, nsplit, a.scale, scale_log2, a.causal, a.window,
       a.prefix);
@@ -966,7 +1011,7 @@ int launch(const Args& a) {
 
 bool valid(int B, int H, int Hkv, int S, int T, int Dk, int Dv) {
   return B >= 1 && H >= 1 && Hkv >= 1 && H % Hkv == 0 && S >= 1 && T >= 1 &&
-         Dk == Dv && (Dk == 64 || Dk == 128);
+         Dk == Dv && (Dk == 64 || Dk == 128 || Dk == 256);
 }
 
 }  // namespace
@@ -987,7 +1032,7 @@ long long flash_attention_bwd_wgmma_workspace_bytes(int B, int H, int Hkv,
 // Two or three launches on `stream`; returns 0 on success, a cudaError_t
 // after a launch, or an error of the tensor-map encode (see
 // flash_attention_bwd_wgmma_error_string). The caller checks shapes: bf16,
-// (Dk, Dv) in {(64, 64), (128, 128)}, H % Hkv == 0, S, T >= 1, contiguous
+// (Dk, Dv) in {(64, 64), (128, 128), (256, 256)}, H % Hkv == 0, S, T >= 1, contiguous
 // tensors on 16-byte boundaries; window 0 (none) or >= 1 with
 // S <= T + window - 1; prefix >= 0 (0: none; read only when causal); lse
 // null (rebuilt) or B * H * S floats from the forward; the workspace of
@@ -1007,7 +1052,9 @@ int flash_attention_bwd_wgmma_launch(const void* q, const void* k,
                static_cast<float*>(workspace), B, H, Hkv, S, T, scale,
                causal != 0 ? 1 : 0, window, causal != 0 ? prefix : 0,
                static_cast<cudaStream_t>(stream)};
-  return Dk == 64 ? launch<64>(a) : launch<128>(a);
+  return Dk == 64    ? launch<64>(a)
+         : Dk == 128 ? launch<128>(a)
+                     : launch<256>(a);
 }
 
 const char* flash_attention_bwd_wgmma_error_string(int err) {

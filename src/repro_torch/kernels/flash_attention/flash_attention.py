@@ -51,20 +51,25 @@ and their plain version (ref.py) is in `ops.attention`.
 dv, with no atomics (repeats agree bit for bit), in two lanes that
 `bwd_lane` picks from the dtype and the head dims alone:
 
-* "wgmma" (csrc/flash_attention_bwd_wgmma.cu): bf16 at (64, 64) and
-  (128, 128), every training path of the port. dq first (one block a
+* "wgmma" (csrc/flash_attention_bwd_wgmma.cu): bf16 at (64, 64),
+  (128, 128) and (256, 256), every training path of the port
+  (RecurrentGemma-2B's local attention at 256). dq first (one block a
   128-row q tile, K and V through a TMA ring; it also forms each row's
   Delta), then dk and dv (one block a 128-key tile, Q and dO through a
-  TMA ring over the group's heads; at D = 128 in two passes, dK then dV,
-  so that a thread never holds both), every product by `wgmma`; with few
-  kv heads the group's heads split over blocks whose float32 partials a
-  third launch adds in a fixed order. Given the forward's log-sum-exp
-  (`flash_attention(..., return_lse=True)` on the tensor-core lane), the
-  dq launch uses it; without it the launch rebuilds it first, one q k^T
-  product a pair.
+  TMA ring over the group's heads; at D = 128 and 256 in two passes, dK
+  then dV, so that a thread never holds both), every product by `wgmma`;
+  at D = 256 one consumer warpgroup a block on 64-row q tiles and 64-key
+  tiles, whose threads may then hold a 64 x 256 float32 accumulator.
+  With few kv heads the group's heads split over blocks whose float32
+  partials a third launch adds in a fixed order. Given the forward's
+  log-sum-exp (`flash_attention(..., return_lse=True)` on the tensor-core
+  lane), the dq launch uses it; without it the launch rebuilds it first,
+  one q k^T product a pair. A window skips the tiles wholly outside it
+  in both launches.
 * "f32" (csrc/flash_attention_bwd.cu): float32, and bf16 at other head
-  dims up to 256, on the CUDA cores in f32: dq with each row's
-  log-sum-exp (always rebuilt) and Delta, then dk and dv per kv tile.
+  dims up to 256 ((192, 128), the smoke configs'), on the CUDA cores in
+  f32: dq with each row's log-sum-exp (always rebuilt) and Delta, then dk
+  and dv per kv tile.
 
 The Pallas kernel has no backward; `ops.attention` reaches these through a
 torch.autograd.Function.
@@ -85,7 +90,7 @@ MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 # the tensor-core backward lane's (key, value) head dims
-WGMMA_BWD_HEAD_DIMS = ((64, 64), (128, 128))
+WGMMA_BWD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 
 # Launches: "fwd" counts every forward launch of either lane, "wgmma" those
 # of the tensor-core lane, "bwd" every call of the backward (its two or
@@ -112,9 +117,10 @@ def kernel_lane(dtype: torch.dtype, head_dim: int,
 def bwd_lane(dtype: torch.dtype, head_dim: int,
              v_head_dim: Optional[int] = None) -> str:
     """The backward's lane: "wgmma" for bfloat16 whose (key, value) head
-    dims are in WGMMA_BWD_HEAD_DIMS = (64, 64), (128, 128) (the
-    tensor-core kernel), else "f32" (the CUDA-core kernel: float32, and
-    bf16 at other head dims up to 256). v_head_dim defaults to head_dim."""
+    dims are in WGMMA_BWD_HEAD_DIMS = (64, 64), (128, 128), (256, 256)
+    (the tensor-core kernel), else "f32" (the CUDA-core kernel: float32,
+    and bf16 at other head dims up to 256, (192, 128) among them).
+    v_head_dim defaults to head_dim."""
     dv = head_dim if v_head_dim is None else v_head_dim
     if dtype == torch.bfloat16 and (head_dim, dv) in WGMMA_BWD_HEAD_DIMS:
         return "wgmma"

@@ -12,9 +12,8 @@ same dispatch and whose backward is the backward kernel under "cuda" and
 its plain version (`flash_attention_bwd_ref`) under "ref". The forward
 saves each row's log-sum-exp where its lane gives one and the backward's
 lane reads it (the plain versions; the tensor-core lanes, bf16 at head
-dims (64, 64) and (128, 128)), so the backward need not rebuild it.
-Otherwise the
-forward is called directly: `FlashAttention.apply` costs the host 7-17 us
+dims (64, 64), (128, 128) and (256, 256)), so the backward need not
+rebuild it. Otherwise the forward is called directly: `FlashAttention.apply` costs the host 7-17 us
 a call more on an H100 machine (chip_smoke.py's `attention_dispatch_cost`),
 and inference forwards are host-bound.
 """

@@ -6,8 +6,10 @@ plain forward; and `attention`'s torch.autograd.Function on its plain lane.
 
 Cases: causal and not, S != T both ways (Whisper's cross attention is
 S < T, not causal), ragged lengths off the JAX chunks, GQA (G = 1, 3, 4),
-a local window, a prefix, and MLA's (Dk, Dv) = (24, 16) (the smoke
-config's; DeepSeek-V3's (192, 128) at full width). Tolerance: 2e-5 of each
+a local window, a prefix, MLA's (Dk, Dv) = (24, 16) (the smoke
+config's; DeepSeek-V3's (192, 128) at full width), and head dim 256 (the
+tensor-core backward's widest: RecurrentGemma-2B's local attention) with
+a window, a prefix, and not causal. Tolerance: 2e-5 of each
 gradient's largest element in float32 (summation order differs), 1e-10
 against torch.autograd in float64. At T = 1 the exact dq and dk are 0 (the
 one key has weight 1 whatever its score) and both sides leave the rounding
@@ -46,6 +48,11 @@ CASES = [
     (1, 4, 2, 30, 30, 16, 16, True, 6, 12),        # prefix and window
     (2, 4, 4, 24, 24, 24, 16, True, None, 0),      # MLA's Dk != Dv
     (1, 2, 1, 1, 1, 16, 16, True, None, 0),
+    # head dim 256, the tensor-core backward's widest (RecurrentGemma's
+    # local attention: one kv head, a window)
+    (1, 4, 1, 64, 64, 256, 256, True, 24, 0),      # window
+    (1, 2, 1, 48, 48, 256, 256, True, None, 11),   # prefix
+    (1, 2, 2, 40, 56, 256, 256, False, None, 0),   # not causal, S < T
 ]
 
 
@@ -241,15 +248,15 @@ def test_function_carries_lse_under_ref(dtype):
 
 @pytest.mark.parametrize("dtype,dk,dv,lane", [
     (torch.bfloat16, 64, 64, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
-    (torch.bfloat16, 256, 256, "f32"), (torch.bfloat16, 192, 128, "f32"),
+    (torch.bfloat16, 256, 256, "wgmma"), (torch.bfloat16, 192, 128, "f32"),
     (torch.bfloat16, 96, 96, "f32"), (torch.bfloat16, 64, 128, "f32"),
     (torch.float32, 64, 64, "f32"), (torch.float32, 128, 128, "f32"),
     (torch.float16, 64, 64, "f32")])
 def test_bwd_lane_dispatch(dtype, dk, dv, lane):
     """The backward's lane from the dtype and head dims alone: the tensor
-    cores for bf16 at (64, 64) and (128, 128), the CUDA cores for the
-    rest (the forward's tensor-core lane also takes (256, 256) and
-    (192, 128), whose gradients stay on the CUDA cores)."""
+    cores for bf16 at (64, 64), (128, 128) and (256, 256), the CUDA cores
+    for the rest (the forward's tensor-core lane also takes (192, 128),
+    whose gradient stays on the CUDA cores)."""
     assert bwd_lane(dtype, dk, dv) == lane
     if dk == dv:
         assert bwd_lane(dtype, dk) == lane

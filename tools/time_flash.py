@@ -17,8 +17,10 @@ with its window of 2048 and without, DeepSeek-V3's MLA (1, 128, 128, 2048,
 with its prefix of 256 in bf16 and float32. Then the backward
 (`flash_attention_bwd`, dq, dk, dv) in bf16 at chip_smoke's BWD_TIMED
 training shapes, SmolLM-360M (8, 15, 5, 2048, 64) and Yi-6B (1, 32, 4,
-2048, 128), causal, given the forward's log-sum-exp where the checkout's
-forward returns one (`return_lse`), as training calls it. A shape the
+2048, 128), and at RecurrentGemma-2B's (1, 10, 1, 4096, 256) with its
+window of 2048 (chip_smoke's RG_FLASH_BWD), causal, given the forward's
+log-sum-exp where the checkout's forward returns one (`return_lse`), as
+training calls it. A shape the
 checkout does not take (no value head dim of its own, no prefix) is
 skipped. Prints one JSON line: by shape, the kernel's milliseconds a call
 and its largest error against the plain version, with the card's name
@@ -45,9 +47,11 @@ SHAPES = {  # name: (B, H, Hkv, S, Dk, Dv, dtype, keyword arguments)
     "prefix_f32": (1, 8, 1, 2048, 256, 256, "float32",
                    {"prefix_len": 256}),
 }
-# the backward's shapes: name: (B, H, Hkv, S = T, D), bf16, causal
-BWD_SHAPES = {"smollm_bwd_bf16": (8, 15, 5, 2048, 64),
-              "yi_bwd_bf16": (1, 32, 4, 2048, 128)}
+# the backward's shapes: name: (B, H, Hkv, S = T, D, keyword arguments),
+# bf16, causal
+BWD_SHAPES = {"smollm_bwd_bf16": (8, 15, 5, 2048, 64, {}),
+              "yi_bwd_bf16": (1, 32, 4, 2048, 128, {}),
+              "rg_window_bwd_bf16": (1, 10, 1, 4096, 256, {"window": 2048})}
 
 
 def main(argv=None):
@@ -88,24 +92,25 @@ def main(argv=None):
             "err": err}
         del q, k, v
         torch.cuda.empty_cache()
-    for name, (B, H, Hkv, S, D) in BWD_SHAPES.items():
+    for name, (B, H, Hkv, S, D, kw) in BWD_SHAPES.items():
         g = torch.Generator(device=cuda).manual_seed(args.seed)
         q, k, v = (torch.randn(shape, generator=g, device=cuda).to(
             torch.bfloat16) for shape in ((B, H, S, D), (B, Hkv, S, D),
                                           (B, Hkv, S, D)))
         try:
-            o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            o, lse = flash_attention(q, k, v, causal=True, return_lse=True,
+                                     **kw)
             given = {"lse": lse}
         except TypeError:       # a checkout whose forward saves no lse
-            o, given = flash_attention(q, k, v, causal=True), {}
+            o, given = flash_attention(q, k, v, causal=True, **kw), {}
         do = torch.randn(o.shape, generator=g, device=cuda).to(o.dtype)
-        got = flash_attention_bwd(q, k, v, o, do, **given)
-        ref = flash_attention_bwd_ref(q, k, v, o, do)
+        got = flash_attention_bwd(q, k, v, o, do, **given, **kw)
+        ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, ref))
         del got, ref
         times[name] = {"kernel": chip_smoke.cuda_ms(
-            lambda: flash_attention_bwd(q, k, v, o, do, **given), 10),
+            lambda: flash_attention_bwd(q, k, v, o, do, **given, **kw), 10),
             "err": err, "lse_given": bool(given)}
         del q, k, v, o, do, given
         torch.cuda.empty_cache()
