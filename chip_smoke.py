@@ -30,16 +30,19 @@ Phases, each printing its own lines and seconds:
               S != T both ways (Whisper's cross shape 448 x 1,500 among
               them), ragged lengths, S = 1, T = 1, G in {1, 3, 8}, D in
               {64, 128, 256} and (192, 128), a window and a prefix, bf16
-              and float32, each run twice for the same bits; the
-              tensor-core cases also from the tensor-core forward's o and
-              log-sum-exp (held to the plain one); the forward's
-              tensor-core lane at 448 x 1,500 not causal; the tensor-core
-              backward timed at SmolLM-360M's and Yi-6B's training shapes,
-              the CUDA-core lane in float32 at SmolLM-360M's, each beside
-              its plain version, SDPA's backward and the gradient's own
-              bound; then the RG-LRU scan's backward
-              (rglru_scan_bwd_kernel: du, dga, dgi, db_a, db_i, dlam, dh0)
-              against its plain version over `kernels/rglru_scan/
+              and float32, each run twice for the same bits; every case
+              also from the forward kernel's o and log-sum-exp (held to
+              the plain one; the CUDA-core forward's o unchanged by asking
+              for it); the forward's tensor-core lane at 448 x 1,500 not
+              causal; the tensor-core backward timed at SmolLM-360M's and
+              Yi-6B's training shapes, the CUDA-core lane in float32 at
+              SmolLM-360M's and at RecurrentGemma-2B's (window 2048) and
+              in bf16 at DeepSeek-V3's MLA dims (192, 128), each with and
+              without the forward's lse, beside its plain version, SDPA's
+              backward and the gradient's own bound; then the RG-LRU
+              scan's backward (rglru_scan_bwd_kernel: du, dga, dgi,
+              db_a, db_i, dlam, dh0) against its plain version over
+              `kernels/rglru_scan/
               bwd_cases.py` (RecurrentGemma-2B's width at S = 1, 129,
               4096, 16384 and 32768, ragged W, h0, the clamp of m), each
               run twice for the same bits, and timed at 1 x 4096 and
@@ -4379,6 +4382,14 @@ FLASH_BWD_REPLACES = ("none: the Pallas kernel (src/repro/kernels/"
 # (what, B, H, Hkv, S = T, D), causal, bf16
 BWD_TIMED = (("SmolLM-360M", 8, 15, 5, 2048, 64),
              ("Yi-6B", 1, 32, 4, 2048, 128))
+# the CUDA-core lane timed at its training shapes: (dtype, what, B, H, Hkv,
+# S = T, Dk, Dv, window), causal: SmolLM-360M's float32 train step,
+# RecurrentGemma-2B's float32 cut step (one kv head, window 2048) and
+# DeepSeek-V3's MLA dims in bf16 (Dk 192 over Dv 128, 128 heads)
+F32_BWD_TIMED = (
+    ("float32", "SmolLM-360M", 8, 15, 5, 2048, 64, 64, None),
+    ("float32", "RecurrentGemma-2B", 1, 10, 1, 4096, 256, 256, 2048),
+    ("bfloat16", "DeepSeek-V3 MLA", 1, 128, 128, 2048, 192, 128, None))
 WHISPER_ARCH, WHISPER_PARAMS = "whisper-base", 70_664_192
 # Whisper's 30 s window is 1,500 frames; the decoder's 448-token context
 WHISPER_FRAMES, WHISPER_CTX = 1500, 448
@@ -4394,11 +4405,12 @@ TRAIN_CHECK = dict(n_layers=2, batch=2, seq=1024)
 
 def flash_bwd_against_plain(cuda):
     """The backward's two lanes against their plain version on the card
-    over BWD_CASES (dq, dk, dv; o from the plain forward, no lse), two
-    runs compared bit for bit, one count a call on the lane `bwd_lane`
-    names; each tensor-core case again from the tensor-core forward's o
-    and lse (`return_lse`, the lse held to the plain one within
-    LSE_LIMIT), as training feeds it; and the forward's missing
+    over BWD_CASES (dq, dk, dv), each case twice: from the plain forward's
+    o with no lse (the lane rebuilds it), and from the forward kernel's o
+    and lse (`return_lse`) as training feeds it, the lse held to the plain
+    one within LSE_LIMIT and the CUDA-core forward's o equal bit for bit
+    to its o without the lse; two runs compared bit for bit each time, one
+    count a call on the lane `bwd_lane` names; and the forward's missing
     tensor-core case, bf16 not causal 448 x 1,500 at D = 64 (Whisper's
     cross attention). Returns the largest |kernel - plain| over the cases
     of each backward lane, and of the tensor-core lane's cases at
@@ -4442,9 +4454,9 @@ def flash_bwd_against_plain(cuda):
         do = torch.randn(o.shape, generator=g, device=cuda).to(DTYPES[dt])
         lane = bwd_lane(q.dtype, Dk, Dv)
         want = {"bwd": 2, "bwd_wgmma": 2 if lane == "wgmma" else 0}
+        d256 = lane == "wgmma" and Dk == 256
         errs, same, err, counts = run(q, k, v, o, do, kw)
         worst[lane] = max(worst[lane], err)
-        d256 = lane == "wgmma" and Dk == 256
         if d256:
             worst["d256"] = max(worst["d256"], err)
         zero = "; dq, dk are 0 exactly: absolute" if T == 1 else ""
@@ -4455,22 +4467,24 @@ def flash_bwd_against_plain(cuda):
               f"{', '.join(f'{e:.3g}' for e in errs)} (<= "
               f"{BWD_LIMIT[dt]:g}{zero}); two runs bit for bit equal; "
               f"calls {counts}")
-        if lane == "wgmma":
-            ok, lse = flash_attention(q, k, v, return_lse=True, **kw)
-            _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
-            lse_err = float((lse - lse_ref).abs().max())
-            errs, same, err, counts = run(q, k, v, ok, do, kw, lse=lse)
-            worst[lane] = max(worst[lane], err)
-            if d256:
-                worst["d256"] = max(worst["d256"], err)
-            check(lse_err <= LSE_LIMIT and max(errs) <= BWD_LIMIT[dt]
-                  and same and counts == want,
-                  f"  the same from the tensor-core forward's o and lse "
-                  f"(lse within {lse_err:.3g} of the plain one, <= "
-                  f"{LSE_LIMIT:g}): {', '.join(f'{e:.3g}' for e in errs)}"
-                  f"{zero}; two runs bit for bit equal")
-            del ok, lse, lse_ref
-        del q, k, v, o, do
+        fwd_lane = kernel_lane(q.dtype, Dk, Dv)
+        ok, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - lse_ref).abs().max())
+        o_same = (fwd_lane != "f32"
+                  or torch.equal(ok, flash_attention(q, k, v, **kw)))
+        errs, same, err, counts = run(q, k, v, ok, do, kw, lse=lse)
+        worst[lane] = max(worst[lane], err)
+        if d256:
+            worst["d256"] = max(worst["d256"], err)
+        check(lse_err <= LSE_LIMIT and o_same and max(errs) <= BWD_LIMIT[dt]
+              and same and counts == want,
+              f"  the same from the {fwd_lane} forward's o and lse (lse "
+              f"within {lse_err:.3g} of the plain one, <= {LSE_LIMIT:g}"
+              + ("; o the same bits without the lse" if fwd_lane == "f32"
+                 else "") + f"): {', '.join(f'{e:.3g}' for e in errs)}"
+              f"{zero}; two runs bit for bit equal")
+        del q, k, v, o, do, ok, lse, lse_ref
     g = torch.Generator(device=cuda).manual_seed(448)
     q = torch.randn((2, 8, WHISPER_CTX, 64), generator=g,
                     device=cuda).to(torch.bfloat16)
@@ -4508,13 +4522,14 @@ def flash_bwd_bound(q, k, v, causal=True, window=None):
 
 
 def flash_bwd_timing(cuda, seed, smi):
-    """The backward at BWD_TIMED's training shapes (causal): the
-    tensor-core lane in bf16 at both, given the tensor-core forward's lse
-    as training gives it (and without, rebuilding it), and the CUDA-core
-    lane in float32 at SmolLM-360M's; each beside its plain version, the
-    backward of one scaled_dot_product_attention call (is_causal,
-    enable_gqa) alone in the same dtype, and the bound at that dtype's
-    peak. Returns {(lane, what): row}."""
+    """The backward at its training shapes, causal: the tensor-core lane in
+    bf16 at BWD_TIMED's shapes, and the CUDA-core lane at F32_BWD_TIMED's
+    (float32 at SmolLM-360M's and at RecurrentGemma-2B's with its window,
+    bf16 at DeepSeek-V3's MLA dims); each given the forward kernel's lse as
+    training gives it, and without it (rebuilt), beside its plain version,
+    the backward of one scaled_dot_product_attention call (is_causal,
+    enable_gqa; a window as a boolean mask) alone in the same dtype, and
+    the bound at that dtype's peak. Returns {(lane, what): row}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (bwd_lane,
@@ -4524,54 +4539,71 @@ def flash_bwd_timing(cuda, seed, smi):
     from repro_torch.kernels.flash_attention.bwd_cases import (BWD_LIMIT,
                                                                bwd_errors)
     rows = {}
-    timed = [("wgmma", torch.bfloat16, shape) for shape in BWD_TIMED]
-    timed.append(("f32", torch.float32, BWD_TIMED[0]))
-    for lane, dtype, (what, B, H, Hkv, S, D) in timed:
-        check(bwd_lane(dtype, D) == lane, f"{dtype} at D = {D}: {lane}")
+    timed = [("wgmma", torch.bfloat16, what, B, H, Hkv, S, D, D, None)
+             for what, B, H, Hkv, S, D in BWD_TIMED]
+    timed += [("f32", getattr(torch, dt), *shape)
+              for dt, *shape in F32_BWD_TIMED]
+    for lane, dtype, what, B, H, Hkv, S, Dk, Dv, window in timed:
+        check(bwd_lane(dtype, Dk, Dv) == lane,
+              f"{dtype} at ({Dk}, {Dv}): {lane}")
         g = torch.Generator(device=cuda).manual_seed(seed)
         q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
-                   for s in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
-        if lane == "wgmma":
-            o, lse = flash_attention(q, k, v, return_lse=True)
-        else:
-            o, lse = flash_attention(q, k, v), None
+                   for s in ((B, H, S, Dk), (B, Hkv, S, Dk),
+                             (B, Hkv, S, Dv)))
+        kw = dict(window=window)
+        o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
-        got = flash_attention_bwd(q, k, v, o, do, lse=lse)
-        ref = flash_attention_bwd_ref(q, k, v, o, do)
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, ref))
         errs = bwd_errors(got, ref, S)
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        shape = (f"({B},{H},{Hkv},S=T={S},Dk={Dk},Dv={Dv}) causal"
+                 + (f" window {window}" if window else "") + f" {dt}")
         check(max(errs) <= BWD_LIMIT[dt],
-              f"flash bwd {lane} lane at {what}'s training shape ({B},{H},"
-              f"{Hkv},S=T={S},D={D}) causal {dt}: max |kernel - plain| / "
-              f"max |plain| of dq, dk, dv = "
+              f"flash bwd {lane} lane at {what}'s training shape {shape}: "
+              f"max |kernel - plain| / max |plain| of dq, dk, dv = "
               f"{', '.join(f'{e:.3g}' for e in errs)} (<= "
               f"{BWD_LIMIT[dt]:g})")
         del got, ref
         free_cuda()
         t = {"kernel": cuda_ms(lambda: flash_attention_bwd(
-                 q, k, v, o, do, lse=lse), 5),
-             "plain": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, o,
-                                                              do), 2)}
-        if lane == "wgmma":
-            t["no_lse"] = cuda_ms(lambda: flash_attention_bwd(q, k, v, o,
-                                                              do), 5)
+                 q, k, v, o, do, lse=lse, **kw), 5),
+             "no_lse": cuda_ms(lambda: flash_attention_bwd(
+                 q, k, v, o, do, **kw), 5),
+             "plain": cuda_ms(lambda: flash_attention_bwd_ref(
+                 q, k, v, o, do, **kw), 2)}
+        if window:
+            i = torch.arange(S, device=cuda)
+            sdpa_kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                           & (i[None, :] > i[:, None] - window))
+        else:
+            sdpa_kw = dict(is_causal=True)
         qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                             enable_gqa=True)
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                             **sdpa_kw)
         t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             os_, (qs, ks, vs), do, retain_graph=True), 5)
-        b_ms, b_by = flash_bwd_bound(q, k, v)
-        extra = (f" (without the forward's lse, rebuilt: {t['no_lse']:.4f}"
-                 f" ms)" if lane == "wgmma" else "")
-        print(f"  flash bwd {lane} lane, {what} B={B} H={H} Hkv={Hkv} "
-              f"S=T={S} D={D} causal {dt}: kernel {t['kernel']:.4f} ms"
-              f"{extra}, plain {t['plain']:.4f} ms, SDPA backward "
-              f"{t['sdpa_bwd']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        b_ms, b_by = flash_bwd_bound(q, k, v, window=window)
+        print(f"  flash bwd {lane} lane, {what} {shape}: kernel "
+              f"{t['kernel']:.4f} ms given the forward's lse "
+              f"({t['no_lse']:.4f} ms without, rebuilt), plain "
+              f"{t['plain']:.4f} ms, SDPA backward "
+              + ("(the window as a boolean mask) " if window else "")
+              + f"{t['sdpa_bwd']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
               f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
               f"{t['sdpa_bwd'] / t['kernel']:.3f}x SDPA's speed; max "
               f"|kernel - plain| {err:.3g} [{smi}]")
+        if lane == "f32":
+            for given, label in ((lse, "given the lse"),
+                                 (None, "without it")):
+                launch_ms = flash_bwd_launch_ms(lambda: flash_attention_bwd(
+                    q, k, v, o, do, lse=given, **kw))
+                print(f"  its launches {label} (profiled, device ms a "
+                      f"call): " + "; ".join(
+                          f"{name} {ms:.4f} ms"
+                          for name, ms in launch_ms.items()) + f" [{smi}]")
         rows[(lane, what)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
         del q, k, v, o, do, lse, qs, ks, vs, os_
         free_cuda()
@@ -5145,10 +5177,10 @@ def flash_bwd_tile_bytes(B, H, Hkv, S, T, D, causal=True, window=None,
 
 
 def flash_bwd_launch_ms(fn, calls=5):
-    """Device ms a call of each of the tensor-core backward's launches
-    ("dq", "dkv", and "sum" where the heads split), from torch.profiler
-    over `calls` calls of fn after a warm-up; {} if the profiler saw no
-    device event."""
+    """Device ms a call of each of the backward's launches ("dq", "dkv",
+    and on the tensor-core lane "sum" where the heads split), from
+    torch.profiler over `calls` calls of fn after a warm-up; {} if the
+    profiler saw no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5162,7 +5194,7 @@ def flash_bwd_launch_ms(fn, calls=5):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or "flash_bwd" not in e.name:
             continue
-        key = ("dq" if "dq_wgmma" in e.name else
+        key = ("dq" if "flash_bwd_dq" in e.name else
                "sum" if "sum_kernel" in e.name else "dkv")
         ms[key] = ms.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     return ms

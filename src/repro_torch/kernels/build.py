@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build"
@@ -49,6 +49,19 @@ SOURCES: Dict[str, Path] = {
 }
 
 
+# nvcc flags of one source beside NVCC_FLAGS: the CUDA-core flash
+# backward's 24 kernels, the longest build of the set on one thread, are
+# optimised in parallel, one thread a core (--split-compile; each kernel
+# gets the registers and spills that one thread gives it)
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "flash_attention_bwd": ("--split-compile=0",),
+}
+
+
+def flags_of(name: str) -> Tuple[str, ...]:
+    return (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:
@@ -60,11 +73,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str, sources: Mapping[str, Path] = SOURCES,
-                 flags: Sequence[str] = NVCC_FLAGS) -> Path:
+                 flags: Optional[Sequence[str]] = None) -> Path:
     """build/lib<name>-<hash>.so, the hash taken over every file under the
-    source's directory (path and bytes) and the flags, include paths among
-    them (the kernels need none beyond the toolkit's and their own
-    csrc/)."""
+    source's directory (path and bytes) and the flags (default
+    `flags_of(name)`), include paths among them (the kernels need none
+    beyond the toolkit's and their own csrc/)."""
+    if flags is None:
+        flags = flags_of(name)
     csrc = sources[name].parent
     h = hashlib.sha256()
     for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
@@ -83,7 +98,7 @@ def build(name: str) -> str:
         return ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [nvcc(), *flags_of(name), "-o", str(tmp), str(SOURCES[name])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n"

@@ -75,16 +75,54 @@ BWD_CASES = [
     (1, 4, 2, 300, 300, 256, 256, True, "bf16", None, 37),
     (1, 4, 2, 300, 300, 256, 256, True, "bf16", 77, 150),
     (1, 4, 2, 129, 129, 256, 256, False, "bf16", None, 0),
+    # the CUDA-core lane's edges (float32 at every head dim, bf16 at the
+    # dims the tensor-core backward lacks): its q and kv tiles of 32, 64
+    # and 128 rows and keys (63 / 64 / 65, 127 / 128 / 129), S = 1, T = 1,
+    # causal S > T, G in {1, 3, 8} (G = 8 at B Hkv = 1), window, prefix,
+    # both, not causal, (192, 128) and (24, 16), D = 96 and 33 (33: rows
+    # off 16 bytes, synchronous loads)
+    (1, 4, 2, 63, 63, 64, 64, True, "f32", None, 0),
+    (1, 4, 2, 64, 64, 64, 64, True, "f32", None, 0),
+    (1, 4, 2, 65, 65, 64, 64, True, "f32", None, 0),
+    (1, 4, 2, 127, 127, 64, 64, True, "f32", None, 0),
+    (1, 4, 2, 128, 128, 128, 128, True, "f32", None, 0),
+    (1, 4, 2, 129, 129, 64, 64, True, "f32", None, 0),
+    (1, 4, 2, 127, 129, 128, 128, False, "f32", None, 0),
+    (1, 4, 2, 65, 63, 256, 256, True, "f32", None, 0),
+    (2, 4, 2, 1, 200, 64, 64, False, "f32", None, 0),
+    (1, 4, 2, 1, 1, 256, 256, True, "f32", None, 0),
+    (1, 4, 1, 100, 1, 128, 128, True, "f32", None, 0),
+    (1, 3, 3, 200, 200, 64, 64, True, "f32", None, 0),
+    (1, 15, 5, 333, 333, 64, 64, True, "f32", None, 0),
+    (1, 8, 1, 300, 300, 64, 64, True, "f32", None, 0),
+    (1, 8, 1, 300, 300, 256, 256, True, "f32", 100, 0),
+    (1, 10, 1, 500, 500, 256, 256, True, "f32", 128, 0),
+    (1, 4, 2, 300, 300, 64, 64, False, "f32", 64, 0),
+    (1, 4, 2, 300, 300, 64, 64, True, "f32", None, 129),
+    (1, 4, 2, 300, 300, 192, 128, True, "f32", 77, 150),
+    (1, 4, 2, 200, 333, 96, 96, False, "f32", None, 0),
+    (1, 4, 2, 129, 129, 33, 33, True, "f32", None, 0),
+    (2, 4, 4, 64, 64, 24, 16, True, "f32", None, 0),
+    (1, 4, 2, 129, 129, 33, 33, True, "bf16", None, 0),
+    (1, 4, 2, 200, 200, 96, 96, True, "bf16", None, 0),
+    (1, 4, 4, 300, 300, 192, 128, True, "bf16", 77, 150),
+    (1, 8, 8, 129, 333, 192, 128, False, "bf16", None, 0),
+    (1, 8, 1, 1, 1, 192, 128, True, "bf16", None, 0),
+    (1, 4, 1, 65, 65, 24, 16, True, "bf16", None, 0),
+    (1, 4, 2, 128, 128, 16, 16, True, "bf16", None, 8),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# the cases the tensor-core backward takes: each also runs with the tensor-core forward's o and lse
+# the cases each backward lane takes: each also runs with the forward
+# kernel's o and lse, as training feeds it
 WGMMA_BWD_CASES = [c for c in BWD_CASES
                    if bwd_lane(DTYPES[c[8]], c[5], c[6]) == "wgmma"]
+F32_BWD_CASES = [c for c in BWD_CASES
+                 if bwd_lane(DTYPES[c[8]], c[5], c[6]) == "f32"]
 # bwd_errors' bound: float32 rounds in another order; bf16 writes its
 # gradients rounded to bf16 (one ulp is 3.9e-3 of an element; the
 # forward's row error is 4e-3)
 BWD_LIMIT = {"f32": 1e-5, "bf16": 1e-2}
-# the tensor-core forward's lse against the plain one, absolute in base-2
+# either forward kernel's lse against the plain one, absolute in base-2
 # units (a relative error of P of 6.9e-5): the scores' float32 sums run in
 # another order
 LSE_LIMIT = 1e-4

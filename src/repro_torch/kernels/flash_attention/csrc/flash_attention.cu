@@ -8,7 +8,11 @@
 //
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, h / G, j]) v[b, h / G, j]
 //   q (B, H, S, Dk), k (B, Hkv, T, Dk), v (B, Hkv, T, Dv), float or bf16,
-//   contiguous; o (B, H, S, Dv) in q's type; G = H / Hkv.
+//   contiguous; o (B, H, S, Dv) in q's type; G = H / Hkv. When asked (lse
+//   not null), also each row's base-2 log-sum-exp of its scaled scores,
+//   lse[b, h, i] = log2(sum_j exp2(scale log2(e) q . k_j)) (B, H, S)
+//   float32, the tensor-core lane's definition, for the backward
+//   (flash_attention_bwd.cu). Asking for it leaves o as it is, bit for bit.
 //
 // Causal masking is aligned top-left: row i sees columns j <= i, for any S
 // and T, and with a prefix (a prefix-LM) every column j < prefix too; an
@@ -291,7 +295,8 @@ __device__ __forceinline__ void softmax_tile(
 template <typename T, int DKP, int DVP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int H, int Hkv,
                  int S, int Tk, int Dk, int Dv, float scale_log2, bool causal,
                  int window, int prefix, int group, bool vec) {
   using Tl = Tile<DKP, DVP>;
@@ -447,8 +452,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     li += __shfl_xor_sync(0xffffffffu, li, 4);
     li += __shfl_xor_sync(0xffffffffu, li, 8);
-    if (li == 0.f) li = 1.f;
     const int row = q0 + ty + 16 * i;
+    // the running max is the row's own (reduced over its 16 threads)
+    if (lse != nullptr && tx == 0 && row < S)
+      lse[(long long)bh * S + row] =
+          li > 0.f ? ms[i * kThreads] + log2f(li) : 0.f;
+    if (li == 0.f) li = 1.f;
     if (row >= S) continue;
     T* orow = o + ((long long)bh * S + row) * Dv;
 #pragma unroll
@@ -473,6 +482,7 @@ cudaError_t prepare() {
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, H, Hkv, S, Tk, Dk, Dv;
   float scale;
   bool causal;
@@ -492,9 +502,9 @@ cudaError_t launch(const Args& a) {
   flash_fwd_kernel<T, DKP, DVP>
       <<<nq * a.B * a.H, kThreads, smem_bytes<T, DKP, DVP>(), a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.Hkv, a.S,
-          a.Tk, a.Dk, a.Dv, a.scale * kLog2e, a.causal, a.window, a.prefix,
-          group, a.vec);
+          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H,
+          a.Hkv, a.S, a.Tk, a.Dk, a.Dv, a.scale * kLog2e, a.causal,
+          a.window, a.prefix, group, a.vec);
   return cudaGetLastError();
 }
 
@@ -551,9 +561,11 @@ extern "C" {
 // checks shapes: H % Hkv == 0, 1 <= Dk, Dv <= 256, S, T >= 1, contiguous
 // tensors; window 0 (none) or >= 1 with S <= T + window - 1; prefix >= 0
 // (0: none; read only when causal); vec = Dk and Dv are multiples of 16
-// bytes' worth of elements and every pointer is 16-byte aligned.
+// bytes' worth of elements and every pointer is 16-byte aligned; lse null,
+// or B * H * S floats that take each row's base-2 log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int Hkv, int S, int T,
+                           void* o, void* lse, int B, int H, int Hkv, int S,
+                           int T,
                            int Dk, int Dv, float scale, int causal,
                            int window, int prefix, int bf16, int vec,
                            void* stream) {
@@ -561,7 +573,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       Dv > 256 || S < 1 || T < 1 || B < 1 || window < 0 ||
       (window > 0 && S > T + window - 1) || prefix < 0)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, B, H, Hkv, S, T, Dk, Dv, scale, causal != 0,
+  const Args a{q,     k,      v,        o,  static_cast<float*>(lse),
+               B,     H,      Hkv,      S,  T,
+               Dk,    Dv,     scale,    causal != 0,
                window, prefix, vec != 0, static_cast<cudaStream_t>(stream)};
   const Launch go{a};
   const cudaError_t err = bf16 ? by_dims<__nv_bfloat16>(Dk, Dv, go)

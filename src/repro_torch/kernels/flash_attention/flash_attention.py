@@ -24,6 +24,9 @@ prefill forward's attention. Two lanes, both hand-written for sm_90a:
   SM. `kernel_info` reports its occupancy, registers and spills as
   compiled.
 
+Both lanes return each row's base-2 log-sum-exp when asked
+(`return_lse=True`), for the backward.
+
 `kernel_lane` picks the lane from the dtype and the two head dims alone.
 This is dispatch between two kernels, not a fallback: a bf16 tensor whose
 head dims are one of the tensor-core pairs only ever goes to the
@@ -62,14 +65,18 @@ dv, with no atomics (repeats agree bit for bit), in two lanes that
   tiles, whose threads may then hold a 64 x 256 float32 accumulator.
   With few kv heads the group's heads split over blocks whose float32
   partials a third launch adds in a fixed order. Given the forward's
-  log-sum-exp (`flash_attention(..., return_lse=True)` on the tensor-core
-  lane), the dq launch uses it; without it the launch rebuilds it first,
-  one q k^T product a pair. A window skips the tiles wholly outside it
-  in both launches.
+  log-sum-exp (`flash_attention(..., return_lse=True)`), the dq launch
+  uses it; without it the launch rebuilds it first, one q k^T product a
+  pair. A window skips the tiles wholly outside it in both launches.
 * "f32" (csrc/flash_attention_bwd.cu): float32, and bf16 at other head
   dims up to 256 ((192, 128), the smoke configs'), on the CUDA cores in
-  f32: dq with each row's log-sum-exp (always rebuilt) and Delta, then dk
-  and dv per kv tile.
+  f32, with the forward lane's design: 8 x 8 register tiles of scores
+  where the head dims allow, inputs in their own type in shared memory
+  fed by 16-byte cp.async one chunk ahead. dq first (a block a q tile of
+  128 rows, 64 above head dim 64; it reads the forward's log-sum-exp, or
+  rebuilds it in a first pass over the keys when none is given, and forms
+  Delta), then dk and dv (a block a kv tile of 128, 64 or 32 keys over
+  the group's heads' q tiles).
 
 The Pallas kernel has no backward; `ops.attention` reaches these through a
 torch.autograd.Function.
@@ -127,6 +134,15 @@ def bwd_lane(dtype: torch.dtype, head_dim: int,
     return "f32"
 
 
+def _vec(Dk: int, Dv: int, *tensors: torch.Tensor) -> bool:
+    """Whether the CUDA-core kernels may copy rows by 16-byte cp.async: Dk
+    and Dv whole 16-byte chunks of the dtype, every tensor on a 16-byte
+    boundary (else they take synchronous loads)."""
+    n = 16 // tensors[0].element_size()
+    return (Dk % n == 0 and Dv % n == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def check_aligned(**tensors: torch.Tensor) -> None:
     """The tensor-core lane reads and writes through TMA, which needs every
     base address on a 16-byte boundary; raise for one that is not."""
@@ -141,7 +157,7 @@ def check_aligned(**tensors: torch.Tensor) -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_kernel_info.argtypes = [
@@ -206,10 +222,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row sees a column) keeps columns j > i - window. scale defaults to
     Dk ** -0.5. Returns (B, H, S, Dv) in q's dtype. The lane is
     `kernel_lane(q.dtype, Dk, Dv)`; the tensor-core lane also needs q, k
-    and v on 16-byte boundaries. return_lse=True (the tensor-core lane
-    only: the CUDA-core lane raises) returns (o, lse) with lse (B, H, S)
-    float32, each row's base-2 log-sum-exp of its scaled scores,
-    log2(sum_j exp2(scale log2(e) q_i . k_j)), for the backward.
+    and v on 16-byte boundaries. return_lse=True (either lane) returns
+    (o, lse) with lse (B, H, S) float32, each row's base-2 log-sum-exp of
+    its scaled scores, log2(sum_j exp2(scale log2(e) q_i . k_j)), for the
+    backward; o is the same, bit for bit, with and without it.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -238,10 +254,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     check_prefix(prefix_len)
     lane = kernel_lane(q.dtype, Dk, Dv)
-    if return_lse and lane != "wgmma":
-        raise ValueError(f"return_lse needs the tensor-core lane (bf16 at "
-                         f"(Dk, Dv) in {WGMMA_HEAD_DIMS}); {q.dtype} at "
-                         f"({Dk}, {Dv}) takes the {lane} lane")
     o = q.new_empty((B, H, S, Dv))
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -264,13 +276,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 Dv, scale, int(causal), win, prefix, stream)
             error_string = lib.flash_attention_wgmma_error_string
         else:
-            vec_elems = 16 // q.element_size()
-            vec = (Dk % vec_elems == 0 and Dv % vec_elems == 0 and all(
-                t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
+            vec = _vec(Dk, Dv, q, k, v, o)
             lib = _lib()
             err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
-                Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, H, Hkv, S, T, Dk,
+                Dv, scale, int(causal), win, prefix,
                 int(q.dtype == torch.bfloat16), int(vec), stream)
             error_string = lib.flash_attention_error_string
     if err != 0:
@@ -286,8 +297,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     lib.flash_attention_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -320,11 +331,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient of the loss with respect to o (B, H, S, Dv). The same
     arguments and checks as `flash_attention`, o and dO of q's dtype and
     contiguous too. lse: None, or the forward's (B, H, S) float32 from
-    `flash_attention(..., return_lse=True)`, which the tensor-core lane
-    reads in place of rebuilding it (the CUDA-core lane always rebuilds
-    it). The lane is `bwd_lane(q.dtype, Dk, Dv)`; counted once in
-    LAUNCHES["bwd"] (and in LAUNCHES["bwd_wgmma"] on the tensor-core
-    lane), whatever its launches; a float32 workspace from torch.empty."""
+    `flash_attention(..., return_lse=True)`, which either lane reads in
+    place of rebuilding it. The lane is `bwd_lane(q.dtype, Dk, Dv)`;
+    counted once in LAUNCHES["bwd"] (and in LAUNCHES["bwd_wgmma"] on the
+    tensor-core lane), whatever its launches; a float32 workspace from
+    torch.empty."""
     tensors = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
     for name, t in tensors:
         if not t.is_cuda or t.device != q.device:
@@ -388,13 +399,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             work = torch.empty(2 * B * H * S, dtype=torch.float32,
                                device=q.device)
+            vec = _vec(Dk, Dv, q, k, v, o, do)
             lib = _bwd_lib()
             err = lib.flash_attention_bwd_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                work.data_ptr(), B, H, Hkv, S, T, Dk, Dv, scale,
-                int(causal), win, prefix, int(q.dtype == torch.bfloat16),
-                stream)
+                do.data_ptr(), None if lse is None else lse.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+                B, H, Hkv, S, T, Dk, Dv, scale, int(causal), win, prefix,
+                int(q.dtype == torch.bfloat16), int(vec), stream)
             error_string = lib.flash_attention_bwd_error_string
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd ({lane} lane) launch "

@@ -10,12 +10,11 @@ Where q, k or v requires a gradient (and autograd is on), the call goes
 through `FlashAttention`, a torch.autograd.Function whose forward is the
 same dispatch and whose backward is the backward kernel under "cuda" and
 its plain version (`flash_attention_bwd_ref`) under "ref". The forward
-saves each row's log-sum-exp where its lane gives one and the backward's
-lane reads it (the plain versions; the tensor-core lanes, bf16 at head
-dims (64, 64), (128, 128) and (256, 256)), so the backward need not
-rebuild it. Otherwise the forward is called directly: `FlashAttention.apply` costs the host 7-17 us
-a call more on an H100 machine (chip_smoke.py's `attention_dispatch_cost`),
-and inference forwards are host-bound.
+saves each row's log-sum-exp (every lane gives one) and the backward's
+lanes read it, so the backward need not rebuild it. Otherwise the forward
+is called directly: `FlashAttention.apply` costs the host 7-17 us a call
+more on an H100 machine (chip_smoke.py's `attention_dispatch_cost`), and
+inference forwards are host-bound.
 """
 from __future__ import annotations
 
@@ -24,27 +23,22 @@ from typing import Optional
 import torch
 
 from .. import resolve_impl
-from .flash_attention import bwd_lane, flash_attention, flash_attention_bwd
+from .flash_attention import flash_attention, flash_attention_bwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: apply(q, k, v, causal, scale, window,
     prefix_len, impl) with impl already resolved to "cuda" or "ref". Saves
-    q, k, v, the output and, where the backward reads it, each row's
-    log-sum-exp (B, H, S) for the backward, which recomputes the scores
-    (no (S, T) residual is kept)."""
+    q, k, v, the output and each row's log-sum-exp (B, H, S) for the
+    backward, which recomputes the scores (no (S, T) residual is kept)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, prefix_len, impl):
         kw = dict(causal=causal, scale=scale, window=window,
                   prefix_len=prefix_len)
-        if impl == "ref":
-            o, lse = flash_attention_ref(q, k, v, return_lse=True, **kw)
-        elif bwd_lane(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
-            o, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        else:
-            o, lse = flash_attention(q, k, v, **kw), None
+        fwd = flash_attention if impl == "cuda" else flash_attention_ref
+        o, lse = fwd(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = kw
         ctx.impl = impl

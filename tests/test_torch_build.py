@@ -50,3 +50,17 @@ def test_every_source_is_a_cu_file_in_a_csrc_dir():
         assert path.suffix == ".cu" and path.parent.name == "csrc", name
         assert path.exists(), path
         assert build.library_path(name).name.startswith(f"lib{name}-")
+
+
+def test_source_flags_extend_only_their_source():
+    """A source's own flags (the CUDA-core flash backward's split
+    compilation) follow the shared ones, enter its library's hash, and
+    leave every other source's flags as they are."""
+    bwd = build.flags_of("flash_attention_bwd")
+    assert bwd[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert "--split-compile=0" in bwd[len(build.NVCC_FLAGS):]
+    for name in build.SOURCES:
+        if name != "flash_attention_bwd":
+            assert build.flags_of(name) == build.NVCC_FLAGS
+    assert build.library_path("flash_attention_bwd") != build.library_path(
+        "flash_attention_bwd", flags=build.NVCC_FLAGS)

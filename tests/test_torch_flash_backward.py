@@ -9,20 +9,29 @@ S < T, not causal), ragged lengths off the JAX chunks, GQA (G = 1, 3, 4),
 a local window, a prefix, MLA's (Dk, Dv) = (24, 16) (the smoke
 config's; DeepSeek-V3's (192, 128) at full width), and head dim 256 (the
 tensor-core backward's widest: RecurrentGemma-2B's local attention) with
-a window, a prefix, and not causal. Tolerance: 2e-5 of each
+a window, a prefix, and not causal; (24, 16), head dim 96 and head dim
+256 with a window and a prefix together (the CUDA-core backward's lane:
+float32, and bf16 off the tensor-core dims). Tolerance: 2e-5 of each
 gradient's largest element in float32 (summation order differs), 1e-10
 against torch.autograd in float64. At T = 1 the exact dq and dk are 0 (the
 one key has weight 1 whatever its score) and both sides leave the rounding
 of dP - Delta there, so those two are held to the same numbers absolutely.
 The Function passes torch.autograd.gradcheck in float64 on the plain lane.
 
-The log-sum-exp the tensor-core lanes carry from the forward to the
-backward: the plain forward's `return_lse` against torch.logsumexp of the
-masked scores in float64 (base 2, 1e-5 absolute: float32 sums), the plain
-backward given it equal bit for bit to the one without (it rebuilds the
-same quantity the same way) and to `jax.vjp` within 2e-5, the Function
-carrying it under "ref", and `bwd_lane`'s dispatch.
+The log-sum-exp every lane carries from the forward to the backward: the
+plain forward's `return_lse` against torch.logsumexp of the masked scores
+in float64 (base 2, 1e-5 absolute: float32 sums), the plain backward given
+it equal bit for bit to the one without (it rebuilds the same quantity the
+same way) and to `jax.vjp` within 2e-5, the Function carrying it under
+"ref" and requesting it from the kernels under "cuda" on both lanes, the
+wrappers handing it to the CUDA-core kernels (their Python path run on
+the CPU against libraries that record each launch), and `bwd_lane`'s
+dispatch.
 """
+import contextlib
+import importlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +62,10 @@ CASES = [
     (1, 4, 1, 64, 64, 256, 256, True, 24, 0),      # window
     (1, 2, 1, 48, 48, 256, 256, True, None, 11),   # prefix
     (1, 2, 2, 40, 56, 256, 256, False, None, 0),   # not causal, S < T
+    # the CUDA-core lane's dims with a window and a prefix together
+    (1, 4, 2, 40, 40, 24, 16, True, 9, 13),        # MLA's smoke dims
+    (1, 2, 1, 48, 48, 96, 96, True, 10, 5),        # D = 96
+    (1, 2, 1, 48, 48, 256, 256, True, 12, 20),     # D = 256
 ]
 
 
@@ -260,3 +273,121 @@ def test_bwd_lane_dispatch(dtype, dk, dv, lane):
     assert bwd_lane(dtype, dk, dv) == lane
     if dk == dv:
         assert bwd_lane(dtype, dk) == lane
+
+
+_FA = importlib.import_module("repro_torch.kernels.flash_attention."
+                              "flash_attention")
+
+
+class _Recorder:
+    """A kernel library that records each launch's arguments and reports
+    success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name.endswith("_error_string"):
+            return lambda err: b""
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def recorded_launches(monkeypatch):
+    """CPU tensors taken for CUDA ones and the kernel libraries replaced
+    by a recorder: the wrappers' Python path without a card."""
+    lib = _Recorder()
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    for name in ("_lib", "_wgmma_lib", "_bwd_lib", "_bwd_wgmma_lib"):
+        monkeypatch.setattr(_FA, name, lambda: lib)
+    return lib.calls
+
+
+def test_cuda_core_forward_returns_lse(recorded_launches):
+    """return_lse on the CUDA-core lane (float32, and bf16 at dims the
+    tensor-core lane lacks) hands the kernel a (B, H, S) float32 buffer
+    for it, and None without it."""
+    for dtype, dk in ((torch.float32, 64), (torch.bfloat16, 24)):
+        q, k, v = (torch.zeros(s, dtype=dtype) for s in (
+            (1, 4, 10, dk), (1, 2, 10, dk), (1, 2, 10, dk)))
+        assert _FA.kernel_lane(dtype, dk) == "f32"
+        o, lse = _FA.flash_attention(q, k, v, return_lse=True)
+        assert o.shape == q.shape and o.dtype == dtype
+        assert lse.shape == (1, 4, 10) and lse.dtype == torch.float32
+        name, args = recorded_launches[-1]
+        assert name == "flash_attention_launch"
+        assert args[4] == lse.data_ptr()
+        assert _FA.flash_attention(q, k, v).shape == q.shape
+        assert recorded_launches[-1][1][4] is None
+
+
+def test_cuda_core_backward_reads_lse(recorded_launches):
+    """The CUDA-core backward hands the kernel the forward's lse (None
+    rebuilds it), and takes cp.async copies only for head dims of whole
+    16-byte chunks."""
+    for dk, vec in ((64, 1), (33, 0)):
+        q, k, v = (torch.zeros(s) for s in ((1, 4, 10, dk), (1, 2, 10, dk),
+                                             (1, 2, 10, dk)))
+        lse = torch.zeros((1, 4, 10))
+        assert _FA.bwd_lane(torch.float32, dk) == "f32"
+        for given in (lse, None):
+            dq, dk_, dv = _FA.flash_attention_bwd(q, k, v, q, q, lse=given)
+            assert dq.shape == q.shape and dk_.shape == dv.shape == k.shape
+            name, args = recorded_launches[-1]
+            assert name == "flash_attention_bwd_launch"
+            assert args[5] == (None if given is None else lse.data_ptr())
+            assert args[-2] == vec
+
+
+@pytest.mark.parametrize("dtype,dk,dv", [(torch.float32, 64, 64),
+                                         (torch.bfloat16, 192, 128),
+                                         (torch.bfloat16, 64, 64)])
+def test_function_saves_lse_on_both_lanes_under_cuda(monkeypatch, dtype, dk,
+                                                     dv):
+    """Under "cuda" `FlashAttention.forward` asks the forward for its lse
+    on the CUDA-core lane too (float32, bf16 at (192, 128)), saves it, and
+    hands it to the backward (the kernels stood in for by their plain
+    versions, recording their arguments)."""
+    from repro_torch.kernels.flash_attention import ops
+    seen = {}
+
+    def fwd(q, k, v, **kw):
+        seen["fwd"] = kw
+        return flash_attention_ref(q, k, v, **kw)
+
+    def bwd(q, k, v, o, do, **kw):
+        seen["bwd"] = kw
+        return flash_attention_bwd_ref(q, k, v, o, do, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", fwd)
+    monkeypatch.setattr(ops, "flash_attention_bwd", bwd)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _draw(
+        1, 4, 2, 12, 12, dk, dv, seed=5))
+    q.requires_grad_()
+    o = FlashAttention.apply(q, k, v, True, None, 4, 0, "cuda")
+    assert seen["fwd"].get("return_lse") is True
+    lse = o.grad_fn.saved_tensors[4]
+    _, want = flash_attention_ref(q.detach(), k, v, return_lse=True,
+                                  window=4)
+    assert torch.equal(lse, want)
+    (dq,) = torch.autograd.grad(o, (q,), do)
+    assert seen["bwd"]["lse"] is lse
+    ref = flash_attention_bwd_ref(q.detach(), k, v, o.detach(), do,
+                                  window=4, lse=lse)
+    assert torch.equal(dq, ref[0])
+
+
+def test_cuda_core_return_lse_refuses_cpu_tensors():
+    """return_lse no longer depends on the lane, but the kernel wrapper
+    still takes only CUDA tensors."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _draw(1, 2, 1, 4, 4, 8, 8,
+                                                     seed=6))
+    assert _FA.kernel_lane(q.dtype, 8) == "f32"
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _FA.flash_attention(q, k, v, return_lse=True)

@@ -14,7 +14,8 @@ from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
                                           bsr_spmv_ref, build_bsr,
                                           kernel_path, pad_x)
 from repro_torch.kernels.flash_attention.bwd_cases import (
-    BWD_CASES, BWD_LIMIT, DTYPES, LSE_LIMIT, WGMMA_BWD_CASES, bwd_errors)
+    BWD_CASES, BWD_LIMIT, DTYPES, F32_BWD_CASES, LSE_LIMIT, WGMMA_BWD_CASES,
+    bwd_errors)
 from repro_torch.kernels.rglru_scan import bwd_cases as lru_bwd
 
 pytestmark = pytest.mark.gpu
@@ -1897,9 +1898,9 @@ def test_moe_smoke_model_on_card(cuda):
 def test_flash_bwd_matches_plain(cuda, B, H, Hkv, S, T, Dk, Dv, causal,
                                  dtype, window, prefix):
     """dq, dk and dv of the backward kernel against the plain backward on
-    the same inputs (o from the plain forward, no lse: the tensor-core
-    lane rebuilds it), one count a call on the lane `bwd_lane` names, and
-    a second call gives the same bits (no atomics)."""
+    the same inputs (o from the plain forward, no lse: either lane
+    rebuilds it), one count a call on the lane `bwd_lane` names, and a
+    second call gives the same bits (no atomics)."""
     from repro_torch.kernels.flash_attention import (LAUNCHES, bwd_lane,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
@@ -1961,24 +1962,72 @@ def test_flash_bwd_wgmma_with_forward_lse(cuda, B, H, Hkv, S, T, Dk, Dv,
 
 
 def test_flash_return_lse_needs_tensor_core_lane(cuda):
-    """return_lse is the tensor-core forward's: the CUDA-core lane
-    (float32, or bf16 at head dims it does not take) raises, and a bad lse
-    for the backward is refused."""
+    """return_lse no longer needs the tensor-core lane: the CUDA-core
+    forward (float32, or bf16 at head dims the tensor cores do not take)
+    returns each row's lse too, within LSE_LIMIT of the plain one, with o
+    the same bits as without it; a bad lse for the backward is
+    refused."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    rng = np.random.default_rng(8)
     q = torch.zeros((1, 2, 8, 64), device=cuda)
-    with pytest.raises(ValueError, match="tensor-core lane"):
-        flash_attention(q, q, q, return_lse=True)
-    with pytest.raises(ValueError, match="tensor-core lane"):
-        flash_attention(q[..., :32].contiguous().bfloat16(),
-                        q[..., :32].contiguous().bfloat16(),
-                        q[..., :32].contiguous().bfloat16(), return_lse=True)
+    for dtype, d in ((F32, 64), (BF16, 32)):
+        qr = torch.as_tensor(rng.standard_normal((1, 2, 70, d)), dtype=dtype,
+                             device=cuda)
+        assert kernel_lane(dtype, d) == "f32"
+        o, lse = flash_attention(qr, qr, qr, return_lse=True)
+        _, want = flash_attention_ref(qr, qr, qr, return_lse=True)
+        assert lse.dtype == F32 and lse.shape == (1, 2, 70)
+        assert float((lse - want).abs().max()) <= LSE_LIMIT
+        assert torch.equal(o, flash_attention(qr, qr, qr))
     qb = q.bfloat16()
     o, lse = flash_attention(qb, qb, qb, return_lse=True)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(qb, qb, qb, o, o, lse=lse[:, :1])
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(qb, qb, qb, o, o, lse=lse.double())
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,dtype,window,prefix",
+                         F32_BWD_CASES)
+def test_flash_bwd_f32_with_forward_lse(cuda, B, H, Hkv, S, T, Dk, Dv,
+                                        causal, dtype, window, prefix):
+    """The CUDA-core lane fed as training feeds it: o and lse from the
+    forward kernel (`return_lse`; the CUDA-core forward but for bf16 at
+    (192, 128), the tensor-core one), the lse within LSE_LIMIT of the plain
+    forward's and the CUDA-core forward's o the same bits as without it;
+    the gradients against the plain backward over the same o within the
+    dtype's limit, two runs bit for bit, one call counted on this lane."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_ref,
+                                                     kernel_lane)
+    limit, dtype = BWD_LIMIT[dtype], DTYPES[dtype]
+    rng = np.random.default_rng(S * 1000 + T + Dk + Dv + prefix + 2)
+    q, k, v = _qkv_dv(rng, B, H, Hkv, S, T, Dk, Dv, dtype, cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    assert float((lse - lse_ref).abs().max()) <= LSE_LIMIT
+    if kernel_lane(dtype, Dk, Dv) == "f32":
+        assert torch.equal(o, flash_attention(q, k, v, **kw))
+    do = torch.as_tensor(rng.standard_normal(o.shape), dtype=dtype,
+                         device=cuda)
+    before = dict(LAUNCHES)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bwd"] == before["bwd"] + 2
+    assert LAUNCHES["bwd_wgmma"] == before["bwd_wgmma"]
+    ref = flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    for name, a, c, err in zip("qkv", got, again, bwd_errors(got, ref, T)):
+        assert torch.equal(a, c), f"d{name} differs between two runs"
+        assert err <= limit, f"d{name}: {err:.3g}"
 
 
 def test_flash_cross_shape_forward_bf16(cuda):

@@ -15,16 +15,18 @@ Yi-6B (1, 32, 4, 2048, 128, 128) in bf16 and float32, Qwen2-MoE-A2.7B
 with its window of 2048 and without, DeepSeek-V3's MLA (1, 128, 128, 2048,
 192, 128) in bf16 and float32, and PaliGemma-3B (1, 8, 1, 2048, 256, 256)
 with its prefix of 256 in bf16 and float32. Then the backward
-(`flash_attention_bwd`, dq, dk, dv) in bf16 at chip_smoke's BWD_TIMED
-training shapes, SmolLM-360M (8, 15, 5, 2048, 64) and Yi-6B (1, 32, 4,
-2048, 128), and at RecurrentGemma-2B's (1, 10, 1, 4096, 256) with its
-window of 2048 (chip_smoke's RG_FLASH_BWD), causal, given the forward's
-log-sum-exp where the checkout's forward returns one (`return_lse`), as
-training calls it. A shape the
-checkout does not take (no value head dim of its own, no prefix) is
-skipped. Prints one JSON line: by shape, the kernel's milliseconds a call
-and its largest error against the plain version, with the card's name
-and power limit from nvidia-smi.
+(`flash_attention_bwd`, dq, dk, dv), causal, at chip_smoke's training
+shapes: in bf16 on the tensor-core lane at SmolLM-360M's (8, 15, 5, 2048,
+64), Yi-6B's (1, 32, 4, 2048, 128) and RecurrentGemma-2B's (1, 10, 1,
+4096, 256) with its window of 2048; on the CUDA-core lane in float32 at
+SmolLM-360M's and RecurrentGemma-2B's, and in bf16 at DeepSeek-V3's MLA
+dims (1, 128, 128, 2048, Dk 192, Dv 128). Each is given the forward's
+log-sum-exp where the checkout's forward returns one for that lane
+(`return_lse`), as training calls it; the CUDA-core lane is also timed
+without it ("no_lse"). A shape the checkout does not take (no value head
+dim of its own, no prefix) is skipped. Prints one JSON line: by shape,
+the kernel's milliseconds a call and its largest error against the plain
+version, with the card's name and power limit from nvidia-smi.
 """
 import argparse
 import json
@@ -47,11 +49,18 @@ SHAPES = {  # name: (B, H, Hkv, S, Dk, Dv, dtype, keyword arguments)
     "prefix_f32": (1, 8, 1, 2048, 256, 256, "float32",
                    {"prefix_len": 256}),
 }
-# the backward's shapes: name: (B, H, Hkv, S = T, D, keyword arguments),
-# bf16, causal
-BWD_SHAPES = {"smollm_bwd_bf16": (8, 15, 5, 2048, 64, {}),
-              "yi_bwd_bf16": (1, 32, 4, 2048, 128, {}),
-              "rg_window_bwd_bf16": (1, 10, 1, 4096, 256, {"window": 2048})}
+# the backward's shapes: name: (B, H, Hkv, S = T, Dk, Dv, dtype, keyword
+# arguments), causal
+BWD_SHAPES = {
+    "smollm_bwd_bf16": (8, 15, 5, 2048, 64, 64, "bfloat16", {}),
+    "yi_bwd_bf16": (1, 32, 4, 2048, 128, 128, "bfloat16", {}),
+    "rg_window_bwd_bf16": (1, 10, 1, 4096, 256, 256, "bfloat16",
+                           {"window": 2048}),
+    "smollm_bwd_f32": (8, 15, 5, 2048, 64, 64, "float32", {}),
+    "rg_window_bwd_f32": (1, 10, 1, 4096, 256, 256, "float32",
+                          {"window": 2048}),
+    "mla_bwd_bf16": (1, 128, 128, 2048, 192, 128, "bfloat16", {}),
+}
 
 
 def main(argv=None):
@@ -92,16 +101,17 @@ def main(argv=None):
             "err": err}
         del q, k, v
         torch.cuda.empty_cache()
-    for name, (B, H, Hkv, S, D, kw) in BWD_SHAPES.items():
+    for name, (B, H, Hkv, S, dk, dv, dt, kw) in BWD_SHAPES.items():
         g = torch.Generator(device=cuda).manual_seed(args.seed)
-        q, k, v = (torch.randn(shape, generator=g, device=cuda).to(
-            torch.bfloat16) for shape in ((B, H, S, D), (B, Hkv, S, D),
-                                          (B, Hkv, S, D)))
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                   for shape in ((B, H, S, dk), (B, Hkv, S, dk),
+                                 (B, Hkv, S, dv)))
         try:
             o, lse = flash_attention(q, k, v, causal=True, return_lse=True,
                                      **kw)
             given = {"lse": lse}
-        except TypeError:       # a checkout whose forward saves no lse
+        except (TypeError, ValueError):  # no lse from this checkout's lane
             o, given = flash_attention(q, k, v, causal=True, **kw), {}
         do = torch.randn(o.shape, generator=g, device=cuda).to(o.dtype)
         got = flash_attention_bwd(q, k, v, o, do, **given, **kw)
@@ -109,9 +119,13 @@ def main(argv=None):
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, ref))
         del got, ref
+        torch.cuda.empty_cache()
         times[name] = {"kernel": chip_smoke.cuda_ms(
             lambda: flash_attention_bwd(q, k, v, o, do, **given, **kw), 10),
             "err": err, "lse_given": bool(given)}
+        if dt == "float32" or (dk, dv) == (192, 128):
+            times[name]["no_lse"] = chip_smoke.cuda_ms(
+                lambda: flash_attention_bwd(q, k, v, o, do, **kw), 10)
         del q, k, v, o, do, given
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
