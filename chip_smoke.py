@@ -52,6 +52,14 @@ Phases, each printing its own lines and seconds:
               given the tensor-core forward's o and lse, and without the
               lse) beside its plain version, SDPA's backward with the
               window as a mask and SDPA's causal backward without one;
+              then the SSD scan's backward (ssd_scan_bwd_kernel: dx, db,
+              dc, ddt, da_log, dh0) against its plain version over
+              `kernels/ssd_scan/bwd_cases.py` (Mamba2-2.7B's training
+              and prefill shapes, S < Q, S = Q + 1, ragged S, h0 and
+              d h_last, the smoke shapes, P, N and Q off the tiles, one
+              step, a steep dt), each run twice for the same bits, and
+              timed at 1 x 4096 x 80 x 64 x 128 beside its plain version
+              and its bound;
   5. graph  : the Stanford-Web replica (281,903 pages, 2,312,497 links)
               and its float64 scipy oracles, on the host;
   6. packing: its hub-split block-CSR layout at bm in {8, .., 128}, with
@@ -233,7 +241,14 @@ Phases, each printing its own lines and seconds:
               tensor-core lane) and their shares of a
               profiled step; one step of a float32 copy cut to one cycle
               (rglru, rglru, local_attn) with impl="cuda" against
-              impl="ref".
+              impl="ref";
+ 33. main   : training Mamba2-2.7B uncut in bf16 (items 10.9 and Queue 2
+              item 2) through the launcher's main, 5 steps at batch
+              1 x 4096; the loss must fall; ms a step, tokens/s, peak
+              memory, the SSD scan's calls (64 forwards and 64 remat
+              recomputes of 3 launches, 64 backward calls a step) and the
+              backward's share of a profiled step; one step of a float32
+              copy cut to 2 layers with impl="cuda" against impl="ref".
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -5044,7 +5059,8 @@ RGLRU_BWD_FLOPS_PER_ELEMENT = 45
 # the train step's kernels reported apart in a profiled step: what ->
 # substrings of their kernels' names
 STEP_KERNELS = {"flash backward": ("flash_bwd",),
-                "RG-LRU backward": ("rglru_scan_bwd", "rglru_bwd_sum")}
+                "RG-LRU backward": ("rglru_scan_bwd", "rglru_bwd_sum"),
+                "SSD backward": ("ssd_bwd_",)}
 
 
 def rglru_bwd_against_plain(cuda):
@@ -5409,6 +5425,226 @@ def recurrent_train_main_path(cuda, seed, smi):
     return lru, flash, row
 
 
+# ---------------------------------------------------------------------------
+# the SSD backward and Mamba2-2.7B training (ROADMAP Queue 1 item 10.9,
+# Queue 2 item 2)
+# ---------------------------------------------------------------------------
+SSD_BWD_REPLACES = ("none: src/repro/models/ssm.py:59-110 (_ssd_scan, "
+                    "differentiated by XLA's autodiff)")
+SSD_TRAIN_ARCH = "mamba2-2.7b"
+SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 1, 4096
+# the kernel-against-plain check of a train step: a float32 copy cut to 2
+# of its 64 SSD layers at B = 1, S = 4096
+SSD_TRAIN_CHECK = dict(n_layers=2, batch=1, seq=4096)
+# the SSD backward timed at Mamba2-2.7B's training shape, bf16:
+# (B, S, H, P, N, Q)
+SSD_BWD_TIMED = (1, 4096, 80, 64, 128, 256)
+# the backward's products, in ssd_products' units: the chunk states and
+# C B^T again, r = sum_t exp(cum_t) dy_t^T C_t, C h_in^T and B g^T (each
+# q N H P), dW = dy x^T and W^T dy (each intra), dB and dC's intra-chunk
+# terms (each cb) and their terms over the heads (each q N H P)
+SSD_BWD_PRODUCTS = dict(cb=3, intra=2, inter=3, state=3)
+
+
+def ssd_bwd_work(B, S, H, P, N, Q):
+    """Float32 operations of one SSD backward, 2 flops a multiply-add: the
+    products of SSD_BWD_PRODUCTS over `ssd_products`' causal counts."""
+    return 2.0 * sum(SSD_BWD_PRODUCTS[k] * m
+                     for k, m in ssd_products(B, S, H, P, N, Q).items())
+
+
+def ssd_bwd_bound(x, b, dt, chunk):
+    """Least time (ms) of one SSD backward with bf16 x: x, b, c, dt, a_log
+    and dy read once and dx, db, dc, ddt and da_log written once, against
+    the backward's own operations (`ssd_bwd_work`) at the tensor cores'
+    TF32 peak, the rate of its products. Returns (ms, "bytes" |
+    "operations")."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    nbytes = (3 * x.numel() * x.element_size()
+              + 4 * b.numel() * b.element_size() + 2 * dt.numel() * 4
+              + 2 * H * 4)
+    return roofline_ms(ssd_bwd_work(B, S, H, P, N, min(chunk, S)), nbytes,
+                       "tfloat32")
+
+
+def zero_ssd_counts():
+    from repro_torch.kernels.ssd_scan import LAUNCHES
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def ssd_bwd_against_plain(cuda):
+    """The SSD backward kernel against its plain version on the card over
+    `kernels/ssd_scan/bwd_cases.py`'s cases: each gradient within its
+    limit, two calls bit for bit equal, one count in "bwd" a call. Returns
+    the largest |kernel - plain| over the cases and gradients."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_bwd_kernel,
+                                              ssd_scan_bwd_ref)
+    from repro_torch.kernels.ssd_scan.bwd_cases import (BWD_CASES, GRADS,
+                                                        bwd_errors,
+                                                        bwd_inputs,
+                                                        bwd_limits)
+    worst = 0.0
+    for B, S, H, P, N, Q, dt, h0, dhl, steep in BWD_CASES:
+        args, dy, dh_last = bwd_inputs(B, S, H, P, N, dt, h0, dhl, steep,
+                                       cuda, S + H)
+        before = LAUNCHES["bwd"]
+        got = ssd_scan_bwd_kernel(*args[:5], Q, dy, dh_last, args[5])
+        again = ssd_scan_bwd_kernel(*args[:5], Q, dy, dh_last, args[5])
+        ref = ssd_scan_bwd_ref(*args[:5], Q, dy, dh_last, args[5])
+        torch.cuda.synchronize()
+        errs = bwd_errors(got, ref)
+        pairs = [(n, e, lim) for n, e, lim in zip(GRADS, errs,
+                                                  bwd_limits(dt))
+                 if e is not None]
+        same = all(a is c or torch.equal(a, c) for a, c in zip(got, again))
+        worst = max([worst] + [float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, ref) if b is not None])
+        check(all(e <= lim for _, e, lim in pairs) and same
+              and LAUNCHES["bwd"] == before + 2,
+              f"ssd bwd ({B}, S={S}, H={H}, P={P}, N={N}, Q={Q}) {dt}, h0 "
+              f"{h0}, dh_last {dhl}, steep {steep}: max |kernel - plain| / "
+              f"max |plain| "
+              + ", ".join(f"{n} {e:.3g} (<= {lim:g})" for n, e, lim in pairs)
+              + "; two runs bit for bit equal")
+        del args, dy, dh_last, got, again, ref
+    free_cuda()
+    return worst
+
+
+def ssd_bwd_timing(cuda, seed, smi):
+    """The SSD backward at Mamba2-2.7B's training shape (SSD_BWD_TIMED,
+    bf16): the kernel, its plain version and the bound; no one PyTorch
+    call computes it. Returns the row."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_kernel,
+                                              ssd_scan_bwd_ref)
+    from repro_torch.kernels.ssd_scan.bwd_cases import (bwd_errors,
+                                                        bwd_inputs,
+                                                        bwd_limits)
+    B, S, H, P, N, Q = SSD_BWD_TIMED
+    args, dy, _ = bwd_inputs(B, S, H, P, N, "bf16", False, False, False,
+                             cuda, seed)
+    got = ssd_scan_bwd_kernel(*args[:5], Q, dy)
+    ref = ssd_scan_bwd_ref(*args[:5], Q, dy)
+    errs = bwd_errors(got, ref)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got[:5], ref[:5]))
+    check(all(e <= lim for e, lim in zip(errs[:5], bwd_limits("bf16"))),
+          f"ssd bwd at {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: "
+          f"{', '.join(f'{e:.3g}' for e in errs[:5])}")
+    del got, ref
+    t = {"kernel": cuda_ms(lambda: ssd_scan_bwd_kernel(*args[:5], Q, dy),
+                           10),
+         "plain": cuda_ms(lambda: ssd_scan_bwd_ref(*args[:5], Q, dy), 2)}
+    b_ms, b_by = ssd_bwd_bound(args[0], args[1], args[3], Q)
+    work = ssd_bwd_work(B, S, H, P, N, Q)
+    print(f"  ssd bwd {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: kernel "
+          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {work / 1e9:.2f} GFLOP at TF32's peak); "
+          f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
+          f"{work / t['kernel'] / 1e9:.1f} TFLOP/s; max |kernel - plain| "
+          f"{err:.3g}; library: none [{smi}]")
+    del args, dy
+    free_cuda()
+    return dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+
+
+def mamba2_train_main_path(cuda, seed, smi):
+    """Mamba2-2.7B uncut in bf16 (2,702,296,576 parameters; AdamW's float32
+    moments 21.6 GB) trained through `launch.train`'s main for TRAIN_STEPS
+    steps at --batch 1 --seq 4096: the loss of each step (it must fall), ms
+    a step, tokens/s, peak memory, the SSD scan's calls (the forward and
+    its remat recompute, three launches each, and one backward call, a
+    layer a step) and the backward's share of a profiled step's device
+    time. Then one step's loss and gradients with impl="cuda" against
+    impl="ref" on a float32 copy cut to SSD_TRAIN_CHECK (2 layers, B = 1,
+    S = 4096): the loss within 1e-5 relative, every gradient leaf within
+    1e-4 of its largest element. Returns (the SSD launches, row for the
+    record)."""
+    import torch
+    from repro_torch.analysis.flops import total_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.models import Transformer
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import lm_loss
+
+    cfg = get_config(SSD_TRAIN_ARCH)
+    n_ssd = cfg.layer_kinds().count("ssd")
+    check(total_params(cfg) == RECUR_ARCHS[SSD_TRAIN_ARCH]["params"]
+          and cfg.remat and n_ssd == cfg.n_layers,
+          f"{SSD_TRAIN_ARCH}: {total_params(cfg):,} parameters, {n_ssd} ssd "
+          f"layers (H = {cfg.ssm_heads}, P = {cfg.ssm_headdim}, N = "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}), each recomputed in the "
+          f"backward (remat)")
+    zero_ssd_counts()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, ms, steady, shares, wall = run_trainer(
+        ["--arch", SSD_TRAIN_ARCH, "--batch", str(SSD_TRAIN_BATCH),
+         "--seq", str(SSD_TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+         "--seed", str(seed), "--log-every", "1"], smi)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ssd = dict(SSD)
+    tokens = SSD_TRAIN_BATCH * SSD_TRAIN_SEQ
+    share = shares["SSD backward"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0],
+          f"{SSD_TRAIN_ARCH} trained {TRAIN_STEPS} steps at "
+          f"B={SSD_TRAIN_BATCH} S={SSD_TRAIN_SEQ} bf16: loss "
+          f"{[round(x, 4) for x in losses]}; {steady:.1f} ms a step (median "
+          f"of the unprofiled steps after the first; first {ms[0]:.1f} ms; "
+          f"all {[round(x, 1) for x in ms]}), {tokens / steady * 1e3:.0f} "
+          f"tokens/s; run wall {wall:.1f} s; peak {peak:.2f} GB allocated "
+          f"[{smi}]")
+    check(ssd == {"scan": 3 * 2 * n_ssd * TRAIN_STEPS, "step": 0,
+                  "bwd": n_ssd * TRAIN_STEPS} and share is not None,
+          f"ssd_scan launches over the run: {ssd} (each of {TRAIN_STEPS} "
+          f"steps: {n_ssd} forwards of 3 launches, {n_ssd} more recomputed "
+          f"under remat, {n_ssd} backward calls); of a profiled step's "
+          f"device time the SSD backward's seven kernels took "
+          f"{percent(share)}")
+    free_cuda()
+
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=SSD_TRAIN_CHECK["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    model = Transformer(cfg32, device=cuda, seed=seed, trainable=True)
+    pipe = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=SSD_TRAIN_CHECK["seq"],
+        global_batch=SSD_TRAIN_CHECK["batch"], seed=seed))
+    batch = make_batch(pipe, cfg32, 0, device=cuda)
+    leaves = tree_leaves(model.param_tree())
+    out = {}
+    before = dict(SSD)
+    for impl in ("cuda", "ref"):
+        loss, _ = lm_loss(model, batch, impl=impl)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    f32_ssd = {key: n - before[key] for key, n in SSD.items()}
+    (lc, gc), (lr, gr) = out["cuda"], out["ref"]
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(gc, gr)]
+    worst = max(errs)
+    check(abs(lc - lr) <= 1e-5 * abs(lr) and worst <= 1e-4
+          and f32_ssd["bwd"] == cfg32.n_layers and f32_ssd["step"] == 0,
+          f"one step of a float32 copy cut to {cfg32.n_layers} layers at "
+          f"B={SSD_TRAIN_CHECK['batch']} S={SSD_TRAIN_CHECK['seq']}, "
+          f"impl=cuda against impl=ref: loss {lc:.6f} vs {lr:.6f}, every "
+          f"gradient leaf within {worst:.3g} of its largest element (<= "
+          f"1e-4; the worst leaf {errs.index(worst)} of {len(errs)}); ssd "
+          f"calls {f32_ssd}")
+    del model, out, gc, gr, leaves, batch
+    free_cuda()
+    ssd = {key: n + f32_ssd[key] for key, n in ssd.items()}
+    row = dict(step_ms=steady, tokens_s=tokens / steady * 1e3,
+               bwd_share=share, peak_gb=peak, losses=losses)
+    return ssd, row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5595,6 +5831,12 @@ def main(argv=None):
         print(f"  card: {smi}")
         lru_bwd_rows = rglru_bwd_timing(cuda, args.seed, smi)
         rg_flash_bwd = flash_bwd_window_timing(cuda, args.seed, smi)
+
+    with phase("SSD backward against its plain version; the backward "
+               "kernel timed at Mamba2-2.7B's training shape"):
+        ssd_bwd_err = ssd_bwd_against_plain(cuda)
+        print(f"  card: {smi}")
+        ssd_bwd_row = ssd_bwd_timing(cuda, args.seed, smi)
 
     with phase("Stanford-Web graph and f64 oracles (host)"):
         t0 = time.perf_counter()
@@ -5912,6 +6154,9 @@ def main(argv=None):
     with phase(f"main path: training {RECUR_TRAIN_ARCH}"):
         rtrain_lru, rtrain_flash, _ = recurrent_train_main_path(
             cuda, args.seed, smi)
+
+    with phase(f"main path: training {SSD_TRAIN_ARCH}"):
+        mtrain_ssd, _ = mamba2_train_main_path(cuda, args.seed, smi)
     lm_launches = {k: whisper_launches[k] + train_launches[k]
                    + wtrain_launches[k] + rtrain_flash[k]
                    for k in whisper_launches}
@@ -6040,6 +6285,13 @@ def main(argv=None):
         "ms": row["kernel"], "plain_ms": row["plain"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None})
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_BWD_REPLACES, "launches": mtrain_ssd["bwd"],
+        "max_abs_err": max(ssd_bwd_err, ssd_bwd_row["err"]),
+        "ms": ssd_bwd_row["kernel"], "plain_ms": ssd_bwd_row["plain"],
+        "bound_ms": ssd_bwd_row["bound_ms"],
+        "bound_by": ssd_bwd_row["bound_by"], "library_ms": None})
     for name, key, source, arch in (
             ("ssd_scan", "ssd", SSD_SOURCE, "mamba2-2.7b"),
             ("ssd_scan_step", "ssd_step", SSD_SOURCE, "mamba2-2.7b"),
@@ -6051,7 +6303,8 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[key],
             "launches": recur[arch]["launches"][key]
-            + (rtrain_lru["scan"] if key == "rglru" else 0),
+            + (rtrain_lru["scan"] if key == "rglru" else 0)
+            + (mtrain_ssd["scan"] if key == "ssd" else 0),
             "max_abs_err": max(
                 recur[arch]["err"]["step" if "step" in key else "scan"],
                 row["err"]),

@@ -1,2 +1,3 @@
-from .ref import ssd_scan_ref
-from .ssd_scan import LAUNCHES, ssd_scan, ssd_scan_kernel
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
+from .ssd_scan import (LAUNCHES, SSDScan, ssd_scan, ssd_scan_bwd,
+                       ssd_scan_bwd_kernel, ssd_scan_kernel)

@@ -99,6 +99,28 @@
 //   and out once with 16-byte loads (N % 4 == 0): bound by the state's
 //   bytes, 2 x 10.49 MB at Mamba2-2.7B's B = 4.
 //
+// * The backward (launch_bwd, seven launches named ssd_bwd_*), the
+//   gradient of the function above given dy and d h_last, which the JAX
+//   package takes by autodiff of _ssd_scan. Per chunk, with L its last
+//   step, g the gradient of h_out and u_s = g B_s:
+//     g_in  = exp(cum_L) g + sum_t exp(cum_t) dy_t^T C_t
+//     dx_s  = sum_{t >= s} W[t][s] dy_t + exp(cum_L - cum_s) dt_s u_s
+//     dCB   = sum_h (dy_t . x_s) exp(cum_t - cum_s) dt_s, s <= t
+//     dC_t  = sum_s dCB[t][s] B_s + sum_h exp(cum_t) dy_t h_in
+//     dB_s  = sum_t dCB[t][s] C_t + sum_h exp(cum_L - cum_s) dt_s x_s^T g
+//   and dcum from every exp, reverse-summed in the chunk to d(dt A) for
+//   ddt and da_log (ssd_scan_bwd_ref writes the whole of it out). The
+//   forward's chunk states are recomputed (its first two launches, under
+//   their own names) rather than saved, so the forward's interface is as
+//   it was. B and C are shared by the heads, so the Q x Q score gradient
+//   is summed over the heads (ssd_bwd_dcb_kernel) before it meets them,
+//   once for all heads as C B^T is in the forward. The products use the
+//   forward's routes: split TF32 mma.sync with bf16 operands, fmaf chains
+//   in k order with float32 ones (tile_prod). da_log is summed a term at
+//   a time, each with a small weight where the term is not small (see
+//   ssd_scan_bwd_ref), not as sum_t dcum_t cum_t, which cancels terms of
+//   |cum| up to hundreds.
+//
 // P <= 64, N <= 128, Q <= 256 (Mamba2-2.7B's 64, 128, 256); smaller sizes
 // are masked. Every sum runs in a fixed order: a call gives the same bits
 // each time.
@@ -395,27 +417,35 @@ __device__ __forceinline__ void cb_tile(CbSmem& sm, const T* __restrict__ bm,
   }
 }
 
-// grid (H + tiles, nc, B): blocks below H form the chunk state of head
-// blockIdx.x, the others a tile of C B^T.
+// A block of grid (H + tiles [+ H], nc, B): blocks below H form the chunk
+// state of head blockIdx.x, the next `tiles` a tile of C B^T; in the
+// backward's launch (dy non-null) the last H form the chunk's r =
+// sum_t exp(cum_t) dy_t^T C_t of head blockIdx.x - H - tiles into rw, the
+// chunk state's product with dy for x, C for B and exp(cum_t) for the
+// tail.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
-                 const T* __restrict__ cm, const float* __restrict__ dt,
-                 const float* __restrict__ a_log, float* __restrict__ cb,
-                 float* __restrict__ cumw, float* __restrict__ st, int S,
-                 int H, int P, int N, int Q, int nc) {
-  __shared__ __align__(16) ChunkSmem smu;
+__device__ __forceinline__ void chunk_block(
+    ChunkSmem& smu, const T* __restrict__ x, const T* __restrict__ bm,
+    const T* __restrict__ cm, const float* __restrict__ dt,
+    const float* __restrict__ a_log, float* __restrict__ cb,
+    float* __restrict__ cumw, float* __restrict__ st,
+    const T* __restrict__ dy, float* __restrict__ rw, int S, int H, int P,
+    int N, int Q, int nc) {
   const int ci = blockIdx.y, b = blockIdx.z;
   const int qc = min(Q, S - ci * Q);          // the chunk's real steps
   const int Qs = q_stride(Q);
   const long long row0 = (long long)b * S + (long long)ci * Q;
-  if (blockIdx.x >= H) {
+  const int nt = (Q + kTile - 1) / kTile, tiles = nt * (nt + 1) / 2;
+  if (blockIdx.x >= H && blockIdx.x < H + tiles) {
     cb_tile<T>(smu.cb, bm, cm, cb + ((long long)b * nc + ci) * Qs * Qs, row0,
                blockIdx.x - H, qc, N, Q);
     return;
   }
   StateSmem& sm = smu.st;
-  const int h = blockIdx.x;
+  const bool rblk = blockIdx.x >= H + tiles;
+  const int h = rblk ? blockIdx.x - H - tiles : blockIdx.x;
+  const T* __restrict__ xs = rblk ? dy : x;   // rows [s][p]
+  const T* __restrict__ ns = rblk ? cm : bm;  // rows [s][n]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const long long bch = ((long long)b * nc + ci) * H + h;
@@ -425,9 +455,9 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
   Panel<T, kPanel, kMaxN> pb;
   auto load = [&](int s0) {
     px.load([&](int r) { return s0 + r < qc
-                                    ? x + ((row0 + s0 + r) * H + h) * P
+                                    ? xs + ((row0 + s0 + r) * H + h) * P
                                     : nullptr; }, P);
-    pb.load([&](int r) { return s0 + r < qc ? bm + (row0 + s0 + r) * N
+    pb.load([&](int r) { return s0 + r < qc ? ns + (row0 + s0 + r) * N
                                             : nullptr; }, N);
   };
   load(0);
@@ -458,9 +488,9 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
   __syncthreads();
   const float v = sm.cum[tid];   // past qc it stays at cum[qc - 1], as
                                  // padding does
-  if (tid < Qs) cumw[bch * Qs + tid] = v;
+  if (tid < Qs && !rblk) cumw[bch * Qs + tid] = v;
   const float cum_last = sm.cum[qc - 1];
-  sm.tail[tid] = tid < qc ? expf(cum_last - v) * dtv : 0.f;
+  sm.tail[tid] = tid >= qc ? 0.f : rblk ? expf(v) : expf(cum_last - v) * dtv;
 
   // s_c[p][n] = sum_s (x[s][p] tail[s]) B[s][n]: 4 tiles of 16 rows p by
   // 2 of 64 columns n, a warp each
@@ -497,7 +527,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
       }
     }
   }
-  float* out = st + bch * P * N;
+  float* out = (rblk ? rw : st) + bch * P * N;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int n = nr + 8 * j + 2 * q;
@@ -511,15 +541,41 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+                 const T* __restrict__ cm, const float* __restrict__ dt,
+                 const float* __restrict__ a_log, float* __restrict__ cb,
+                 float* __restrict__ cumw, float* __restrict__ st, int S,
+                 int H, int P, int N, int Q, int nc) {
+  __shared__ __align__(16) ChunkSmem smu;
+  chunk_block<T>(smu, x, bm, cm, dt, a_log, cb, cumw, st, nullptr, nullptr,
+                 S, H, P, N, Q, nc);
+}
+
+// the backward's first launch: the same blocks and H more (see
+// chunk_block), under its own name so that a profile tells it apart
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+                     const T* __restrict__ cm, const float* __restrict__ dt,
+                     const float* __restrict__ a_log, float* __restrict__ cb,
+                     float* __restrict__ cumw, float* __restrict__ st,
+                     const T* __restrict__ dy, float* __restrict__ rw, int S,
+                     int H, int P, int N, int Q, int nc) {
+  __shared__ __align__(16) ChunkSmem smu;
+  chunk_block<T>(smu, x, bm, cm, dt, a_log, cb, cumw, st, dy, rw, S, H, P, N,
+                 Q, nc);
+}
+
 // Four elements (b, h, p, n .. n + 3) of the state a thread: walks the
 // chunks in order, 8 at a time (their loads issued together), leaving each
 // chunk's incoming state in its workspace slot.
 constexpr int kCarryGroup = 8;
-__global__ void __launch_bounds__(kThreads)
-ssd_carry_kernel(const float* __restrict__ cumw,
-                 const float* __restrict__ h0, float* __restrict__ st,
-                 float* __restrict__ h_out, int B, int S, int H, int P, int N,
-                 int Q, int nc) {
+__device__ __forceinline__ void carry_block(
+    const float* __restrict__ cumw, const float* __restrict__ h0,
+    float* __restrict__ st, float* __restrict__ h_out, int B, int S, int H,
+    int P, int N, int Q, int nc) {
   const long long PN = (long long)P * N;
   const long long e = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
   if (e >= (long long)B * H * PN) return;
@@ -555,6 +611,23 @@ ssd_carry_kernel(const float* __restrict__ cumw,
     }
   }
   *reinterpret_cast<float4*>(h_out + e) = hc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_carry_kernel(const float* __restrict__ cumw,
+                 const float* __restrict__ h0, float* __restrict__ st,
+                 float* __restrict__ h_out, int B, int S, int H, int P, int N,
+                 int Q, int nc) {
+  carry_block(cumw, h0, st, h_out, B, S, H, P, N, Q, nc);
+}
+
+// the backward's recomputation of the incoming states, under its own name
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_state_kernel(const float* __restrict__ cumw,
+                     const float* __restrict__ h0, float* __restrict__ st,
+                     float* __restrict__ h_out, int B, int S, int H, int P,
+                     int N, int Q, int nc) {
+  carry_block(cumw, h0, st, h_out, B, S, H, P, N, Q, nc);
 }
 
 struct InterSmem {
@@ -1004,6 +1077,624 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
   return cudaGetLastError();
 }
 
+// ===================================================================== the
+// backward: the gradient of the chunked scan (see the note at the top of
+// the backward's launch, `launch_bwd`)
+
+// acc (the warp's 16 rows r0 .. r0 + 15 by 32 columns c0 .. c0 + 31 of a
+// 64 x 64 output tile, four m16n8 tiles in mma's layout) += sum over
+// k0 <= k < k1 (multiples of 8) of a(r, k) b(k, n). bf16 operands: split
+// TF32 mma.sync, kSA / kSB marking an operand that is float32 (split) and
+// not exact in TF32; float32 operands: fmaf chains in k order.
+template <typename T, bool kSA, bool kSB, typename FA, typename FB>
+__device__ __forceinline__ void tile_prod(float (&acc)[4][4], int r0, int c0,
+                                          int k0, int k1, FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int k8 = k0; k8 < k1; k8 += 8) {
+    if constexpr (kF32<T>) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fma_k8(acc[j], g, q, [&](int r, int k) { return a(r0 + r, k8 + k); },
+               [&](int k, int n) { return b(k8 + k, c0 + 8 * j + n); });
+    } else {
+      const float av[4] = {a(r0 + g, k8 + q), a(r0 + g + 8, k8 + q),
+                           a(r0 + g, k8 + q + 4), a(r0 + g + 8, k8 + q + 4)};
+      Tf32<4, kSA> ta;
+      ta.set(av);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = c0 + 8 * j + g;
+        const float bv[2] = {b(k8 + q, n), b(k8 + q + 4, n)};
+        Tf32<2, kSB> tb;
+        tb.set(bv);
+        mma_split(acc[j], ta, tb);
+      }
+    }
+  }
+}
+
+// element e of m16n8 tile j of a warp's 16 x 32 piece: its row and column
+// in the 64 x 64 tile
+__device__ __forceinline__ int acc_row(int r0, int e) {
+  return r0 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int c0, int j, int e) {
+  return c0 + 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// The state gradient carried from the last chunk to the first: four
+// elements (b, h, p, n .. n + 3) a thread, g = dh_last (or 0), and for
+// each chunk from the last, its slot of rw (holding r_c = sum_t
+// exp(cum_t) dy_t^T C_t) is overwritten with g, the gradient of the
+// chunk's outgoing state, and g = exp(cum_last) g + r_c, that of its
+// incoming state; dh0 (or null) gets the first chunk's. ssd_carry_kernel
+// run backward.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_carry_kernel(const float* __restrict__ cumw,
+                     const float* __restrict__ dh_last, float* __restrict__ rw,
+                     float* __restrict__ dh0, int B, int S, int H, int P,
+                     int N, int Q, int nc) {
+  const long long PN = (long long)P * N;
+  const long long e = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
+  if (e >= (long long)B * H * PN) return;
+  const long long bh = e / PN, r = e % PN;
+  const long long b = bh / H, h = bh % H;
+  const int Qs = q_stride(Q);
+  float4 gc = dh_last != nullptr
+                  ? *reinterpret_cast<const float4*>(dh_last + e)
+                  : make_float4(0, 0, 0, 0);
+  for (int c1 = nc; c1 > 0; c1 -= kCarryGroup) {
+    float4 rv[kCarryGroup];
+    float dec[kCarryGroup];
+#pragma unroll
+    for (int i = 0; i < kCarryGroup; ++i) {
+      const int ci = c1 - 1 - i;
+      if (ci < 0) break;
+      const long long bch = (b * nc + ci) * H + h;
+      rv[i] = *reinterpret_cast<const float4*>(rw + bch * PN + r);
+      dec[i] = cumw[bch * Qs + min(Q, S - ci * Q) - 1];
+    }
+#pragma unroll
+    for (int i = 0; i < kCarryGroup; ++i) {
+      const int ci = c1 - 1 - i;
+      if (ci < 0) break;
+      const long long bch = (b * nc + ci) * H + h;
+      *reinterpret_cast<float4*>(rw + bch * PN + r) = gc;
+      // g exp(cum_last), then + r_c: two roundings, as the plain version
+      const float d = expf(dec[i]);
+      gc = make_float4(__fadd_rn(__fmul_rn(gc.x, d), rv[i].x),
+                       __fadd_rn(__fmul_rn(gc.y, d), rv[i].y),
+                       __fadd_rn(__fmul_rn(gc.z, d), rv[i].z),
+                       __fadd_rn(__fmul_rn(gc.w, d), rv[i].w));
+    }
+  }
+  if (dh0 != nullptr) *reinterpret_cast<float4*>(dh0 + e) = gc;
+}
+
+constexpr int kBT = 64;             // the backward's (t, s) and (row, p) tiles
+constexpr int kLT = kBT + 4;        // [row][k] tiles: stride 4 mod 32
+constexpr int kLK = kBT + 8;        // [k][row] tiles: stride 8 mod 32
+constexpr int kLNB = kMaxN + 4;     // [row][n] rows of B, C, g or h_in
+
+struct BwdTiles {
+  float dy[kBT][kLT];           // dy [t][p]
+  float xs[kBT][kLT];           // x [s][p]
+  float cb[kBT][kLT];           // C B^T [t][s]
+  float w[kBT][kLK];            // W [t][s]
+  float m[kBT][kLT];            // dW W [t][s]
+  float xd[kBT][kLT];           // dW (C B^T) exp(cum_t - cum_s) [t][s]
+};
+struct BwdRows {
+  float rows[kBT][kLNB];        // C [t][n] or B [s][n]
+  float st[kMaxP][kLNB];        // h_in or g [p][n]
+};
+struct BwdSmem {
+  float cum[kMaxQ], dt[kMaxQ];
+  float tle[kMaxQ];             // exp(cum_last - cum_s)
+  float rowm[kMaxQ];            // sum_s dW W [t][s], then d(dt A)
+  float colm[kMaxQ];            // sum_t dW W [t][s]
+  float ddt[kMaxQ];             // sum_t dW (C B^T) exp(cum_t - cum_s)
+  float dinter[kMaxQ];          // exp(cum_t) dy_t . (h_in C_t)
+  float dtail[kMaxQ];           // x_s . u_s
+  float rowc[kMaxQ];            // sum_s dW W [t][s] (cum_t - cum_s)
+  float red[2][kBT];            // the two column halves' row sums
+  float gh[kThreads];
+  union {
+    BwdTiles t;
+    BwdRows r;
+  } u;
+};
+
+// sum over the warp's columns of f(row, col, element) for each of its two
+// rows a lane holds, into red[column half][row]: a sum over the lane's
+// eight columns, then over the four lanes of a row (shfl), in that order
+template <typename F>
+__device__ __forceinline__ void row_dot(float (&red)[2][kBT], int r0, int c0,
+                                        F f) {
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      rs[e >> 1] += f(acc_row(r0, e), acc_col(c0, j, e), j, e);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+    rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+  }
+  if ((threadIdx.x & 3) == 0) {
+    red[c0 / 32][acc_row(r0, 0)] = rs[0];
+    red[c0 / 32][acc_row(r0, 2)] = rs[1];
+  }
+}
+
+// grid (H, nc, B), 256 threads: one (b, chunk, head), after the forward's
+// chunk states and carry (st: each chunk's h_in) and the state gradient's
+// carry (rw: each chunk's g, the gradient of its h_out). Writes dx and ddt
+// of its steps, its dCB_h = dW exp(cum_t - cum_s) dt_s (s <= t) into
+// dcbh, and its sum over its steps of d(dt A) dt into dal.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_main_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+               const T* __restrict__ cm, const float* __restrict__ dt,
+               const float* __restrict__ a_log, const T* __restrict__ dy,
+               const float* __restrict__ cb, const float* __restrict__ cumw,
+               const float* __restrict__ st, const float* __restrict__ rw,
+               float* __restrict__ dcbh, float* __restrict__ dal,
+               T* __restrict__ dx, float* __restrict__ ddt, int S, int H,
+               int P, int N, int Q, int nc) {
+  extern __shared__ float4 bwd_smem[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(bwd_smem);
+  const int h = blockIdx.x, ci = blockIdx.y, b = blockIdx.z;
+  const int qc = min(Q, S - ci * Q);
+  const int Qs = q_stride(Q);
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const long long bch = ((long long)b * nc + ci) * H + h;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
+  const float* hin = st + bch * P * N;
+  const float* gout = rw + bch * P * N;
+  const float* cbc = cb + ((long long)b * nc + ci) * Qs * Qs;
+  float* dcb = dcbh + bch * Qs * Qs;
+  const float A = -expf(a_log[h]);
+  auto xrow = [&](auto* base, int t) {   // row t of x, dy or dx
+    return base + ((row0 + t) * H + h) * P;
+  };
+
+  // a thread a step (kThreads == kMaxQ)
+  sm.cum[tid] = tid < qc ? cumw[bch * Qs + tid] : 0.f;
+  sm.dt[tid] = tid < qc ? dt[(row0 + tid) * H + h] : 0.f;
+  sm.rowm[tid] = sm.colm[tid] = sm.ddt[tid] = 0.f;
+  sm.dinter[tid] = sm.dtail[tid] = sm.rowc[tid] = 0.f;
+  float part = 0.f;
+  for (int e = tid; e < P * N; e += kThreads) part += gout[e] * hin[e];
+  sm.gh[tid] = part;
+  __syncthreads();
+  const float cum_last = sm.cum[qc - 1];
+  sm.tle[tid] = tid < qc ? expf(cum_last - sm.cum[tid]) : 0.f;
+  for (int k = kThreads / 2; k > 0; k >>= 1) {   // sum g . h_in, a tree
+    if (tid < k) sm.gh[tid] += sm.gh[tid + k];
+    __syncthreads();
+  }
+  const float gh = sm.gh[0];
+  const int nt = (qc + kBT - 1) / kBT;
+
+  // inter-chunk: dinter_t = exp(cum_t) dy_t . v_t, v_t[p] = C_t . h_in[p]
+  {
+    Panel<float, kMaxP, kMaxN> ph;
+    ph.load([&](int p) { return p < P ? hin + (long long)p * N : nullptr; },
+            N);
+    ph.store(&sm.u.r.st[0][0], kLNB);
+  }
+  for (int ti = 0; ti < nt; ++ti) {
+    const int t0 = ti * kBT;
+    __syncthreads();
+    {
+      Panel<T, kBT, kMaxN> pc;
+      pc.load([&](int r) { return t0 + r < qc ? cm + (row0 + t0 + r) * N
+                                              : nullptr; }, N);
+      pc.store(&sm.u.r.rows[0][0], kLNB);
+    }
+    __syncthreads();
+    float v[4][4] = {};
+    tile_prod<T, false, true>(
+        v, r0, c0, 0, N, [&](int r, int k) { return sm.u.r.rows[r][k]; },
+        [&](int k, int n) { return sm.u.r.st[n][k]; });
+    row_dot(sm.red, r0, c0, [&](int r, int p, int j, int e) {
+      const int t = t0 + r;
+      return t < qc && p < P ? to_f(xrow(dy, t)[p]) * v[j][e] : 0.f;
+    });
+    __syncthreads();
+    if (tid < kBT && t0 + tid < qc)
+      sm.dinter[t0 + tid] =
+          expf(sm.cum[t0 + tid]) * (sm.red[0][tid] + sm.red[1][tid]);
+  }
+
+  // intra-chunk, by tiles (t, s) on or below the diagonal: s tiles in
+  // order, each over its t tiles in order, dx of the s tile summed over
+  // them in the warps' registers
+  for (int si = 0; si < nt; ++si) {
+    const int s0 = si * kBT;
+    float dxa[4][4] = {};
+    for (int ti = si; ti < nt; ++ti) {
+      const int t0 = ti * kBT;
+      __syncthreads();
+      {
+        Panel<T, kBT, kMaxP> pd, px;
+        Panel<float, kBT, kBT> pw;
+        pd.load([&](int r) { return t0 + r < qc ? xrow(dy, t0 + r)
+                                                : nullptr; }, P);
+        px.load([&](int r) { return s0 + r < qc ? xrow(x, s0 + r)
+                                                : nullptr; }, P);
+        pw.load([&](int r) { return t0 + r < qc
+                                        ? cbc + (long long)(t0 + r) * Qs + s0
+                                        : nullptr; }, min(kBT, Qs - s0));
+        pd.store(&sm.u.t.dy[0][0], kLT);
+        px.store(&sm.u.t.xs[0][0], kLT);
+        pw.store(&sm.u.t.cb[0][0], kLT);
+      }
+      __syncthreads();
+      // dW[t][s] = dy_t . x_s
+      float dw[4][4] = {};
+      tile_prod<T, false, false>(
+          dw, r0, c0, 0, P, [&](int r, int k) { return sm.u.t.dy[r][k]; },
+          [&](int k, int n) { return sm.u.t.xs[n][k]; });
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tl = acc_row(r0, e), sl = acc_col(c0, j, e);
+          const int t = t0 + tl, s = s0 + sl;
+          float wv = 0.f, mv = 0.f, xv = 0.f;
+          if (s <= t && t < qc) {
+            const float L = expf(sm.cum[t] - sm.cum[s]);
+            const float ld = L * sm.dt[s], cbv = sm.u.t.cb[tl][sl];
+            const float d = dw[j][e];
+            wv = cbv * ld;
+            mv = d * wv;
+            xv = d * cbv * L;
+            dcb[(long long)t * Qs + s] = d * ld;
+          }
+          sm.u.t.w[tl][sl] = wv;
+          sm.u.t.m[tl][sl] = mv;
+          sm.u.t.xd[tl][sl] = xv;
+        }
+      }
+      __syncthreads();
+      // the rows' and columns' sums, each by one thread in order
+      if (tid < kBT) {
+        const float ct = sm.cum[t0 + tid];
+        float a = 0.f, w = 0.f;
+        for (int k = 0; k < kBT; ++k) {
+          a += sm.u.t.m[tid][k];
+          w += sm.u.t.m[tid][k] * (ct - sm.cum[s0 + k]);
+        }
+        sm.rowm[t0 + tid] += a;
+        sm.rowc[t0 + tid] += w;
+      } else if (tid < 2 * kBT) {
+        const int i = tid - kBT;
+        float a = 0.f;
+        for (int k = 0; k < kBT; ++k) a += sm.u.t.m[k][i];
+        sm.colm[s0 + i] += a;
+      } else if (tid < 3 * kBT) {
+        const int i = tid - 2 * kBT;
+        float a = 0.f;
+        for (int k = 0; k < kBT; ++k) a += sm.u.t.xd[k][i];
+        sm.ddt[s0 + i] += a;
+      }
+      // dx[s][p] += sum_t W[t][s] dy[t][p]
+      tile_prod<T, true, false>(
+          dxa, r0, c0, 0, kBT, [&](int r, int k) { return sm.u.t.w[k][r]; },
+          [&](int k, int n) { return sm.u.t.dy[k][n]; });
+    }
+    // the state's term: u[s][p] = B_s . g[p], dtail_s = x_s . u_s,
+    // dx_s = sum_t W[t][s] dy_t + tail_s u_s
+    __syncthreads();
+    {
+      Panel<T, kBT, kMaxN> pb;
+      Panel<float, kMaxP, kMaxN> pg;
+      pb.load([&](int r) { return s0 + r < qc ? bm + (row0 + s0 + r) * N
+                                              : nullptr; }, N);
+      pg.load([&](int p) { return p < P ? gout + (long long)p * N : nullptr; },
+              N);
+      pb.store(&sm.u.r.rows[0][0], kLNB);
+      pg.store(&sm.u.r.st[0][0], kLNB);
+    }
+    __syncthreads();
+    float u[4][4] = {};
+    tile_prod<T, false, true>(
+        u, r0, c0, 0, N, [&](int r, int k) { return sm.u.r.rows[r][k]; },
+        [&](int k, int n) { return sm.u.r.st[n][k]; });
+    row_dot(sm.red, r0, c0, [&](int r, int p, int j, int e) {
+      const int s = s0 + r;
+      return s < qc && p < P ? to_f(xrow(x, s)[p]) * u[j][e] : 0.f;
+    });
+    __syncthreads();
+    if (tid < kBT && s0 + tid < qc)
+      sm.dtail[s0 + tid] = sm.red[0][tid] + sm.red[1][tid];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = s0 + acc_row(r0, e), p = acc_col(c0, j, e);
+        if (s < qc && p < P)
+          xrow(dx, s)[p] =
+              from_f<T>(dxa[j][e] + sm.tle[s] * sm.dt[s] * u[j][e]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // dcum, and its reverse cumsum d(dt A), by one thread in order
+  if (tid == 0) {
+    float ts = 0.f;
+    for (int s = 0; s < qc; ++s) ts += sm.tle[s] * sm.dt[s] * sm.dtail[s];
+    float run = 0.f;
+    for (int t = qc - 1; t >= 0; --t) {
+      float d = sm.rowm[t] - sm.colm[t];
+      d = d + sm.dinter[t];
+      d = d - sm.tle[t] * sm.dt[t] * sm.dtail[t];
+      if (t == qc - 1) d = d + (ts + expf(cum_last) * gh);
+      run += d;
+      sm.rowm[t] = run;
+    }
+    // the chunk's part of da_log = sum_t dcum_t cum_t, a term at a time
+    // with weights that are small where the term is not (see
+    // `ssd_scan_bwd_ref`): the intra, inter and state terms' sums apart
+    float pm = 0.f, pi = 0.f, pt = 0.f;
+    for (int t = 0; t < qc; ++t) {
+      pm += sm.rowc[t];
+      pi += sm.dinter[t] * sm.cum[t];
+      pt += sm.tle[t] * sm.dt[t] * sm.dtail[t] * (cum_last - sm.cum[t]);
+    }
+    dal[bch] = ((pm + pi) + pt) + expf(cum_last) * gh * cum_last;
+  }
+  __syncthreads();
+  if (tid < qc)
+    ddt[(row0 + tid) * H + h] =
+        (sm.ddt[tid] + sm.tle[tid] * sm.dtail[tid]) + sm.rowm[tid] * A;
+}
+
+// dCB[b][chunk][t][s] = sum_h dCB_h, heads in order, for s <= t < qc; 0
+// elsewhere. Elementwise over B x nc x Qs x Qs.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dcb_kernel(const float* __restrict__ dcbh, float* __restrict__ dcb,
+                   int B, int S, int H, int Q, int nc) {
+  const long long QQ = (long long)q_stride(Q) * q_stride(Q);
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (long long)B * nc * QQ) return;
+  const long long bc = e / QQ, r = e % QQ;
+  const int Qs = q_stride(Q), t = (int)(r / Qs), s = (int)(r % Qs);
+  const int ci = (int)(bc % nc), qc = min(Q, S - ci * Q);
+  float acc = 0.f;
+  if (s <= t && t < qc)
+    for (int h = 0; h < H; ++h) acc += dcbh[(bc * H + h) * QQ + r];
+  dcb[e] = acc;
+}
+
+struct DbcSmem {
+  float sc[kBT];                // a row's scale
+  float a[kBT][kLK];            // dCB panel, or exp(cum) dy / tail x [row][p]
+  float bb[kBT][kLK];           // B or C rows [k][n], or h_in / g [p][n]
+};
+
+// dC (kB false) or dB (kB true) of 64 rows (t0 .. t0 + 63) and 64 columns
+// (n0 ..) of one (b, chunk):
+//   dC_t = sum_s dCB[t][s] B_s + sum_h sum_p exp(cum_t) dy_t[p] h_in[h][p]
+//   dB_s = sum_t dCB[t][s] C_t + sum_h sum_p tail_s x_s[p] g[h][p]
+// each sum a chain in its own accumulator (the heads' in (h, p) order),
+// the two added last.
+template <typename T, bool kB>
+__device__ __forceinline__ void dbc_tile(
+    DbcSmem& sm, const T* __restrict__ x, const T* __restrict__ bm,
+    const T* __restrict__ cm, const float* __restrict__ dt,
+    const T* __restrict__ dy, const float* __restrict__ dcb,
+    const float* __restrict__ cumw, const float* __restrict__ st,
+    const float* __restrict__ rw, T* __restrict__ out, int S, int H, int P,
+    int N, int Q, int nc, int b, int ci, int t0, int n0) {
+  const int qc = min(Q, S - ci * Q), Qs = q_stride(Q);
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
+  const float* dcbc = dcb + ((long long)b * nc + ci) * Qs * Qs;
+  const T* rows = kB ? cm : bm;     // the rows the dCB panel multiplies
+  float acc[4][4] = {}, acc2[4][4] = {};
+  // dC: k = s from 0 to the tile's last row; dB: k = t from t0 to qc
+  const int k_lo = kB ? t0 : 0, k_hi = kB ? qc : min(t0 + kBT, qc);
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBT) {
+    __syncthreads();
+    {
+      // dC: dCB[t0 + r][k0 ..]; dB: dCB[k0 + r][t0 ..] ([k][row])
+      const int pr = kB ? k0 : t0, pc = kB ? t0 : k0;
+      Panel<float, kBT, kBT> pd;
+      Panel<T, kBT, kBT> pn;
+      pd.load([&](int r) { return pr + r < qc
+                                      ? dcbc + (long long)(pr + r) * Qs + pc
+                                      : nullptr; }, min(kBT, Qs - pc));
+      pn.load([&](int r) { return k0 + r < qc ? rows + (row0 + k0 + r) * N
+                                                        + n0
+                                              : nullptr; }, N - n0);
+      pd.store(&sm.a[0][0], kLK);
+      pn.store(&sm.bb[0][0], kLK);
+    }
+    __syncthreads();
+    tile_prod<T, true, false>(
+        acc, r0, c0, 0, kBT,
+        [&](int r, int k) { return kB ? sm.a[k][r] : sm.a[r][k]; },
+        [&](int k, int n) { return sm.bb[k][n]; });
+  }
+  const T* xs = kB ? x : dy;
+  const float* sts = kB ? rw : st;
+  for (int h = 0; h < H; ++h) {
+    const long long bch = ((long long)b * nc + ci) * H + h;
+    __syncthreads();
+    if (tid < kBT) {
+      const int t = t0 + tid;
+      float v = 0.f;
+      if (t < qc) {
+        const float cum = cumw[bch * Qs + t];
+        v = kB ? expf(cumw[bch * Qs + qc - 1] - cum) * dt[(row0 + t) * H + h]
+               : expf(cum);
+      }
+      sm.sc[tid] = v;
+    }
+    __syncthreads();
+    {
+      Panel<T, kBT, kMaxP> pa;
+      Panel<float, kMaxP, kBT> ps;
+      pa.load([&](int r) { return t0 + r < qc
+                                      ? xs + ((row0 + t0 + r) * H + h) * P
+                                      : nullptr; }, P);
+      ps.load([&](int p) { return p < P ? sts + bch * P * N + (long long)p * N
+                                                + n0
+                                        : nullptr; }, N - n0);
+      pa.store(&sm.a[0][0], kLK, sm.sc);
+      ps.store(&sm.bb[0][0], kLK);
+    }
+    __syncthreads();
+    tile_prod<T, true, true>(
+        acc2, r0, c0, 0, P, [&](int r, int k) { return sm.a[r][k]; },
+        [&](int k, int n) { return sm.bb[k][n]; });
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = t0 + acc_row(r0, e), n = n0 + acc_col(c0, j, e);
+      if (t < qc && n < N)
+        out[(row0 + t) * N + n] = from_f<T>(acc[j][e] + acc2[j][e]);
+    }
+  }
+}
+
+// grid (4 x row tiles, nc, B): block x = 4 tile + 2 half + which, which 0
+// dC, 1 dB, columns n of the half 64 at a time
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dbc_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+               const T* __restrict__ cm, const float* __restrict__ dt,
+               const T* __restrict__ dy, const float* __restrict__ dcb,
+               const float* __restrict__ cumw, const float* __restrict__ st,
+               const float* __restrict__ rw, T* __restrict__ db,
+               T* __restrict__ dc, int S, int H, int P, int N, int Q, int nc) {
+  __shared__ __align__(16) DbcSmem sm;
+  const int t0 = (blockIdx.x / 4) * kBT, n0 = ((blockIdx.x / 2) % 2) * kBT;
+  const int ci = blockIdx.y, b = blockIdx.z;
+  if (n0 >= N || t0 >= min(Q, S - ci * Q)) return;
+  if (blockIdx.x % 2)
+    dbc_tile<T, true>(sm, x, bm, cm, dt, dy, dcb, cumw, st, rw, db, S, H, P,
+                      N, Q, nc, b, ci, t0, n0);
+  else
+    dbc_tile<T, false>(sm, x, bm, cm, dt, dy, dcb, cumw, st, rw, dc, S, H, P,
+                       N, Q, nc, b, ci, t0, n0);
+}
+
+// da_log[h] = the sum over (b, chunk), in order, of the chunks' parts
+__global__ void ssd_bwd_dalog_kernel(const float* __restrict__ dal,
+                                 float* __restrict__ da, int B, int H,
+                                 int nc) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float acc = 0.f;
+  for (long long i = 0; i < (long long)B * nc; ++i) acc += dal[i * H + h];
+  da[h] = acc;
+}
+
+struct BwdWork {
+  float *st, *rw, *cb, *cum, *hl, *dcbh, *dcb, *dal;
+};
+
+BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
+  const long long nc = (S + Q - 1) / Q, Qs = q_stride(Q);
+  const long long state = (long long)B * nc * H * P * N;
+  BwdWork w;
+  w.st = static_cast<float*>(work);
+  w.rw = w.st + state;
+  w.cb = w.rw + state;
+  w.cum = w.cb + B * nc * Qs * Qs;
+  w.hl = w.cum + B * nc * H * Qs;
+  w.dcbh = w.hl + (long long)B * H * P * N;
+  w.dcb = w.dcbh + B * nc * H * Qs * Qs;
+  w.dal = w.dcb + B * nc * Qs * Qs;
+  return w;
+}
+
+long long bwd_workspace_floats(int B, int S, int H, int P, int N, int Q) {
+  const long long nc = (S + Q - 1) / Q, Qs = q_stride(Q);
+  return 2 * (long long)B * nc * H * P * N + 2 * B * nc * Qs * Qs +
+         B * nc * H * Qs + (long long)B * H * P * N + B * nc * H * Qs * Qs +
+         B * nc * H;
+}
+
+// The backward, seven launches, every sum in a fixed order (no atomics),
+// each kernel's name beginning ssd_bwd_:
+// 1. ssd_bwd_chunk_kernel, the forward's chunk kernel with H more blocks:
+//    cum, C B^T, each chunk's state from zero and r_c = sum_t exp(cum_t)
+//    dy_t^T C_t;
+// 2. ssd_bwd_state_kernel, the forward's carry: each chunk's h_in
+//    (recomputed, not saved: the forward's interface stays as it is);
+// 3. ssd_bwd_carry_kernel: each chunk's g from dh_last, and dh0;
+// 4. ssd_bwd_main_kernel, a block per (b, chunk, head): dx, ddt, dCB_h
+//    and the chunk's part of da_log;
+// 5. ssd_bwd_dcb_kernel: dCB = sum over the heads of dCB_h, so that the
+//    Q x Q score gradient meets B and C once, not once a head;
+// 6. ssd_bwd_dbc_kernel: dB and dC;
+// 7. ssd_bwd_dalog_kernel: da_log.
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* bm, const void* cm,
+                       const float* dt, const float* a_log, const float* h0,
+                       const void* dy, const float* dh_last, void* work,
+                       void* dx, void* db, void* dc, float* ddt, float* da,
+                       float* dh0, int B, int S, int H, int P, int N, int Q,
+                       cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(bm);
+  const T* ct = static_cast<const T*>(cm);
+  const T* dyt = static_cast<const T*>(dy);
+  const int nc = (S + Q - 1) / Q;
+  const int nt = (Q + kTile - 1) / kTile;
+  const BwdWork w = carve_bwd(work, B, S, H, P, N, Q);
+  ssd_bwd_chunk_kernel<T><<<dim3(2 * H + nt * (nt + 1) / 2, nc, B),
+                            kThreads, 0, stream>>>(
+      xt, bt, ct, dt, a_log, w.cb, w.cum, w.st, dyt, w.rw, S, H, P, N, Q, nc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long quads = (long long)B * H * P * N / 4;
+  const unsigned carry_blocks = (unsigned)((quads + kThreads - 1) / kThreads);
+  ssd_bwd_state_kernel<<<carry_blocks, kThreads, 0, stream>>>(
+      w.cum, h0, w.st, w.hl, B, S, H, P, N, Q, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_carry_kernel<<<carry_blocks, kThreads, 0, stream>>>(
+      w.cum, dh_last, w.rw, dh0, B, S, H, P, N, Q, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int smem = (int)sizeof(BwdSmem);
+  err = cudaFuncSetAttribute(ssd_bwd_main_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_main_kernel<T><<<dim3(H, nc, B), kThreads, smem, stream>>>(
+      xt, bt, ct, dt, a_log, dyt, w.cb, w.cum, w.st, w.rw, w.dcbh, w.dal,
+      static_cast<T*>(dx), ddt, S, H, P, N, Q, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long qq = (long long)B * nc * q_stride(Q) * q_stride(Q);
+  ssd_bwd_dcb_kernel<<<(unsigned)((qq + kThreads - 1) / kThreads), kThreads,
+                       0, stream>>>(w.dcbh, w.dcb, B, S, H, Q, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dbc_kernel<T><<<dim3(4 * ((Q + kBT - 1) / kBT), nc, B), kThreads, 0,
+                      stream>>>(xt, bt, ct, dt, dyt, w.dcb, w.cum, w.st, w.rw,
+                                static_cast<T*>(db), static_cast<T*>(dc), S,
+                                H, P, N, Q, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ssd_bwd_dalog_kernel<<<(H + 127) / 128, 128, 0, stream>>>(w.dal, da, B, H,
+                                                        nc);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -1050,6 +1741,55 @@ int ssd_scan_launch(const void* x, const void* bm, const void* cm,
                                    S, H, P, N, Q, s)
            : launch<float>(x, bm, cm, dtf, alf, h0f, work, y, hf, B, S, H, P,
                            N, Q, s);
+  return (int)err;
+}
+
+// Bytes of the backward's workspace (float32): the forward's chunk states
+// and the state gradients B x nc x H x P x N each, C B^T and dCB
+// B x nc x Qs x Qs each, cum B x nc x H x Qs, a final state B x H x P x N,
+// the heads' dCB_h B x nc x H x Qs x Qs and the chunks' parts of da_log
+// B x nc x H.
+long long ssd_scan_bwd_workspace_bytes(int B, int S, int H, int P, int N,
+                                       int Q) {
+  return 4 * bwd_workspace_floats(B, S, H, P, N, Q);
+}
+
+// The gradient of the scan (`ssd_scan_bwd_ref`): dy in x's type (B, S, H,
+// P), dh_last (B, H, P, N) float32 or null (zero), h0 as in the forward;
+// dx (x's type), db, dc (B, S, N, x's type), ddt (B, S, H) float32, da
+// (H) float32, dh0 (B, H, P, N) float32 or null. Returns 0 or the
+// cudaError_t of the first launch that failed. The caller checks shapes
+// and types: contiguous tensors, P and N multiples of 8 (<= 64, <= 128),
+// 1 <= Q <= 256, S >= 1, every pointer on a 16-byte boundary, work holding
+// ssd_scan_bwd_workspace_bytes(B, S, H, P, N, Q) bytes.
+int ssd_scan_bwd_launch(const void* x, const void* bm, const void* cm,
+                        const void* dt, const void* a_log, const void* h0,
+                        const void* dy, const void* dh_last, void* work,
+                        void* dx, void* db, void* dc, void* ddt, void* da,
+                        void* dh0, int B, int S, int H, int P, int N, int Q,
+                        int bf16, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+      Q < 1 || Q > kMaxQ || H > 65535 || B > 65535 ||
+      (S + Q - 1) / Q > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (P % 8 != 0 || N % 8 != 0 || !aligned16(x) || !aligned16(bm) ||
+      !aligned16(cm) || !aligned16(h0) || !aligned16(dy) ||
+      !aligned16(dh_last) || !aligned16(work) || !aligned16(dh0))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* alf = static_cast<const float*>(a_log);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* dhf = static_cast<const float*>(dh_last);
+  float* ddtf = static_cast<float*>(ddt);
+  float* daf = static_cast<float*>(da);
+  float* dh0f = static_cast<float*>(dh0);
+  const cudaError_t err =
+      bf16 ? launch_bwd<__nv_bfloat16>(x, bm, cm, dtf, alf, h0f, dy, dhf,
+                                       work, dx, db, dc, ddtf, daf, dh0f, B,
+                                       S, H, P, N, Q, s)
+           : launch_bwd<float>(x, bm, cm, dtf, alf, h0f, dy, dhf, work, dx,
+                               db, dc, ddtf, daf, dh0f, B, S, H, P, N, Q, s);
   return (int)err;
 }
 

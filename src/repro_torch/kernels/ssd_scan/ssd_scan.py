@@ -13,6 +13,18 @@ cores, summed in the order of the plain version's float32 products. At S = 1 (a 
 the state a step, with no workspace. Each launch adds one to its count:
 "scan" three a call, "step" one a decode step.
 
+The backward (`ssd_scan_bwd_kernel`, the same file) computes the
+gradient of that function, which the JAX package takes by XLA's autodiff:
+it recomputes the chunk states and carry (the forward's first two
+launches, with each chunk's sum_t exp(cum_t) dy_t^T C_t beside them),
+carries the state's gradient from the last chunk to the first, forms dx,
+ddt and each head's share of the Q x Q score gradient a block per (b,
+chunk, head), sums that over the heads before it meets B and C, and adds
+da_log over the chunks, in seven launches with every sum in a fixed order
+(no atomics), so two calls give the same bits. A call adds one to "bwd".
+`SSDScan` is the torch.autograd.Function over the forward and the
+backward.
+
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
 plain version on any device; "auto" picks "cuda" for CUDA tensors and
 "ref" for CPU tensors. A CUDA tensor under "auto" always goes to the
@@ -28,11 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import build, resolve_impl
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 # Launches: one added for each kernel launch, where it is launched, and
 # nowhere else (chip_smoke.py reads it to show a model ran here).
-LAUNCHES = {"scan": 0, "step": 0}
+LAUNCHES = {"scan": 0, "step": 0, "bwd": 0}
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 
 
@@ -44,35 +56,41 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 6
     lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+    lib.ssd_scan_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.ssd_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                    dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
-                    h0: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan on the card; the arguments and results of
-    `ssd_scan_ref`. x: (B, S, H, P) float32 or bfloat16 with P <= 64; b, c:
-    (B, S, N) in x's dtype with N <= 128; dt: (B, S, H) and a_log: (H,)
-    float32; h0: (B, H, P, N) float32 or None; chunks of min(chunk, S) <=
-    256 steps. All contiguous on one CUDA device."""
+def _check_operands(x, b, c, dt, a_log, chunk, h0, dy=None,
+                    dh_last=None) -> int:
+    """Raise on operands the kernels do not take (`ssd_scan_kernel`'s
+    docstring, and the backward's dy in x's dtype and shape, dh_last
+    float32 in h0's; each may be None). Returns the chunk length Q."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"b and c must be {x.dtype} like x, got {b.dtype} "
                         f"and {c.dtype}")
-    if dt.dtype != torch.float32 or a_log.dtype != torch.float32 or (
-            h0 is not None and h0.dtype != torch.float32):
-        raise TypeError("dt, a_log and h0 must be float32")
+    if dy is not None and dy.dtype != x.dtype:
+        raise TypeError(f"dy must be {x.dtype} like x, got {dy.dtype}")
+    if dt.dtype != torch.float32 or a_log.dtype != torch.float32 or any(
+            t is not None and t.dtype != torch.float32
+            for t in (h0, dh_last)):
+        raise TypeError("dt, a_log, h0 and dh_last must be float32")
     if x.ndim != 4:
         raise ValueError(f"x must be (B, S, H, P), got {tuple(x.shape)}")
     B, S, H, P = x.shape
     N = b.shape[-1]
     if (b.shape != (B, S, N) or c.shape != (B, S, N)
             or dt.shape != (B, S, H) or a_log.shape != (H,)
-            or (h0 is not None and h0.shape != (B, H, P, N))):
+            or (h0 is not None and h0.shape != (B, H, P, N))
+            or (dy is not None and dy.shape != x.shape)
+            or (dh_last is not None and dh_last.shape != (B, H, P, N))):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, b "
                          f"{tuple(b.shape)}, c {tuple(c.shape)}, dt "
                          f"{tuple(dt.shape)}, a_log {tuple(a_log.shape)}"
@@ -84,15 +102,31 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"head dim {P}, state {N} and chunk {Q} must lie "
                          f"in [1, {MAX_HEAD_DIM}], [1, {MAX_STATE}] and "
                          f"[1, {MAX_CHUNK}]")
-    tensors = dict(x=x, b=b, c=c, dt=dt, a_log=a_log)
-    if h0 is not None:
-        tensors["h0"] = h0
+    tensors = dict(x=x, b=b, c=c, dt=dt, a_log=a_log, h0=h0, dy=dy,
+                   dh_last=dh_last)
     for name, t in tensors.items():
+        if t is None:
+            continue
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, "
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return Q
+
+
+def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
+                    h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan on the card; the arguments and results of
+    `ssd_scan_ref`. x: (B, S, H, P) float32 or bfloat16 with P <= 64; b, c:
+    (B, S, N) in x's dtype with N <= 128; dt: (B, S, H) and a_log: (H,)
+    float32; h0: (B, H, P, N) float32 or None; chunks of min(chunk, S) <=
+    256 steps. All contiguous on one CUDA device."""
+    Q = _check_operands(x, b, c, dt, a_log, chunk, h0)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty_like(x)
     if B == 0 or S == 0 or H == 0:
         return y, (torch.zeros((B, H, P, N), dtype=torch.float32,
@@ -144,3 +178,102 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if resolve_impl(impl, x) == "cuda":
         return ssd_scan_kernel(x, b, c, dt, a_log, chunk, h0)
     return ssd_scan_ref(x, b, c, dt, a_log, chunk, h0)
+
+
+def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
+                        dy: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None,
+                        h0: Optional[torch.Tensor] = None
+                        ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The SSD scan's gradient on the card; the arguments and results of
+    `ssd_scan_bwd_ref`: the forward's operands (as `ssd_scan_kernel` takes
+    them), dy (B, S, H, P) in x's dtype and dh_last (B, H, P, N) float32
+    or None, all contiguous. Returns (dx, db, dc, ddt, da_log, dh0 or
+    None). Seven launches, one count in "bwd"."""
+    Q = _check_operands(x, b, c, dt, a_log, chunk, h0, dy=dy,
+                        dh_last=dh_last)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if B == 0 or S == 0 or H == 0:
+        return (torch.zeros_like(x), torch.zeros_like(b),
+                torch.zeros_like(c), torch.zeros_like(dt),
+                torch.zeros_like(a_log),
+                None if h0 is None else torch.zeros_like(h0))
+    if P % 8 or N % 8:
+        # the kernels read 16-byte vectors of rows of P and N values: zero
+        # columns add nothing and take no gradient, so pad and cut back
+        dp, dn = -P % 8, -N % 8
+
+        def pad(t, *widths):
+            return None if t is None else F.pad(t, widths)
+        dx, db, dc, ddt, da, dh0 = ssd_scan_bwd_kernel(
+            pad(x, 0, dp), pad(b, 0, dn), pad(c, 0, dn), dt, a_log, chunk,
+            pad(dy, 0, dp), pad(dh_last, 0, dn, 0, dp), pad(h0, 0, dn, 0, dp))
+        return (dx[..., :P].contiguous(), db[..., :N].contiguous(),
+                dc[..., :N].contiguous(), ddt, da,
+                None if dh0 is None else dh0[:, :, :P, :N].contiguous())
+    x, b, c, dy, h0, dh_last = (
+        t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+        for t in (x, b, c, dy, h0, dh_last))
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    ddt, da = torch.empty_like(dt), torch.empty_like(a_log)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    lib = _lib()
+    work = torch.empty(lib.ssd_scan_bwd_workspace_bytes(B, S, H, P, N, Q),
+                       dtype=torch.uint8, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            *(ptr(t) for t in (x, b, c, dt, a_log, h0, dy, dh_last, work, dx,
+                               db, dc, ddt, da, dh0)),
+            B, S, H, P, N, Q, int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.ssd_scan_error_string(err).decode()
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES["bwd"] += 1
+    return dx, db, dc, ddt, da, dh0
+
+
+def ssd_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
+                 dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None,
+                 h0: Optional[torch.Tensor] = None, impl: str = "auto"
+                 ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The SSD scan's gradient (`ssd_scan_bwd_ref` for the arguments and
+    results), through the kernel ("cuda") or the plain version ("ref")."""
+    fn = (ssd_scan_bwd_kernel if resolve_impl(impl, x) == "cuda"
+          else ssd_scan_bwd_ref)
+    return fn(x, b, c, dt, a_log, chunk, dy, dh_last, h0)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with its gradient: apply(x, b, c, dt, a_log, h0, chunk,
+    impl) -> (y, h_last), impl already resolved to "cuda" or "ref". Saves
+    the operands only (the backward recomputes the chunk states); the
+    backward is the kernel under "cuda" and the plain backward under
+    "ref", takes dy and d h_last (None where unused), and returns a
+    gradient for every tensor input (dh0 None without h0)."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a_log, h0, chunk, impl):
+        y, h = ssd_scan(x, b, c, dt, a_log, chunk, h0, impl=impl)
+        ctx.save_for_backward(x, b, c, dt, a_log, h0)
+        ctx.chunk, ctx.impl = chunk, impl
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, b, c, dt, a_log, h0 = ctx.saved_tensors
+        dy = (torch.zeros_like(x) if dy is None
+              else dy.to(x.dtype).contiguous())
+        if dh_last is not None:
+            dh_last = dh_last.float().contiguous()
+        grads = ssd_scan_bwd(x, b, c, dt, a_log, ctx.chunk, dy, dh_last, h0,
+                             impl=ctx.impl)
+        return (*grads, None, None)

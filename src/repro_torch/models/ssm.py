@@ -5,9 +5,11 @@ Within a chunk of Q steps the token mixing is the quadratic masked form;
 across chunks an (H, P, N) state is carried. B and C are shared by the
 heads (n_groups = 1). The scan runs through `kernels.ssd_scan`: the
 hand-written CUDA kernel for CUDA tensors, its plain version (the JAX
-package's `_ssd_scan`, line for line) for CPU tensors. The dtype order is
-the JAX package's: projections and the causal conv in the activation
-dtype, dt, the scan and the state in float32.
+package's `_ssd_scan`, line for line) for CPU tensors; where an input
+needs a gradient, through `SSDScan`, whose backward is the scan's backward
+kernel on the card and its closed-form plain backward elsewhere. The
+dtype order is the JAX package's: projections and the causal conv in the
+activation dtype, dt, the scan and the state in float32.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Mapping, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan import ssd_scan
+from ..kernels import resolve_impl
+from ..kernels.ssd_scan import SSDScan, ssd_scan
 from .blocks import rmsnorm
 from .config import ModelConfig
 from .param import ParamDef
@@ -74,8 +77,13 @@ def ssd_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     dt_h = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
 
     xh = xi.reshape(B, S, H, P)
-    y, _ = ssd_scan(xh.contiguous(), b.contiguous(), c.contiguous(), dt_h,
-                    p["a_log"], cfg.ssm_chunk, impl=impl)
+    args = (xh.contiguous(), b.contiguous(), c.contiguous(), dt_h,
+            p["a_log"])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, _ = SSDScan.apply(*args, None, cfg.ssm_chunk,
+                             resolve_impl(impl, xh))
+    else:
+        y, _ = ssd_scan(*args, cfg.ssm_chunk, impl=impl)
     y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B, S, H * P)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)

@@ -16,8 +16,7 @@ the layers are an `nn.ModuleList` walked by a Python loop, and the JAX
 layout (`stack_plan`) is kept only to carry its parameters across
 (`interop.lm_params_from_arrays`). Built with `trainable=True` the
 parameters require gradients and, where the config has `remat`, each
-layer is recomputed in the backward pass (`torch.utils.checkpoint`); the
-"ssd" kind has no backward kernel yet and refuses to train.
+layer is recomputed in the backward pass (`torch.utils.checkpoint`).
 """
 from __future__ import annotations
 
@@ -41,22 +40,13 @@ from .ssm import ssd_apply, ssd_defs
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 10)"
 KINDS = ("attn", "local_attn", "rglru", "ssd")
-# the layer kinds whose scan kernels have no backward yet
-NO_BACKWARD = ("ssd",)
 
 
-def check_supported(cfg: ModelConfig, trainable: bool = False) -> None:
-    """Raise NotImplementedError for what the port does not run yet: a
-    layer kind it lacks, or training a kind without a backward kernel."""
-    kinds = set(cfg.layer_kinds())
-    other = sorted(kinds - set(KINDS))
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a layer kind the port lacks."""
+    other = sorted(set(cfg.layer_kinds()) - set(KINDS))
     if other:
         raise NotImplementedError(f"layer kinds {other} {_NOT_PORTED}")
-    untrained = sorted(kinds & set(NO_BACKWARD)) if trainable else []
-    if untrained:
-        raise NotImplementedError(
-            f"training layer kinds {untrained} (their scan kernels have no "
-            f"backward) {_NOT_PORTED}")
 
 
 def encoder_config(cfg: ModelConfig) -> ModelConfig:
@@ -269,15 +259,14 @@ class Transformer(nn.Module):
     means the CUDA card and raises without one. Parameters require
     gradients only with `trainable=True` (then a given tree is copied,
     since training updates the parameters in place); inference leaves them
-    frozen. Training a model with "ssd" layers raises
-    NotImplementedError: their scan kernel has no backward yet.
+    frozen.
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[dict] = None, *,
                  device: DeviceLike = None, seed: int = 0,
                  trainable: bool = False):
         super().__init__()
-        check_supported(cfg, trainable)
+        check_supported(cfg)
         dev = resolve_device(device)
         defs = model_defs(cfg)
         if params is None:

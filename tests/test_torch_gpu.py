@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_attention.bwd_cases import (
     BWD_CASES, BWD_LIMIT, DTYPES, F32_BWD_CASES, LSE_LIMIT, WGMMA_BWD_CASES,
     bwd_errors)
 from repro_torch.kernels.rglru_scan import bwd_cases as lru_bwd
+from repro_torch.kernels.ssd_scan import bwd_cases as ssd_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -732,9 +733,8 @@ def test_ssd_scan_matches_plain(cuda, B, S, H, P, N, Q, dtype, h0):
     before = dict(LAUNCHES)
     y, h = ssd_scan_kernel(*args[:5], Q, h0=args[5])
     torch.cuda.synchronize()
-    assert LAUNCHES == ({"scan": before["scan"], "step": before["step"] + 1}
-                        if S == 1 else
-                        {"scan": before["scan"] + 3, "step": before["step"]})
+    assert LAUNCHES == (dict(before, step=before["step"] + 1) if S == 1
+                        else dict(before, scan=before["scan"] + 3))
     yr, hr = ssd_scan_ref(*args[:5], Q, h0=args[5])
     assert y.dtype == dtype and h.dtype == F32
     tol = 1e-4 if dtype == F32 else 1e-2
@@ -921,6 +921,116 @@ def test_rglru_scan_bwd_refuses_bad_operands(cuda):
     with pytest.raises(ValueError):
         rglru_scan_bwd(*(t.cpu() for t in (u, ga, gi, b_a, b_i, lam, h,
                                            dh)), impl="cuda")
+
+
+@pytest.mark.parametrize("B,S,H,P,N,Q,dtype,h0,dh_last,steep",
+                         ssd_bwd.BWD_CASES)
+def test_ssd_scan_bwd_matches_plain(cuda, B, S, H, P, N, Q, dtype, h0,
+                                    dh_last, steep):
+    """The SSD backward kernel against the plain backward on the same
+    inputs: each gradient within its limit (`bwd_cases.bwd_limits`), two
+    calls bit for bit equal (no atomics add a value), one count in "bwd" a
+    call."""
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_bwd_kernel,
+                                              ssd_scan_bwd_ref)
+    args, dy, dhl = ssd_bwd.bwd_inputs(B, S, H, P, N, dtype, h0, dh_last,
+                                       steep, cuda, S + H)
+    before = dict(LAUNCHES)
+    got = ssd_scan_bwd_kernel(*args[:5], Q, dy, dhl, args[5])
+    again = ssd_scan_bwd_kernel(*args[:5], Q, dy, dhl, args[5])
+    torch.cuda.synchronize()
+    assert LAUNCHES == dict(before, bwd=before["bwd"] + 2)
+    ref = ssd_scan_bwd_ref(*args[:5], Q, dy, dhl, args[5])
+    for name, a, b, c, err, limit in zip(
+            ssd_bwd.GRADS, got, ref, again, ssd_bwd.bwd_errors(got, ref),
+            ssd_bwd.bwd_limits(dtype)):
+        if b is None:
+            assert a is None and c is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, c), f"{name} differs between two runs"
+        assert err <= limit, f"{name}: {err:.3g}"
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssd_scan_function_matches_autograd(cuda, dtype):
+    """SSDScan on the card (the forward and backward kernels) against
+    torch.autograd through the plain forward, with h0 and a gradient on
+    the final state: every input's gradient within the cases' limits.
+    Chunks of 32 keep cum above -88 inside a chunk: past that, autograd
+    through the plain forward gives ddt NaN (exp of the masked upper
+    triangle overflows; 0 x inf through the where), which the closed-form
+    backward never forms."""
+    from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_ref
+    args, dy, dhl = ssd_bwd.bwd_inputs(2, 300, 8, 64, 128, dtype, True,
+                                       True, False, cuda, 5)
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h = SSDScan.apply(*leaves, 32, "cuda")
+    got = torch.autograd.grad((y.float() * dy.float()).sum()
+                              + (h * dhl).sum(), leaves)
+    leaves = [t.clone().requires_grad_() for t in args]
+    yr, hr = ssd_scan_ref(*leaves[:5], 32, h0=leaves[5])
+    ref = torch.autograd.grad((yr.float() * dy.float()).sum()
+                              + (hr * dhl).sum(), leaves)
+    for name, err, limit in zip(ssd_bwd.GRADS, ssd_bwd.bwd_errors(got, ref),
+                                ssd_bwd.bwd_limits(dtype)):
+        assert err <= limit, f"{name}: {err:.3g}"
+
+
+def test_ssd_scan_bwd_refuses_bad_operands(cuda):
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd,
+                                              ssd_scan_bwd_kernel)
+    args, dy, dhl = ssd_bwd.bwd_inputs(1, 8, 2, 16, 16, "f32", True, True,
+                                       False, cuda, 0)
+    x, b, c, dt, a_log, h0 = args
+    with pytest.raises(TypeError):                      # dy not x's dtype
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4, dy.bfloat16())
+    with pytest.raises(TypeError):                      # dh_last float32
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4, dy, dhl.double())
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4, dy[:, :4])
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4, dy, dhl[:, :1])
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4, dy.cpu())
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_kernel(x, b, c, dt, a_log, 4,
+                            dy.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError):
+        ssd_scan_bwd(*(t.cpu() for t in (x, b, c, dt, a_log)), 4, dy.cpu(),
+                     impl="cuda")
+
+
+def test_mamba2_smoke_train_step_kernels_match_plain(cuda):
+    """One step of the smoke Mamba2's loss and gradients through the SSD
+    scan's forward and backward kernels against impl="ref" on the same
+    weights (float32): the loss within 1e-5 relative, every gradient leaf
+    within 1e-4 of its largest element; one backward call per SSD
+    layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticTokens, make_batch
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.models import Transformer
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import lm_loss
+    cfg = get_smoke_config("mamba2-2.7b")
+    model = Transformer(cfg, device=cuda, seed=0, trainable=True)
+    pipe = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=100,
+                                      global_batch=2))
+    batch = make_batch(pipe, cfg, 0, device=cuda)
+    leaves = tree_leaves(model.param_tree())
+    out = {}
+    for impl in ("cuda", "ref"):
+        before = SSD["bwd"]
+        loss, _ = lm_loss(model, batch, impl=impl)
+        out[impl] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        assert SSD["bwd"] - before == (impl == "cuda") * cfg.layer_kinds(
+            ).count("ssd")
+    (lc, gc), (lr, gr) = out["cuda"], out["ref"]
+    assert float(lc) == pytest.approx(float(lr), rel=1e-5)
+    for a, b in zip(gc, gr):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
 
 
 def test_recurrent_smoke_train_step_kernels_match_plain(cuda):

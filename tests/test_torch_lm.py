@@ -236,26 +236,15 @@ def test_unported_archs_raise(arch):
     assert (model.encoder is not None) == (arch == "whisper-base")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b"])
-def test_training_scan_kinds_raise(arch):
-    """The "ssd" kind has no backward kernel yet: building its model
-    trainable raises, naming the ROADMAP item; inference builds as before.
-    (RecurrentGemma's "rglru" kind raised here too until its scan had a
-    backward: test_recurrent_model_builds_trainable.)"""
+@pytest.mark.parametrize("arch,kind", [("recurrentgemma-2b", "rglru"),
+                                       ("mamba2-2.7b", "ssd")])
+def test_recurrent_model_builds_trainable(arch, kind):
+    """Both scan kinds train: RecurrentGemma's smoke model ("rglru") and
+    Mamba2's ("ssd", which raised here until its scan had a backward)
+    build with trainable=True, every parameter requiring a gradient, and
+    their inference models stay frozen."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 "
-                                                  "item 10"):
-        Transformer(cfg, device=CPU, trainable=True)
-    assert not any(p.requires_grad
-                   for p in Transformer(cfg, device=CPU).parameters())
-
-
-def test_recurrent_model_builds_trainable():
-    """The "rglru" kind trains: RecurrentGemma's smoke model builds with
-    trainable=True, every parameter requiring a gradient, and its
-    inference model stays frozen."""
-    cfg = get_smoke_config("recurrentgemma-2b")
-    assert "rglru" in cfg.layer_kinds()
+    assert kind in cfg.layer_kinds()
     model = Transformer(cfg, device=CPU, trainable=True)
     params = list(model.parameters())
     assert params and all(p.requires_grad for p in params)

@@ -52,7 +52,8 @@ from repro_torch.training.train_step import (lm_loss, make_eval_step,
 
 CPU = torch.device("cpu")
 ARCHS = ["smollm-360m", "whisper-base", "qwen2-moe-a2.7b",
-         "deepseek-v3-671b", "paligemma-3b", "recurrentgemma-2b"]
+         "deepseek-v3-671b", "paligemma-3b", "recurrentgemma-2b",
+         "mamba2-2.7b"]
 GRAD_TOL = 2e-5
 
 
@@ -85,8 +86,8 @@ def test_loss_and_grads_match(arch):
     jax.value_and_grad of the JAX package's lm_loss: a dense decoder,
     Whisper (encoder, cross attention), Qwen2-MoE (the aux loss),
     DeepSeek-V3 (MLA, Dk != Dv), PaliGemma (the prefix, dropped from
-    the labels) and RecurrentGemma (the RG-LRU's backward, the local
-    window's)."""
+    the labels), RecurrentGemma (the RG-LRU's backward, the local
+    window's) and Mamba2 (the SSD scan's backward)."""
     jcfg, cfg, jp = _setup(arch)
     jb, batch = _batch(jcfg)
     (jl, jparts), jg = jax.jit(jax.value_and_grad(
@@ -250,7 +251,8 @@ def _check_params(model, cfg, jparams, g0, lr_sum):
 @pytest.mark.parametrize("arch,accum", [("smollm-360m", 1),
                                         ("smollm-360m", 2),
                                         ("whisper-base", 2),
-                                        ("recurrentgemma-2b", 1)])
+                                        ("recurrentgemma-2b", 1),
+                                        ("mamba2-2.7b", 1)])
 def test_train_steps_match(arch, accum):
     """Three make_train_step steps (accum_steps micro-batches) against the
     JAX package's from the same weights and optimizer state: the loss, ce,
