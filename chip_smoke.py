@@ -260,6 +260,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -5439,11 +5440,17 @@ SSD_TRAIN_CHECK = dict(n_layers=2, batch=1, seq=4096)
 # the SSD backward timed at Mamba2-2.7B's training shape, bf16:
 # (B, S, H, P, N, Q)
 SSD_BWD_TIMED = (1, 4096, 80, 64, 128, 256)
-# the backward's products, in ssd_products' units: the chunk states and
-# C B^T again, r = sum_t exp(cum_t) dy_t^T C_t, C h_in^T and B g^T (each
-# q N H P), dW = dy x^T and W^T dy (each intra), dB and dC's intra-chunk
-# terms (each cb) and their terms over the heads (each q N H P)
-SSD_BWD_PRODUCTS = dict(cb=3, intra=2, inter=3, state=3)
+# the plain backward's time, host- and allocator-bound (its many small
+# operations and their temporaries), is the median of this many reads
+SSD_BWD_PLAIN_READS = 7
+# the products the backward needs, in ssd_products' units: C B^T again
+# and dB and dC's intra-chunk terms dCB B and dCB^T C (cb each); dW =
+# dy x^T and W^T dy (intra each); z = dy h_in^T, whose sums with C and
+# over the heads give both y's inter-chunk term's dcum and dC's term
+# (q N H more), and u = g B (inter each); the chunk states again, r =
+# sum_t exp(cum_t) dy_t^T C_t and x^T g for dB's term over the heads
+# (state each)
+SSD_BWD_PRODUCTS = dict(cb=3, intra=2, inter=2, state=3)
 
 
 def ssd_bwd_work(B, S, H, P, N, Q):
@@ -5537,11 +5544,14 @@ def ssd_bwd_timing(cuda, seed, smi):
     del got, ref
     t = {"kernel": cuda_ms(lambda: ssd_scan_bwd_kernel(*args[:5], Q, dy),
                            10),
-         "plain": cuda_ms(lambda: ssd_scan_bwd_ref(*args[:5], Q, dy), 2)}
+         "plain": statistics.median(
+             cuda_ms(lambda: ssd_scan_bwd_ref(*args[:5], Q, dy), 2)
+             for _ in range(SSD_BWD_PLAIN_READS))}
     b_ms, b_by = ssd_bwd_bound(args[0], args[1], args[3], Q)
     work = ssd_bwd_work(B, S, H, P, N, Q)
     print(f"  ssd bwd {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: kernel "
-          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+          f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
+          f"{SSD_BWD_PLAIN_READS} reads), bound "
           f"{b_ms:.4f} ms ({b_by}: {work / 1e9:.2f} GFLOP at TF32's peak); "
           f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
           f"{work / t['kernel'] / 1e9:.1f} TFLOP/s; max |kernel - plain| "

@@ -419,11 +419,12 @@ __device__ __forceinline__ void cb_tile(CbSmem& sm, const T* __restrict__ bm,
 
 // A block of grid (H + tiles [+ H], nc, B): blocks below H form the chunk
 // state of head blockIdx.x, the next `tiles` a tile of C B^T; in the
-// backward's launch (dy non-null) the last H form the chunk's r =
+// backward's launch (kBwd) the last H form the chunk's r =
 // sum_t exp(cum_t) dy_t^T C_t of head blockIdx.x - H - tiles into rw, the
 // chunk state's product with dy for x, C for B and exp(cum_t) for the
-// tail.
-template <typename T>
+// tail. kBwd is a template argument, so the forward's code has no test of
+// it.
+template <typename T, bool kBwd>
 __device__ __forceinline__ void chunk_block(
     ChunkSmem& smu, const T* __restrict__ x, const T* __restrict__ bm,
     const T* __restrict__ cm, const float* __restrict__ dt,
@@ -436,13 +437,13 @@ __device__ __forceinline__ void chunk_block(
   const int Qs = q_stride(Q);
   const long long row0 = (long long)b * S + (long long)ci * Q;
   const int nt = (Q + kTile - 1) / kTile, tiles = nt * (nt + 1) / 2;
-  if (blockIdx.x >= H && blockIdx.x < H + tiles) {
+  const bool rblk = kBwd && blockIdx.x >= H + tiles;
+  if (blockIdx.x >= H && !rblk) {
     cb_tile<T>(smu.cb, bm, cm, cb + ((long long)b * nc + ci) * Qs * Qs, row0,
                blockIdx.x - H, qc, N, Q);
     return;
   }
   StateSmem& sm = smu.st;
-  const bool rblk = blockIdx.x >= H + tiles;
   const int h = rblk ? blockIdx.x - H - tiles : blockIdx.x;
   const T* __restrict__ xs = rblk ? dy : x;   // rows [s][p]
   const T* __restrict__ ns = rblk ? cm : bm;  // rows [s][n]
@@ -541,22 +542,29 @@ __device__ __forceinline__ void chunk_block(
   }
 }
 
+// the chunk kernels' least blocks an SM: with bf16 operands 3 (80
+// registers a thread; unasked, ptxas gives 103 and 2 blocks an SM, 2.5%
+// slower at Mamba2-2.7B's shape on an H100); with float32 ones 1 (128
+// registers, 2 blocks an SM)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kChunkBlocks = kF32<T> ? 1 : 3;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kChunkBlocks<T>)
 ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                  const T* __restrict__ cm, const float* __restrict__ dt,
                  const float* __restrict__ a_log, float* __restrict__ cb,
                  float* __restrict__ cumw, float* __restrict__ st, int S,
                  int H, int P, int N, int Q, int nc) {
   __shared__ __align__(16) ChunkSmem smu;
-  chunk_block<T>(smu, x, bm, cm, dt, a_log, cb, cumw, st, nullptr, nullptr,
-                 S, H, P, N, Q, nc);
+  chunk_block<T, false>(smu, x, bm, cm, dt, a_log, cb, cumw, st, nullptr,
+                        nullptr, S, H, P, N, Q, nc);
 }
 
 // the backward's first launch: the same blocks and H more (see
 // chunk_block), under its own name so that a profile tells it apart
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kChunkBlocks<T>)
 ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ cm, const float* __restrict__ dt,
                      const float* __restrict__ a_log, float* __restrict__ cb,
@@ -564,14 +572,16 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ dy, float* __restrict__ rw, int S,
                      int H, int P, int N, int Q, int nc) {
   __shared__ __align__(16) ChunkSmem smu;
-  chunk_block<T>(smu, x, bm, cm, dt, a_log, cb, cumw, st, dy, rw, S, H, P, N,
-                 Q, nc);
+  chunk_block<T, true>(smu, x, bm, cm, dt, a_log, cb, cumw, st, dy, rw, S, H,
+                       P, N, Q, nc);
 }
 
 // Four elements (b, h, p, n .. n + 3) of the state a thread: walks the
 // chunks in order, 8 at a time (their loads issued together), leaving each
-// chunk's incoming state in its workspace slot.
+// chunk's incoming state in its workspace slot, and the final state in
+// h_out where kOut (the backward's recomputation has no use for it).
 constexpr int kCarryGroup = 8;
+template <bool kOut>
 __device__ __forceinline__ void carry_block(
     const float* __restrict__ cumw, const float* __restrict__ h0,
     float* __restrict__ st, float* __restrict__ h_out, int B, int S, int H,
@@ -610,7 +620,7 @@ __device__ __forceinline__ void carry_block(
                        __fadd_rn(__fmul_rn(hc.w, d), sv[i].w));
     }
   }
-  *reinterpret_cast<float4*>(h_out + e) = hc;
+  if constexpr (kOut) *reinterpret_cast<float4*>(h_out + e) = hc;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -618,16 +628,15 @@ ssd_carry_kernel(const float* __restrict__ cumw,
                  const float* __restrict__ h0, float* __restrict__ st,
                  float* __restrict__ h_out, int B, int S, int H, int P, int N,
                  int Q, int nc) {
-  carry_block(cumw, h0, st, h_out, B, S, H, P, N, Q, nc);
+  carry_block<true>(cumw, h0, st, h_out, B, S, H, P, N, Q, nc);
 }
 
 // the backward's recomputation of the incoming states, under its own name
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_state_kernel(const float* __restrict__ cumw,
                      const float* __restrict__ h0, float* __restrict__ st,
-                     float* __restrict__ h_out, int B, int S, int H, int P,
-                     int N, int Q, int nc) {
-  carry_block(cumw, h0, st, h_out, B, S, H, P, N, Q, nc);
+                     int B, int S, int H, int P, int N, int Q, int nc) {
+  carry_block<false>(cumw, h0, st, nullptr, B, S, H, P, N, Q, nc);
 }
 
 struct InterSmem {
@@ -1601,7 +1610,7 @@ __global__ void ssd_bwd_dalog_kernel(const float* __restrict__ dal,
 }
 
 struct BwdWork {
-  float *st, *rw, *cb, *cum, *hl, *dcbh, *dcb, *dal;
+  float *st, *rw, *cb, *cum, *dcbh, *dcb, *dal;
 };
 
 BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
@@ -1612,8 +1621,7 @@ BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
   w.rw = w.st + state;
   w.cb = w.rw + state;
   w.cum = w.cb + B * nc * Qs * Qs;
-  w.hl = w.cum + B * nc * H * Qs;
-  w.dcbh = w.hl + (long long)B * H * P * N;
+  w.dcbh = w.cum + B * nc * H * Qs;
   w.dcb = w.dcbh + B * nc * H * Qs * Qs;
   w.dal = w.dcb + B * nc * Qs * Qs;
   return w;
@@ -1622,8 +1630,7 @@ BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
 long long bwd_workspace_floats(int B, int S, int H, int P, int N, int Q) {
   const long long nc = (S + Q - 1) / Q, Qs = q_stride(Q);
   return 2 * (long long)B * nc * H * P * N + 2 * B * nc * Qs * Qs +
-         B * nc * H * Qs + (long long)B * H * P * N + B * nc * H * Qs * Qs +
-         B * nc * H;
+         B * nc * H * Qs + B * nc * H * Qs * Qs + B * nc * H;
 }
 
 // The backward, seven launches, every sum in a fixed order (no atomics),
@@ -1662,7 +1669,7 @@ cudaError_t launch_bwd(const void* x, const void* bm, const void* cm,
   const long long quads = (long long)B * H * P * N / 4;
   const unsigned carry_blocks = (unsigned)((quads + kThreads - 1) / kThreads);
   ssd_bwd_state_kernel<<<carry_blocks, kThreads, 0, stream>>>(
-      w.cum, h0, w.st, w.hl, B, S, H, P, N, Q, nc);
+      w.cum, h0, w.st, B, S, H, P, N, Q, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ssd_bwd_carry_kernel<<<carry_blocks, kThreads, 0, stream>>>(

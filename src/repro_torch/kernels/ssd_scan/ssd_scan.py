@@ -115,6 +115,38 @@ def _check_operands(x, b, c, dt, a_log, chunk, h0, dy=None,
     return Q
 
 
+# where each of a tensor's last axes lies, for `_tiled` and `_untiled`: P,
+# N, or (P, N) as a state's last two
+_PAD = {"P": lambda dp, dn: (0, dp), "N": lambda dp, dn: (0, dn),
+        "PN": lambda dp, dn: (0, dn, 0, dp)}
+_CUT = {"P": lambda P, N: (..., slice(P)), "N": lambda P, N: (..., slice(N)),
+        "PN": lambda P, N: (..., slice(P), slice(N))}
+
+
+def _tiled(P, N, axes, *tensors):
+    """The operands as the chunk kernels read them: rows of P and N values
+    as 16-byte vectors, from 16-byte boundaries. Each tensor (or None) is
+    padded with zero columns to multiples of 8 on the axes that `axes`
+    names for it ("P", "N" or "PN"), where P or N is not one, and else
+    cloned where it does not start on a 16-byte boundary. Zero columns add
+    nothing and take no gradient; `_untiled` cuts the results back."""
+    dp, dn = -P % 8, -N % 8
+    return [t if t is None
+            else F.pad(t, _PAD[ax](dp, dn)) if dp or dn
+            else t if t.data_ptr() % 16 == 0 else t.clone()
+            for ax, t in zip(axes, tensors)]
+
+
+def _untiled(P, N, axes, *tensors):
+    """The results of `_tiled` operands cut back to P and N on the axes
+    that `axes` names for each (None for none)."""
+    if not (P % 8 or N % 8):
+        return list(tensors)
+    return [t if t is None or ax is None
+            else t[_CUT[ax](P, N)].contiguous()
+            for ax, t in zip(axes, tensors)]
+
+
 def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
                     h0: Optional[torch.Tensor] = None
@@ -127,27 +159,17 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     Q = _check_operands(x, b, c, dt, a_log, chunk, h0)
     B, S, H, P = x.shape
     N = b.shape[-1]
-    y = torch.empty_like(x)
     if B == 0 or S == 0 or H == 0:
-        return y, (torch.zeros((B, H, P, N), dtype=torch.float32,
-                               device=x.device) if h0 is None
-                   else h0.clone())
-    if S > 1 and (P % 8 or N % 8):
-        # the chunk kernels read 16-byte vectors of rows of P and N values:
-        # zero columns add nothing, so pad to multiples of 8 and cut back
-        dp, dn = -P % 8, -N % 8
-        y, h = ssd_scan_kernel(
-            F.pad(x, (0, dp)), F.pad(b, (0, dn)), F.pad(c, (0, dn)), dt,
-            a_log, chunk, None if h0 is None else F.pad(h0, (0, dn, 0, dp)))
-        return y[..., :P].contiguous(), h[:, :, :P, :N].contiguous()
-    if S > 1:                   # and on 16-byte boundaries
-        x, b, c = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (x, b, c))
-        if h0 is not None and h0.data_ptr() % 16:
-            h0 = h0.clone()
-    h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), (
+            torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+            if h0 is None else h0.clone())
+    if S > 1:                   # the decode step reads single values
+        x, b, c, h0 = _tiled(P, N, ("P", "N", "N", "PN"), x, b, c, h0)
+    Pk, Nk = x.shape[-1], b.shape[-1]
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, Pk, Nk), dtype=torch.float32, device=x.device)
     lib = _lib()
-    nbytes = lib.ssd_scan_workspace_bytes(B, S, H, P, N, Q)
+    nbytes = lib.ssd_scan_workspace_bytes(B, S, H, Pk, Nk, Q)
     work = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
             if nbytes else None)
     with torch.cuda.device(x.device):
@@ -156,15 +178,16 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             a_log.data_ptr(), None if h0 is None else h0.data_ptr(),
             None if work is None else work.data_ptr(), y.data_ptr(),
-            h.data_ptr(), B, S, H, P, N, Q, int(x.dtype == torch.bfloat16),
-            stream)
+            h.data_ptr(), B, S, H, Pk, Nk, Q,
+            int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"({lib.ssd_scan_error_string(err).decode()})")
     if S == 1:
         LAUNCHES["step"] += 1               # the decode step
-    else:
-        LAUNCHES["scan"] += 3               # chunk states, carry, y
+        return y, h
+    LAUNCHES["scan"] += 3                   # chunk states, carry, y
+    y, h = _untiled(P, N, ("P", "PN"), y, h)
     return y, h
 
 
@@ -200,27 +223,14 @@ def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                 torch.zeros_like(c), torch.zeros_like(dt),
                 torch.zeros_like(a_log),
                 None if h0 is None else torch.zeros_like(h0))
-    if P % 8 or N % 8:
-        # the kernels read 16-byte vectors of rows of P and N values: zero
-        # columns add nothing and take no gradient, so pad and cut back
-        dp, dn = -P % 8, -N % 8
-
-        def pad(t, *widths):
-            return None if t is None else F.pad(t, widths)
-        dx, db, dc, ddt, da, dh0 = ssd_scan_bwd_kernel(
-            pad(x, 0, dp), pad(b, 0, dn), pad(c, 0, dn), dt, a_log, chunk,
-            pad(dy, 0, dp), pad(dh_last, 0, dn, 0, dp), pad(h0, 0, dn, 0, dp))
-        return (dx[..., :P].contiguous(), db[..., :N].contiguous(),
-                dc[..., :N].contiguous(), ddt, da,
-                None if dh0 is None else dh0[:, :, :P, :N].contiguous())
-    x, b, c, dy, h0, dh_last = (
-        t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-        for t in (x, b, c, dy, h0, dh_last))
+    x, b, c, dy, h0, dh_last = _tiled(
+        P, N, ("P", "N", "N", "P", "PN", "PN"), x, b, c, dy, h0, dh_last)
+    Pk, Nk = x.shape[-1], b.shape[-1]
     dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
     ddt, da = torch.empty_like(dt), torch.empty_like(a_log)
     dh0 = None if h0 is None else torch.empty_like(h0)
     lib = _lib()
-    work = torch.empty(lib.ssd_scan_bwd_workspace_bytes(B, S, H, P, N, Q),
+    work = torch.empty(lib.ssd_scan_bwd_workspace_bytes(B, S, H, Pk, Nk, Q),
                        dtype=torch.uint8, device=x.device)
 
     def ptr(t):
@@ -230,13 +240,14 @@ def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         err = lib.ssd_scan_bwd_launch(
             *(ptr(t) for t in (x, b, c, dt, a_log, h0, dy, dh_last, work, dx,
                                db, dc, ddt, da, dh0)),
-            B, S, H, P, N, Q, int(x.dtype == torch.bfloat16), stream)
+            B, S, H, Pk, Nk, Q, int(x.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.ssd_scan_error_string(err).decode()
         raise RuntimeError(f"ssd_scan backward launch failed: CUDA error "
                            f"{err} ({msg})")
     LAUNCHES["bwd"] += 1
-    return dx, db, dc, ddt, da, dh0
+    return tuple(_untiled(P, N, ("P", "N", "N", None, None, "PN"),
+                          dx, db, dc, ddt, da, dh0))
 
 
 def ssd_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
