@@ -3437,12 +3437,12 @@ def scan_times(cuda, seed, long_lru=()):
     decode step at 4 x 1 float32 from a state ("ssd_step"), rglru_scan at
     RecurrentGemma-2B's W = 2560 over 1 x 4096 bf16 ("rglru"), over
     1 x S for each S of `long_lru` ("rglru_<S>") and its decode step at
-    4 x 1 from a state ("rglru_step"). The decode steps cycle through
-    DECODE_SETS input sets, so that their states come from device memory.
-    Each row: "kernel" and "plain" ms, "err" (max |kernel - plain|),
-    "scale" (max |plain|), "launches" (the counts' rise over one kernel
-    call) and "inputs" (the bound functions' arguments, on the meta
-    device). Only the scans' public functions and the configs are
+    4 x 1 from a state ("rglru_step"). The decode steps
+    cycle through DECODE_SETS input sets, so that their states come from
+    device memory. Each row: "kernel" and "plain" ms, "err" (max |kernel
+    - plain|), "scale" (max |plain|), "launches" (the counts' rise over
+    one kernel call) and "inputs" (the bound functions' arguments, on the
+    meta device). Only the scans' public functions and the configs are
     imported, so tools/time_scans.py times another checkout of the port
     by the same method."""
     import torch
@@ -5443,36 +5443,46 @@ SSD_BWD_TIMED = (1, 4096, 80, 64, 128, 256)
 # the plain backward's time, host- and allocator-bound (its many small
 # operations and their temporaries), is the median of this many reads
 SSD_BWD_PLAIN_READS = 7
-# the products the backward needs, in ssd_products' units: C B^T again
-# and dB and dC's intra-chunk terms dCB B and dCB^T C (cb each); dW =
-# dy x^T and W^T dy (intra each); z = dy h_in^T, whose sums with C and
-# over the heads give both y's inter-chunk term's dcum and dC's term
-# (q N H more), and u = g B (inter each); the chunk states again, r =
-# sum_t exp(cum_t) dy_t^T C_t and x^T g for dB's term over the heads
-# (state each)
-SSD_BWD_PRODUCTS = dict(cb=3, intra=2, inter=2, state=3)
+# the products the backward needs, in ssd_products' units, by the type of
+# their operands. Both operands bf16 (the tensor cores' bf16 rate): C B^T
+# again (cb) and dW = dy x^T (intra). An operand float32 (TF32's rate, the
+# tensor cores' rate for 32-bit operands): dB and dC's
+# intra-chunk terms dCB B and dCB^T C (cb each); W^T dy (intra); z = dy
+# h_in^T, whose sums with C and over the heads give both y's inter-chunk
+# term's dcum and dC's term (q N H more), and u = g B (inter each); the
+# chunk states again, r = sum_t exp(cum_t) dy_t^T C_t and x^T g for dB's
+# term over the heads (state each)
+SSD_BWD_PRODUCTS = {"bfloat16": dict(cb=1, intra=1),
+                    "tfloat32": dict(cb=2, intra=1, inter=2, state=3)}
 
 
 def ssd_bwd_work(B, S, H, P, N, Q):
-    """Float32 operations of one SSD backward, 2 flops a multiply-add: the
-    products of SSD_BWD_PRODUCTS over `ssd_products`' causal counts."""
-    return 2.0 * sum(SSD_BWD_PRODUCTS[k] * m
-                     for k, m in ssd_products(B, S, H, P, N, Q).items())
+    """Operations of one SSD backward by the rate they are priced at
+    ("bfloat16", "tfloat32"), 2 flops a multiply-add: the products of
+    SSD_BWD_PRODUCTS over `ssd_products`' causal counts."""
+    mac = ssd_products(B, S, H, P, N, Q)
+    return {dtype: 2.0 * sum(n * mac[k] for k, n in counts.items())
+            for dtype, counts in SSD_BWD_PRODUCTS.items()}
 
 
 def ssd_bwd_bound(x, b, dt, chunk):
     """Least time (ms) of one SSD backward with bf16 x: x, b, c, dt, a_log
     and dy read once and dx, db, dc, ddt and da_log written once, against
-    the backward's own operations (`ssd_bwd_work`) at the tensor cores'
-    TF32 peak, the rate of its products. Returns (ms, "bytes" |
+    the backward's own operations (`ssd_bwd_work`), each group at the
+    tensor cores' peak for its operands' type (bf16's, or TF32's where an
+    operand is float32), one group after the other. Returns (ms, "bytes" |
     "operations")."""
+    from repro_torch.analysis.roofline import H100_HBM_BW, H100_PEAK_FLOPS
     B, S, H, P = x.shape
     N = b.shape[-1]
     nbytes = (3 * x.numel() * x.element_size()
               + 4 * b.numel() * b.element_size() + 2 * dt.numel() * 4
               + 2 * H * 4)
-    return roofline_ms(ssd_bwd_work(B, S, H, P, N, min(chunk, S)), nbytes,
-                       "tfloat32")
+    work = ssd_bwd_work(B, S, H, P, N, min(chunk, S))
+    ops_s = sum(f / H100_PEAK_FLOPS[dtype] for dtype, f in work.items())
+    bytes_s = nbytes / H100_HBM_BW
+    return max(ops_s, bytes_s) * 1e3, ("bytes" if bytes_s >= ops_s
+                                       else "operations")
 
 
 def zero_ssd_counts():
@@ -5521,44 +5531,139 @@ def ssd_bwd_against_plain(cuda):
     return worst
 
 
-def ssd_bwd_timing(cuda, seed, smi):
-    """The SSD backward at Mamba2-2.7B's training shape (SSD_BWD_TIMED,
-    bf16): the kernel, its plain version and the bound; no one PyTorch
-    call computes it. Returns the row."""
-    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_kernel,
+def ssd_bwd_launch_ms(fn, calls=5):
+    """Device ms a launch of each of the SSD backward's kernels (one a
+    call), by the name between `ssd_bwd_` and `_kernel`: the mean over
+    the events torch.profiler kept of `calls` calls of fn after a warm-up
+    (it may drop a cycle's first event); {} if it saw no device event."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        m = re.search(r"ssd_bwd_(\w+?)_kernel", e.name)
+        if e.device_type != DeviceType.CUDA or m is None:
+            continue
+        us.setdefault(m.group(1), []).append(e.time_range.elapsed_us())
+    return {key: statistics.fmean(v) / 1e3 for key, v in us.items()}
+
+
+def ssd_bwd_times(cuda, seed):
+    """The SSD backward kernel at Mamba2-2.7B's training shape
+    (SSD_BWD_TIMED, bf16 x; inputs from `bwd_cases.bwd_inputs` at `seed`
+    on the card): "kernel" ms (`cuda_ms`), "plain" ms (the median of
+    SSD_BWD_PLAIN_READS reads: host- and allocator-bound, it moves between
+    reads), "errs" (dx, db, dc, ddt and da_log's error over the largest
+    plain element), "err" (their largest |kernel - plain|), "launches"
+    (the "bwd" count's rise over a call), "launch_ms" (each launch's
+    profiled ms a call, `ssd_bwd_launch_ms`), "peak_mb" (the device memory
+    a call allocates at its peak: its workspace and its results) and
+    "inputs" (x, b and dt on the meta device). Only the scan's public
+    functions are imported, so tools/time_scans.py times another checkout
+    by the same method."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (LAUNCHES, ssd_scan_bwd_kernel,
                                               ssd_scan_bwd_ref)
     from repro_torch.kernels.ssd_scan.bwd_cases import (bwd_errors,
-                                                        bwd_inputs,
-                                                        bwd_limits)
+                                                        bwd_inputs)
     B, S, H, P, N, Q = SSD_BWD_TIMED
     args, dy, _ = bwd_inputs(B, S, H, P, N, "bf16", False, False, False,
                              cuda, seed)
-    got = ssd_scan_bwd_kernel(*args[:5], Q, dy)
+
+    def kernel():
+        return ssd_scan_bwd_kernel(*args[:5], Q, dy)
+    before = LAUNCHES["bwd"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = kernel()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    launches = LAUNCHES["bwd"] - before
     ref = ssd_scan_bwd_ref(*args[:5], Q, dy)
-    errs = bwd_errors(got, ref)
+    errs = bwd_errors(got[:5], ref[:5])
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got[:5], ref[:5]))
-    check(all(e <= lim for e, lim in zip(errs[:5], bwd_limits("bf16"))),
-          f"ssd bwd at {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: "
-          f"{', '.join(f'{e:.3g}' for e in errs[:5])}")
+    scale = max(float(b.float().abs().max()) for b in ref[:5])
     del got, ref
-    t = {"kernel": cuda_ms(lambda: ssd_scan_bwd_kernel(*args[:5], Q, dy),
-                           10),
+    t = {"kernel": cuda_ms(kernel, 10),
          "plain": statistics.median(
              cuda_ms(lambda: ssd_scan_bwd_ref(*args[:5], Q, dy), 2)
-             for _ in range(SSD_BWD_PLAIN_READS))}
-    b_ms, b_by = ssd_bwd_bound(args[0], args[1], args[3], Q)
-    work = ssd_bwd_work(B, S, H, P, N, Q)
+             for _ in range(SSD_BWD_PLAIN_READS)),
+         "launch_ms": ssd_bwd_launch_ms(kernel),
+         "errs": errs, "err": err, "scale": scale, "launches": launches,
+         "peak_mb": peak_mb,
+         "inputs": tuple(t.to("meta") for t in (args[0], args[1], args[3]))}
+    del args, dy
+    free_cuda()
+    return t
+
+
+def ssd_kernel_attrs(bf16=True):
+    """Registers, shared bytes, spilled (local) bytes and resident blocks
+    an SM of the SSD forward's chunk kernel and of each backward kernel
+    with x of the given type, as the card reports them
+    (`ssd_scan.kernel_attrs`); {} for a checkout without that report."""
+    from repro_torch.kernels import ssd_scan
+    attrs = getattr(ssd_scan, "kernel_attrs", None)
+    return {} if attrs is None else attrs(bf16)
+
+
+def ssd_bwd_timing(cuda, seed, smi):
+    """The SSD backward at Mamba2-2.7B's training shape (SSD_BWD_TIMED,
+    bf16, `ssd_bwd_times`): the kernel, its plain version, each launch's
+    profiled ms, each kernel's registers, shared bytes and blocks an SM,
+    and the bound; no one PyTorch call computes it. Then the float32
+    lane's kernel and launches at the same shape (the lane that keeps the
+    first design). Returns the row."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_kernel
+    from repro_torch.kernels.ssd_scan.bwd_cases import (bwd_inputs,
+                                                        bwd_limits)
+    B, S, H, P, N, Q = SSD_BWD_TIMED
+    t = ssd_bwd_times(cuda, seed)
+    errs = t["errs"]
+    check(all(e <= lim for e, lim in zip(errs, bwd_limits("bf16"))),
+          f"ssd bwd at {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: "
+          f"{', '.join(f'{e:.3g}' for e in errs)}")
+    b_ms, b_by = ssd_bwd_bound(*t["inputs"], Q)
+    parts = ssd_bwd_work(B, S, H, P, N, Q)
+    work = sum(parts.values())
     print(f"  ssd bwd {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: kernel "
           f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
           f"{SSD_BWD_PLAIN_READS} reads), bound "
-          f"{b_ms:.4f} ms ({b_by}: {work / 1e9:.2f} GFLOP at TF32's peak); "
+          f"{b_ms:.4f} ms ({b_by}: {parts['bfloat16'] / 1e9:.2f} GFLOP at "
+          f"bf16's peak, {parts['tfloat32'] / 1e9:.2f} at TF32's); "
           f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound, "
           f"{work / t['kernel'] / 1e9:.1f} TFLOP/s; max |kernel - plain| "
-          f"{err:.3g}; library: none [{smi}]")
+          f"{t['err']:.3g}; library: none [{smi}]")
+    print("  its launches (profiled ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t["launch_ms"].items())
+          + f"; a call allocates {t['peak_mb']:.1f} MB at its peak "
+          f"(workspace and results)")
+    for name, a in ssd_kernel_attrs().items():
+        print(f"  {name} (bf16): {a['registers']} registers, "
+              f"{a['shared']} shared bytes, {a['local']} local bytes, "
+              f"{a['blocks']} blocks an SM")
+    args, dy, _ = bwd_inputs(B, S, H, P, N, "f32", False, False, False,
+                             cuda, seed)
+
+    def f32():
+        return ssd_scan_bwd_kernel(*args[:5], Q, dy)
+    f32_ms = cuda_ms(f32, 5)
+    print(f"  the float32 lane at the same shape: kernel {f32_ms:.4f} ms; "
+          f"its launches (profiled ms a call): "
+          + ", ".join(f"{k} {v:.4f}"
+                      for k, v in ssd_bwd_launch_ms(f32, 3).items()))
     del args, dy
     free_cuda()
-    return dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
+    return dict(t, bound_ms=b_ms, bound_by=b_by)
 
 
 def mamba2_train_main_path(cuda, seed, smi):

@@ -11,8 +11,9 @@ import torch
 # (B, S, H, P, N, Q, dtype of x, b, c, h0, dh_last, steep): Mamba2-2.7B's
 # training and prefill shapes, S < Q, S = Q + 1, a ragged S % Q, the state
 # carried in and out over several chunks, the smoke shapes, P, N and Q
-# that are not multiples of the tiles, one step, and a steep dt under which
-# cum falls below -200 inside a chunk
+# that are not multiples of the tiles, one step, a steep dt under which
+# cum falls below -200 inside a chunk, and the edges of the bf16 lane's
+# head groups, pieces and tiles
 BWD_CASES = [
     (1, 4096, 80, 64, 128, 256, "bf16", False, False, False),  # training
     (1, 2048, 80, 64, 128, 256, "bf16", False, False, False),  # prefill
@@ -27,6 +28,18 @@ BWD_CASES = [
     (2, 1, 8, 64, 128, 256, "f32", True, True, False),
     (1, 600, 8, 64, 128, 256, "f32", True, True, True),        # steep dt
     (1, 600, 80, 64, 128, 256, "bf16", False, False, True),
+    # the bf16 design's edges: head counts off its groups of 2 and pieces
+    # of 16 heads (3, 12, 81), a last chunk shorter than a 64-row tile
+    # (44, 8, 14, 4 steps), P, N and Q off its tiles and its k16 steps,
+    # and the steep dt at H = 80 with a state in and out
+    (1, 300, 3, 64, 128, 256, "bf16", True, True, False),
+    (2, 520, 12, 64, 128, 256, "bf16", False, True, False),
+    (1, 270, 81, 64, 128, 256, "bf16", True, False, False),
+    (2, 100, 81, 40, 100, 48, "bf16", True, True, False),
+    (1, 200, 12, 24, 72, 40, "bf16", False, True, False),
+    (1, 1000, 80, 64, 128, 256, "bf16", True, True, True),
+    (1, 300, 3, 64, 128, 256, "f32", True, True, False),
+    (1, 270, 81, 40, 100, 48, "f32", True, False, False),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 GRADS = ("dx", "db", "dc", "ddt", "da_log", "dh0")

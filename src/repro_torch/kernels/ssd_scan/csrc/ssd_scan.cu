@@ -110,14 +110,32 @@
 //     dB_s  = sum_t dCB[t][s] C_t + sum_h exp(cum_L - cum_s) dt_s x_s^T g
 //   and dcum from every exp, reverse-summed in the chunk to d(dt A) for
 //   ddt and da_log (ssd_scan_bwd_ref writes the whole of it out). The
-//   forward's chunk states are recomputed (its first two launches, under
-//   their own names) rather than saved, so the forward's interface is as
-//   it was. B and C are shared by the heads, so the Q x Q score gradient
-//   is summed over the heads (ssd_bwd_dcb_kernel) before it meets them,
-//   once for all heads as C B^T is in the forward. The products use the
-//   forward's routes: split TF32 mma.sync with bf16 operands, fmaf chains
-//   in k order with float32 ones (tile_prod). da_log is summed a term at
-//   a time, each with a small weight where the term is not small (see
+//   forward's chunk states are recomputed rather than saved (the first two
+//   launches), so the forward's interface is as it was. B and C are shared
+//   by the heads, so the Q x Q score gradient is summed over the heads
+//   before it meets them: ssd_bwd_dcb_kernel forms dy_t . x_s again for
+//   each head of a group and adds the heads in registers, so no head's
+//   Q x Q array reaches device memory.
+//   With bf16 x, b, c (what training runs) every product runs as bf16
+//   mma.sync m16n8k16 with float32 sums: bf16 products are exact, and a
+//   float32 operand is split into bf16 parts as it is read, a product
+//   each (split_bf): in three (float32's own rounding) where the product
+//   reaches a float32 result, ddt, da_log or dh0 (x tail, dy exp(cum), and
+//   h_in and g against dy or x), in two (2^-17 of the value, inside the
+//   bf16 rounding) where it reaches only dx, dB or dC (W, dCB, and g
+//   against B). Operands come through cp.async rings in their own type,
+//   sums over a tile's rows and columns run as shuffles in a fixed order,
+//   and what costs a launch a barrier is finished after the next step's.
+//   The bf16 lane has its own chunk kernel
+//   (the forward's keeps its code), and its dB, dC launch (the product of
+//   depth H P cut into pieces of 20 heads, added in order by the last
+//   launch) runs before the main launch, because its dC blocks form z = dy
+//   h_in^T for dC anyway and give main y's inter-chunk term of dcum, and
+//   its dB blocks, forming z = x g^T, the state's term dtail. The
+//   carries and the score gradient's launch serve both lanes. With float32
+//   x, b, c the chunk, main and dB, dC launches are the first design's
+//   (tile_prod: fmaf chains in k order). da_log is summed a term at a
+//   time, each with a small weight where the term is not small (see
 //   ssd_scan_bwd_ref), not as sum_t dcum_t cum_t, which cancels terms of
 //   |cum| up to hundreds.
 //
@@ -561,11 +579,11 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                         nullptr, S, H, P, N, Q, nc);
 }
 
-// the backward's first launch: the same blocks and H more (see
-// chunk_block), under its own name so that a profile tells it apart
+// the float32 lane's first backward launch: the same blocks and H more
+// (see chunk_block), under its own name so that a profile tells it apart
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kChunkBlocks<T>)
-ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+ssd_bwd_chunk_f32_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ cm, const float* __restrict__ dt,
                      const float* __restrict__ a_log, float* __restrict__ cb,
                      float* __restrict__ cumw, float* __restrict__ st,
@@ -1237,21 +1255,22 @@ __device__ __forceinline__ void row_dot(float (&red)[2][kBT], int r0, int c0,
   }
 }
 
-// grid (H, nc, B), 256 threads: one (b, chunk, head), after the forward's
-// chunk states and carry (st: each chunk's h_in) and the state gradient's
-// carry (rw: each chunk's g, the gradient of its h_out). Writes dx and ddt
-// of its steps, its dCB_h = dW exp(cum_t - cum_s) dt_s (s <= t) into
-// dcbh, and its sum over its steps of d(dt A) dt into dal.
+// The float32 lane's main launch, grid (H, nc, B), 256 threads: one (b,
+// chunk, head), after the forward's chunk states and carry (st: each
+// chunk's h_in) and the state gradient's carry (rw: each chunk's g, the
+// gradient of its h_out). Writes dx and ddt of its steps and its sum over
+// its steps of d(dt A) dt into dal. Every product a chain of fmaf in k
+// order (tile_prod), staged through float shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_main_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+ssd_bwd_main_f32_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                const T* __restrict__ cm, const float* __restrict__ dt,
                const float* __restrict__ a_log, const T* __restrict__ dy,
                const float* __restrict__ cb, const float* __restrict__ cumw,
                const float* __restrict__ st, const float* __restrict__ rw,
-               float* __restrict__ dcbh, float* __restrict__ dal,
-               T* __restrict__ dx, float* __restrict__ ddt, int S, int H,
-               int P, int N, int Q, int nc) {
+               float* __restrict__ dal, T* __restrict__ dx,
+               float* __restrict__ ddt, int S, int H, int P, int N, int Q,
+               int nc) {
   extern __shared__ float4 bwd_smem[];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(bwd_smem);
   const int h = blockIdx.x, ci = blockIdx.y, b = blockIdx.z;
@@ -1264,7 +1283,6 @@ ssd_bwd_main_kernel(const T* __restrict__ x, const T* __restrict__ bm,
   const float* hin = st + bch * P * N;
   const float* gout = rw + bch * P * N;
   const float* cbc = cb + ((long long)b * nc + ci) * Qs * Qs;
-  float* dcb = dcbh + bch * Qs * Qs;
   const float A = -expf(a_log[h]);
   auto xrow = [&](auto* base, int t) {   // row t of x, dy or dx
     return base + ((row0 + t) * H + h) * P;
@@ -1362,7 +1380,6 @@ ssd_bwd_main_kernel(const T* __restrict__ x, const T* __restrict__ bm,
             wv = cbv * ld;
             mv = d * wv;
             xv = d * cbv * L;
-            dcb[(long long)t * Qs + s] = d * ld;
           }
           sm.u.t.w[tl][sl] = wv;
           sm.u.t.m[tl][sl] = mv;
@@ -1464,23 +1481,6 @@ ssd_bwd_main_kernel(const T* __restrict__ x, const T* __restrict__ bm,
         (sm.ddt[tid] + sm.tle[tid] * sm.dtail[tid]) + sm.rowm[tid] * A;
 }
 
-// dCB[b][chunk][t][s] = sum_h dCB_h, heads in order, for s <= t < qc; 0
-// elsewhere. Elementwise over B x nc x Qs x Qs.
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_dcb_kernel(const float* __restrict__ dcbh, float* __restrict__ dcb,
-                   int B, int S, int H, int Q, int nc) {
-  const long long QQ = (long long)q_stride(Q) * q_stride(Q);
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= (long long)B * nc * QQ) return;
-  const long long bc = e / QQ, r = e % QQ;
-  const int Qs = q_stride(Q), t = (int)(r / Qs), s = (int)(r % Qs);
-  const int ci = (int)(bc % nc), qc = min(Q, S - ci * Q);
-  float acc = 0.f;
-  if (s <= t && t < qc)
-    for (int h = 0; h < H; ++h) acc += dcbh[(bc * H + h) * QQ + r];
-  dcb[e] = acc;
-}
-
 struct DbcSmem {
   float sc[kBT];                // a row's scale
   float a[kBT][kLK];            // dCB panel, or exp(cum) dy / tail x [row][p]
@@ -1576,11 +1576,12 @@ __device__ __forceinline__ void dbc_tile(
   }
 }
 
-// grid (4 x row tiles, nc, B): block x = 4 tile + 2 half + which, which 0
-// dC, 1 dB, columns n of the half 64 at a time
+// The float32 lane's dB and dC, grid (4 x row tiles, nc, B): block x =
+// 4 tile + 2 half + which, which 0 dC, 1 dB, columns n of the half 64 at a
+// time
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_dbc_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+ssd_bwd_dbc_f32_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                const T* __restrict__ cm, const float* __restrict__ dt,
                const T* __restrict__ dy, const float* __restrict__ dcb,
                const float* __restrict__ cumw, const float* __restrict__ st,
@@ -1598,21 +1599,1269 @@ ssd_bwd_dbc_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                        N, Q, nc, b, ci, t0, n0);
 }
 
-// da_log[h] = the sum over (b, chunk), in order, of the chunks' parts
-__global__ void ssd_bwd_dalog_kernel(const float* __restrict__ dal,
-                                 float* __restrict__ da, int B, int H,
-                                 int nc) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= H) return;
-  float acc = 0.f;
-  for (long long i = 0; i < (long long)B * nc; ++i) acc += dal[i * H + h];
-  da[h] = acc;
+// ------------------------------------------------------------------ the
+// bf16 lane's tensor-core pieces: mma.sync m16n8k16 in bf16 with a float32
+// accumulator, operands staged by cp.async in their own type
+
+// d += a b, one m16n8k16 bf16 product with a float32 accumulator.
+// Fragments (lane = 4 g + q), two bf16 a register, the lower k in the low
+// half: a0 (g, 2q..), a1 (g + 8, 2q..), a2 (g, 2q + 8..), a3 (g + 8,
+// 2q + 8..); b0 (k = 2q.., n = g), b1 (k = 2q + 8.., n = g); d as mma's.
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 values (a at the lower k) as kParts bf16 pairs that sum to
+// them: the first the pair rounded, each next one the rest rounded (a - hi
+// is exact in float32). Two parts hold a value to about 2^-17 of itself,
+// three to float32's own rounding. A product of a bf16 value with such a
+// split, one mma a part, is as exact as the split.
+template <int kParts>
+__device__ __forceinline__ void split_bf(float a, float b,
+                                         uint32_t (&parts)[kParts]) {
+#pragma unroll
+  for (int i = 0; i < kParts; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    parts[i] = *reinterpret_cast<const uint32_t*>(&v);
+    const float2 f = __bfloat1622float2(v);
+    a -= f.x;
+    b -= f.y;
+  }
+}
+
+// two bf16 of shared memory as one register
+__device__ __forceinline__ uint32_t ld32(const unsigned short* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+// the bf16 at the lower and at the higher address of such a register
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// four 8 x 8 bf16 matrices, transposed: lanes 8 i .. 8 i + 7 give the
+// rows of matrix i; a lane gets (2q, g) and (2q + 1, g) of each, the b
+// fragment of a [k][n] row-major tile
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const unsigned short* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 16 (4) bytes from global to shared memory without the registers, zeros
+// where !ok (src then only has to be a valid address)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of this thread's latest groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// R rows of kRowBytes bytes into shared memory (row stride ld bytes), by
+// the block's threads, 16 bytes a copy: row r from row(r) (null: zeros),
+// its bytes at or past cap zeros (cap a multiple of 16). `any` is a valid
+// global address for the copies that read nothing.
+template <int R, int kRowBytes, typename Row>
+__device__ __forceinline__ void stage_rows(void* dst, int ld, Row row,
+                                           int cap, const void* any) {
+  constexpr int kPer = kRowBytes / 16, kTotal = R * kPer;
+  char* d = static_cast<char*>(dst);
+  for (int i = threadIdx.x; i < kTotal; i += kThreads) {
+    const int r = i / kPer, c = (i % kPer) * 16;
+    const char* src = reinterpret_cast<const char*>(row(r));
+    const bool ok = src != nullptr && c < cap;
+    cp16(d + r * ld + c, ok ? static_cast<const void*>(src + c) : any, ok);
+  }
+}
+
+// the same total in every lane of the warp (a butterfly: the partners add
+// the same two values)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// row strides of the bf16 lane's shared tiles, chosen so that a warp's
+// fragment reads and ldmatrix rows hit 32 different banks
+constexpr int kLX = kBT + 8;        // bf16 [row][p] tiles: 36 words a row
+constexpr int kLC = kMaxN + 8;      // bf16 [row][n] tiles: 68 words a row
+constexpr int kLW = kBT + 4;        // float [t][s] C B^T tiles
+constexpr int kLG = kMaxN + 8;      // float [p][n] g (float2 reads)
+constexpr int kLF = kMaxN + 4;      // float [p][n] h_in or g (float reads)
+// the largest exponent of a factor of exp(cum_t - cum_s) split at a pivot
+// step between s and t: both factors and their product stay finite
+constexpr float kFactorMax = 40.f;
+
+// ------------------------------------------------------------- the bf16
+// lane's first launch
+
+// a K panel of 64 steps: the rows that take the step's scale ([s][p], x or
+// dy) and the rows they meet ([s][n], B or C)
+struct ChunkStage {
+  unsigned short a[kBT][kLX];
+  unsigned short r[kBT][kLC];
+};
+union Chunk16Smem {
+  struct {
+    float cum[kMaxQ];
+    float sc[kMaxQ];               // tail_s (state) or exp(cum_t) (r)
+    ChunkStage stage[2];
+  } st;
+  struct {
+    unsigned short c[kBT][kLC];    // C [t][n]
+    unsigned short b[kBT][kLC];    // B [s][n]
+  } cb;
+};
+
+// The bf16 lane's first backward launch, grid (2H + tiles, nc, B), the
+// blocks of chunk_block's backward launch: below H, head h's cum (summed
+// by one thread in order, as the forward sums it) into cumw and its chunk
+// state s_c = sum_s tail_s x_s^T B_s from a zero start into st; the next
+// `tiles`, a 64 x 64 tile of C B^T (exact bf16 products); the last H, head
+// h's r_c = sum_t exp(cum_t) dy_t^T C_t into rw. On bf16 mma.sync: the
+// scaled rows (x tail, dy exp(cum)) split in three bf16 parts, both operands
+// through ldmatrix.trans from K panels of 64 steps in a two-stage cp.async
+// ring, 16 rows p by 64 n a warp; 3 blocks an SM (<= 85 registers).
+__global__ void __launch_bounds__(kThreads, 3)
+ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ bm,
+                     const __nv_bfloat16* __restrict__ cm,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ a_log, float* __restrict__ cb,
+                     float* __restrict__ cumw, float* __restrict__ st,
+                     const __nv_bfloat16* __restrict__ dy,
+                     float* __restrict__ rw, int S, int H, int P, int N,
+                     int Q, int nc) {
+  extern __shared__ float4 chunk_smem[];
+  Chunk16Smem& sm = *reinterpret_cast<Chunk16Smem*>(chunk_smem);
+  const int ci = blockIdx.y, b = blockIdx.z;
+  const int qc = min(Q, S - ci * Q), Qs = q_stride(Q);
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const int nt = (Q + kTile - 1) / kTile, tiles = nt * (nt + 1) / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  if (blockIdx.x >= H && blockIdx.x < H + tiles) {
+    const int k = blockIdx.x - H;
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
+    const int t0 = ti * kTile, s0 = (k - ti * (ti + 1) / 2) * kTile;
+    stage_rows<kBT, kMaxN * 2>(&sm.cb.c[0][0], kLC * 2, [&](int r) {
+      return t0 + r < qc ? cm + (row0 + t0 + r) * N : nullptr; }, N * 2, cm);
+    stage_rows<kBT, kMaxN * 2>(&sm.cb.b[0][0], kLC * 2, [&](int r) {
+      return s0 + r < qc ? bm + (row0 + s0 + r) * N : nullptr; }, N * 2, bm);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    const int mr = (warp & 3) * 16, nr = (warp >> 2) * 32;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < N; k0 += 16) {
+      const uint32_t a[4] = {ld32(&sm.cb.c[mr + g][k0 + 2 * q]),
+                             ld32(&sm.cb.c[mr + g + 8][k0 + 2 * q]),
+                             ld32(&sm.cb.c[mr + g][k0 + 8 + 2 * q]),
+                             ld32(&sm.cb.c[mr + g + 8][k0 + 8 + 2 * q])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned short* br = &sm.cb.b[nr + 8 * j + g][k0 + 2 * q];
+        mma16(acc[j], a, ld32(br), ld32(br + 8));
+      }
+    }
+    float* out = cb + ((long long)b * nc + ci) * Qs * Qs;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = s0 + nr + 8 * j + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = t0 + mr + g + 8 * half;
+        if (t >= Q) continue;
+        if (s < Q) out[(long long)t * Qs + s] = acc[j][2 * half];
+        if (s + 1 < Q) out[(long long)t * Qs + s + 1] = acc[j][2 * half + 1];
+      }
+    }
+    return;
+  }
+  const bool rblk = blockIdx.x >= H + tiles;
+  const int h = rblk ? blockIdx.x - H - tiles : blockIdx.x;
+  const __nv_bfloat16* as = rblk ? dy : x;   // rows [s][p]
+  const __nv_bfloat16* rs = rblk ? cm : bm;  // rows [s][n]
+  const long long bch = ((long long)b * nc + ci) * H + h;
+  auto issue = [&](int k) {                  // the K panel of steps 64 k ..
+    if (kBT * k < qc) {
+      ChunkStage& sg = sm.st.stage[k & 1];
+      const int s0 = kBT * k;
+      stage_rows<kBT, kBT * 2>(&sg.a[0][0], kLX * 2, [&](int r) {
+        return s0 + r < qc ? as + ((row0 + s0 + r) * H + h) * P : nullptr; },
+        P * 2, as);
+      stage_rows<kBT, kMaxN * 2>(&sg.r[0][0], kLC * 2, [&](int r) {
+        return s0 + r < qc ? rs + (row0 + s0 + r) * N : nullptr; }, N * 2,
+        rs);
+    }
+    cp_commit();
+  };
+  issue(0);
+
+  // cum: dt A formed by all threads, then summed step by step by one, as
+  // chunk_block sums it, while the first panel's copies are in flight
+  const float A = -expf(a_log[h]);
+  const float dtv = tid < qc ? dt[(row0 + tid) * H + h] : 0.f;
+  sm.st.cum[tid] = dtv * A;
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+#pragma unroll 16
+    for (int t = 0; t < kMaxQ; t += 4) {
+      float4 v4 = *reinterpret_cast<const float4*>(&sm.st.cum[t]);
+      run += v4.x;
+      v4.x = run;
+      run += v4.y;
+      v4.y = run;
+      run += v4.z;
+      v4.z = run;
+      run += v4.w;
+      v4.w = run;
+      *reinterpret_cast<float4*>(&sm.st.cum[t]) = v4;
+    }
+  }
+  __syncthreads();
+  const float v = sm.st.cum[tid];
+  if (tid < Qs && !rblk) cumw[bch * Qs + tid] = v;
+  const float cum_last = sm.st.cum[qc - 1];
+  sm.st.sc[tid] = tid >= qc ? 0.f : rblk ? expf(v) : expf(cum_last - v) * dtv;
+
+  // the product, 16 rows p by 64 n a warp
+  const int wr = 16 * (warp & 3), wn = 64 * (warp >> 2);
+  const int mi = lane >> 3;
+  float acc[8][4] = {};
+  const int np = (qc + kBT - 1) / kBT;
+  for (int k = 0; k < np; ++k) {
+    cp_wait<0>();
+    __syncthreads();        // panel k in (and sc); panel k - 1 read
+    issue(k + 1);
+    const ChunkStage& sg = sm.st.stage[k & 1];
+    const int s0 = kBT * k;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int kr = 16 * kk;
+      if (s0 + kr >= qc) break;          // past qc the panel is zeros
+      // a: the scaled rows as (p, k = s) fragments, split in three
+      // (hi, mid, lo): the states feed ddt, da_log and dh0, float32
+      uint32_t ar[4], ap[3][4];
+      ldsm_x4_trans(ar, &sg.a[kr + 8 * (mi >> 1) + (lane & 7)]
+                             [wr + 8 * (mi & 1)]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kc = s0 + kr + 2 * q + 8 * (r >> 1);
+        uint32_t pr[3];
+        split_bf<3>(bf_lo(ar[r]) * sm.st.sc[kc],
+                    bf_hi(ar[r]) * sm.st.sc[kc + 1], pr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) ap[i][r] = pr[i];
+      }
+      const int krow = kr + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (wn + 16 * jp >= N) break;
+        uint32_t bq[4];
+        ldsm_x4_trans(bq, &sg.r[krow][wn + 16 * jp + 8 * (lane >> 4)]);
+#pragma unroll
+        for (int i = 2; i >= 0; --i) {     // the smallest part first
+          mma16(acc[2 * jp], ap[i], bq[0], bq[1]);
+          mma16(acc[2 * jp + 1], ap[i], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  float* out = (rblk ? rw : st) + bch * P * N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = wn + 8 * j + 2 * q;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int p = wr + g + 8 * half;
+      if (p < P && n < N)
+        *reinterpret_cast<float2*>(out + p * N + n) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- the heads'
+// score gradient, summed on chip
+
+constexpr int kDcbStages = 3;
+// the bf16 lane's head groups (their sums added by the dB, dC launch)
+constexpr int kDcbGroups = 2;
+
+// an operand element as shared memory holds it: float, or a bf16's bits
+template <typename T>
+struct Raw {
+  using type = float;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  using type = unsigned short;
+};
+
+// one head's operands of a (t, s) tile
+template <typename T>
+struct DcbStage {
+  static constexpr int kLD = kF32<T> ? kBT + 4 : kBT + 8;
+  typename Raw<T>::type dy[kBT][kLD];   // dy [t][p]
+  typename Raw<T>::type xs[kBT][kLD];   // x [s][p]
+  float cum_t[kBT], cum_s[kBT], dt_s[kBT];
+};
+
+// the dcb launch's least blocks an SM: bf16 3 (<= 85 registers), float32
+// 2 (its stages take 107 KB)
+template <typename T>
+constexpr int kDcbBlocks = kF32<T> ? 2 : 3;
+
+// grid (tiles x groups, nc, B): block x = group * tiles + tile, tile the
+// 64 x 64 tile of (t, s) on or below the diagonal numbered row by row (as
+// cb_tile's), the heads of the group H grp / groups .. H (grp + 1) /
+// groups: that group's part of
+//   dCB[t][s] = sum_h (dy_t . x_s) exp(cum_t - cum_s) dt_s,  s <= t < qc,
+// zero elsewhere in the tile, into dcbp[grp][b][chunk] (Qs x Qs), the
+// heads added in order in registers. dy_t . x_s: bf16 m16n8k16 (products
+// exact, summed in float32), or with float32 operands fmaf chains in p
+// order (tile_prod's order). The heads' operands come
+// through a ring of kDcbStages stages. With bf16 operands exp(cum_t -
+// cum_s) is the fast exp (off by a few float32 ulps times |cum_t - cum_s|:
+// dCB meets only the bf16 dB and dC).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kDcbBlocks<T>)
+ssd_bwd_dcb_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ dt,
+                   const float* __restrict__ cumw, float* __restrict__ dcbp,
+                   int B, int S, int H, int P, int Q, int nc, int groups) {
+  extern __shared__ float4 dcb_smem[];
+  DcbStage<T>* stg = reinterpret_cast<DcbStage<T>*>(dcb_smem);
+  const int ntl = (Q + kBT - 1) / kBT, tiles = ntl * (ntl + 1) / 2;
+  const int tile = blockIdx.x % tiles, grp = blockIdx.x / tiles;
+  const int ci = blockIdx.y, b = blockIdx.z;
+  const int qc = min(Q, S - ci * Q), Qs = q_stride(Q);
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= tile) ++ti;
+  const int t0 = ti * kBT, s0 = (tile - ti * (ti + 1) / 2) * kBT;
+  if (t0 >= qc) return;
+  const int h0 = H * grp / groups, nh = H * (grp + 1) / groups - h0;
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
+  constexpr int kLD = DcbStage<T>::kLD;
+
+  auto issue = [&](int i) {     // head h0 + i into stage i % kDcbStages
+    if (i < nh) {
+      DcbStage<T>& sg = stg[i % kDcbStages];
+      const int h = h0 + i;
+      const long long bch = ((long long)b * nc + ci) * H + h;
+      stage_rows<kBT, kBT * (int)sizeof(T)>(
+          &sg.dy[0][0], kLD * (int)sizeof(T), [&](int r) {
+            return t0 + r < qc ? dy + ((row0 + t0 + r) * H + h) * P
+                               : nullptr; }, P * (int)sizeof(T), dy);
+      stage_rows<kBT, kBT * (int)sizeof(T)>(
+          &sg.xs[0][0], kLD * (int)sizeof(T), [&](int r) {
+            return s0 + r < qc ? x + ((row0 + s0 + r) * H + h) * P
+                               : nullptr; }, P * (int)sizeof(T), x);
+      if (tid < 16) {
+        const int t = t0 + 4 * tid;
+        cp16(&sg.cum_t[4 * tid], t < Qs ? cumw + bch * Qs + t : cumw, t < Qs);
+      } else if (tid < 32) {
+        const int s = s0 + 4 * (tid - 16);
+        cp16(&sg.cum_s[4 * (tid - 16)], s < Qs ? cumw + bch * Qs + s : cumw,
+             s < Qs);
+      } else if (tid < 32 + kBT) {
+        const int s = s0 + tid - 32;
+        cp4(&sg.dt_s[tid - 32], s < qc ? dt + (row0 + s) * H + h : dt,
+            s < qc);
+      }
+    }
+    cp_commit();
+  };
+
+  float acc[4][4] = {};
+#pragma unroll
+  for (int i = 0; i < kDcbStages - 1; ++i) issue(i);
+  for (int i = 0; i < nh; ++i) {
+    cp_wait<kDcbStages - 2>();
+    __syncthreads();            // head i's operands in; head i - 1's read
+    issue(i + kDcbStages - 1);
+    const DcbStage<T>& sg = stg[i % kDcbStages];
+    float d[4][4] = {};
+    if constexpr (kF32<T>) {
+      for (int k8 = 0; k8 < P; k8 += 8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          fma_k8(d[j], g, q, [&](int r, int k) { return sg.dy[r0 + r][k8 + k]; },
+                 [&](int k, int n) { return sg.xs[c0 + 8 * j + n][k8 + k]; });
+      }
+    } else {
+#pragma unroll
+      for (int k0 = 0; k0 < kMaxP; k0 += 16) {
+        if (k0 >= P) break;      // past P the tiles hold zeros
+        const uint32_t a[4] = {ld32(&sg.dy[r0 + g][k0 + 2 * q]),
+                               ld32(&sg.dy[r0 + g + 8][k0 + 2 * q]),
+                               ld32(&sg.dy[r0 + g][k0 + 8 + 2 * q]),
+                               ld32(&sg.dy[r0 + g + 8][k0 + 8 + 2 * q])};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned short* xr = &sg.xs[c0 + 8 * j + g][k0];
+          mma16(d[j], a, ld32(xr + 2 * q), ld32(xr + 8 + 2 * q));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = acc_row(r0, e), sl = acc_col(c0, j, e);
+        if (s0 + sl <= t0 + tl && t0 + tl < qc) {
+          const float a = sg.cum_t[tl] - sg.cum_s[sl];
+          const float ld = (kF32<T> ? expf(a) : __expf(a)) * sg.dt_s[sl];
+          acc[j][e] += __fmul_rn(d[j][e], ld);
+        }
+      }
+    }
+  }
+  float* out = dcbp + (((long long)grp * B + b) * nc + ci) * Qs * Qs;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int s = s0 + acc_col(c0, j, 0);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + acc_row(r0, 2 * half);
+      if (t < Qs && s < Qs)
+        *reinterpret_cast<float2*>(out + (long long)t * Qs + s) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- the bf16
+// lane's main launch
+
+// one step's operands in its two-stage ring
+union MainStage {
+  struct {
+    unsigned short x[kBT][kLX];   // x of an s tile [s][p]
+    unsigned short b[kBT][kLC];   // B of it [s][n]
+  } st;                           // the state's term
+  struct {
+    unsigned short dy[kBT][kLX];  // dy of a t tile [t][p]
+    float cb[kBT][kLW];           // C B^T [t][s] of the (t, s) tile
+  } ra;                           // the intra-chunk terms
+  float xch[8][4][32][4];         // dx's halves between the warps
+};
+struct MainSmem {
+  MainStage stage[2];
+  unsigned short xs[kBT][kLX];    // x of the s tile [s][p]
+  float gf[kMaxP][kLG];           // g [p][n]
+  float cum[kMaxQ], dt[kMaxQ];
+  float tle[kMaxQ];               // exp(cum_last - cum_s)
+  float rowm[kMaxQ];              // sum_s dW W [t][s]
+  float rowc[kMaxQ];              // sum_s dW W [t][s] (cum_t - cum_s)
+  float colm[kMaxQ];              // sum_t dW W [t][s]
+  float ddt[kMaxQ];               // sum_t dW (C B^T) exp(cum_t - cum_s)
+  float dinter[kMaxQ];            // exp(cum_t) dy_t . (h_in C_t)
+  float dtail[kMaxQ];             // x_s . u_s = B_s . (x_s g)
+  float red[2][4][2][kBT];        // the warps' partial sums of a step's
+                                  // rows, by the step's parity
+  float redc[2][2][kBT];          // and of an s tile's columns
+  float part[8][4], part2[8];     // the warps' sums in the closing
+};
+
+// The bf16 lane's main launch, grid (H, nc, B), 256 threads, one (b, chunk,
+// head) (the float32 lane's computes the same): dx, ddt and the chunk's
+// part of da_log, after the carries (h_in in st, g in rw) and the dB, dC
+// launch (dinw: dinter_t = exp(cum_t) dy_t . (h_in C_t), formed there
+// beside dC's term over the heads; dtw: dtail_s = x_s . u_s, beside dB's).
+// A
+// sequence of steps, each one tile's operands staged by cp.async into a
+// two-stage ring while the last step's are multiplied; for each s tile:
+//   state: u = B g^T over the warp's half of n, 16 rows s by 64 p, g
+//     split in two bf16 parts as it is read (u reaches only dx here);
+//     the warp's dx accumulator starts at tail_s u_s;
+//     x stays in shared memory for the s tile;
+//   intra, a t tile at a time from the diagonal: dW^T = x dy^T (16 rows s
+//     by 32 t a warp), W, M = dW W and dW (C B^T) L elementwise, their
+//     sums over s (butterflies over the lanes, then the four warps of a
+//     column in order) and over t (a lane's chain across the t tiles,
+//     summed over the lanes and the two warps of a row at the s tile's
+//     end); dx += W^T dy with W from the product's own registers (split in
+//     two bf16 parts) and dy through ldmatrix.trans; at the s tile's end
+//     the two warps of a row add their halves (t's first half first).
+// A step's sums over its warps are finished after the next step's barrier
+// (`finish`), so a step waits at one barrier. The closing: dcum, its
+// reverse cumsum by warp scans, ddt and da_log's three sums, a term at a
+// time (see ssd_scan_bwd_ref), all in a fixed order. No register array is
+// indexed at run time: one that is goes to local memory (the dx
+// accumulator there cost this launch over a quarter of its time).
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_main_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ bm,
+                    const __nv_bfloat16* __restrict__ cm,
+                    const float* __restrict__ dt,
+                    const float* __restrict__ a_log,
+                    const __nv_bfloat16* __restrict__ dy,
+                    const float* __restrict__ cb,
+                    const float* __restrict__ cumw,
+                    const float* __restrict__ st,
+                    const float* __restrict__ rw,
+                    const float* __restrict__ dinw,
+                    const float* __restrict__ dtw, float* __restrict__ dal,
+                    __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
+                    int S, int H, int P, int N, int Q, int nc) {
+  extern __shared__ float4 main_smem[];
+  MainSmem& sm = *reinterpret_cast<MainSmem*>(main_smem);
+  const int h = blockIdx.x, ci = blockIdx.y, b = blockIdx.z;
+  const int qc = min(Q, S - ci * Q), Qs = q_stride(Q);
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const long long bch = ((long long)b * nc + ci) * H + h;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = 16 * (warp & 3);     // the warp's 16 rows (t, then s)
+  const int hw = warp >> 2, wc = 32 * hw;   // its half of the columns
+  const float* hs = st + bch * P * N;   // h_in [p][n]
+  const float* gs = rw + bch * P * N;   // g [p][n]
+  const float* cbc = cb + ((long long)b * nc + ci) * Qs * Qs;
+  const int nt = (qc + kBT - 1) / kBT;
+  const int nsteps = nt + nt * (nt + 1) / 2;
+  auto xrow = [&](const __nv_bfloat16* base, int t) {   // row t of x or dy
+    return base + ((row0 + t) * H + h) * P;
+  };
+  // step k: kind 1 state (s tile i), 2 intra (s tile i, t tile j)
+  auto decode = [&](int k, int& kind, int& i, int& j) {
+    for (i = 0; k >= nt - i + 1; ++i) k -= nt - i + 1;
+    kind = k == 0 ? 1 : 2;
+    j = i + k - 1;
+  };
+  auto issue = [&](int k) {
+    if (k < nsteps) {
+      int kind, i, j;
+      decode(k, kind, i, j);
+      MainStage& sg = sm.stage[k & 1];
+      if (kind == 1) {
+        const int s0 = kBT * i;
+        stage_rows<kBT, kBT * 2>(&sg.st.x[0][0], kLX * 2, [&](int r) {
+          return s0 + r < qc ? xrow(x, s0 + r) : nullptr; }, P * 2, x);
+        stage_rows<kBT, kMaxN * 2>(&sg.st.b[0][0], kLC * 2, [&](int r) {
+          return s0 + r < qc ? bm + (row0 + s0 + r) * N : nullptr; },
+          N * 2, bm);
+      } else {
+        const int s0 = kBT * i, t0 = kBT * j;
+        stage_rows<kBT, kBT * 2>(&sg.ra.dy[0][0], kLX * 2, [&](int r) {
+          return t0 + r < qc ? xrow(dy, t0 + r) : nullptr; }, P * 2, dy);
+        stage_rows<kBT, kBT * 4>(&sg.ra.cb[0][0], kLW * 4, [&](int r) {
+          return t0 + r < qc ? cbc + (long long)(t0 + r) * Qs + s0
+                             : nullptr; }, (Qs - s0) * 4, cb);
+      }
+    }
+    cp_commit();
+  };
+  // g goes out with the first step's operands
+  stage_rows<kMaxP, kMaxN * 4>(&sm.gf[0][0], kLG * 4, [&](int p) {
+    return p < P ? gs + (long long)p * N : nullptr; }, N * 4, rw);
+  issue(0);
+  const float A = -expf(a_log[h]);
+  sm.cum[tid] = tid < qc ? cumw[bch * Qs + tid] : 0.f;   // a thread a step
+  sm.dt[tid] = tid < qc ? dt[(row0 + tid) * H + h] : 0.f;
+  sm.rowm[tid] = sm.rowc[tid] = sm.colm[tid] = sm.ddt[tid] = 0.f;
+  sm.dinter[tid] = tid < qc ? dinw[bch * Qs + tid] : 0.f;
+  sm.dtail[tid] = tid < qc ? dtw[bch * Qs + tid] : 0.f;
+  // g . h_in: each thread's part in order, then the warps' in order
+  float gh = 0.f;
+  for (int e = 4 * tid; e < P * N; e += 4 * kThreads) {
+    const float4 a = *reinterpret_cast<const float4*>(hs + e);
+    const float4 u = *reinterpret_cast<const float4*>(gs + e);
+    gh += u.x * a.x;
+    gh += u.y * a.y;
+    gh += u.z * a.z;
+    gh += u.w * a.w;
+  }
+  gh = warp_sum(gh);
+  if (lane == 0) sm.part[warp][0] = gh;
+  __syncthreads();
+  const float cum_last = sm.cum[qc - 1];
+  sm.tle[tid] = tid < qc ? expf(cum_last - sm.cum[tid]) : 0.f;
+  gh = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) gh += sm.part[w][0];
+
+  // an intra step k's sums over the warps, from red[k & 1], by the
+  // threads of its 64 rows t: rowm and rowc
+  auto finish = [&](int k) {
+    int kind, i, j;
+    decode(k, kind, i, j);
+    const float(*rd)[2][kBT] = sm.red[k & 1];
+    const int r = kBT * j + tid;
+    if (kind == 1 || tid >= kBT || r >= qc) return;
+    sm.rowm[r] += ((rd[0][0][tid] + rd[1][0][tid]) + rd[2][0][tid]) +
+                  rd[3][0][tid];
+    sm.rowc[r] += ((rd[0][1][tid] + rd[1][1][tid]) + rd[2][1][tid]) +
+                  rd[3][1][tid];
+  };
+
+  float acc[8][4];      // dx of the s tile: the warp's 16 rows s by 64 p
+  float cs[2], dts[2];  // cum and dt of the two rows s a lane holds
+  float fs[2];          // exp(cum_piv - cum_s), piv the s tile's last step
+  bool fok;             // fs is finite and safe to multiply
+  float cm2[2], dd2[2]; // their sums over t of M and of dW (C B^T) L
+
+  for (int k = 0; k < nsteps; ++k) {
+    int kind, i, j;
+    decode(k, kind, i, j);
+    cp_wait<0>();
+    __syncthreads();          // step k's operands in; step k - 1's read
+    if (k > 0) finish(k - 1);
+    float(*rd)[2][kBT] = sm.red[k & 1];
+    issue(k + 1);
+    const MainStage& sg = sm.stage[k & 1];
+
+    if (kind == 1) {
+      // u = B g^T over the warp's half of n (its dx accumulator), then
+      // the accumulator times tail_s
+      const int s0 = kBT * i;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+      const int n1 = min(N, 64 * hw + 64);
+      for (int k0 = 64 * hw; k0 < n1; k0 += 16) {
+        const uint32_t a[4] = {ld32(&sg.st.b[wr + g][k0 + 2 * q]),
+                               ld32(&sg.st.b[wr + g + 8][k0 + 2 * q]),
+                               ld32(&sg.st.b[wr + g][k0 + 8 + 2 * q]),
+                               ld32(&sg.st.b[wr + g + 8][k0 + 8 + 2 * q])};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float* gr = &sm.gf[8 * jj + g][k0 + 2 * q];
+          const float2 v0 = *reinterpret_cast<const float2*>(gr);
+          const float2 v1 = *reinterpret_cast<const float2*>(gr + 8);
+          uint32_t b0[2], b1[2];
+          split_bf<2>(v0.x, v0.y, b0);
+          split_bf<2>(v1.x, v1.y, b1);
+          float t4[4] = {0.f, 0.f, 0.f, 0.f};
+          mma16(t4, a, b0[1], b1[1]);
+          mma16(t4, a, b0[0], b1[0]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[jj][e] += t4[e];
+        }
+      }
+      // x stays for the s tile's intra steps
+      for (int c = tid; c < kBT * kBT / 8; c += kThreads)
+        *reinterpret_cast<uint4*>(&sm.xs[c / 8][8 * (c % 8)]) =
+            *reinterpret_cast<const uint4*>(&sg.st.x[c / 8][8 * (c % 8)]);
+      const float piv = sm.cum[s0 + kBT - 1];
+      fok = true;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = s0 + wr + g + 8 * half;
+        cs[half] = sm.cum[s];
+        dts[half] = sm.dt[s];
+        fok = fok && piv - cs[half] <= kFactorMax;
+        fs[half] = expf(fok ? piv - cs[half] : 0.f);
+        const float tail = sm.tle[s] * sm.dt[s];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          acc[jj][2 * half] *= tail;
+          acc[jj][2 * half + 1] *= tail;
+        }
+        cm2[half] = dd2[half] = 0.f;
+      }
+    } else {
+      const int s0 = kBT * i, t0 = kBT * j;
+      // dW^T = x dy^T: 16 rows s by 32 t a warp
+      float d[4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= P) break;    // past P the tiles hold zeros
+        const uint32_t xa[4] = {ld32(&sm.xs[wr + g][16 * kk + 2 * q]),
+                                ld32(&sm.xs[wr + g + 8][16 * kk + 2 * q]),
+                                ld32(&sm.xs[wr + g][16 * kk + 8 + 2 * q]),
+                                ld32(&sm.xs[wr + g + 8][16 * kk + 8 + 2 * q])};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const unsigned short* dr = &sg.ra.dy[wc + 8 * jj + g][16 * kk];
+          mma16(d[jj], xa, ld32(dr + 2 * q), ld32(dr + 8 + 2 * q));
+        }
+      }
+      // W = (C B^T) L dt_s, M = dW W, dW (C B^T) L, L = exp(cum_t -
+      // cum_s), for s <= t < qc; d keeps W for W^T dy. Below the diagonal
+      // tile L = exp(cum_t - cum_piv) fs, both factors in (0, 1] where cum
+      // falls (dt >= 0): one exp a column instead of one an element.
+      const bool below = j > i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float rm[2], rc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int tl = wc + 8 * jj + 2 * q + e, t = t0 + tl;
+          const float ct = sm.cum[t];
+          const float ea = ct - sm.cum[s0 + kBT - 1];
+          const bool fact = below && fok && ea <= kFactorMax;
+          const float et = expf(fact ? ea : 0.f);
+          float m2 = 0.f, c2 = 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int sl = wr + g + 8 * half;
+            float w = 0.f;
+            if (s0 + sl <= t && t < qc) {
+              const float L = fact ? et * fs[half] : expf(ct - cs[half]);
+              const float ld = L * dts[half], cbv = sg.ra.cb[tl][sl];
+              const float dv = d[jj][2 * half + e];
+              w = cbv * ld;
+              const float m = dv * w;
+              m2 += m;
+              c2 += m * (ct - cs[half]);
+              cm2[half] += m;
+              dd2[half] += dv * cbv * L;
+            }
+            d[jj][2 * half + e] = w;
+          }
+          rm[e] = m2;
+          rc[e] = c2;
+        }
+        // the column's sums over the warp's rows s: a butterfly over g
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            rm[e] += __shfl_xor_sync(0xffffffffu, rm[e], o);
+            rc[e] += __shfl_xor_sync(0xffffffffu, rc[e], o);
+          }
+          if (g == 0) {
+            const int tl = wc + 8 * jj + 2 * q + e;
+            rd[warp & 3][0][tl] = rm[e];
+            rd[warp & 3][1][tl] = rc[e];
+          }
+        }
+      }
+      // dx += W^T dy: W from d (rows s, k = t), split in two bf16 parts;
+      // dy [t][p] through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t ahi[4], alo[4], pr[2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split_bf<2>(d[2 * kk + (r >> 1)][2 * (r & 1)],
+                      d[2 * kk + (r >> 1)][2 * (r & 1) + 1], pr);
+          ahi[r] = pr[0];
+          alo[r] = pr[1];
+        }
+        const int tk = wc + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          if (16 * jp >= P) break;
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, &sg.ra.dy[tk][16 * jp + 8 * (lane >> 4)]);
+          mma16(acc[2 * jp], alo, bq[0], bq[1]);
+          mma16(acc[2 * jp], ahi, bq[0], bq[1]);
+          mma16(acc[2 * jp + 1], alo, bq[2], bq[3]);
+          mma16(acc[2 * jp + 1], ahi, bq[2], bq[3]);
+        }
+      }
+      if (j == nt - 1) {
+        // the s tile's end: the columns' sums over the lanes and the two
+        // warps of a row; dx's halves exchanged through this stage, its
+        // reads done
+        __syncthreads();
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          cm2[half] += __shfl_xor_sync(0xffffffffu, cm2[half], 1);
+          cm2[half] += __shfl_xor_sync(0xffffffffu, cm2[half], 2);
+          dd2[half] += __shfl_xor_sync(0xffffffffu, dd2[half], 1);
+          dd2[half] += __shfl_xor_sync(0xffffffffu, dd2[half], 2);
+        }
+        if (q == 0) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            sm.redc[hw][0][wr + g + 8 * half] = cm2[half];
+            sm.redc[hw][1][wr + g + 8 * half] = dd2[half];
+          }
+        }
+        MainStage& xs = sm.stage[k & 1];
+        float4* mine = reinterpret_cast<float4*>(&xs.xch[warp][0][0][0]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {   // the tiles p the partner owns
+          mine[32 * jj + lane] =
+              hw == 0 ? make_float4(acc[4 + jj][0], acc[4 + jj][1],
+                                    acc[4 + jj][2], acc[4 + jj][3])
+                      : make_float4(acc[jj][0], acc[jj][1], acc[jj][2],
+                                    acc[jj][3]);
+        }
+        __syncthreads();
+        if (tid < kBT && s0 + tid < qc) {
+          sm.colm[s0 + tid] = sm.redc[0][0][tid] + sm.redc[1][0][tid];
+          sm.ddt[s0 + tid] = sm.redc[0][1][tid] + sm.redc[1][1][tid];
+        }
+        const float4* theirs =
+            reinterpret_cast<const float4*>(&xs.xch[warp ^ 4][0][0][0]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {   // the tiles p this warp owns
+          const float4 o = theirs[32 * jj + lane];
+          const float ov[4] = {o.x, o.y, o.z, o.w};
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)   // t's first half first
+            v[e] = hw == 0 ? acc[jj][e] + ov[e] : ov[e] + acc[4 + jj][e];
+          const int p = 8 * (jj + 4 * hw) + 2 * q;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int s = s0 + wr + g + 8 * half;
+            if (s < qc && p < P)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dx + ((row0 + s) * H + h) * P + p) =
+                  __floats2bfloat162_rn(v[2 * half], v[2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  finish(nsteps - 1);
+  __syncthreads();
+
+  // the closing, a thread a step t: dcum, d(dt A) = its reverse cumsum,
+  // ddt, and the chunk's part of da_log as three sums of weighted terms
+  const int t = tid;
+  const float term = t < qc ? sm.tle[t] * sm.dt[t] * sm.dtail[t] : 0.f;
+  float r4[4] = {term, t < qc ? sm.rowc[t] : 0.f,
+                 t < qc ? sm.dinter[t] * sm.cum[t] : 0.f,
+                 term * (cum_last - sm.cum[t])};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) r4[u] = warp_sum(r4[u]);
+  if (lane == 0)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sm.part[warp][u] = r4[u];
+  __syncthreads();
+  float tot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) tot[u] += sm.part[w][u];
+  float dc = 0.f;
+  if (t < qc) {
+    dc = sm.rowm[t] - sm.colm[t];
+    dc = dc + sm.dinter[t];
+    dc = dc - term;
+    if (t == qc - 1) dc = dc + (tot[0] + expf(cum_last) * gh);
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {   // sum over the lanes from this one
+    const float y = __shfl_down_sync(0xffffffffu, dc, o);
+    if (lane + o < 32) dc += y;
+  }
+  if (lane == 0) sm.part2[warp] = dc;
+  __syncthreads();
+  float later = 0.f;                   // the later warps', the last first
+  for (int w = 7; w > warp; --w) later += sm.part2[w];
+  const float run = dc + later;
+  if (t < qc)
+    ddt[(row0 + t) * H + h] =
+        (sm.ddt[t] + sm.tle[t] * sm.dtail[t]) + run * A;
+  if (tid == 0)
+    dal[bch] = ((tot[1] + tot[2]) + tot[3]) + expf(cum_last) * gh * cum_last;
+}
+
+// --------------------------------------------------- the bf16 lane's dB, dC
+
+constexpr int kDbcHeads = 20;       // heads a piece of the dB, dC launch
+
+// one step's operands in the dB, dC launch's two-stage ring
+constexpr int kDbcK = 32;           // steps of a score-gradient K panel
+constexpr int kLD3 = kDbcK + 8;     // float [t][s] dCB panels (read
+                                    // transposed, for dB, on 16 banks)
+union DbcStage {
+  struct {
+    unsigned short a[kBT][kLX];  // dy (dC) or x (dB) of the rows [r][p]
+    float cum[kBT];              // cum of the rows
+    float dt[kBT];               // dt of the rows (dB)
+    float last[4];               // cum at the chunk's last step (dB)
+    float f[kMaxP][kLF];         // h_in (dC) or g (dB) [p][n]
+  } hd;                          // a head
+  struct {
+    float d[kDcbGroups][kBT][kLD3];  // dCB's groups, 64 rows by 32 [t][s]
+    unsigned short r[kBT][kLC];      // B (dC) or C (dB) [k][n]
+  } in;                              // the score gradient's term
+};
+struct Dbc16Smem {
+  DbcStage stage[2];
+  unsigned short c[kBT][kLC];    // C (dC) or B (dB) of the rows
+  float red[2][4][kBT];          // the n quarters' parts of dinter, dtail
+};
+
+// grid (2 x row tiles x pieces, nc, B): block x = 2 (piece x row tiles +
+// tile) + which, which 0 dC, 1 dB, of the tile's 64 rows and all n:
+//   dC_t = sum_s dCB[t][s] B_s + sum_h exp(cum_t) sum_p dy_t[p] h_in[h][p]
+//   dB_s = sum_t dCB[t][s] C_t + sum_h tail_s sum_p x_s[p] g[h][p]
+// piece 0 takes the score gradient's term (dCB the sum of its groups, in
+// order, times B or C, K panels of 32 steps), piece p > 0 the heads
+// 20 (p - 1) .. 20 p - 1 (a product of depth 20 P), into part[2 p + which]
+// (B x S x N float32), which ssd_bwd_finish_kernel adds in order. The dC
+// blocks also give y's inter-chunk term of dcum, dinter_t = exp(cum_t)
+// C_t . z_t with z = dy h_in^T over p (their own product), into dinw, and
+// the dB blocks the state's, dtail_s = B_s . z_s with z = x g^T, into dtw
+// (B x nc x H x Qs): each n quarter's part times exp(cum_t), the quarters
+// added in order after the next step's barrier. 8 warps of 32 rows by 32
+// n; every operand through a two-stage cp.async ring, bf16 m16n8k16: the
+// float32 operands split into bf16 parts as they are read, dCB in two (it
+// meets only the bf16 dB and dC), h_in and g in three (z gives dinter and
+// dtail, which ddt and da_log take); a head's product of dy or x with h_in
+// or g formed apart and added times the rows' scales.
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_dbc_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ bm,
+                   const __nv_bfloat16* __restrict__ cm,
+                   const float* __restrict__ dt,
+                   const __nv_bfloat16* __restrict__ dy,
+                   const float* __restrict__ dcbp,
+                   const float* __restrict__ cumw,
+                   const float* __restrict__ st,
+                   const float* __restrict__ rw,
+                   float* __restrict__ part, float* __restrict__ dinw,
+                   float* __restrict__ dtw, int B, int S, int H, int P,
+                   int N, int Q, int nc) {
+  extern __shared__ float4 dbc_smem[];
+  Dbc16Smem& sm = *reinterpret_cast<Dbc16Smem*>(dbc_smem);
+  const int nrt = (Q + kBT - 1) / kBT;
+  const bool kb = blockIdx.x & 1;     // dB
+  const int tile = (blockIdx.x >> 1) % nrt, piece = (blockIdx.x >> 1) / nrt;
+  const int ci = blockIdx.y, b = blockIdx.z;
+  const int qc = min(Q, S - ci * Q), Qs = q_stride(Q);
+  const int t0 = tile * kBT;
+  if (t0 >= qc) return;
+  const long long row0 = (long long)b * S + (long long)ci * Q;
+  const int h_lo = piece > 0 ? kDbcHeads * (piece - 1) : 0;
+  const int h_hi = piece > 0 ? min(H, h_lo + kDbcHeads) : 0;
+  // the score gradient's panels (piece 0): dC over s up to the tile's last
+  // row, dB over t from its first
+  const int nd = piece > 0 ? 0
+                 : kb ? (qc - t0 + kDbcK - 1) / kDbcK
+                      : (min(t0 + kBT, qc) + kDbcK - 1) / kDbcK;
+  const int nsteps = nd + h_hi - h_lo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = 32 * (warp & 1), wn = 32 * (warp >> 1);
+  const __nv_bfloat16* rows = kb ? cm : bm;   // what dCB meets
+  const __nv_bfloat16* as = kb ? x : dy;
+  const float* fs = kb ? rw : st;     // g or h_in
+  const long long gstride = (long long)B * nc * Qs * Qs;
+  const float* dcbc = dcbp + ((long long)b * nc + ci) * Qs * Qs;
+  auto bch_of = [&](int k) {          // (b, chunk, head) of head step k
+    return ((long long)b * nc + ci) * H + h_lo + k - nd;
+  };
+
+  auto issue = [&](int k) {
+    if (k < nsteps) {
+      DbcStage& sg = sm.stage[k & 1];
+      if (k < nd) {
+        // dC: dCB[t0 + r][k0 ..] and B rows k0 ..; dB: dCB[k0 + r][t0 ..]
+        // and C rows k0 .., 32 steps k0 .. at a time
+        const int k0 = kb ? t0 + kDbcK * k : kDbcK * k;
+        const int pr = kb ? k0 : t0, pc = kb ? t0 : k0;
+#pragma unroll
+        for (int gi = 0; gi < kDcbGroups; ++gi) {
+          // dC: 64 rows t of kDbcK s; dB: kDbcK rows t of 64 s, as
+          // kBT / kDbcK blocks of kDbcK columns, one under the other
+          const float* src = dcbc + gi * gstride + (long long)pr * Qs + pc;
+          if (kb) {
+#pragma unroll
+            for (int c = 0; c < kBT / kDbcK; ++c)
+              stage_rows<kDbcK, kDbcK * 4>(
+                  &sg.in.d[gi][c * kDbcK][0], kLD3 * 4, [&](int r) {
+                    return pr + r < qc ? src + (long long)r * Qs + c * kDbcK
+                                       : nullptr; },
+                  (Qs - pc - c * kDbcK) * 4, dcbp);
+          } else {
+            stage_rows<kBT, kDbcK * 4>(&sg.in.d[gi][0][0], kLD3 * 4,
+                                       [&](int r) {
+              return pr + r < qc ? src + (long long)r * Qs : nullptr; },
+              (Qs - pc) * 4, dcbp);
+          }
+        }
+        stage_rows<kDbcK, kMaxN * 2>(&sg.in.r[0][0], kLC * 2, [&](int r) {
+          return k0 + r < qc ? rows + (row0 + k0 + r) * N : nullptr; },
+          N * 2, rows);
+      } else {
+        const int h = h_lo + k - nd;
+        const long long bch = bch_of(k);
+        stage_rows<kBT, kBT * 2>(&sg.hd.a[0][0], kLX * 2, [&](int r) {
+          return t0 + r < qc ? as + ((row0 + t0 + r) * H + h) * P
+                             : nullptr; }, P * 2, as);
+        stage_rows<kMaxP, kMaxN * 4>(&sg.hd.f[0][0], kLF * 4, [&](int p) {
+          return p < P ? fs + bch * P * N + (long long)p * N : nullptr; },
+          N * 4, fs);
+        if (tid < 16) {
+          const int t = t0 + 4 * tid;
+          cp16(&sg.hd.cum[4 * tid], t < Qs ? cumw + bch * Qs + t : cumw,
+               t < Qs);
+        } else if (kb && tid < 16 + kBT) {
+          const int t = t0 + tid - 16;
+          cp4(&sg.hd.dt[tid - 16], t < qc ? dt + (row0 + t) * H + h : dt,
+              t < qc);
+        } else if (kb && tid == 16 + kBT) {
+          cp4(&sg.hd.last[0], cumw + bch * Qs + qc - 1, true);
+        }
+      }
+    }
+    cp_commit();
+  };
+  // head step k's dinter (dC) or dtail (dB): the n quarters' parts added
+  // in order
+  auto finish = [&](int k) {
+    if (k < nd || tid >= kBT || t0 + tid >= Qs) return;
+    const float(*rd)[kBT] = sm.red[k & 1];
+    (kb ? dtw : dinw)[bch_of(k) * Qs + t0 + tid] =
+        ((rd[0][tid] + rd[1][tid]) + rd[2][tid]) + rd[3][tid];
+  };
+
+  if (piece > 0) {             // the rows' own C (dC) or B (dB)
+    const __nv_bfloat16* own = kb ? bm : cm;
+    stage_rows<kBT, kMaxN * 2>(&sm.c[0][0], kLC * 2, [&](int r) {
+      return t0 + r < qc ? own + (row0 + t0 + r) * N : nullptr; }, N * 2,
+      own);
+  }
+  float acc[2][4][4] = {};
+  issue(0);
+  for (int k = 0; k < nsteps; ++k) {
+    cp_wait<0>();
+    __syncthreads();          // step k's operands in; step k - 1's read
+    if (k > 0) finish(k - 1);
+    issue(k + 1);
+    const DbcStage& sg = sm.stage[k & 1];
+    if (k < nd) {
+#pragma unroll
+      for (int kk = 0; kk < kDbcK / 16; ++kk) {
+        // a: dCB (dC [t][s], dB [s][t] read from [t][s]), the groups
+        // added in order, split in two
+        uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int rr = wr + 16 * mi + g + 8 * (r & 1);
+            const int cc = 16 * kk + 2 * q + 8 * (r >> 1);
+            float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+            for (int gi = 0; gi < kDcbGroups; ++gi) {
+              if (kb) {   // row cc of t, column rr of s: its column block
+                const float* dd = &sg.in.d[gi][0][0] + (rr / kDbcK) * kDbcK
+                                  * kLD3 + rr % kDbcK;
+                v0 += dd[cc * kLD3];
+                v1 += dd[(cc + 1) * kLD3];
+              } else {
+                const float2 f =
+                    *reinterpret_cast<const float2*>(&sg.in.d[gi][rr][cc]);
+                v0 += f.x;
+                v1 += f.y;
+              }
+            }
+            uint32_t pr[2];
+            split_bf<2>(v0, v1, pr);
+            ahi[mi][r] = pr[0];
+            alo[mi][r] = pr[1];
+          }
+        }
+        const int kr = 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int n0 = wn + 16 * np;
+          if (n0 >= N) break;
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, &sg.in.r[kr][n0 + 8 * (lane >> 4)]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma16(acc[mi][2 * np], alo[mi], bq[0], bq[1]);
+            mma16(acc[mi][2 * np], ahi[mi], bq[0], bq[1]);
+            mma16(acc[mi][2 * np + 1], alo[mi], bq[2], bq[3]);
+            mma16(acc[mi][2 * np + 1], ahi[mi], bq[2], bq[3]);
+          }
+        }
+      }
+    } else {
+      // the rows' scales: dC exp(cum_t), dB exp(cum_last - cum_s) dt_s
+      float sc[2][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int rl = wr + 16 * mi + g + 8 * half;
+          sc[mi][half] =
+              t0 + rl >= qc ? 0.f
+              : kb ? expf(sg.hd.last[0] - sg.hd.cum[rl]) * sg.hd.dt[rl]
+                   : expf(sg.hd.cum[rl]);
+        }
+      }
+      // z = a f over the head's p (a exact in bf16, f split in three
+      // bf16 parts as it is read), then acc += the rows' scales times z
+      float z[2][4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= P) break;      // past P the tiles hold zeros
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            a[mi][r] = ld32(&sg.hd.a[wr + 16 * mi + g + 8 * (r & 1)]
+                                    [16 * kk + 2 * q + 8 * (r >> 1)]);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int n0 = wn + 16 * np;
+          if (n0 >= N) break;
+          // b fragments: r & 1 the k half, r >> 1 the 8 columns n
+          uint32_t bp[3][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int kf = 16 * kk + 8 * (r & 1) + 2 * q;
+            const int nf = n0 + 8 * (r >> 1) + g;
+            uint32_t pr[3];
+            split_bf<3>(sg.hd.f[kf][nf], sg.hd.f[kf + 1][nf], pr);
+#pragma unroll
+            for (int i = 0; i < 3; ++i) bp[i][r] = pr[i];
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+            for (int i = 2; i >= 0; --i) {   // the smallest part first
+              mma16(z[mi][2 * np], a[mi], bp[i][0], bp[i][1]);
+              mma16(z[mi][2 * np + 1], a[mi], bp[i][2], bp[i][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][nj][e] += sc[mi][e >> 1] * z[mi][nj][e];
+      {
+        // this warp's n of dinter, exp(cum_t) C_t . z_t (dC), or of
+        // dtail, B_s . z_s (dB)
+        float (*rd)[kBT] = sm.red[k & 1];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int rl = wr + 16 * mi + g + 8 * half;
+            float rs = 0.f;
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj) {
+              const uint32_t w = ld32(&sm.c[rl][wn + 8 * nj + 2 * q]);
+              rs += bf_lo(w) * z[mi][nj][2 * half];
+              rs += bf_hi(w) * z[mi][nj][2 * half + 1];
+            }
+            rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+            rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+            if (q == 0) rd[warp >> 1][rl] = kb ? rs : sc[mi][half] * rs;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  finish(nsteps - 1);
+  float* out = part + ((long long)(2 * piece + kb) * B * S + row0) * N;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = wn + 8 * nj + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = t0 + wr + 16 * mi + g + 8 * half;
+        if (t < qc && n < N)
+          *reinterpret_cast<float2*>(out + (long long)t * N + n) =
+              make_float2(acc[mi][nj][2 * half], acc[mi][nj][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// The last launch. Blocks below `eblocks` (the bf16 lane's): dC then dB,
+// four elements a thread, each the sum of the pieces' parts in order
+// (piece 0, the score gradient's term, first), rounded to bf16. The blocks
+// past them: da_log[h], the sum over (b, chunk), in order, of the chunks'
+// parts (both lanes).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_finish_kernel(const float* __restrict__ part, int pieces,
+                      T* __restrict__ db, T* __restrict__ dc,
+                      const float* __restrict__ dal, float* __restrict__ da,
+                      int B, int S, int H, int N, int nc, int eblocks) {
+  if ((int)blockIdx.x >= eblocks) {
+    const int h = (blockIdx.x - eblocks) * kThreads + threadIdx.x;
+    if (h >= H) return;
+    float acc = 0.f;
+    for (long long i = 0; i < (long long)B * nc; ++i) acc += dal[i * H + h];
+    da[h] = acc;
+    return;
+  }
+  if constexpr (!kF32<T>) {
+    const long long n = (long long)B * S * N;
+    const long long e = 4 * ((long long)blockIdx.x * kThreads + threadIdx.x);
+    if (e >= 2 * n) return;
+    const int which = e >= n;         // 0 dC, 1 dB
+    const long long r = e - which * n;
+    float4 v = *reinterpret_cast<const float4*>(part + which * n + r);
+    for (int p = 1; p < pieces; ++p) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(part + (2LL * p + which) * n + r);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    __nv_bfloat162 o[2] = {__floats2bfloat162_rn(v.x, v.y),
+                           __floats2bfloat162_rn(v.z, v.w)};
+    *reinterpret_cast<uint2*>((which ? db : dc) + r) =
+        *reinterpret_cast<const uint2*>(o);
+  }
+}
+
+// pieces of the bf16 lane's dB, dC launch: the score gradient's term and
+// the heads' groups
+__host__ __device__ __forceinline__ int dbc_pieces(int H) {
+  return 1 + (H + kDbcHeads - 1) / kDbcHeads;
 }
 
 struct BwdWork {
-  float *st, *rw, *cb, *cum, *dcbh, *dcb, *dal;
+  float *st, *rw, *cb, *cum, *dinter, *dtail, *dcb, *part, *dal;
 };
 
+// the backward's workspace, float32: the chunk states, then h_in, and r_c,
+// then g (B x nc x H x P x N each), C B^T (B x nc x Qs x Qs), cum, dinter
+// and dtail (B x nc x H x Qs each), the score gradient's head groups
+// (kDcbGroups x B x nc x Qs x Qs), the dB, dC pieces (2 x pieces x B x S x
+// N; the bf16 lane's) and the chunks' parts of da_log (B x nc x H), each
+// on a 16-byte boundary but the last
 BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
   const long long nc = (S + Q - 1) / Q, Qs = q_stride(Q);
   const long long state = (long long)B * nc * H * P * N;
@@ -1621,32 +2870,41 @@ BwdWork carve_bwd(void* work, int B, int S, int H, int P, int N, int Q) {
   w.rw = w.st + state;
   w.cb = w.rw + state;
   w.cum = w.cb + B * nc * Qs * Qs;
-  w.dcbh = w.cum + B * nc * H * Qs;
-  w.dcb = w.dcbh + B * nc * H * Qs * Qs;
-  w.dal = w.dcb + B * nc * Qs * Qs;
+  w.dinter = w.cum + B * nc * H * Qs;
+  w.dtail = w.dinter + B * nc * H * Qs;
+  w.dcb = w.dtail + B * nc * H * Qs;
+  w.part = w.dcb + kDcbGroups * B * nc * Qs * Qs;
+  w.dal = w.part + 2LL * dbc_pieces(H) * B * S * N;
   return w;
 }
 
 long long bwd_workspace_floats(int B, int S, int H, int P, int N, int Q) {
-  const long long nc = (S + Q - 1) / Q, Qs = q_stride(Q);
-  return 2 * (long long)B * nc * H * P * N + 2 * B * nc * Qs * Qs +
-         B * nc * H * Qs + B * nc * H * Qs * Qs + B * nc * H;
+  const BwdWork w = carve_bwd(nullptr, B, S, H, P, N, Q);
+  const long long nc = (S + Q - 1) / Q;
+  return (w.dal - w.st) + B * nc * H;
 }
 
 // The backward, seven launches, every sum in a fixed order (no atomics),
 // each kernel's name beginning ssd_bwd_:
-// 1. ssd_bwd_chunk_kernel, the forward's chunk kernel with H more blocks:
-//    cum, C B^T, each chunk's state from zero and r_c = sum_t exp(cum_t)
-//    dy_t^T C_t;
+// 1. ssd_bwd_chunk_kernel (bf16: its own, on bf16 mma.sync) or
+//    ssd_bwd_chunk_f32_kernel (the forward's chunk kernel), with H more
+//    blocks than the forward's: cum, C B^T, each chunk's state from zero
+//    and r_c = sum_t exp(cum_t) dy_t^T C_t;
 // 2. ssd_bwd_state_kernel, the forward's carry: each chunk's h_in
 //    (recomputed, not saved: the forward's interface stays as it is);
 // 3. ssd_bwd_carry_kernel: each chunk's g from dh_last, and dh0;
-// 4. ssd_bwd_main_kernel, a block per (b, chunk, head): dx, ddt, dCB_h
-//    and the chunk's part of da_log;
-// 5. ssd_bwd_dcb_kernel: dCB = sum over the heads of dCB_h, so that the
-//    Q x Q score gradient meets B and C once, not once a head;
-// 6. ssd_bwd_dbc_kernel: dB and dC;
-// 7. ssd_bwd_dalog_kernel: da_log.
+// 4. ssd_bwd_dcb_kernel, a block per (b, chunk, 64 x 64 tile, head
+//    group): the score gradient dCB summed over the group's heads on chip
+//    (dW formed again, not saved: no Q x Q array a head in device memory);
+// 5. bf16: ssd_bwd_dbc_kernel, dB and dC in pieces of 20 heads, dinter
+//    (y's inter-chunk term of dcum) beside dC's term over the heads and
+//    dtail (the state's) beside dB's;
+//    float32: ssd_bwd_main_f32_kernel, a block per (b, chunk, head): dx,
+//    ddt and the chunk's part of da_log;
+// 6. bf16: ssd_bwd_main_kernel, the same per (b, chunk, head); float32:
+//    ssd_bwd_dbc_f32_kernel, dB and dC;
+// 7. ssd_bwd_finish_kernel: the bf16 lane's pieces of dB and dC added, and
+//    da_log.
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* bm, const void* cm,
                        const float* dt, const float* a_log, const float* h0,
@@ -1661,10 +2919,23 @@ cudaError_t launch_bwd(const void* x, const void* bm, const void* cm,
   const int nc = (S + Q - 1) / Q;
   const int nt = (Q + kTile - 1) / kTile;
   const BwdWork w = carve_bwd(work, B, S, H, P, N, Q);
-  ssd_bwd_chunk_kernel<T><<<dim3(2 * H + nt * (nt + 1) / 2, nc, B),
-                            kThreads, 0, stream>>>(
-      xt, bt, ct, dt, a_log, w.cb, w.cum, w.st, dyt, w.rw, S, H, P, N, Q, nc);
-  cudaError_t err = cudaGetLastError();
+  const dim3 chunk_grid(2 * H + nt * (nt + 1) / 2, nc, B);
+  cudaError_t err;
+  if constexpr (kF32<T>) {
+    ssd_bwd_chunk_f32_kernel<T><<<chunk_grid, kThreads, 0, stream>>>(
+        xt, bt, ct, dt, a_log, w.cb, w.cum, w.st, dyt, w.rw, S, H, P, N, Q,
+        nc);
+  } else {
+    constexpr int csmem = (int)sizeof(Chunk16Smem);
+    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               csmem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_chunk_kernel<<<chunk_grid, kThreads, csmem, stream>>>(
+        xt, bt, ct, dt, a_log, w.cb, w.cum, w.st, dyt, w.rw, S, H, P, N, Q,
+        nc);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long quads = (long long)B * H * P * N / 4;
   const unsigned carry_blocks = (unsigned)((quads + kThreads - 1) / kThreads);
@@ -1676,32 +2947,134 @@ cudaError_t launch_bwd(const void* x, const void* bm, const void* cm,
       w.cum, dh_last, w.rw, dh0, B, S, H, P, N, Q, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr int smem = (int)sizeof(BwdSmem);
-  err = cudaFuncSetAttribute(ssd_bwd_main_kernel<T>,
+
+  const int groups = kF32<T> ? 1 : kDcbGroups;
+  constexpr int dcb_smem = kDcbStages * (int)sizeof(DcbStage<T>);
+  err = cudaFuncSetAttribute(ssd_bwd_dcb_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             dcb_smem);
   if (err != cudaSuccess) return err;
-  ssd_bwd_main_kernel<T><<<dim3(H, nc, B), kThreads, smem, stream>>>(
-      xt, bt, ct, dt, a_log, dyt, w.cb, w.cum, w.st, w.rw, w.dcbh, w.dal,
-      static_cast<T*>(dx), ddt, S, H, P, N, Q, nc);
+  ssd_bwd_dcb_kernel<T><<<dim3(groups * nt * (nt + 1) / 2, nc, B), kThreads,
+                          dcb_smem, stream>>>(xt, dyt, dt, w.cum, w.dcb, B, S,
+                                              H, P, Q, nc, groups);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long qq = (long long)B * nc * q_stride(Q) * q_stride(Q);
-  ssd_bwd_dcb_kernel<<<(unsigned)((qq + kThreads - 1) / kThreads), kThreads,
-                       0, stream>>>(w.dcbh, w.dcb, B, S, H, Q, nc);
+
+  int eblocks = 0, pieces = 0;
+  if constexpr (kF32<T>) {
+    constexpr int smem = (int)sizeof(BwdSmem);
+    err = cudaFuncSetAttribute(ssd_bwd_main_f32_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_main_f32_kernel<T><<<dim3(H, nc, B), kThreads, smem, stream>>>(
+        xt, bt, ct, dt, a_log, dyt, w.cb, w.cum, w.st, w.rw, w.dal,
+        static_cast<T*>(dx), ddt, S, H, P, N, Q, nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ssd_bwd_dbc_f32_kernel<T><<<dim3(4 * ((Q + kBT - 1) / kBT), nc, B),
+                                kThreads, 0, stream>>>(
+        xt, bt, ct, dt, dyt, w.dcb, w.cum, w.st, w.rw, static_cast<T*>(db),
+        static_cast<T*>(dc), S, H, P, N, Q, nc);
+  } else {
+    // dB and dC first: their dC blocks give main its dinter
+    pieces = dbc_pieces(H);
+    constexpr int dsmem = (int)sizeof(Dbc16Smem);
+    err = cudaFuncSetAttribute(ssd_bwd_dbc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dsmem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_dbc_kernel<<<dim3(2 * ((Q + kBT - 1) / kBT) * pieces, nc, B),
+                         kThreads, dsmem, stream>>>(
+        xt, bt, ct, dt, dyt, w.dcb, w.cum, w.st, w.rw, w.part, w.dinter,
+        w.dtail, B, S, H, P, N, Q, nc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    constexpr int smem = (int)sizeof(MainSmem);
+    err = cudaFuncSetAttribute(ssd_bwd_main_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_main_kernel<<<dim3(H, nc, B), kThreads, smem, stream>>>(
+        xt, bt, ct, dt, a_log, dyt, w.cb, w.cum, w.st, w.rw, w.dinter,
+        w.dtail, w.dal, static_cast<T*>(dx), ddt, S, H, P, N, Q, nc);
+    const long long quads2 = 2LL * B * S * N / 4;
+    eblocks = (int)((quads2 + kThreads - 1) / kThreads);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_dbc_kernel<T><<<dim3(4 * ((Q + kBT - 1) / kBT), nc, B), kThreads, 0,
-                      stream>>>(xt, bt, ct, dt, dyt, w.dcb, w.cum, w.st, w.rw,
-                                static_cast<T*>(db), static_cast<T*>(dc), S,
-                                H, P, N, Q, nc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ssd_bwd_dalog_kernel<<<(H + 127) / 128, 128, 0, stream>>>(w.dal, da, B, H,
-                                                        nc);
+  ssd_bwd_finish_kernel<T><<<eblocks + (H + kThreads - 1) / kThreads,
+                             kThreads, 0, stream>>>(
+      w.part, pieces, static_cast<T*>(db), static_cast<T*>(dc), w.dal, da, B,
+      S, H, N, nc, eblocks);
   return cudaGetLastError();
 }
 
+// the name, function, dynamic shared bytes and threads of kernel i of the
+// scan with x of type T: 0 the forward's chunk kernel, then the
+// backward's in launch order; false past the last
+template <typename T>
+bool kernel_at(int i, const char** name, const void** fn, int* smem,
+               int* threads) {
+  *threads = kThreads;
+  *smem = 0;
+  switch (i) {
+    case 0:
+      *name = "ssd_chunk_kernel";
+      *fn = reinterpret_cast<const void*>(ssd_chunk_kernel<T>);
+      return true;
+    case 1:
+      if constexpr (kF32<T>) {
+        *name = "ssd_bwd_chunk_f32_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_chunk_f32_kernel<T>);
+      } else {
+        *name = "ssd_bwd_chunk_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_chunk_kernel);
+        *smem = (int)sizeof(Chunk16Smem);
+      }
+      return true;
+    case 2:
+      *name = "ssd_bwd_state_kernel";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_state_kernel);
+      return true;
+    case 3:
+      *name = "ssd_bwd_carry_kernel";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_carry_kernel);
+      return true;
+    case 4:
+      *name = "ssd_bwd_dcb_kernel";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_dcb_kernel<T>);
+      *smem = kDcbStages * (int)sizeof(DcbStage<T>);
+      return true;
+    case 5:
+      if constexpr (kF32<T>) {
+        *name = "ssd_bwd_main_f32_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_main_f32_kernel<T>);
+        *smem = (int)sizeof(BwdSmem);
+      } else {
+        *name = "ssd_bwd_dbc_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_dbc_kernel);
+        *smem = (int)sizeof(Dbc16Smem);
+      }
+      return true;
+    case 6:
+      if constexpr (kF32<T>) {
+        *name = "ssd_bwd_dbc_f32_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_dbc_f32_kernel<T>);
+      } else {
+        *name = "ssd_bwd_main_kernel";
+        *fn = reinterpret_cast<const void*>(ssd_bwd_main_kernel);
+        *smem = (int)sizeof(MainSmem);
+      }
+      return true;
+    case 7:
+      *name = "ssd_bwd_finish_kernel";
+      *fn = reinterpret_cast<const void*>(ssd_bwd_finish_kernel<T>);
+      return true;
+    default:
+      return false;
+  }
+}
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -1751,11 +3124,11 @@ int ssd_scan_launch(const void* x, const void* bm, const void* cm,
   return (int)err;
 }
 
-// Bytes of the backward's workspace (float32): the forward's chunk states
-// and the state gradients B x nc x H x P x N each, C B^T and dCB
-// B x nc x Qs x Qs each, cum B x nc x H x Qs, a final state B x H x P x N,
-// the heads' dCB_h B x nc x H x Qs x Qs and the chunks' parts of da_log
-// B x nc x H.
+// Bytes of the backward's workspace (carve_bwd: the chunk states and the
+// state gradients, B x nc x H x P x N floats each; C B^T and the score
+// gradient's two head groups, B x nc x Qs x Qs each; cum, dinter and
+// dtail, B x nc x H x Qs each; the dB, dC pieces, 2 x pieces x B x S x N; the
+// chunks' parts of da_log, B x nc x H).
 long long ssd_scan_bwd_workspace_bytes(int B, int S, int H, int P, int N,
                                        int Q) {
   return 4 * bwd_workspace_floats(B, S, H, P, N, Q);
@@ -1798,6 +3171,34 @@ int ssd_scan_bwd_launch(const void* x, const void* bm, const void* cm,
            : launch_bwd<float>(x, bm, cm, dtf, alf, h0f, dy, dhf, work, dx,
                                db, dc, ddtf, daf, dh0f, B, S, H, P, N, Q, s);
   return (int)err;
+}
+
+// Registers, shared bytes (static and a launch's dynamic), local (spilled)
+// bytes and resident blocks an SM (out[0 .. 3]) of kernel i of the scan
+// with bf16 (else float32) x: 0 the forward's chunk kernel, then the
+// backward's in launch order. Returns its name, or null past the last or
+// where the runtime refuses the query.
+const char* ssd_scan_kernel_attrs(int i, int bf16, int* out) {
+  const char* name;
+  const void* fn;
+  int smem, threads;
+  if (!(bf16 ? kernel_at<__nv_bfloat16>(i, &name, &fn, &smem, &threads)
+             : kernel_at<float>(i, &name, &fn, &smem, &threads)))
+    return nullptr;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  if ((smem > 0 &&
+       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            smem) != cudaSuccess) ||
+      cudaFuncGetAttributes(&a, fn) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    smem) != cudaSuccess)
+    return nullptr;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes + smem;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks;
+  return name;
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -15,13 +15,16 @@ the state a step, with no workspace. Each launch adds one to its count:
 
 The backward (`ssd_scan_bwd_kernel`, the same file) computes the
 gradient of that function, which the JAX package takes by XLA's autodiff:
-it recomputes the chunk states and carry (the forward's first two
-launches, with each chunk's sum_t exp(cum_t) dy_t^T C_t beside them),
-carries the state's gradient from the last chunk to the first, forms dx,
-ddt and each head's share of the Q x Q score gradient a block per (b,
-chunk, head), sums that over the heads before it meets B and C, and adds
-da_log over the chunks, in seven launches with every sum in a fixed order
-(no atomics), so two calls give the same bits. A call adds one to "bwd".
+it recomputes the chunk states and carry (as the forward's first two
+launches do, with each chunk's sum_t exp(cum_t) dy_t^T C_t beside them),
+carries the state's gradient from the last chunk to the first, forms the
+Q x Q score gradient summed over the heads on chip (no head's own array
+in device memory), forms dx, ddt and da_log's parts a block per (b, chunk,
+head), dB and dC, and adds their pieces and da_log over the chunks, in
+seven launches with every sum in a fixed order (no atomics), so two calls
+give the same bits. With bf16 x its products run on the tensor cores as
+bf16 mma.sync (float32 operands split into bf16 parts) fed by cp.async
+rings. A call adds one to "bwd".
 `SSDScan` is the torch.autograd.Function over the forward and the
 backward.
 
@@ -63,7 +66,26 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    lib.ssd_scan_kernel_attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.ssd_scan_kernel_attrs.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_attrs(bf16: bool = True) -> dict:
+    """By kernel name (the forward's chunk kernel, then the backward's in
+    launch order, with bf16 or float32 x): its "registers", "shared" bytes
+    (static and a launch's dynamic), "local" (spilled) bytes and resident
+    "blocks" an SM, as the CUDA runtime reports them. Needs the card;
+    launches nothing."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    attrs, i = {}, 0
+    while (name := lib.ssd_scan_kernel_attrs(i, int(bf16), out)):
+        attrs[name.decode()] = dict(zip(
+            ("registers", "shared", "local", "blocks"), out))
+        i += 1
+    return attrs
 
 
 def _check_operands(x, b, c, dt, a_log, chunk, h0, dy=None,
@@ -213,7 +235,9 @@ def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     `ssd_scan_bwd_ref`: the forward's operands (as `ssd_scan_kernel` takes
     them), dy (B, S, H, P) in x's dtype and dh_last (B, H, P, N) float32
     or None, all contiguous. Returns (dx, db, dc, ddt, da_log, dh0 or
-    None). Seven launches, one count in "bwd"."""
+    None). Seven launches (the chunk states and C B^T again, their carry,
+    the state gradient's carry, the heads' score gradient, dx and ddt, dB
+    and dC, their pieces' sum and da_log), one count in "bwd"."""
     Q = _check_operands(x, b, c, dt, a_log, chunk, h0, dy=dy,
                         dh_last=dh_last)
     B, S, H, P = x.shape

@@ -977,6 +977,22 @@ def test_ssd_scan_function_matches_autograd(cuda, dtype):
         assert err <= limit, f"{name}: {err:.3g}"
 
 
+def test_ssd_kernel_attrs_keep_their_occupancy(cuda):
+    """The CUDA runtime's report of the SSD kernels (`kernel_attrs`): the
+    bf16 forward's chunk kernel keeps 3 blocks an SM, which its speed
+    needs (2 blocks cost it 2.5%); the bf16 backward's main and dB, dC
+    kernels keep 2 blocks an SM and its score-gradient kernel 3; every
+    kernel of both lanes reports at least one block."""
+    from repro_torch.kernels.ssd_scan import kernel_attrs
+    bf, f32 = kernel_attrs(True), kernel_attrs(False)
+    assert len(bf) == len(f32) == 8
+    assert bf["ssd_chunk_kernel"]["blocks"] == 3
+    assert bf["ssd_bwd_main_kernel"]["blocks"] >= 2
+    assert bf["ssd_bwd_dbc_kernel"]["blocks"] >= 2
+    assert bf["ssd_bwd_dcb_kernel"]["blocks"] >= 3
+    assert all(a["blocks"] >= 1 for a in (*bf.values(), *f32.values()))
+
+
 def test_ssd_scan_bwd_refuses_bad_operands(cuda):
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd,
                                               ssd_scan_bwd_kernel)

@@ -9,8 +9,8 @@ on the same seeded numpy inputs in float32:
 
   * the plain backward against `jax.vjp` of `_ssd_scan`, with cotangents
     on y and on the final state, at the smoke shapes, S below the chunk,
-    a ragged S % Q and several chunks: each gradient within 2e-5 of its
-    largest element (training's GRAD_TOL);
+    a ragged S % Q, several chunks and head counts of 3, 12 and 81: each
+    gradient within 2e-5 of its largest element (training's GRAD_TOL);
   * with an initial state, which the JAX function lacks, against
     torch.autograd through the plain forward `ssd_scan_ref`;
   * `SSDScan.apply(..., "ref")`: the plain backward's gradients, and no
@@ -37,14 +37,19 @@ from repro_torch.models import ssm
 GRAD_TOL = 2e-5
 GRADS = ("dx", "db", "dc", "ddt", "da_log", "dh0")
 # (B, S, H, P, N, chunk): the smoke shapes, S below the chunk, a ragged
-# S % Q, several chunks, and a P, N, Q off the kernel's tiles. The chunks
-# stay short enough that cum stays above -88 inside one: past that, exp
-# of the masked upper triangle's cum_t - cum_s overflows in the JAX
-# function and its autodiff gives ddt NaN (0 x inf through the where), at
-# (1, 300, 4, 16, 16, 64) for one; the closed form never forms it.
+# S % Q, several chunks, a P, N, Q off the kernel's tiles, and the head
+# counts that the bf16 kernel's head groups and pieces of 16 heads do not
+# divide (3, 12, 81) with ragged last chunks (5, 6 and 8 steps). The
+# chunks stay short enough that cum stays above -88 inside one: past
+# that, exp of the masked upper triangle's cum_t - cum_s overflows in the
+# JAX function and its autodiff gives ddt NaN (0 x inf through the where),
+# at (1, 300, 4, 16, 16, 64) for one; the closed form never forms it.
 SHAPES = [(2, 21, 8, 16, 16, 8), (2, 5, 4, 16, 16, 8), (2, 37, 3, 8, 8, 16),
-          (1, 96, 4, 16, 16, 16), (2, 37, 3, 40, 100, 16)]
-IDS = ["smoke", "below_chunk", "ragged", "chunks", "off_tiles"]
+          (1, 96, 4, 16, 16, 16), (2, 37, 3, 40, 100, 16),
+          (2, 45, 3, 16, 24, 20), (1, 70, 12, 16, 16, 32),
+          (1, 40, 81, 8, 8, 16)]
+IDS = ["smoke", "below_chunk", "ragged", "chunks", "off_tiles", "heads_3",
+       "heads_12", "heads_81"]
 
 
 def scan_inputs(rng, B, S, H, P, N):

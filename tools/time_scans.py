@@ -11,10 +11,15 @@ build into that checkout's build/. Run it for two checkouts in one call to
 compare them on one card. Shapes: `ssd_scan` at Mamba2-2.7B's widths over
 1 x 2048 bf16 and its decode step at 4 x 1; `rglru_scan` at
 RecurrentGemma-2B's W = 2560 over 1 x 4096, 1 x 16384 and 1 x 32768 bf16
-and its decode step at 4 x 1. Prints one JSON line: by shape, the
-kernel's and the plain version's milliseconds a call, the kernel's largest
-error against the plain version and its launches a call, with the card's
-name and power limit from nvidia-smi.
+and its decode step at 4 x 1; the SSD backward at Mamba2-2.7B's training
+shape, 1 x 4096 bf16 (`chip_smoke.SSD_BWD_TIMED`). Prints one JSON line:
+by shape, the kernel's and the plain version's milliseconds a call, the
+kernel's largest error against the plain version and its launches a call
+(for the backward also each of its launches' profiled milliseconds and
+the device memory a call allocates at its peak), the
+registers, shared bytes and blocks an SM of the SSD's chunk and backward
+kernels where the checkout reports them, with the card's name and power
+limit from nvidia-smi.
 """
 import argparse
 import json
@@ -38,16 +43,20 @@ def main(argv=None):
         print("time_scans: no CUDA device is available", file=sys.stderr)
         return 1
     import repro_torch
-    times = chip_smoke.scan_times(torch.device("cuda"), args.seed,
+    cuda = torch.device("cuda")
+    times = chip_smoke.scan_times(cuda, args.seed,
                                   long_lru=chip_smoke.RGLRU_LONG)
+    times["ssd_bwd"] = chip_smoke.ssd_bwd_times(cuda, args.seed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({
         "src": os.path.dirname(os.path.abspath(repro_torch.__file__)),
         "times": {k: {f: v[f] for f in ("kernel", "plain", "err",
-                                        "launches")}
+                                        "launches", "launch_ms", "peak_mb")
+                     if f in v}
                   for k, v in times.items()},
+        "attrs": chip_smoke.ssd_kernel_attrs(),
         "card": smi}))
     return 0
 
