@@ -2186,10 +2186,40 @@ def top1_report(a, b):
     return int(bad.sum()), int(bad.numel()), margins.tolist()
 
 
+def wgmma_attrs_spill_nothing():
+    """The tensor-core forward's instantiations as compiled (registers,
+    shared bytes, spilled bytes, blocks an SM), printed; every one at the
+    redesigned head dims (256, 256) and (192, 128) must spill nothing."""
+    from repro_torch.kernels.flash_attention import wgmma_kernel_attrs
+    attrs = wgmma_kernel_attrs()
+    for name, a in attrs.items():
+        print(f"  wgmma forward {name}: {a['registers']} registers, "
+              f"{a['local']} spill bytes, {a['shared']:,} B of shared "
+              f"memory, {a['blocks']} block(s) an SM")
+    spills = {n: a["local"] for n, a in attrs.items()
+              if n.split()[0] in ("256x256", "192x128")}
+    check(len(spills) == 8 and not any(spills.values()),
+          f"the tensor-core forward at (256, 256) and (192, 128) spills "
+          f"nothing: {spills}")
+
+
+def lse_keeps_o(q, k, v, o, **kw):
+    """The forward's log-sum-exp instantiation on these inputs: its lse's
+    largest distance from the plain one, and whether its o is o's bits."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    o2, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    return float((lse - want).abs().max()), torch.equal(o, o2)
+
+
 def flash_against_plain(cuda):
     """Both flash kernels against their plain version on the card, with and
-    without a local window; returns the largest |kernel - plain| seen per
-    lane ("wgmma", "f32") and on the tensor-core lane at head dim 256
+    without a local window; at head dim 256 on the tensor-core lane also
+    its log-sum-exp against the plain one, o the same bits with and
+    without it. Returns the largest |kernel - plain| seen per lane
+    ("wgmma", "f32") and on the tensor-core lane at head dim 256
     ("d256")."""
     import torch
     from repro_torch.kernels.flash_attention import (LAUNCHES,
@@ -2197,7 +2227,9 @@ def flash_against_plain(cuda):
                                                      flash_attention_ref,
                                                      kernel_info,
                                                      kernel_lane)
+    from repro_torch.kernels.flash_attention.bwd_cases import LSE_LIMIT
     f32, bf16 = torch.float32, torch.bfloat16
+    wgmma_attrs_spill_nothing()
     # the CUDA-core lane as compiled: resident warps per SM and spills
     for D, dt in ((128, f32), (64, f32), (96, bf16), (32, bf16), (256, f32),
                   (160, bf16)):
@@ -2297,6 +2329,22 @@ def flash_against_plain(cuda):
         (1, 4, 1, 500, 500, 256, True, f32, 130),
         (2, 4, 2, 129, 129, 200, True, f32),
         (1, 4, 1, 300, 300, 160, True, bf16, 64),
+        # the overlapped schedule at D = 256 (64-row kv tiles, 2 stages):
+        # loops of 1-4 kv tiles, windows whose first tile masks whole rows,
+        # ragged T, causal S != T, B = 2 at G = 1 and 10
+        (1, 4, 1, 64, 64, 256, False, bf16),
+        (1, 4, 1, 64, 128, 256, False, bf16),
+        (1, 4, 1, 64, 192, 256, False, bf16),
+        (1, 4, 1, 64, 256, 256, False, bf16),
+        (1, 4, 2, 256, 256, 256, True, bf16),
+        (1, 4, 2, 300, 300, 256, True, bf16, 63),
+        (1, 4, 2, 300, 300, 256, True, bf16, 65),
+        (1, 4, 1, 257, 257, 256, True, bf16, 1),
+        (1, 4, 2, 100, 333, 256, False, bf16),
+        (1, 4, 2, 130, 300, 256, True, bf16),
+        (1, 4, 2, 300, 130, 256, True, bf16),
+        (2, 4, 4, 200, 200, 256, True, bf16),
+        (2, 10, 1, 300, 300, 256, True, bf16, 100),
     ]
     worst = {"wgmma": 0.0, "f32": 0.0, "d256": 0.0}
     worst_rel = dict(worst)
@@ -2336,6 +2384,12 @@ def flash_against_plain(cuda):
               f": max |kernel - plain| = "
               f"{err:.3g} (rtol = atol = {tol:g}), max row |kernel - "
               f"plain| / |plain| = {rel:.3g} (<= {lim:g})")
+        if lane == "wgmma" and D == 256 and not offset:
+            lse_err, same = lse_keeps_o(q, k, v, o, causal=causal,
+                                        window=window)
+            check(lse_err <= LSE_LIMIT and same,
+                  f"  with its lse: within {lse_err:.3g} of the plain one "
+                  f"(<= {LSE_LIMIT:g}), o the same bits: {same}")
         for key in (lane, "d256") if lane == "wgmma" and D == 256 else (lane,):
             worst[key] = max(worst[key], err)
             worst_rel[key] = max(worst_rel[key], rel)
@@ -3771,8 +3825,12 @@ def mla_prefix_against_plain(cuda):
     (D in {64, 128, 256}), in bf16 and float32, against their plain
     version: lengths that are no tile multiple, S != T, prefix lengths of
     0, 1, a tile edge and past S, the prefix beside a window and without
-    causal (where it changes nothing), and the main paths' shapes. Held
-    as `flash_against_plain` holds its cases. Returns the largest
+    causal (where it changes nothing), and the main paths' shapes; at
+    (192, 128) the ping-pong schedule's loops of 1-4 kv tiles, windows
+    whose first tile masks whole rows, B = 2 at G = 1 and 10, and on the
+    tensor-core lane the log-sum-exp against the plain one with o the
+    same bits. Held as `flash_against_plain` holds its cases. Returns the
+    largest
     |kernel - plain| per key: "mla" (the tensor-core lane at (192, 128)),
     "prefix" (the tensor-core lane with a prefix), "f32" (the CUDA-core
     lane)."""
@@ -3782,6 +3840,7 @@ def mla_prefix_against_plain(cuda):
                                                      flash_attention_ref,
                                                      kernel_info,
                                                      kernel_lane)
+    from repro_torch.kernels.flash_attention.bwd_cases import LSE_LIMIT
     f32, bf16 = torch.float32, torch.bfloat16
     # the CUDA-core lane at a value head dim of its own, as compiled
     for Dk, Dv, dt in ((192, 128, f32), (24, 16, f32), (24, 16, bf16),
@@ -3818,6 +3877,22 @@ def mla_prefix_against_plain(cuda):
         (1, 4, 2, 300, 300, 128, 128, False, bf16, None, 150),  # no effect
         (1, 4, 2, 300, 300, 192, 128, True, bf16, None, 150),   # MLA too
         (2, 4, 1, 40, 40, 16, 16, True, f32, None, 8),          # smoke
+        # the ping-pong schedule at (192, 128), the two consumers taking
+        # turns: loops of 1-4 kv tiles of 128 rows and a ragged 3
+        (1, 4, 2, 128, 128, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 128, 256, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 128, 384, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 128, 512, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 128, 320, 192, 128, False, bf16, None, 0),
+        (1, 4, 2, 512, 512, 192, 128, True, bf16, None, 0),
+        (1, 4, 2, 300, 300, 192, 128, True, bf16, 1, 0),        # window
+        (1, 4, 2, 300, 300, 192, 128, True, bf16, 63, 0),
+        (1, 4, 2, 300, 300, 192, 128, True, bf16, 65, 0),
+        (1, 4, 2, 100, 333, 192, 128, False, bf16, None, 0),    # ragged T
+        (1, 4, 2, 300, 700, 192, 128, True, bf16, None, 0),     # S < T
+        (2, 4, 4, 200, 200, 192, 128, True, bf16, None, 0),     # B = 2
+        (2, 10, 1, 300, 300, 192, 128, True, bf16, None, 0),
+        (1, 4, 1, 64, 192, 256, 256, True, bf16, None, 100),    # D = 256
     ]
     # prefix 0, 1, a tile edge (the tensor-core lane's kv tiles are 64
     # rows at D = 256, else 128; the CUDA-core lane's 128), one past it,
@@ -3857,6 +3932,12 @@ def mla_prefix_against_plain(cuda):
               f"{str(dt)[6:]}: max |kernel - plain| = {err:.3g} (rtol = "
               f"atol = {tol:g}), max row |kernel - plain| / |plain| = "
               f"{rel:.3g} (<= {lim:g})")
+        if lane == "wgmma" and B * H * S * T <= 1 << 26:
+            lse_err, same = lse_keeps_o(q, k, v, o, causal=causal,
+                                        window=window, prefix_len=prefix)
+            check(lse_err <= LSE_LIMIT and same,
+                  f"  with its lse: within {lse_err:.3g} of the plain one "
+                  f"(<= {LSE_LIMIT:g}), o the same bits: {same}")
         key = ("f32" if lane == "f32" else
                "mla" if (Dk, Dv) == (192, 128) else "prefix")
         worst[key] = max(worst[key], err)
@@ -4854,7 +4935,8 @@ def _train_step_probe(smi, profile_call=2):
                       + ", ".join(f"the {what} kernels {t / 1e3:.2f} ms "
                                   f"({100 * t / max(total, 1):.1f}%)"
                                   for what, t in us.items())
-                      + f"; the flash forward {fwd / 1e3:.2f} ms [{smi}]")
+                      + f"; the flash forward {fwd / 1e3:.2f} ms "
+                        f"({100 * fwd / max(total, 1):.1f}%) [{smi}]")
                 for name, t in sorted(by_name.items(),
                                       key=lambda kv: -kv[1])[:6]:
                     print(f"    {t / 1e3:8.3f} ms  {name}")

@@ -145,6 +145,12 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// Arrive on hardware barrier id without waiting: the `count` threads of a
+// named_barrier are those that wait and those that only arrive.
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // ------------------------------------------------------------ registers --
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
@@ -193,6 +199,16 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// The same for wgmma A fragments in registers (bf16 pairs, 4 a k-step):
+// keeps them from being reused while a wgmma that reads them is in flight.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e]) :: "memory");
 }
 
 // d (m64 x n128, f32) += a (smem, K-major) * b (smem, K-major)^T; the

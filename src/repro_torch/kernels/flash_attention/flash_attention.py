@@ -22,7 +22,7 @@ prefill forward's attention. Two lanes, both hand-written for sm_90a:
   scores and outputs per thread, p in shared memory per half-warp.
   227,328 bytes of shared memory at D = 128 in float32: one block per
   SM. `kernel_info` reports its occupancy, registers and spills as
-  compiled.
+  compiled; `wgmma_kernel_attrs` the tensor-core lane's.
 
 Both lanes return each row's base-2 log-sum-exp when asked
 (`return_lse=True`), for the backward.
@@ -203,7 +203,28 @@ def _wgmma_lib() -> ctypes.CDLL:
     lib.flash_attention_wgmma_launch.restype = ctypes.c_int
     lib.flash_attention_wgmma_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_wgmma_error_string.restype = ctypes.c_char_p
+    lib.flash_attention_wgmma_kernel_attrs.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_wgmma_kernel_attrs.restype = ctypes.c_char_p
     return lib
+
+
+def wgmma_kernel_attrs() -> dict:
+    """The tensor-core lane's instantiations as compiled, by name: "DkxDv"
+    for inference, with " prefix" (PaliGemma's prefix-LM mask) and " lse"
+    (training's log-sum-exp) where compiled with them, e.g. "256x256
+    prefix lse". Each maps to its "registers" a thread, "shared" bytes a
+    block (static and a launch's dynamic), "local" (spilled) bytes a
+    thread and resident "blocks" an SM, as the CUDA runtime reports them.
+    Needs the card; launches nothing."""
+    lib = _wgmma_lib()
+    out = (ctypes.c_int * 4)()
+    attrs, i = {}, 0
+    while (name := lib.flash_attention_wgmma_kernel_attrs(i, out)):
+        attrs[name.decode()] = dict(zip(
+            ("registers", "shared", "local", "blocks"), out))
+        i += 1
+    return attrs
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

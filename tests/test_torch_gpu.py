@@ -484,6 +484,22 @@ WINDOW_CASES = [  # (B, H, Hkv, S, T, D, causal, dtype, window)
     (2, 4, 2, 129, 129, 200, True, F32, None),        # D = 200 pads to 256
     (1, 4, 1, 300, 300, 160, True, BF16, 64),         # bf16 on the f32 lane
     (1, 2, 1, 1, 1, 256, True, BF16, 5),              # ragged 1
+    # the overlapped schedule at D = 256 (64-row kv tiles, a 2-stage ring,
+    # K and V freed apart): loops of 1, 2, 3 and 4 kv tiles, the prologue,
+    # the drain and the ring's wraps
+    (1, 4, 1, 64, 64, 256, False, BF16, None),
+    (1, 4, 1, 64, 128, 256, False, BF16, None),
+    (1, 4, 1, 64, 192, 256, False, BF16, None),
+    (1, 4, 1, 64, 256, 256, False, BF16, None),
+    (1, 4, 2, 256, 256, 256, True, BF16, None),       # 1-4 tiles a q tile
+    (1, 4, 2, 300, 300, 256, True, BF16, 63),         # whole rows masked
+    (1, 4, 2, 300, 300, 256, True, BF16, 65),
+    (1, 4, 1, 257, 257, 256, True, BF16, 1),
+    (1, 4, 2, 100, 333, 256, False, BF16, None),      # ragged T
+    (1, 4, 2, 130, 300, 256, True, BF16, None),       # causal S < T
+    (1, 4, 2, 300, 130, 256, True, BF16, None),       # causal S > T
+    (2, 4, 4, 200, 200, 256, True, BF16, None),       # B = 2, G = 1
+    (2, 10, 1, 300, 300, 256, True, BF16, 100),       # B = 2, G = 10
 ]
 
 
@@ -559,6 +575,23 @@ MLA_PREFIX_CASES = [  # (B, H, Hkv, S, T, Dk, Dv, causal, dtype, window, prefix)
     (2, 4, 1, 40, 40, 16, 16, True, F32, None, 8),           # smoke dims
     (1, 4, 2, 300, 300, 128, 128, True, F32, 100, 150),
     (1, 4, 2, 300, 300, 192, 128, True, F32, None, 150),
+    # the ping-pong schedule at (192, 128), the two consumers taking
+    # turns: loops of 1, 2, 3 and 4 kv tiles of 128 rows (their first and
+    # last turns), a ragged 3
+    (1, 4, 2, 128, 128, 192, 128, False, BF16, None, 0),
+    (1, 4, 2, 128, 256, 192, 128, False, BF16, None, 0),
+    (1, 4, 2, 128, 384, 192, 128, False, BF16, None, 0),
+    (1, 4, 2, 128, 512, 192, 128, False, BF16, None, 0),
+    (1, 4, 2, 128, 320, 192, 128, False, BF16, None, 0),
+    (1, 4, 2, 512, 512, 192, 128, True, BF16, None, 0),   # 1-4 a q tile
+    (1, 4, 2, 300, 300, 192, 128, True, BF16, 1, 0),      # window: whole
+    (1, 4, 2, 300, 300, 192, 128, True, BF16, 63, 0),     # rows masked
+    (1, 4, 2, 300, 300, 192, 128, True, BF16, 65, 0),
+    (1, 4, 2, 100, 333, 192, 128, False, BF16, None, 0),  # ragged T
+    (1, 4, 2, 300, 700, 192, 128, True, BF16, None, 0),   # causal S < T
+    (2, 4, 4, 200, 200, 192, 128, True, BF16, None, 0),   # B = 2, G = 1
+    (2, 10, 1, 300, 300, 192, 128, True, BF16, None, 0),  # B = 2, G = 10
+    (1, 4, 1, 64, 192, 256, 256, True, BF16, None, 100),  # 3 tiles, prefix
 ]
 
 
@@ -613,6 +646,52 @@ def test_flash_prefix_one_keeps_causal_bits(cuda):
         b = flash_attention(q, k, v, causal=True, prefix_len=200)
         assert not torch.equal(a, b) and torch.equal(a[:, :, 200:],
                                                      b[:, :, 200:]), Dk
+
+
+# the tensor-core forward's log-sum-exp (its LSE instantiations) at the
+# redesigned schedules' head dims: the plain lse's, and o unchanged
+WGMMA_LSE_CASES = [  # (B, H, Hkv, S, T, Dk, Dv, causal, window, prefix)
+    (1, 10, 1, 4096, 4096, 256, 256, True, 2048, 0),  # recurrentgemma-2b
+    (1, 4, 1, 64, 192, 256, 256, False, None, 0),
+    (1, 4, 2, 300, 300, 256, 256, True, 63, 0),
+    (2, 10, 1, 300, 130, 256, 256, True, None, 0),
+    (1, 4, 1, 300, 300, 256, 256, True, None, 129),
+    (1, 16, 16, 1024, 1024, 192, 128, True, None, 0),  # deepseek-v3 heads
+    (1, 4, 2, 128, 320, 192, 128, False, None, 0),
+    (1, 4, 2, 300, 300, 192, 128, True, 65, 0),
+    (2, 10, 1, 300, 700, 192, 128, True, None, 150),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,T,Dk,Dv,causal,window,prefix",
+                         WGMMA_LSE_CASES)
+def test_flash_wgmma_lse_matches_plain(cuda, B, H, Hkv, S, T, Dk, Dv,
+                                       causal, window, prefix):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(S * 1000 + T + Dk + Dv + prefix + 2)
+    q, k, v = _qkv_dv(rng, B, H, Hkv, S, T, Dk, Dv, BF16, cuda)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    _, want = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == F32 and lse.shape == (B, H, S)
+    assert float((lse - want).abs().max()) <= LSE_LIMIT
+    assert torch.equal(o, flash_attention(q, k, v, **kw))
+
+
+def test_flash_wgmma_attrs_spill_nothing(cuda):
+    """The tensor-core forward as compiled: every instantiation at the
+    redesigned head dims, (256, 256) (one consumer, its products
+    overlapped) and (192, 128) (two consumers taking turns), with and
+    without the prefix and the log-sum-exp, spills no register and fits
+    one block an SM."""
+    from repro_torch.kernels.flash_attention import wgmma_kernel_attrs
+    attrs = wgmma_kernel_attrs()
+    assert len(attrs) == 16, sorted(attrs)
+    for name, a in attrs.items():
+        assert a["blocks"] >= 1, (name, a)
+        if name.split()[0] in ("256x256", "192x128"):
+            assert a["local"] == 0, (name, a)
 
 
 @pytest.mark.parametrize("Dk,Dv,dtype", [(192, 128, F32), (24, 16, F32),

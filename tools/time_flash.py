@@ -26,7 +26,11 @@ log-sum-exp where the checkout's forward returns one for that lane
 without it ("no_lse"). A shape the checkout does not take (no value head
 dim of its own, no prefix) is skipped. Prints one JSON line: by shape,
 the kernel's milliseconds a call and its largest error against the plain
-version, with the card's name and power limit from nvidia-smi.
+version, and for the bf16 forwards without a window or a prefix one
+causal `scaled_dot_product_attention` call's ("sdpa", the yardstick; the
+port never calls it); the tensor-core forward's instantiations as compiled (registers,
+shared and spilled bytes, blocks an SM; `wgmma_kernel_attrs`, skipped for
+a checkout without it); the card's name and power limit from nvidia-smi.
 """
 import argparse
 import json
@@ -75,11 +79,17 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("time_flash: no CUDA device is available", file=sys.stderr)
         return 1
+    import torch.nn.functional as F
     import repro_torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_attention_ref)
+    try:
+        from repro_torch.kernels.flash_attention import wgmma_kernel_attrs
+        attrs = wgmma_kernel_attrs()
+    except ImportError:  # a checkout without the attribute export
+        attrs = "skipped: not exported by this checkout"
     cuda = torch.device("cuda")
     times = {}
     for name, (B, H, Hkv, S, dk, dv, dt, kw) in SHAPES.items():
@@ -99,6 +109,10 @@ def main(argv=None):
         times[name] = {"kernel": chip_smoke.cuda_ms(
             lambda: flash_attention(q, k, v, causal=True, **kw), 20),
             "err": err}
+        if dt == "bfloat16" and not kw:
+            times[name]["sdpa"] = chip_smoke.cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 20)
         del q, k, v
         torch.cuda.empty_cache()
     for name, (B, H, Hkv, S, dk, dv, dt, kw) in BWD_SHAPES.items():
@@ -133,7 +147,7 @@ def main(argv=None):
                          text=True).stdout.strip()
     print(json.dumps({
         "src": os.path.dirname(os.path.abspath(repro_torch.__file__)),
-        "times": times, "card": smi}))
+        "times": times, "wgmma_attrs": attrs, "card": smi}))
     return 0
 
 
