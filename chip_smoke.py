@@ -13,7 +13,8 @@ Phases, each printing its own lines and seconds:
               segment-sum kernel (float32, float64, and its hub lane:
               float64 sums added into y in place) against its plain
               version on random cases and cases built round its chunks of
-              2,048 edges, run to run and lane by lane;
+              2,048 edges (the hub lane's of 512 too, its counts back at
+              zero after each call), run to run and lane by lane;
   4. flash  : both flash-attention kernels (the tensor-core lane for bf16
               at head dims (64, 64), (128, 128), (256, 256) or (192, 128),
               the CUDA-core lane for the rest) against their plain
@@ -47,7 +48,9 @@ Phases, each printing its own lines and seconds:
               4096, 16384 and 32768, ragged W, h0, the clamp of m), each
               run twice for the same bits, and timed at 1 x 4096 and
               1 x 32768 x 2560 beside its plain version and its byte
-              bound; the flash backward at RecurrentGemma-2B's training
+              bound, each of its launches profiled, every RG-LRU
+              kernel's registers, spills and blocks an SM printed; the
+              flash backward at RecurrentGemma-2B's training
               shape (bf16, D = 256, window 2048: the tensor-core lane,
               given the tensor-core forward's o and lse, and without the
               lse) beside its plain version, SDPA's backward with the
@@ -667,13 +670,17 @@ CSR_CASES = [  # (n_rows, n_cols, mean in-degree, (row, length) overrides)
 def csr_against_plain(cuda):
     """The CSR segment-sum kernel against its plain version on the card,
     run to run and lane by lane, on random cases and on cases built round
-    its chunks of CSR_E edges; then its hub lane on the same cases. Returns
-    the largest |kernel - plain| per lane ("f32", "f64", "hub")."""
+    its chunks of CSR_E edges and the hub lane's of 512
+    (`kernels/csr_spmv/hub_cases.py`); then its hub lane on the same
+    cases. Returns the largest |kernel - plain| per lane ("f32", "f64",
+    "hub")."""
     import numpy as np
     import torch
-    from repro_torch.kernels.csr_spmv import csr_spmv, csr_spmv_ref
+    from repro_torch.kernels.csr_spmv import (csr_spmv, csr_spmv_ref,
+                                              hub_counts)
+    from repro_torch.kernels.csr_spmv.hub_cases import HUB_CASES
     worst = {"f32": 0.0, "f64": 0.0, "hub": 0.0}
-    for n_rows, n_cols, deg, long_rows in CSR_CASES:
+    for n_rows, n_cols, deg, long_rows in CSR_CASES + HUB_CASES:
         rng = np.random.default_rng(n_rows)
         indptr_np, src_np, w_np, rows_np = random_csr(rng, n_rows, n_cols,
                                                       deg, long_rows)
@@ -714,11 +721,13 @@ def csr_against_plain(cuda):
             ulps, err, same, lanes, kept = hub_lane_against_plain(
                 indptr, src, w, x, row_map, y0)
             worst["hub"] = max(worst["hub"], err)
-            check(ulps <= 1.0 and same and lanes and kept,
+            zero = int(hub_counts(cuda).abs().sum()) == 0
+            check(ulps <= 1.0 and same and lanes and kept and zero,
                   f"csr hub lane {n_rows}x{n_cols} nnz={len(src_np)} "
                   f"nv={nv}: {ulps:.3g} float32 ulps from the float64 plain "
                   f"sum (<= 1), two runs identical, each lane = its 1-wide "
-                  f"call, other rows untouched")
+                  f"call, other rows untouched, the workspace's counts back "
+                  f"at zero")
     return worst
 
 
@@ -965,6 +974,8 @@ def csr_timing(op, cuda, smi, hub_dev):
              "old_side": cuda_ms(lambda: old_side(x3, y3), 20),
              "host_us": host_us(lambda: csr_spmv_hub_add(
                  *args, hub_dev["hub_map"], y))}
+        each = profiled_kernels(lambda: csr_spmv_hub_add(
+            *args, hub_dev["hub_map"], y))
         # indptr, cols, vals and row_map once, the rows of x the hub rows
         # name once, y's hub rows read and written
         nbytes = (sum(a.numel() * a.element_size() for a in
@@ -979,7 +990,9 @@ def csr_timing(op, cuda, smi, hub_dev):
               f"side (f64 index_select + index_add_ over the padded rows, "
               f"cast and add) {t['old_side']:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}); wrapper host {t['host_us']:.2f} us a call; "
-              f"{ulps:.3g} ulps [{smi}]")
+              f"{ulps:.3g} ulps; launches a call: "
+              + ", ".join(f"{k} x {v['launches']:g} ({v['ms']:.4f} ms)"
+                          for k, v in each.items()) + f" [{smi}]")
         rows[("hub", nv)] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
     return rows
 
@@ -5142,7 +5155,7 @@ RGLRU_BWD_FLOPS_PER_ELEMENT = 45
 # the train step's kernels reported apart in a profiled step: what ->
 # substrings of their kernels' names
 STEP_KERNELS = {"flash backward": ("flash_bwd",),
-                "RG-LRU backward": ("rglru_scan_bwd", "rglru_bwd_sum"),
+                "RG-LRU backward": ("rglru_scan_bwd",),
                 "SSD backward": ("ssd_bwd_",)}
 
 
@@ -5184,6 +5197,12 @@ def rglru_bwd_against_plain(cuda):
               + ", ".join(f"{n} {e:.3g} (<= {lim:g})" for n, e, lim in pairs)
               + "; two runs bit for bit equal")
         del args, dh, h, got, again, ref
+    from repro_torch.kernels.rglru_scan import bwd_flags
+    flags = bwd_flags(cuda, torch.cuda.current_stream().cuda_stream)
+    check(flags is not None and bool((flags == 255).all()),
+          f"rglru bwd: its {flags.numel():,} bytes of flags kept between "
+          f"calls (the ticket, the composite words, the tiles' counts) all "
+          f"ones again after the {len(BWD_CASES)} cases")
     free_cuda()
     return worst
 
@@ -5200,44 +5219,119 @@ def rglru_bwd_bound(u, h0=None):
     return roofline_ms(RGLRU_BWD_FLOPS_PER_ELEMENT * n, nbytes, "float32")
 
 
-def rglru_bwd_timing(cuda, seed, smi):
-    """The RG-LRU backward at RecurrentGemma-2B's width, 1 x S x 2560 with
-    bf16 u for each S of RGLRU_BWD_TIMED (4096: its training shape; 32768:
-    512 chunks folded through group composites): the kernel, its plain
-    version and the byte bound; no one PyTorch call computes it. Returns
-    {S: row}."""
-    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_kernel,
+def kernel_short_name(name):
+    """A device kernel's name as the profiler gives it, shortened: the
+    function's own name, or an elementwise kernel's functor (a fill is
+    "FillFunctor")."""
+    import re
+    m = re.search(r"at::native::(?:\w+::)*(\w+Functor)", name)
+    if m is not None:
+        return m.group(1)
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def profiled_kernels(fn, calls=20):
+    """Each kernel fn() launches, by `kernel_short_name`: "ms", the mean
+    device ms of a launch, and "launches", its launches a call, over the
+    events torch.profiler kept of `calls` calls after a warm-up (it may
+    drop an event, so "launches" may read a little low); {} if it saw no
+    device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms, n = out.get(kernel_short_name(e.name), (0.0, 0))
+        out[kernel_short_name(e.name)] = (
+            ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {k: {"ms": ms / n, "launches": n / calls}
+            for k, (ms, n) in out.items()}
+
+
+def rglru_bwd_times(cuda, seed, S, W=2560):
+    """The RG-LRU backward kernel at 1 x S x W with bf16 u (inputs from
+    `bwd_cases.bwd_inputs` at `seed` on the card, the forward kernel's h):
+    "kernel" and "plain" ms (`cuda_ms`), "errs" (each gradient's error
+    over its largest plain element, `bwd_errors`), "err" (the largest
+    |kernel - plain| but dh0's), "within" (each error within its
+    `bwd_limits`), "launches" (the "bwd" count's rise over a call),
+    "kernels" (`profiled_kernels` of a call: each device kernel's ms and
+    launches a call, the workspace's fill among them) and "inputs" (u on
+    the meta device). Only the scan's public functions are imported, so
+    tools/time_scans.py times another checkout by the same method."""
+    from repro_torch.kernels.rglru_scan import (LAUNCHES,
+                                                rglru_scan_bwd_kernel,
                                                 rglru_scan_bwd_ref,
                                                 rglru_scan_kernel)
     from repro_torch.kernels.rglru_scan.bwd_cases import (bwd_errors,
                                                           bwd_inputs,
                                                           bwd_limits)
+    args, dh = bwd_inputs(1, S, W, "bf16", False, False, cuda, seed)
+    h = rglru_scan_kernel(*args)
+
+    def kernel():
+        return rglru_scan_bwd_kernel(*args[:6], h, dh)
+    before = LAUNCHES["bwd"]
+    got = kernel()
+    launches = LAUNCHES["bwd"] - before
+    ref = rglru_scan_bwd_ref(*args[:6], h, dh)
+    errs = bwd_errors(got, ref)[:6]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got[:6], ref[:6]))
+    within = all(e <= lim for e, lim in zip(errs, bwd_limits("bf16")))
+    del got, ref
+    t = {"kernel": cuda_ms(kernel, 20),
+         "plain": cuda_ms(lambda: rglru_scan_bwd_ref(*args[:6], h, dh), 3),
+         "kernels": profiled_kernels(kernel), "errs": errs, "err": err,
+         "within": within, "launches": launches,
+         "inputs": (args[0].to("meta"),)}
+    del args, dh, h
+    free_cuda()
+    return t
+
+
+def rglru_kernel_attrs():
+    """Registers, shared bytes, spilled (local) bytes and resident blocks
+    an SM of every RG-LRU kernel instantiation, as the card reports them
+    (`rglru_scan.kernel_attrs`); {} for a checkout without that report."""
+    from repro_torch.kernels import rglru_scan
+    attrs = getattr(rglru_scan, "kernel_attrs", None)
+    return {} if attrs is None else attrs()
+
+
+def rglru_bwd_timing(cuda, seed, smi):
+    """The RG-LRU backward at RecurrentGemma-2B's width, 1 x S x 2560 with
+    bf16 u for each S of RGLRU_BWD_TIMED (4096: its training shape; 32768:
+    512 chunks folded through group composites): the kernel, its plain
+    version, each of its launches' profiled ms and the byte bound; no one
+    PyTorch call computes it; then every RG-LRU kernel's registers, shared
+    bytes, spills and blocks an SM. Returns {S: row}."""
     rows = {}
     for S in RGLRU_BWD_TIMED:
-        args, dh = bwd_inputs(1, S, 2560, "bf16", False, False, cuda, seed)
-        h = rglru_scan_kernel(*args)
-        got = rglru_scan_bwd_kernel(*args[:6], h, dh)
-        ref = rglru_scan_bwd_ref(*args[:6], h, dh)
-        errs = bwd_errors(got, ref)
-        err = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(got[:6], ref[:6]))
-        check(all(e <= lim for e, lim in zip(errs[:6], bwd_limits("bf16"))),
-              f"rglru bwd at 1 x {S} x 2560 bf16: "
-              f"{', '.join(f'{e:.3g}' for e in errs[:6])}")
-        del got, ref
-        t = {"kernel": cuda_ms(lambda: rglru_scan_bwd_kernel(
-                 *args[:6], h, dh), 20),
-             "plain": cuda_ms(lambda: rglru_scan_bwd_ref(*args[:6], h, dh),
-                              3)}
-        b_ms, b_by = rglru_bwd_bound(args[0])
+        t = rglru_bwd_times(cuda, seed, S)
+        check(t["within"], f"rglru bwd at 1 x {S} x 2560 bf16: "
+              f"{', '.join(f'{e:.3g}' for e in t['errs'])}")
+        b_ms, b_by = rglru_bwd_bound(*t["inputs"])
+        each = ", ".join(f"{k} {v['ms']:.4f} ms x {v['launches']:g} a "
+                         f"call" for k, v in t["kernels"].items())
         print(f"  rglru bwd 1 x {S} x 2560, bf16 u: kernel "
-              f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); "
-              f"kernel at {100 * b_ms / t['kernel']:.1f}% of bound; max "
-              f"|kernel - plain| {err:.3g} [{smi}]")
-        rows[S] = dict(t, bound_ms=b_ms, bound_by=b_by, err=err)
-        del args, dh, h
-        free_cuda()
+              f"{t['kernel']:.4f} ms ({each}), plain {t['plain']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); kernel at "
+              f"{100 * b_ms / t['kernel']:.1f}% of bound; max |kernel - "
+              f"plain| {t['err']:.3g} [{smi}]")
+        rows[S] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for name, a in rglru_kernel_attrs().items():
+        print(f"  {name}: {a['registers']} registers, {a['shared']} B "
+              f"shared, {a['local']} B spilled, {a['blocks']} blocks an SM")
     return rows
 
 

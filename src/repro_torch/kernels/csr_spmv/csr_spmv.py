@@ -1,12 +1,18 @@
 """ctypes wrapper of the hand-written CSR segment-sum CUDA kernel
 (csrc/csr_spmv.cu): y = P^T x over a row-sorted edge list with an indptr,
-balanced by edges (blocks of 2,048 consecutive edges), in a fixed order.
+balanced by edges, in a fixed order.
 
-Two entry points, three lanes of one kernel:
-  * `csr_spmv`: float32 or float64, summed in x's type, y returned;
+Two entry points, three lanes of one design:
+  * `csr_spmv`: float32 or float64, summed in x's type, y returned; blocks
+    of 2,048 consecutive edges, the rows crossing a block's end added by a
+    second small launch;
   * `csr_spmv_hub_add`: the block backend's hub rows, float32 operands
     whose products and sum are float64, rounded once and added into the
-    block kernel's float32 y in place.
+    block kernel's float32 y in place; one launch, blocks of 512 edges,
+    the rows crossing a block's end added by the last of their blocks to
+    finish, found through counts kept at zero in a workspace that outlives
+    the call (one for each device and stream, so that calls on two streams
+    never share one; calls on one stream run one after another).
 
 The JAX package has no TPU kernel here: it computes the product as an XLA
 gather plus `jax.ops.segment_sum` (repro/graph/csr.py:152-161). The plain
@@ -21,32 +27,46 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from .. import build
 
 # Launches per lane: one added where the kernel is launched, and nowhere
-# else (chip_smoke.py reads them to show a solve ran here). A call is one
-# launch of the chunk kernel and, where there is more than one chunk, one
-# of the small kernel that adds the crossing rows' chunk totals.
+# else (chip_smoke.py reads them to show a solve ran here). An f32 or f64
+# call is one launch of the chunk kernel and, where there is more than one
+# chunk, one of the small kernel that adds the crossing rows' chunk
+# totals; a hub call is one launch.
 LAUNCHES = {"f32": 0, "f64": 0, "hub": 0}
 _LANE = {torch.float32: 0, torch.float64: 1}
-_HUB_LANE = 2
+# the hub lane's workspaces by (device index, raw stream): (chunks,
+# columns, the buffer), its counts zero between calls
+_HUB_WORK: dict = {}
+_HUB_LOCK = threading.Lock()
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("csr_spmv")
     lib.csr_spmv_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.csr_spmv_launch.restype = ctypes.c_int
+    lib.csr_spmv_hub_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.csr_spmv_hub_launch.restype = ctypes.c_int
     lib.csr_spmv_error_string.argtypes = [ctypes.c_int]
     lib.csr_spmv_error_string.restype = ctypes.c_char_p
     lib.csr_spmv_workspace_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                              ctypes.c_int]
     lib.csr_spmv_workspace_bytes.restype = ctypes.c_longlong
+    lib.csr_spmv_hub_chunks.argtypes = [ctypes.c_longlong]
+    lib.csr_spmv_hub_chunks.restype = ctypes.c_longlong
+    lib.csr_spmv_hub_workspace_bytes.argtypes = [ctypes.c_longlong,
+                                                 ctypes.c_int]
+    lib.csr_spmv_hub_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -59,8 +79,23 @@ def _check(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(lane: int, indptr, src, weight, x, y, row_map,
-            n_rows: int) -> None:
+def _stream(index: int) -> int:
+    """The raw handle of the current stream on device `index` (not a
+    torch.cuda.Stream object a call: the static solve's loop is
+    host-bound)."""
+    if index == torch.cuda.current_device():
+        return torch._C._cuda_getCurrentRawStream(index)
+    with torch.cuda.device(index):
+        return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _raise(what: str, err: int) -> None:
+    if err != 0:
+        msg = _lib().csr_spmv_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _launch(lane: int, indptr, src, weight, x, y, n_rows: int) -> None:
     nnz = src.shape[0]
     nv = 1 if x.ndim == 1 else x.shape[1]
     lib = _lib()
@@ -69,24 +104,40 @@ def _launch(lane: int, indptr, src, weight, x, y, row_map,
     nbytes = lib.csr_spmv_workspace_bytes(nnz, nv, lane)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     vec = int((src.data_ptr() | weight.data_ptr()) % 16 == 0)
-    index = x.device.index
-    args = (indptr.data_ptr(), src.data_ptr(), weight.data_ptr(),
-            x.data_ptr(), y.data_ptr(),
-            None if row_map is None else row_map.data_ptr(),
-            work.data_ptr(), nbytes, n_rows, nnz, nv, lane, vec)
-    # the raw stream handle, not a torch.cuda.Stream object a call: the
-    # static solve's loop is host-bound
-    if index == torch.cuda.current_device():
-        err = lib.csr_spmv_launch(
-            *args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = lib.csr_spmv_launch(
-                *args, torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        msg = lib.csr_spmv_error_string(err).decode()
-        raise RuntimeError(f"csr_spmv launch failed: CUDA error {err} "
-                           f"({msg})")
+    _raise("csr_spmv", lib.csr_spmv_launch(
+        indptr.data_ptr(), src.data_ptr(), weight.data_ptr(), x.data_ptr(),
+        y.data_ptr(), work.data_ptr(), nbytes, n_rows, nnz, nv, lane, vec,
+        _stream(x.device.index)))
+
+
+def _hub_workspace(device: torch.device, stream: int, chunks: int,
+                  nv: int) -> tuple:
+    """(chunks, columns, buffer) of the hub lane's workspace on `device`
+    for the raw stream `stream`, at least `chunks` chunks and `nv`
+    columns wide: kept between calls, its counts zero (a new buffer is
+    zeroed on the stream, once, when a call needs a wider one)."""
+    key = (device.index, stream)
+    with _HUB_LOCK:
+        have = _HUB_WORK.get(key)
+        if have is None or have[0] < chunks or have[1] < nv:
+            if have is not None:
+                chunks, nv = max(chunks, have[0]), max(nv, have[1])
+            nbytes = _lib().csr_spmv_hub_workspace_bytes(chunks, nv)
+            have = (chunks, nv, torch.zeros(nbytes, dtype=torch.uint8,
+                                            device=device))
+            _HUB_WORK[key] = have
+        return have
+
+
+def hub_counts(device: torch.device) -> "torch.Tensor | None":
+    """The counts of the hub lane's workspace for the current stream on
+    `device` (int32, one for each chunk it holds room for; zero between
+    calls), or None before the first hub call there."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    have = _HUB_WORK.get((index, _stream(index)))
+    return None if have is None else have[2][:4 * have[0]].view(torch.int32)
 
 
 def csr_spmv(indptr: torch.Tensor, src: torch.Tensor, weight: torch.Tensor,
@@ -120,7 +171,7 @@ def csr_spmv(indptr: torch.Tensor, src: torch.Tensor, weight: torch.Tensor,
                     device=x.device)
     if y.numel() == 0:
         return y
-    _launch(_LANE[x.dtype], indptr, src, weight, x, y, None, n_rows)
+    _launch(_LANE[x.dtype], indptr, src, weight, x, y, n_rows)
     LAUNCHES["f32" if x.dtype == torch.float32 else "f64"] += 1
     return y
 
@@ -162,6 +213,15 @@ def csr_spmv_hub_add(indptr: torch.Tensor, src: torch.Tensor,
            row_map=row_map, y=y)
     if n_hub == 0 or y.shape[1] == 0:
         return y
-    _launch(_HUB_LANE, indptr, src, weight, x, y, row_map, n_hub)
+    lib = _lib()
+    nnz, nv = src.shape[0], x.shape[1]
+    stream = _stream(x.device.index)
+    chunks, width, work = _hub_workspace(x.device, stream,
+                                        lib.csr_spmv_hub_chunks(nnz), nv)
+    vec = int((src.data_ptr() | weight.data_ptr()) % 16 == 0)
+    _raise("csr_spmv_hub_add", lib.csr_spmv_hub_launch(
+        indptr.data_ptr(), src.data_ptr(), weight.data_ptr(), x.data_ptr(),
+        y.data_ptr(), row_map.data_ptr(), work.data_ptr(), chunks, width,
+        n_hub, nnz, nv, vec, stream))
     LAUNCHES["hub"] += 1
     return y

@@ -11,8 +11,9 @@ import torch
 # (B, S, W, dtype of u, h0, clamp): the forward kernel's cases
 # (RecurrentGemma-2B's width at its prefill and training length, S = 1,
 # one chunk + 1, 128 chunks, 512 chunks in groups, ragged W, the smoke
-# width), float32 u at the training shape, and one where the clamp of
-# m = sqrt(max(1 - a^2, 1e-12)) holds (ga + b_a <= -30 on half the steps)
+# width), float32 u at the training shape, one where the clamp of
+# m = sqrt(max(1 - a^2, 1e-12)) holds (ga + b_a <= -30 on half the
+# steps), and three at the edges of the backward's channel tiles
 BWD_CASES = [
     (1, 4096, 2560, "bf16", False, False),            # recurrentgemma-2b
     (1, 4096, 2560, "f32", False, False),
@@ -27,6 +28,12 @@ BWD_CASES = [
     (1, 7, 5, "f32", True, False),
     (2, 300, 2560, "f32", True, True),                # the clamp holds
     (2, 300, 2560, "bf16", False, True),
+    # the edges of the backward's tiles of 32 channels: W past a tile
+    # edge with 16-byte copies (2600) and without (70), B > 1 so that the
+    # last block of a tile adds B nch rows, S = 4097 (65 chunks, groups)
+    (2, 4097, 2600, "bf16", True, False),
+    (3, 4097, 200, "f32", False, False),
+    (3, 1000, 70, "bf16", True, False),
 ]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 GRADS = ("du", "dga", "dgi", "db_a", "db_i", "dlam", "dh0")

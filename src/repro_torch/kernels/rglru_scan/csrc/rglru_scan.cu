@@ -70,12 +70,24 @@
 // u against some 45 flops. So it is the forward's one pass run in reverse:
 // the reverse step x -> a_t (x + dh_t), x the carry a_{t+1} g_{t+1}, is
 // an affine map as the forward's step is, so the same composites, words
-// and fold (carry_in) carry it, the blocks taking chunks by ticket from
-// the last; each thread reads h_{t-1} from the forward's output instead
-// of running the forward again. The bias and lam gradients are sums over
-// every step: each block writes its 64 steps' sums, and a second small
-// launch (rglru_bwd_sum_kernel) adds them in a fixed order, so no atomic
-// adds a value and the bits repeat.
+// and fold (carry_in) carry it, in the same order, the blocks taking
+// chunks by ticket from the last; each thread reads h_{t-1} from the
+// forward's output instead of running the forward again. Its blocks hold
+// little in registers: a block owns 32 channels of a chunk, 256 threads
+// (a thread a channel of a segment), and stages its tile in shared memory
+// by 16-byte cp.async copies, a warp four rows of 128 bytes at once, ga
+// and dh first (the chunk's composite needs only those), then u, gi and
+// h_{t-1}, whose copies land while the block folds the later chunks'
+// composites. Four blocks an SM (36 KB of tile each with bf16 u, 64
+// registers a thread, no spills); 64-channel blocks of 512 threads, rows
+// of 256 bytes, fit two an SM and ran slower at 1 x 4096 x 2560. The
+// bias and lam gradients are sums over every step: each block writes its
+// 64 steps' sums, and the last block of each channel tile to finish (a
+// count, which adds no value) adds them in a fixed order, in the same
+// launch: no atomic adds a value and the bits repeat. One launch a call: the words are all ones (a value no set word
+// takes) when it starts, and it leaves them so, the last block of each
+// channel tile putting the tile's words back, so the wrapper keeps them
+// between calls and fills them once.
 
 #include <cstdint>
 
@@ -323,20 +335,94 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
 }
 
-// The backward: the forward's blocks and fold run in reverse. The
+// 16 bytes from global to shared memory without the registers, zeros
+// where !ok (src then only has to be a valid address)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kPending of this thread's latest groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// A backward block's tile of its chunk, in shared memory: row r of each
+// is step t0 + r, but hp's, which is h_{t0 + r - 1}.
+template <typename T>
+struct BwdTile {
+  float ga[kChunk][kCw], dh[kChunk][kCw];
+  float gi[kChunk][kCw], hp[kChunk][kCw];
+  T u[kChunk][kCw];
+};
+
+// Rows t_first .. t_first + kChunk - 1 of a (S, W) slab (`rows`, a batch
+// entry's first row), channels w0 .. w0 + kCw - 1, into dst by the
+// block's threads: row -1 is `before` (null: zeros), rows past S and
+// channels past W zeros. With `vec` (16-byte aligned rows, W a multiple of
+// 8) 16-byte cp.async copies, a warp four rows at once (eight in bf16);
+// else loads and stores, an element each.
+template <typename E>
+__device__ __forceinline__ void stage_tile(E (*dst)[kCw],
+                                           const E* __restrict__ rows,
+                                           const E* __restrict__ before,
+                                           int t_first, int S, int W,
+                                           int w0, bool vec) {
+  auto row_at = [&](int r) -> const E* {
+    const int t = t_first + r;
+    return t < 0 ? before : t < S ? rows + (long long)t * W : nullptr;
+  };
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(E), kPerRow = kCw / kPer;
+    for (int q = threadIdx.x; q < kChunk * kPerRow; q += kThreads) {
+      const int r = q / kPerRow, col = q % kPerRow * kPer;
+      const E* p = row_at(r);
+      const bool ok = p != nullptr && w0 + col < W;
+      cp16(&dst[r][col], ok ? p + w0 + col : rows, ok);
+    }
+  } else {
+    for (int q = threadIdx.x; q < kChunk * kCw; q += kThreads) {
+      const int r = q / kCw, col = q % kCw;
+      const E* p = row_at(r);
+      if (p != nullptr && w0 + col < W)
+        dst[r][col] = p[w0 + col];
+      else
+        from_f(0.f, &dst[r][col]);
+    }
+  }
+}
+
+// The backward: the forward's chunks and fold run in reverse. The
 // gradient g_t = dh_t + a_{t+1} g_{t+1} enters step t as the carry
 // x = a_{t+1} g_{t+1} and leaves it as a_t (dh_t + x): the affine map
 // x -> a_t x + a_t dh_t, the forward's form, so `carry_in` folds it with
 // chunks and segments counted from the end (chunk kr = nch - 1 - k,
-// segment kG - 1 - j). Blocks take chunks by ticket from the last; a
-// thread holds its segment's inputs in registers, reads h_{t-1} from the
-// forward's output (h0 or 0 before the first step), runs its steps from
-// the last with the carry, and writes du, dga and dgi. The sums of dga,
-// dgi and d(log a) r over its 64 steps go to part (3, B, nch, W), added
-// over the steps from the last, then over the segments in order;
-// rglru_bwd_sum_kernel adds those in order. No atomics but the ticket.
+// segment kG - 1 - j). A block owns (b, a chunk of 64 steps, 32
+// channels), the forward's shape, taken by ticket from the last chunk;
+// thread (j, c) runs segment j's 8 steps of channel c. It stages the
+// tile in shared memory
+// by cp.async in two groups: ga and dh, all the chunk's composite needs,
+// then u, gi and h_{t-1}, which arrive while the block folds the later
+// chunks' composites and hold no registers meanwhile. It runs its steps
+// from the last with the carry and writes du, dga and dgi. The sums of
+// dga, dgi and d(log a) r over its 64 steps go to part (3, B, nch, W),
+// over the steps from the last, then over the segments in order; the
+// last block of a channel tile to finish (its count in `done` counts from
+// -1) adds the tile's B nch rows of each in order, the threads of segment
+// j a contiguous range, the 8 ranges then in order, and writes db_a, db_i
+// and dlam. No atomics but the ticket and the counts. The flags (the
+// ticket, the counts and the words) are all ones when a call starts, and
+// the call leaves them so: the last ticket puts the ticket back, the last
+// block of a tile its count and, every block of the tile having folded,
+// the tile's words; so the caller keeps them between calls and fills
+// them once.
 template <typename T, bool kGrouped>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 4)
 rglru_scan_bwd_kernel(const T* __restrict__ u, const float* __restrict__ ga,
                       const float* __restrict__ gi,
                       const float* __restrict__ b_a,
@@ -346,82 +432,100 @@ rglru_scan_bwd_kernel(const T* __restrict__ u, const float* __restrict__ ga,
                       const float* __restrict__ h,
                       const float* __restrict__ dh, T* __restrict__ du,
                       float* __restrict__ dga, float* __restrict__ dgi,
-                      float* __restrict__ dh0, float* __restrict__ part,
+                      float* __restrict__ d_ba, float* __restrict__ d_bi,
+                      float* __restrict__ d_lam, float* __restrict__ dh0,
+                      float* __restrict__ part,
                       unsigned long long* __restrict__ comp,
                       unsigned long long* __restrict__ grp,
-                      int* __restrict__ ticket, int B, int S, int W,
-                      int G) {
+                      int* __restrict__ ticket, int* __restrict__ done,
+                      int B, int S, int W, int G, int vec) {
+  __shared__ __align__(16) BwdTile<T> tl;
   __shared__ float red[3][kG][kCw];
-  __shared__ int order;
-  if (threadIdx.x == 0) order = atomicAdd(ticket, 1) + 1;
-  __syncthreads();
+  __shared__ int order, last;
   const int tiles = (W + kCw - 1) / kCw;
   const int nch = (S + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+    order = atomicAdd(ticket, 1) + 1;
+    // the last ticket: every block has taken its own, so the ticket goes
+    // back to -1 for the next call
+    if (order == B * nch * tiles - 1) atomicExch(ticket, -1);
+  }
+  __syncthreads();
   const int kr = order / (tiles * B), tile = order % (tiles * B) / B,
             b = order % B;
   const int k = nch - 1 - kr;
   const int c = threadIdx.x % kCw, j = threadIdx.x / kCw;
-  const int w = tile * kCw + c;
+  const int w0 = tile * kCw, w = w0 + c;
   const bool live = w < W;
-  const int t0 = k * kChunk + j * kL;
-  const long long base = (long long)b * S * W + w;
+  const int t0 = k * kChunk, s0 = j * kL;
+  const long long rows = (long long)b * S * W;
 
-  float vu[kL], vga[kL], vgi[kL], vdh[kL], hp[kL];
-#pragma unroll
-  for (int i = 0; i < kL; ++i) {
-    const int t = t0 + i;
-    const bool ok = live && t < S;
-    const long long idx = base + (long long)t * W;
-    vu[i] = ok ? to_f(u[idx]) : 0.f;
-    vga[i] = ok ? ga[idx] : 0.f;
-    vgi[i] = ok ? gi[idx] : 0.f;
-    vdh[i] = ok ? dh[idx] : 0.f;
-    hp[i] = !ok ? 0.f
-            : t > 0 ? h[idx - W]
-            : h0 != nullptr ? h0[(long long)b * W + w] : 0.f;
-  }
+  stage_tile(tl.ga, ga + rows, (const float*)nullptr, t0, S, W, w0, vec);
+  stage_tile(tl.dh, dh + rows, (const float*)nullptr, t0, S, W, w0, vec);
+  cp_commit();
+  stage_tile(tl.u, u + rows, (const T*)nullptr, t0, S, W, w0, vec);
+  stage_tile(tl.gi, gi + rows, (const float*)nullptr, t0, S, W, w0, vec);
+  stage_tile(tl.hp, h + rows,
+             h0 != nullptr ? h0 + (long long)b * W : nullptr, t0 - 1, S, W,
+             w0, vec);
+  cp_commit();
   const float ba = live ? b_a[w] : 0.f, bi = live ? b_i[w] : 0.f;
   const float la0 = live ? log_sigmoid(lam[w]) : 0.f;
+  cp_wait<1>();
+  __syncthreads();
+  // a of each step (past the end: the identity step), and its gate r
+  // stored over ga, which the pass reads for it
   float a[kL];
 #pragma unroll
-  for (int i = 0; i < kL; ++i)   // past the end: the identity step
-    a[i] = live && t0 + i < S ? expf(kC * sigmoid(vga[i] + ba) * la0) : 1.f;
+  for (int i = 0; i < kL; ++i) {
+    a[i] = 1.f;
+    if (live && t0 + s0 + i < S) {
+      const float rr = sigmoid(tl.ga[s0 + i][c] + ba);
+      tl.ga[s0 + i][c] = rr;
+      a[i] = expf(kC * rr * la0);
+    }
+  }
   float A = 1.f, xs = 0.f;
 #pragma unroll
   for (int i = kL - 1; i >= 0; --i) {
-    xs = fmaf(a[i], xs, a[i] * vdh[i]);
+    xs = fmaf(a[i], xs, a[i] * tl.dh[s0 + i][c]);
     A *= a[i];
   }
   const int ngr = (nch + G - 1) / G;
-  float x = carry_in<kGrouped>(A, xs, 0.f, kr, kG - 1 - j, c, live, G, nch,
-                               comp + (long long)b * nch * W + w,
-                               grp + (long long)b * ngr * W + w, W);
+  float x = carry_in<kGrouped>(
+      A, xs, 0.f, kr, kG - 1 - j, c, live, G, nch,
+      comp + (long long)b * nch * W + w, grp + (long long)b * ngr * W + w,
+      W);
+  cp_wait<0>();
+  __syncthreads();
 
   float sa = 0.f, si = 0.f, sl = 0.f;
 #pragma unroll
   for (int i = kL - 1; i >= 0; --i) {
-    if (live && t0 + i < S) {
-      const long long idx = base + (long long)(t0 + i) * W;
-      const float g = vdh[i] + x;
-      const float r = sigmoid(vga[i] + ba);
-      const float ii = sigmoid(vgi[i] + bi);
-      const float a2 = expf(2.f * (kC * r * la0));
+    const int r = s0 + i;
+    if (live && t0 + r < S) {
+      const long long idx = rows + (long long)(t0 + r) * W + w;
+      const float vdh = tl.dh[r][c], vu = to_f(tl.u[r][c]);
+      const float g = vdh + x;
+      const float rr = tl.ga[r][c];
+      const float ii = sigmoid(tl.gi[r][c] + bi);
+      const float a2 = expf(2.f * (kC * rr * la0));
       const float one_minus = 1.f - a2;
       const float m = sqrtf(fmaxf(one_minus, 1e-12f));
       const float dm = one_minus >= 1e-12f ? -a2 / m : 0.f;
-      const float dlog_a = g * hp[i] * a[i] + g * ii * vu[i] * dm;
-      const float vdga = dlog_a * kC * la0 * r * (1.f - r);
-      const float vdgi = g * m * vu[i] * ii * (1.f - ii);
+      const float dlog_a = g * tl.hp[r][c] * a[i] + g * ii * vu * dm;
+      const float vdga = dlog_a * kC * la0 * rr * (1.f - rr);
+      const float vdgi = g * m * vu * ii * (1.f - ii);
       from_f(g * m * ii, du + idx);
       dga[idx] = vdga;
       dgi[idx] = vdgi;
       sa += vdga;
       si += vdgi;
-      sl += dlog_a * r;
+      sl += dlog_a * rr;
       x = a[i] * g;
     }
   }
-  if (t0 == 0 && live && dh0 != nullptr) dh0[(long long)b * W + w] = x;
+  if (t0 + s0 == 0 && live && dh0 != nullptr) dh0[(long long)b * W + w] = x;
   red[0][j][c] = sa;
   red[1][j][c] = si;
   red[2][j][c] = sl;
@@ -431,27 +535,33 @@ rglru_scan_bwd_kernel(const T* __restrict__ u, const float* __restrict__ ga,
 #pragma unroll
     for (int jj = 0; jj < kG; ++jj) s += red[j][jj][c];
     part[(((long long)j * B + b) * nch + k) * W + w] = s;
+    __threadfence();
   }
-}
-
-// db_a, db_i and dlam = (the sum of d(log a) r) 8 sigmoid(-lam): part's R
-// = B nch rows of each, warp j adding a contiguous range in order and the
-// 8 ranges then added in order; a block a 32 channels
-__global__ void __launch_bounds__(kThreads)
-rglru_bwd_sum_kernel(const float* __restrict__ part,
-                     const float* __restrict__ lam, float* __restrict__ d_ba,
-                     float* __restrict__ d_bi, float* __restrict__ d_lam,
-                     int R, int W) {
-  __shared__ float red[3][kG][kCw];
-  const int c = threadIdx.x % kCw, j = threadIdx.x / kCw;
-  const int w = blockIdx.x * kCw + c;
-  const bool live = w < W;
-  const int per = (R + kG - 1) / kG, r0 = j * per, r1 = min(R, r0 + per);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(done + tile, 1) + 1 == B * nch - 1;
+    if (last) atomicExch(done + tile, -1);   // back for the next call
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // every block of the tile has folded: its words go back to unset for
+  // the next call, the chunks' (B nch rows of W) and then the groups'
+  for (long long q = threadIdx.x; q < (long long)B * (nch + ngr) * kCw;
+       q += kThreads) {
+    const int wq = w0 + (int)(q % kCw);
+    if (wq < W) comp[q / kCw * W + wq] = kUnset;
+  }
+  // db_a, db_i and dlam = (the sum of d(log a) r) 8 sigmoid(-lam) over
+  // part's R = B nch rows of each, read past L1
+  const int R = B * nch, per = (R + kG - 1) / kG, r0 = j * per,
+            r1 = min(R, r0 + per);
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
     float s = 0.f;
     if (live)
-      for (int r = r0; r < r1; ++r) s += part[((long long)q * R + r) * W + w];
+      for (int r = r0; r < r1; ++r)
+        s += __ldcg(part + ((long long)q * R + r) * W + w);
     red[q][j][c] = s;
   }
   __syncthreads();
@@ -504,41 +614,86 @@ cudaError_t launch(const void* u, const float* ga, const float* gi,
   return cudaGetLastError();
 }
 
-// The words (ticket, chunk and group composites) at the front of the
-// backward's workspace, to be filled with ones, then its partial sums.
+// The backward's flags: the ticket, the chunk and group composites and a
+// count for each channel tile.
 long long bwd_flag_bytes(int B, int S, int W) {
   const long long nch = (S + kChunk - 1) / kChunk;
   const int G = group_size(S);
   const long long ngr = (nch + G - 1) / G;
-  return kTicketBytes + 8LL * B * (nch + ngr) * W;
+  const long long tiles = (W + kCw - 1) / kCw;
+  return kTicketBytes + 8LL * B * (nch + ngr) * W +
+         (4 * tiles + 15) / 16 * 16;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* u, const float* ga, const float* gi,
                        const float* b_a, const float* b_i, const float* lam,
                        const float* h0, const float* h, const float* dh,
-                       void* work, void* du, float* dga, float* dgi,
-                       float* d_ba, float* d_bi, float* d_lam, float* dh0,
-                       int B, int S, int W, cudaStream_t stream) {
+                       void* flags, float* part, void* du, float* dga,
+                       float* dgi, float* d_ba, float* d_bi, float* d_lam,
+                       float* dh0, int B, int S, int W, cudaStream_t stream) {
   const long long nch = (S + kChunk - 1) / kChunk;
   const long long tiles = (W + kCw - 1) / kCw;
   const int G = group_size(S);
-  int* ticket = static_cast<int*>(work);
+  const long long ngr = (nch + G - 1) / G;
+  int* ticket = static_cast<int*>(flags);
   auto* comp = reinterpret_cast<unsigned long long*>(
-      static_cast<char*>(work) + kTicketBytes);
-  float* part = reinterpret_cast<float*>(static_cast<char*>(work) +
-                                         bwd_flag_bytes(B, S, W));
+      static_cast<char*>(flags) + kTicketBytes);
+  int* done = reinterpret_cast<int*>(comp + B * (nch + ngr) * W);
+  // 16-byte copies where every staged row starts on 16 bytes
+  const bool vec = W % 8 == 0 && aligned16(u) && aligned16(ga) &&
+                   aligned16(gi) && aligned16(h) && aligned16(dh) &&
+                   aligned16(h0);
   auto kernel = G < nch ? rglru_scan_bwd_kernel<T, true>
                         : rglru_scan_bwd_kernel<T, false>;
   kernel<<<(unsigned)(B * nch * tiles), kThreads, 0, stream>>>(
       static_cast<const T*>(u), ga, gi, b_a, b_i, lam, h0, h, dh,
-      static_cast<T*>(du), dga, dgi, dh0, part, comp, comp + B * nch * W,
-      ticket, B, S, W, G);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rglru_bwd_sum_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(
-      part, lam, d_ba, d_bi, d_lam, (int)(B * nch), W);
+      static_cast<T*>(du), dga, dgi, d_ba, d_bi, d_lam, dh0, part, comp,
+      comp + B * nch * W, ticket, done, B, S, W, G, (int)vec);
   return cudaGetLastError();
+}
+
+// Kernel i of the file (the forward with float32 and bf16 u, one group
+// and grouped; the step kernel; the backward as the forward): its name
+// and threads a block, or false past the last.
+bool kernel_at(int i, const char** name, const void** fn, int* threads) {
+  struct Entry {
+    const char* name;
+    const void* fn;
+    int threads;
+  };
+  using bf = __nv_bfloat16;
+  const Entry all[] = {
+      {"rglru_scan_kernel<float>", (const void*)rglru_scan_kernel<float, false>,
+       kThreads},
+      {"rglru_scan_kernel<float, grouped>",
+       (const void*)rglru_scan_kernel<float, true>, kThreads},
+      {"rglru_scan_kernel<bf16>", (const void*)rglru_scan_kernel<bf, false>,
+       kThreads},
+      {"rglru_scan_kernel<bf16, grouped>",
+       (const void*)rglru_scan_kernel<bf, true>, kThreads},
+      {"rglru_step_kernel<float>", (const void*)rglru_step_kernel<float>,
+       kStepThreads},
+      {"rglru_step_kernel<bf16>", (const void*)rglru_step_kernel<bf>,
+       kStepThreads},
+      {"rglru_scan_bwd_kernel<float>",
+       (const void*)rglru_scan_bwd_kernel<float, false>, kThreads},
+      {"rglru_scan_bwd_kernel<float, grouped>",
+       (const void*)rglru_scan_bwd_kernel<float, true>, kThreads},
+      {"rglru_scan_bwd_kernel<bf16>",
+       (const void*)rglru_scan_bwd_kernel<bf, false>, kThreads},
+      {"rglru_scan_bwd_kernel<bf16, grouped>",
+       (const void*)rglru_scan_bwd_kernel<bf, true>, kThreads},
+  };
+  if (i < 0 || i >= (int)(sizeof(all) / sizeof(all[0]))) return false;
+  *name = all[i].name;
+  *fn = all[i].fn;
+  *threads = all[i].threads;
+  return true;
 }
 
 }  // namespace
@@ -578,29 +733,33 @@ int rglru_scan_launch(const void* u, const void* ga, const void* gi,
   return (int)err;
 }
 
-// The backward's workspace: bytes in all, and the leading bytes of it the
-// caller fills with ones (the ticket and the composites); the rest, the
-// partial sums (3, B, nch, W) float32, needs no filling.
-long long rglru_scan_bwd_workspace_bytes(int B, int S, int W) {
-  const long long nch = (S + kChunk - 1) / kChunk;
-  return bwd_flag_bytes(B, S, W) + 12LL * B * nch * W;
-}
-
+// The backward's flags (the ticket, the composites and the channel tiles'
+// counts), which the caller fills with ones once and every call leaves
+// so, and its partial sums (3, B, nch, W) float32, which need no filling:
+// bytes of each.
 long long rglru_scan_bwd_flag_bytes(int B, int S, int W) {
   return bwd_flag_bytes(B, S, W);
 }
 
+long long rglru_scan_bwd_part_bytes(int B, int S, int W) {
+  return 12LL * B * ((S + kChunk - 1) / kChunk) * W;
+}
+
 // The gradient of rglru_scan_launch's h from dh (B, S, W) float32 and the
 // forward's output h: du (u's type), dga, dgi (B, S, W), d_ba, d_bi,
-// d_lam (W,) float32 and, where h0 is given, dh0 (B, W). Returns 0 or the
-// cudaError_t of a launch; two launches a call (the scan, then the sums).
+// d_lam (W,) float32 and, where h0 is given, dh0 (B, W). `flags` holds
+// at least rglru_scan_bwd_flag_bytes(B, S, W) bytes, all ones (as the
+// call leaves them; no other launch may use them until it ends: a buffer
+// for each stream), `part` rglru_scan_bwd_part_bytes. Returns 0 or the
+// cudaError_t of the launch; one launch a call.
 int rglru_scan_bwd_launch(const void* u, const void* ga, const void* gi,
                           const void* b_a, const void* b_i, const void* lam,
                           const void* h0, const void* h, const void* dh,
-                          void* work, void* du, void* dga, void* dgi,
-                          void* d_ba, void* d_bi, void* d_lam, void* dh0,
-                          int B, int S, int W, int bf16, void* stream) {
-  if (B < 1 || S < 1 || W < 1 || work == nullptr)
+                          void* flags, void* part, void* du, void* dga,
+                          void* dgi, void* d_ba, void* d_bi, void* d_lam,
+                          void* dh0, int B, int S, int W, int bf16,
+                          void* stream) {
+  if (B < 1 || S < 1 || W < 1 || flags == nullptr || part == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -608,13 +767,34 @@ int rglru_scan_bwd_launch(const void* u, const void* ga, const void* gi,
   const cudaError_t err =
       bf16 ? launch_bwd<__nv_bfloat16>(
                  u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), f(h),
-                 f(dh), work, du, o(dga), o(dgi), o(d_ba), o(d_bi),
-                 o(d_lam), o(dh0), B, S, W, s)
+                 f(dh), flags, o(part), du, o(dga), o(dgi), o(d_ba),
+                 o(d_bi), o(d_lam), o(dh0), B, S, W, s)
            : launch_bwd<float>(
                  u, f(ga), f(gi), f(b_a), f(b_i), f(lam), f(h0), f(h),
-                 f(dh), work, du, o(dga), o(dgi), o(d_ba), o(d_bi),
-                 o(d_lam), o(dh0), B, S, W, s);
+                 f(dh), flags, o(part), du, o(dga), o(dgi), o(d_ba),
+                 o(d_bi), o(d_lam), o(dh0), B, S, W, s);
   return (int)err;
+}
+
+// Registers, shared bytes, local (spilled) bytes and resident blocks an
+// SM (out[0 .. 3]) of kernel i (`kernel_at`). Returns
+// its name, or null past the last or where the runtime refuses the query.
+const char* rglru_scan_kernel_attrs(int i, int* out) {
+  const char* name;
+  const void* fn;
+  int threads;
+  if (!kernel_at(i, &name, &fn, &threads)) return nullptr;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  if (cudaFuncGetAttributes(&a, fn) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    0) != cudaSuccess)
+    return nullptr;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks;
+  return name;
 }
 
 const char* rglru_scan_error_string(int err) {

@@ -15,15 +15,21 @@ call is one launch, and adds one to the count "scan"; at S = 1 a step
 kernel with no workspace, counted in "step".
 
 The backward (`rglru_scan_bwd_kernel`, the same file) runs the forward's
-blocks and fold in reverse: the gradient's carry a_{t+1} g_{t+1} is an
+chunks and fold in reverse: the gradient's carry a_{t+1} g_{t+1} is an
 affine map of the later chunk's, as h is of the earlier one's, so the
 chunks' composites are published and folded as in the forward, from the
-last chunk to the first; each block reads h_{t-1} from the forward's
-output and writes du, dga and dgi, and its partial sums of db_a, db_i and
-dlam, which a second launch adds in a fixed order. No atomics add a
-value, so the bits are the same on every call. A call is two launches and
-adds one to "bwd". `RGLRUScan` is the torch.autograd.Function over the
-forward and the backward.
+last chunk to the first. Its blocks own 32 channels of a chunk and stage
+the tile in shared memory by cp.async (ga and dh first, for the chunk's
+composite; u, gi and the forward's h_{t-1} land during the fold); each
+writes du, dga and dgi and its partial sums of db_a, db_i and dlam, which
+the last block of each channel tile adds in a fixed order in the same
+launch. No atomics add a value, so the bits are the same on every call. A
+call is one launch and adds one to "bwd": its flags (the ticket, the
+composite words, the tiles' counts) are kept for each device and stream
+(`bwd_flags`), all ones between calls, since each call leaves them as it
+found them. `kernel_attrs` reports every instantiation's registers,
+spills, shared bytes and blocks an SM. `RGLRUScan` is the torch.autograd.Function over
+the forward and the backward.
 
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
 plain version on any device; "auto" picks "cuda" for CUDA tensors and
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -43,8 +50,11 @@ from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 # Launches: one added for each kernel call, where it is launched, and
 # nowhere else (chip_smoke.py reads it to show a model ran here); a
-# backward call ("bwd") is two launches.
+# backward call ("bwd") is one launch.
 LAUNCHES = {"scan": 0, "step": 0, "bwd": 0}
+# the backward's flags by (device index, raw stream): kept between calls
+_BWD_FLAGS: dict = {}
+_FLAGS_LOCK = threading.Lock()
 
 
 def _check_operands(u, ga, gi, b_a, b_i, lam, h0, **more):
@@ -85,15 +95,33 @@ def _lib() -> ctypes.CDLL:
     lib.rglru_scan_workspace_bytes.argtypes = [ctypes.c_int] * 3
     lib.rglru_scan_workspace_bytes.restype = ctypes.c_longlong
     lib.rglru_scan_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.rglru_scan_bwd_launch.restype = ctypes.c_int
-    for fn in (lib.rglru_scan_bwd_workspace_bytes,
+    for fn in (lib.rglru_scan_bwd_part_bytes,
                lib.rglru_scan_bwd_flag_bytes):
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_longlong
+    lib.rglru_scan_kernel_attrs.argtypes = [ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.rglru_scan_kernel_attrs.restype = ctypes.c_char_p
     lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_attrs() -> dict:
+    """By kernel instantiation (the forward, the step and the backward,
+    with float32 and bf16 u): its "registers", "shared" bytes, "local"
+    (spilled) bytes and resident "blocks" an SM, as the CUDA runtime
+    reports them. Needs the card; launches nothing."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    attrs, i = {}, 0
+    while (name := lib.rglru_scan_kernel_attrs(i, out)):
+        attrs[name.decode()] = dict(zip(
+            ("registers", "shared", "local", "blocks"), out))
+        i += 1
+    return attrs
 
 
 def rglru_scan_kernel(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
@@ -141,6 +169,27 @@ def rglru_scan(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     return rglru_scan_ref(u, ga, gi, b_a, b_i, lam, h0)
 
 
+def bwd_flags(device: torch.device, stream: int,
+              nbytes: int = 0) -> Optional[torch.Tensor]:
+    """The backward's flags on `device` for the raw stream `stream` (the
+    ticket, the chunks' composites and the channel tiles' counts), at
+    least `nbytes` long, or, with nbytes 0, those kept so far (None before
+    the first call there). All ones between calls: a new buffer is filled
+    with ones on the stream, once, when a call needs a longer one, and
+    every call leaves what it used as it found it."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    key = (device.index, stream)
+    with _FLAGS_LOCK:
+        flags = _BWD_FLAGS.get(key)
+        if nbytes and (flags is None or flags.numel() < nbytes):
+            flags = torch.full((nbytes,), 255, dtype=torch.uint8,
+                               device=device)
+            _BWD_FLAGS[key] = flags
+        return flags
+
+
 def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
                           gi: torch.Tensor, b_a: torch.Tensor,
                           b_i: torch.Tensor, lam: torch.Tensor,
@@ -151,7 +200,7 @@ def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
     `rglru_scan_bwd_ref`: the forward's operands (as `rglru_scan_kernel`
     takes them), its output h and the output's gradient dh, both (B, S,
     W) float32 and contiguous. Returns (du in u's dtype, dga, dgi, db_a,
-    db_i, dlam, dh0 or None). Two launches, one count in "bwd"."""
+    db_i, dlam, dh0 or None). One launch, one count in "bwd"."""
     _check_operands(u, ga, gi, b_a, b_i, lam, h0, h=h, dh=dh)
     B, S, W = u.shape
     f32 = dict(dtype=torch.float32, device=u.device)
@@ -160,16 +209,16 @@ def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
     d_ba, d_bi, d_lam = (torch.empty((W,), **f32) for _ in range(3))
     dh0 = None if h0 is None else torch.empty((B, W), **f32)
     lib = _lib()
-    work = torch.empty((lib.rglru_scan_bwd_workspace_bytes(B, S, W),),
+    part = torch.empty((lib.rglru_scan_bwd_part_bytes(B, S, W),),
                        dtype=torch.uint8, device=u.device)
-    # the ticket and the chunks' composites, all ones: unset
-    work[:lib.rglru_scan_bwd_flag_bytes(B, S, W)].fill_(255)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
+        flags = bwd_flags(u.device, stream,
+                          lib.rglru_scan_bwd_flag_bytes(B, S, W))
         err = lib.rglru_scan_bwd_launch(
             *(t.data_ptr() for t in (u, ga, gi, b_a, b_i, lam)),
             None if h0 is None else h0.data_ptr(), h.data_ptr(),
-            dh.data_ptr(), work.data_ptr(),
+            dh.data_ptr(), flags.data_ptr(), part.data_ptr(),
             *(t.data_ptr() for t in (du, dga, dgi, d_ba, d_bi, d_lam)),
             None if dh0 is None else dh0.data_ptr(), B, S, W,
             int(u.dtype == torch.bfloat16), stream)

@@ -16,6 +16,7 @@ from repro_torch.kernels.bsr_spmv import (LAUNCHES, bsr_matvec, bsr_spmv,
 from repro_torch.kernels.flash_attention.bwd_cases import (
     BWD_CASES, BWD_LIMIT, DTYPES, F32_BWD_CASES, LSE_LIMIT, WGMMA_BWD_CASES,
     bwd_errors)
+from repro_torch.kernels.csr_spmv import hub_cases
 from repro_torch.kernels.rglru_scan import bwd_cases as lru_bwd
 from repro_torch.kernels.ssd_scan import bwd_cases as ssd_bwd
 
@@ -978,6 +979,44 @@ def test_rglru_scan_bwd_matches_plain(cuda, B, S, W, dtype, h0, clamp):
         assert err <= limit, f"{name}: {err:.3g}"
 
 
+def test_rglru_scan_bwd_flags_left_all_ones(cuda):
+    """The backward's flags (the ticket, the composite words, the channel
+    tiles' counts), kept between calls for each stream, are all ones after
+    every call, over one group and in groups, B > 1 and ragged W; so a
+    call after calls of other shapes gives the bits of the first."""
+    from repro_torch.kernels.rglru_scan import (bwd_flags,
+                                                rglru_scan_bwd_kernel,
+                                                rglru_scan_kernel)
+    stream = torch.cuda.current_stream().cuda_stream
+    first = None
+    for B, S, W in ((1, 4096, 2560), (3, 4097, 200), (2, 100, 70),
+                    (1, 4096, 2560)):
+        args, dh = lru_bwd.bwd_inputs(B, S, W, "bf16", True, False, cuda, 7)
+        h = rglru_scan_kernel(*args)
+        got = rglru_scan_bwd_kernel(*args[:6], h, dh, args[6])
+        torch.cuda.synchronize()
+        flags = bwd_flags(cuda, stream)
+        assert flags is not None and bool((flags == 255).all()), (B, S, W)
+        if first is None:
+            first = got
+        elif S == 4096:
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+def test_rglru_kernel_attrs_spill_nothing(cuda):
+    """The runtime's report of every RG-LRU kernel (`kernel_attrs`): the
+    backward's four instantiations spill nothing and keep four blocks of
+    256 threads an SM, the forward without groups spills nothing."""
+    from repro_torch.kernels.rglru_scan import kernel_attrs
+    attrs = kernel_attrs()
+    bwd = {k: a for k, a in attrs.items() if "bwd" in k}
+    assert len(bwd) == 4 and len(attrs) == 10
+    for name, a in bwd.items():
+        assert a["local"] == 0 and a["blocks"] >= 4, (name, a)
+    for name in ("rglru_scan_kernel<float>", "rglru_scan_kernel<bf16>"):
+        assert attrs[name]["local"] == 0, (name, attrs[name])
+
+
 def test_rglru_scan_bwd_refuses_bad_operands(cuda):
     from repro_torch.kernels.rglru_scan import (rglru_scan_bwd,
                                                 rglru_scan_bwd_kernel)
@@ -1339,14 +1378,16 @@ def _ulps_apart(a, b):
 
 
 @pytest.mark.parametrize("nv", [1, 3, 8])
-@pytest.mark.parametrize("case", CSR_CASES[1:])
+@pytest.mark.parametrize("case", CSR_CASES[1:] + hub_cases.HUB_CASES)
 def test_csr_hub_lane_within_one_ulp(cuda, case, nv):
     """The hub lane (float32 operands, float64 products and sum, added
     into y[row_map] in place) against its plain version, the float64 sum
     rounded to float32 and added: within 1 float32 ulp per element (the two
     float64 sums differ by ~1e-16 relative, so their roundings are at most
     one apart), rows outside row_map untouched, the same bits run to run
-    and lane by lane."""
+    and lane by lane; also over rows built round the lane's own blocks of
+    512 edges (`hub_cases`: a row over 1,000 blocks, rows ending on a
+    block's edge, every block ending inside a row)."""
     from repro_torch.kernels.csr_spmv import (LAUNCHES, csr_spmv_hub_add,
                                               csr_spmv_hub_add_ref)
     n_rows = case[0]
@@ -1371,6 +1412,35 @@ def test_csr_hub_lane_within_one_ulp(cuda, case, nv):
         y1 = csr_spmv_hub_add(indptr, src, w, x[:, j:j + 1].contiguous(),
                               row_map, y0[:, j:j + 1].contiguous())
         assert torch.equal(y1[:, 0], y[:, j]), j
+
+
+def test_csr_hub_lane_counts_back_at_zero(cuda):
+    """The hub lane's counts (the workspace kept between calls) are zero
+    after a call, so that a second call, a call on copies of the operands
+    and a call on another stream (a workspace of its own) give the same
+    bits."""
+    from repro_torch.kernels.csr_spmv import csr_spmv_hub_add, hub_counts
+    case = hub_cases.HUB_CASES[1]
+    _, (indptr, src, w, _), x = _csr_case(case, 3, torch.float32, cuda)
+    row_map = torch.arange(case[0], dtype=torch.int32, device=cuda)
+    y0 = torch.rand((case[0], 3), device=cuda)
+    y = csr_spmv_hub_add(indptr, src, w, x, row_map, y0.clone())
+    torch.cuda.synchronize()
+    counts = hub_counts(cuda)
+    assert counts is not None and counts.numel() >= len(src) // 512
+    assert int(counts.abs().sum()) == 0
+    again = csr_spmv_hub_add(indptr, src, w, x, row_map, y0.clone())
+    fresh = csr_spmv_hub_add(*(t.clone() for t in (indptr, src, w, x,
+                                                   row_map)), y0.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = csr_spmv_hub_add(indptr, src, w, x, row_map, y0.clone())
+        assert int(hub_counts(cuda).abs().sum()) == 0
+    torch.cuda.synchronize()
+    assert int(hub_counts(cuda).abs().sum()) == 0
+    for z in (again, fresh, other):
+        assert torch.equal(z, y)
 
 
 def test_csr_hub_lane_refuses_bad_operands(cuda):
