@@ -144,7 +144,10 @@ Phases, each printing its own lines and seconds:
               shapes (the tensor-core lane in bf16, the CUDA-core lane in
               float32, both at B = 1, S = 2048 and B = 4, S = 128, and the
               CUDA-core lane in bf16 at head dim 96); forward and
-              decode-step times;
+              decode-step times; one warm prefill at 1 x 2048 read for
+              the dry run (phase 34): its ms, the bytes allocated before
+              it, its arguments' bytes, max_memory_allocated over it and
+              its flash launches;
  18. main   : the paper's iteration applied to SGD (ROADMAP Queue 1 item
               9.1): run_async_training_sim at p = 4, uniform and with a
               straggler, its DES views on the card, the iterations, times,
@@ -190,7 +193,8 @@ Phases, each printing its own lines and seconds:
               beside its plain version, the library call where there is
               one and the bound; both models' forward and decode-step
               times and the card's busy share; the roofline of both
-              prefills;
+              prefills; a Mamba2-2.7B decode step at B = 4 on a fresh
+              cache, RecurrentGemma-2B freed, read as in phase 17;
  25. main   : DeepSeek-V3 at full width cut to 4 of 61 layers (item
               10.4; its 3 dense layers and the first MoE layer, 15.1e9
               random bf16 weights from --seed, 30.2 GB): the forward of
@@ -232,7 +236,8 @@ Phases, each printing its own lines and seconds:
               from its checkpoint for 2 more; the loss of each step (it
               must fall), ms a step, tokens/s, peak memory, the backward
               kernel's calls (every one on the tensor-core lane) and its
-              share of a profiled step; one step of a 2-layer float32 copy
+              share of a profiled step; step 3 read as in phase 17; one
+              step of a 2-layer float32 copy
               with impl="cuda" (the CUDA-core backward) against impl="ref";
  31. main   : training Whisper-base uncut, 5 steps at batch 8, 448 tokens
               over 448 frames; the loss must fall;
@@ -251,7 +256,18 @@ Phases, each printing its own lines and seconds:
               memory, the SSD scan's calls (64 forwards and 64 remat
               recomputes of 3 launches, 64 backward calls a step) and the
               backward's share of a profiled step; one step of a float32
-              copy cut to 2 layers with impl="cuda" against impl="ref".
+              copy cut to 2 layers with impl="cuda" against impl="ref";
+ 34. dry run: every (arch x shape) cell of `launch.dryrun` counted on the
+              meta device in 8 worker processes (no card): a line a cell
+              (status, TFLOP, GB, peak GB, fits, compute and memory ms,
+              the dominant term), every cell the arch supports ok, the
+              500k decode of the full-attention archs skipped, none in
+              error, within 120 s; the same workers count the three steps
+              read in phases 17, 24 and 30, each held to the card: its
+              peak within 5% of max_memory_allocated (the card's fixed
+              term added), its arguments within 512 B a storage, its
+              temporaries within 5% + 1 MiB, its bookings equal to the
+              launches, its ms beside its roofline bound.
 
 It prints a JSON line describing every kernel, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
@@ -330,11 +346,12 @@ TRANSPORT_LANES = [
 ]
 # the streaming phase (ROADMAP Queue 1 items 6.2-6.5) on Stanford-Web: the
 # crawl stream of benchmarks/streaming_bench.py's replay (:79-91: 24
-# batches of 2 edges; seed 4 here), its serving tol, the 1% batches' and
+# batches of 2 edges; seed 4 and 12 batches here, each trace taking ~2.3 s
+# of host time a batch to make), its serving tol, the 1% batches' and
 # the cold state's tol, the shards of the device drain, the batched
 # queries (`benchmarks/query_bench.py`'s middle batch, 16) and the
 # replay's clock, copied, since those modules import the JAX package
-STREAM_TRACE = dict(n_batches=24, batch_edges=2, seed=4)
+STREAM_TRACE = dict(n_batches=12, batch_edges=2, seed=4)
 STREAM_TOL = 1e-6
 STREAM_BULK_TOL = 1e-8
 STREAM_P = 4
@@ -428,10 +445,43 @@ RGLRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 # the paper's iteration on SGD (training/async_dp.py): p = 4 UEs at seed 0,
 # uniform and with one UE at 0.3x speed (tests/test_async_dp.py)
 TRAIN_CASES = (("uniform", None), ("straggler", [1, 1, 1, 0.3]))
+# the dry run (launch.dryrun) on the card: its memory model held to
+# torch.cuda.max_memory_allocated over one warm step at full width
+# (SmolLM-360M training, the Yi-6B prefill, a decode step of
+# DRY_DECODE_ARCH at B = 4): the peak within this share, the arguments
+# within the allocator's granule a storage, the temporaries within this
+# share of the card's plus DRY_ALLOC_SPLIT (the caching allocator hands
+# out a cached block whole where less than this would be left over, so a
+# step's bytes on the card may exceed its rounded requests by less than
+# it); its table of every (arch x shape) cell in at most DRY_TABLE_S
+# seconds with DRY_TABLE_JOBS worker processes, which count the three
+# steps too
+DRY_MEMORY_GAP = 0.05
+DRY_ALLOC_SPLIT = 1 << 20
+DRY_DECODE_ARCH = "mamba2-2.7b"
+DRY_TABLE_S, DRY_TABLE_JOBS = 120.0, 8
+# the steps read on the card for the dry run, by name: (config, kind,
+# batch, seq, optimizer config, `memory_reading`), filled by their phases
+# and held to their counts in the dry run's phase
+DRY_STEPS = {}
 # flash against its plain version, max over rows of ||o - r|| / ||r||,
 # about twice (bf16) and seven times (float32) the largest reading of the
 # sound kernels, 4.6e-3 and 1.4e-6 (PERF.md §6)
 ROW_REL_LIMIT = {"bfloat16": 1e-2, "float32": 1e-5}
+
+
+class _Bounds:
+    """`repro_torch.analysis.bounds` (the work, bytes and bound of each LM
+    kernel's call, the formulas the meta lanes book by), imported at first
+    use: the tools import this script and then put another checkout's
+    src/ first on the path."""
+
+    def __getattr__(self, name):
+        from repro_torch.analysis import bounds as module
+        return getattr(module, name)
+
+
+bounds = _Bounds()
 
 
 @contextmanager
@@ -446,17 +496,6 @@ def check(cond, what):
     if not cond:
         raise AssertionError(what)
     print(f"  ok: {what}")
-
-
-def roofline_ms(flops, nbytes, dtype):
-    """Least time (ms) for work of `flops` operations of `dtype` moving
-    `nbytes` on one H100, the larger of the two terms of the port's
-    roofline (`repro_torch.analysis.roofline`, NVIDIA's data-sheet peaks),
-    and which term it is: (ms, "bytes" | "operations")."""
-    from repro_torch.analysis.roofline import from_counts
-    r = from_counts(flops, nbytes, dtype=dtype)
-    return (r.bound_s * 1e3,
-            "bytes" if r.memory_s >= r.compute_s else "operations")
 
 
 def cuda_ms(fn, reps):
@@ -521,7 +560,7 @@ def bound(blocks, blk_count, x, y):
     real_bytes = real * (bm * bn * 4 + 4) + nbr * 4 + xy
     layout_bytes = nbr * K * (bm * bn * 4 + 4) + xy
     flops = 2.0 * real * bm * bn * x.shape[2]
-    return (*roofline_ms(flops, real_bytes, "float32"), real_bytes,
+    return (*bounds.roofline_ms(flops, real_bytes, "float32"), real_bytes,
             layout_bytes)
 
 
@@ -739,7 +778,7 @@ def csr_bound(dev, x, y, n_rows):
     nbytes = sum(t.numel() * t.element_size() for t in
                  (dev["indptr"], dev["src"], dev["weight"], x, y))
     flops = 2.0 * dev["src"].numel() * nv
-    return roofline_ms(flops, nbytes, str(x.dtype)[6:])
+    return bounds.roofline_ms(flops, nbytes, str(x.dtype)[6:])
 
 
 def library_csr_call(dev, x, n_rows):
@@ -982,7 +1021,7 @@ def csr_timing(op, cuda, smi, hub_dev):
                       (*args[:3], hub_dev["hub_map"]))
                   + n_src * nv * x.element_size()
                   + 2 * n_hub * nv * y.element_size())
-        b_ms, b_by = roofline_ms(2.0 * nnz_h * nv, nbytes, "float64")
+        b_ms, b_by = bounds.roofline_ms(2.0 * nnz_h * nv, nbytes, "float64")
         print(f"  csr hub lane nv={nv} ({n_hub:,} rows, {nnz_h:,} in-links "
               f"from {n_src:,} distinct rows of x, "
               f"f32 in, f64 sum, into y in place): kernel {t['kernel']:.4f} "
@@ -2087,38 +2126,6 @@ def async_main_path(g, cold, trace, smi):
     return launches
 
 
-def attention_pairs(S, T, causal, window=None, prefix=0):
-    """The allowed (query, key) pairs of one head: row i sees keys j < T
-    with j <= i or j < prefix where causal (top-left; a prefix-LM's prefix
-    is seen by every row), and j > i - window where a window is given."""
-    import numpy as np
-    i = np.arange(S)
-    hi = (np.minimum(np.maximum(i + 1, prefix), T) if causal
-          else np.full(S, T))
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def attention_flops(q, k, causal, window=None, prefix=0, dv=None):
-    """The work of one attention call: 2 (Dk + Dv) flops per allowed
-    (query, key) pair and head (q k^T and p v; 4 D where Dv = Dk)."""
-    B, H, S, D = q.shape
-    dv = D if dv is None else dv
-    return 2.0 * B * H * (D + dv) * attention_pairs(S, k.shape[2], causal,
-                                                    window, prefix)
-
-
-def attention_bound(q, k, v, causal, window=None, prefix=0):
-    """Least time (ms) for one attention call on these operands: q, k, v
-    read once and o (B, H, S, Dv) written once at the HBM rate, against
-    the work (`attention_flops`) at the peak for the operands' type: dense
-    bf16 on the tensor cores, float32 on the CUDA cores."""
-    flops = attention_flops(q, k, causal, window, prefix, v.shape[-1])
-    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v))
-              + q.numel() // q.shape[-1] * v.shape[-1] * q.element_size())
-    return roofline_ms(flops, nbytes, str(q.dtype)[6:])
-
-
 def device_breakdown(fn, label, smi):
     """Run fn once under torch.profiler and print where the device time
     went: kernel time by group (the flash kernel, matrix products, the
@@ -2175,6 +2182,148 @@ def free_cuda():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def lm_launch_counts():
+    """The LM kernels' launch counts by kernel, as the meta lane books
+    them (`analysis.count.Counts.kernels`)."""
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.rglru_scan import LAUNCHES as LRU
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    return {"flash_attention": dict(FA), "ssd_scan": dict(SSD),
+            "rglru_scan": dict(LRU)}
+
+
+def memory_reading(run, args):
+    """One call of run() on the card, the allocator's peak reset before
+    it: (its result, {ms of run() alone on the host clock, to a
+    synchronize; bytes allocated before it; the allocator's bytes of
+    args' storages (the step's arguments) and their count; the peak; the
+    peak before the reset, for a caller's own reading of a longer span;
+    the LM kernels' launches during it})."""
+    import torch
+    from repro_torch.analysis.count import storage_bytes, tensors
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    held = storage_bytes(args)
+    storages = len({t.untyped_storage()._cdata for t in tensors(args)})
+    start = lm_launch_counts()
+    prior = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: {key: n - start[k][key] for key, n in v.items()
+                    if n != start[k][key]}
+                for k, v in lm_launch_counts().items()}
+    return out, dict(ms=ms, before=before, held=held, storages=storages,
+                     peak=peak, prior=prior,
+                     launches={k: v for k, v in launches.items() if v})
+
+
+def dry_step(what, cfg, kind, batch, seq, reading, opt_cfg=None):
+    """Keep a step's card reading for the dry run's phase, which counts
+    the step (`launch.dryrun.count_cell`) and holds it to the reading
+    (`dry_run_against_card`)."""
+    DRY_STEPS[what] = (cfg, kind, batch, seq, opt_cfg, reading)
+
+
+def dry_run_against_card(what, cfg, counts, reading, smi):
+    """The dry run's count of a step (`launch.dryrun.count_cell`) held to
+    the card's reading of it (`memory_reading`): the predicted peak, the
+    dry run's arguments and temporaries plus the card's fixed term (the
+    bytes allocated before the step beyond its arguments: the cuBLAS and
+    cuBLASLt workspaces, buffers a kernel keeps between calls, and what
+    the phase holds besides the step), within DRY_MEMORY_GAP of
+    max_memory_allocated; the arguments within ALLOC_GRANULE a storage of
+    the card's; the temporaries within DRY_MEMORY_GAP of the card's (the
+    peak less the bytes before the step) plus DRY_ALLOC_SPLIT; the meta
+    lane's bookings equal to the kernels' launches; the step's ms beside
+    the dry run's roofline bound (printed, not gated)."""
+    from repro_torch.analysis.count import ALLOC_GRANULE
+    from repro_torch.launch.dryrun import roofline_of
+    m = counts.memory
+    fixed = reading["before"] - reading["held"]
+    predicted = m.peak_bytes + fixed
+    gap = (predicted - reading["peak"]) / reading["peak"]
+    temps = reading["peak"] - reading["before"]
+    booked = {k: {key: n for key, n in b["launches"].items() if n}
+              for k, b in counts.kernels.items()}
+    booked = {k: v for k, v in booked.items() if v}
+    roof = roofline_of(cfg, counts)
+    bound_ms = roof.bound_s * 1e3
+    gb = 1e9
+    print(f"  dry run of {what}: {counts.flops / 1e12:.3f} TFLOP, "
+          f"{counts.hbm_bytes / gb:.3f} GB moved, arguments "
+          f"{m.argument_size_in_bytes / gb:.4f} GB (the card's "
+          f"{reading['held'] / gb:.4f}), temporaries "
+          f"{m.temp_size_in_bytes / gb:.4f} GB (the card's "
+          f"{temps / gb:.4f}), the card's "
+          f"fixed term {fixed / 1e6:.2f} MB; the step {reading['ms']:.2f} ms "
+          f"against the bound {bound_ms:.3f} ms ({roof.dominant}-bound), "
+          f"{100 * bound_ms / reading['ms']:.1f}% of it [{smi}]")
+    check(abs(gap) <= DRY_MEMORY_GAP,
+          f"{what}: the dry run's peak {predicted / gb:.4f} GB (its "
+          f"{m.peak_bytes / gb:.4f} + the fixed term) against "
+          f"max_memory_allocated {reading['peak'] / gb:.4f} GB: "
+          f"{100 * gap:+.3f}% (within {100 * DRY_MEMORY_GAP:.0f}%)")
+    check(abs(m.argument_size_in_bytes - reading["held"])
+          <= ALLOC_GRANULE * reading["storages"],
+          f"{what}: the dry run's arguments {m.argument_size_in_bytes:,} B "
+          f"against the card's {reading['held']:,} B in "
+          f"{reading['storages']} storages (within {ALLOC_GRANULE} B a "
+          f"storage)")
+    check(abs(m.temp_size_in_bytes - temps)
+          <= DRY_MEMORY_GAP * temps + DRY_ALLOC_SPLIT,
+          f"{what}: the dry run's temporaries {m.temp_size_in_bytes:,} B "
+          f"against the card's {temps:,} B: "
+          f"{100 * (m.temp_size_in_bytes - temps) / max(temps, 1):+.3f}% "
+          f"(within {100 * DRY_MEMORY_GAP:.0f}% + {DRY_ALLOC_SPLIT:,} B)")
+    check(booked == reading["launches"],
+          f"{what}: the meta lane's bookings {booked} equal the card's "
+          f"launches {reading['launches']}")
+    return dict(gap=gap, ms=reading["ms"], bound_ms=bound_ms,
+                peak=reading["peak"], predicted=predicted)
+
+
+def dry_run_table(smi):
+    """Every (arch x shape) cell counted on the meta device
+    (`launch.dryrun.run_table`, DRY_TABLE_JOBS worker processes): a line
+    a cell, every cell the arch supports `ok`, the others `skipped`, none
+    in error, within DRY_TABLE_S seconds. The same workers count the steps
+    of DRY_STEPS, each then held to its card reading
+    (`dry_run_against_card`). Returns the records."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    with dryrun.worker_pool(DRY_TABLE_JOBS) as pool:
+        steps = {what: pool.submit(dryrun.count_cell, cfg, kind, B, S, opt)
+                 for what, (cfg, kind, B, S, opt, _) in DRY_STEPS.items()}
+        recs = dryrun.run_table(pool=pool)
+        steps = {what: f.result() for what, f in steps.items()}
+    secs = time.perf_counter() - t0
+    for rec in recs:
+        print("  " + dryrun.summary(rec))
+    wrong = [(r["arch"], r["shape"], r["status"], r.get("error"))
+             for r in recs
+             if r["status"] != ("ok" if get_config(r["arch"]).supports_shape(
+                 r["shape"])[0] else "skipped")]
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    check(not wrong and secs <= DRY_TABLE_S,
+          f"the dry run's table: {n_ok} cells ok, "
+          f"{len(recs) - n_ok} skipped as the arch's supports_shape says, "
+          f"none in error {wrong}; {secs:.1f} s with {DRY_TABLE_JOBS} worker "
+          f"processes (<= {DRY_TABLE_S:.0f} s, the {len(steps)} steps "
+          f"below counted by them too), records under {dryrun.RESULTS_DIR} "
+          f"[{smi}]")
+    check(len(steps) == 3, f"the dry run's steps read on the card: "
+                           f"{list(steps)}")
+    for what, counts in steps.items():
+        cfg, *_, reading = DRY_STEPS[what]
+        dry_run_against_card(what, cfg, counts, reading, smi)
+    return recs
 
 
 def rel_err(a, b):
@@ -2566,10 +2715,10 @@ def yi_timing(cuda, seed, smi):
              "plain": cuda_ms(lambda: flash_attention_ref(q, k, v,
                                                           causal=True), 5),
              "sdpa": cuda_ms(sdpa, 20)}
-        b_ms, b_by = attention_bound(q, k, v, True)
+        b_ms, b_by = bounds.attention_bound(q, k, v, True)
         f32_share = ""
         if lane == "f32":  # the CUDA-core lane's FMAs against their peak
-            rate = attention_flops(q, k, True) / (t["kernel"] * 1e-3)
+            rate = bounds.attention_flops(q, k, True) / (t["kernel"] * 1e-3)
             f32_share = (f"{100 * rate / H100.peak_flops['float32']:.1f}% "
                          f"of the f32 peak, ")
         print(f"  flash {lane} lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
@@ -2611,6 +2760,19 @@ def yi_timing(cuda, seed, smi):
         print(f"  forward B={B} S={S}: {ms:.2f} ms, prefill "
               f"{B * S / ms * 1e3:.0f} tokens/s [{smi}]")
         device_breakdown(lambda: model(tokens), f"forward B={B} S={S}", smi)
+    # the prefill read for the dry run (int32 tokens, as launch.specs
+    # makes them)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, YI_PREFILL), dtype=torch.int32,
+        device=cuda)}
+    params = model.param_tree()
+    model(batch["tokens"])
+    out, reading = memory_reading(lambda: model(batch["tokens"])[0],
+                                  (params, batch))
+    del out
+    dry_step(f"the yi-6b prefill {YI_PREFILL}", cfg, "prefill", *YI_PREFILL,
+             reading)
+    del params, batch
     eng = ServeEngine(cfg, model, max_len=YI_PROMPT + 18, device=cuda)
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (YI_BATCH, YI_PROMPT + 17)),
@@ -2930,7 +3092,7 @@ def moe_timing(cuda, model, seed, smi):
          "plain": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True),
                           5),
          "sdpa": cuda_ms(sdpa, 20)}
-    b_ms, b_by = attention_bound(q, k, v, True)
+    b_ms, b_by = bounds.attention_bound(q, k, v, True)
     print(f"  flash wgmma lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} causal "
           f"bf16: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
           f"sdpa {t['sdpa']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); kernel "
@@ -3039,93 +3201,6 @@ def analysis_phase(cfg, times, smi):
         check(r.dominant in ("compute", "memory") and r.collective_s == 0.0,
               f"{what}: {r.dominant}-bound by the H100 constants, no "
               f"collective term on one card")
-
-
-def ssd_products(B, S, H, P, N, Q):
-    """Multiply-adds of each of the SSD scan's four products, causal halves
-    counted once: per chunk of q steps, C B^T below the diagonal
-    (q (q + 1) / 2 N), y's intra-chunk term (q (q + 1) / 2 H P), y's
-    inter-chunk term and the chunk states (q N H P each)."""
-    mac = dict(cb=0, intra=0, inter=0, state=0)
-    for s0 in range(0, S, Q):
-        q = min(Q, S - s0)
-        tri = q * (q + 1) // 2
-        mac["cb"] += B * tri * N
-        mac["intra"] += B * tri * H * P
-        mac["inter"] += B * q * N * H * P
-        mac["state"] += B * q * N * H * P
-    return mac
-
-
-def ssd_scan_work(B, S, H, P, N, Q):
-    """Float32 operations of one SSD scan (`ssd_products`), 2 flops a
-    multiply-add."""
-    return 2.0 * sum(ssd_products(B, S, H, P, N, Q).values())
-
-
-# TF32 tensor-core products the SSD kernel runs for each of its products
-# with bf16 x, b, c (ssd_scan.cu's note): the float32 operand of a product
-# is split in two, so 2 products where the other operand is bf16 (exact in
-# TF32), 1 for C B^T; with float32 x the kernel runs on the CUDA cores
-SSD_SPLIT = dict(cb=1, intra=2, inter=2, state=2)
-
-
-def ssd_tf32_ops(B, S, H, P, N, Q):
-    """TF32 operations of the SSD kernel's split products, bf16 x."""
-    return 2.0 * sum(SSD_SPLIT[k] * m
-                     for k, m in ssd_products(B, S, H, P, N, Q).items())
-
-
-def ssd_bound(x, b, dt, chunk):
-    """Least time (ms) of one SSD scan with bf16 x: x, b, c, dt and a_log
-    read once and y and the final state written once, against the
-    function's own operations (`ssd_scan_work`) at the tensor cores' TF32
-    peak, the rate of the kernel's products. Returns (ms, "bytes" |
-    "operations", split_ms, f32_ms): split_ms the bound of the kernel's
-    split products (`ssd_tf32_ops`, the cost of its float32 accuracy),
-    f32_ms that of the function as float32 FMAs on the CUDA cores (the
-    earlier, CUDA-core design's bound)."""
-    B, S, H, P = x.shape
-    N = b.shape[-1]
-    Q = min(chunk, S)
-    nbytes = (2 * x.numel() * x.element_size() + 2 * b.numel()
-              * b.element_size() + dt.numel() * 4 + H * 4 + B * H * P * N * 4)
-    work = ssd_scan_work(B, S, H, P, N, Q)
-    ms, by = roofline_ms(work, nbytes, "tfloat32")
-    split_ms, _ = roofline_ms(ssd_tf32_ops(B, S, H, P, N, Q), nbytes,
-                              "tfloat32")
-    f32_ms, _ = roofline_ms(work, nbytes, "float32")
-    return ms, by, split_ms, f32_ms
-
-
-def ssd_step_bound(x, b, h0):
-    """Least time (ms) of one SSD decode step (S = 1): the state read and
-    written once (2 x B H P N x 4 bytes), x, b, c, dt and a_log read and y
-    written, against 3 float32 multiply-adds a state element."""
-    B, _, H, P = x.shape
-    nbytes = (2 * h0.numel() * 4 + 2 * x.numel() * x.element_size()
-              + 2 * b.numel() * b.element_size() + B * H * 4 + H * 4)
-    return roofline_ms(6 * h0.numel(), nbytes, "float32")
-
-
-# float32 operations of the RG-LRU per element: two sigmoids (add, exp,
-# add, divide), log_a (two multiplies), exp, exp(2 log_a), 1 - ., max,
-# sqrt, three multiplies and the recurrence's fma; log_sigmoid(lam) is per
-# channel
-RGLRU_FLOPS_PER_ELEMENT = 20
-
-
-def rglru_bound(u, h0=None):
-    """Least time (ms) of one RG-LRU scan: u (its dtype), the two float32
-    gate inputs and the float32 h out moved once, 14 bytes an element in
-    bf16 (and h0 read, where given), against ~20 float32 operations an
-    element."""
-    n = u.numel()
-    W = u.shape[-1]
-    nbytes = n * (u.element_size() + 4 + 4 + 4) + 3 * W * 4
-    if h0 is not None:
-        nbytes += h0.numel() * 4
-    return roofline_ms(RGLRU_FLOPS_PER_ELEMENT * n, nbytes, "float32")
 
 
 def scans_against_plain(arch, cuda, seed):
@@ -3653,11 +3728,12 @@ def recurrent_kernel_timing(cuda, seed, smi):
         del r
         t = {"kernel": cuda_ms(kernel, 20), "plain": cuda_ms(plain, 3),
              "sdpa": cuda_ms(sdpa, 10)}
-        b_ms, b_by = attention_bound(q, k, v, True, window)
-        pairs = attention_pairs(S, S, True, window)
+        b_ms, b_by = bounds.attention_bound(q, k, v, True, window)
+        pairs = bounds.attention_pairs(S, S, True, window)
         print(f"  flash wgmma lane B={B} H={H} Hkv={Hkv} S=T={S} D={D} "
               f"window={window} bf16 ({pairs:,} pairs a head, "
-              f"{attention_flops(q, k, True, window) / 1e9:.2f} GFLOP): "
+              f"{bounds.attention_flops(q, k, True, window) / 1e9:.2f} "
+              f"GFLOP): "
               f"kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
               f"sdpa {t['sdpa']:.4f} ms (|diff| {sdpa_err:.3g}), bound "
               f"{b_ms:.4f} ms ({b_by}); kernel at "
@@ -3675,11 +3751,11 @@ def recurrent_kernel_timing(cuda, seed, smi):
 
     t = times["ssd"]
     B, S = RECUR_ARCHS["mamba2-2.7b"]["prefill"]
-    b_ms, b_by, split_ms, f32_ms = ssd_bound(*t["inputs"], Q)
+    b_ms, b_by, split_ms, f32_ms = bounds.ssd_bound(*t["inputs"], Q)
     nc = -(-S // Q)
     nt = -(-min(Q, S) // 64)
-    work = ssd_scan_work(B, S, H, P, N, Q)
-    tf32 = ssd_tf32_ops(B, S, H, P, N, Q)
+    work = bounds.ssd_scan_work(B, S, H, P, N, Q)
+    tf32 = bounds.ssd_tf32_ops(B, S, H, P, N, Q)
     print(f"  ssd_scan B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 "
           f"x ({work / 1e9:.3f} GFLOP, causal halves once; "
           f"{tf32 / 1e9:.3f} GFLOP of split TF32 products): kernel "
@@ -3699,7 +3775,7 @@ def recurrent_kernel_timing(cuda, seed, smi):
 
     t = times["ssd_step"]
     B = RECUR_BATCH
-    b_ms, b_by = ssd_step_bound(*t["inputs"])
+    b_ms, b_by = bounds.ssd_step_bound(*t["inputs"])
     print(f"  ssd_scan decode step B={B} S=1 H={H} P={P} N={N} float32 from "
           f"a state ({2 * B * H * P * N * 4 / 1e6:.2f} MB of state in and "
           f"out; {DECODE_SETS} input sets in turn): kernel "
@@ -3713,7 +3789,7 @@ def recurrent_kernel_timing(cuda, seed, smi):
     for key in ["rglru"] + [f"rglru_{S_}" for S_ in RGLRU_LONG]:
         t = times[key]
         S_ = t["inputs"][0].shape[1]
-        b_ms, b_by = rglru_bound(*t["inputs"])
+        b_ms, b_by = bounds.rglru_bound(*t["inputs"])
         print(f"  rglru_scan B={B} S={S_} W={Wd} bf16 u: kernel "
               f"{t['kernel']:.4f} ms ({t['launches']} launch, "
               f"{-(-S_ // 64) * -(-Wd // 32)} blocks), plain "
@@ -3728,7 +3804,7 @@ def recurrent_kernel_timing(cuda, seed, smi):
 
     t = times["rglru_step"]
     B = RECUR_BATCH
-    b_ms, b_by = rglru_bound(*t["inputs"])
+    b_ms, b_by = bounds.rglru_bound(*t["inputs"])
     print(f"  rglru_scan decode step B={B} S=1 W={Wd} bf16 u from a state: "
           f"kernel {1e3 * t['kernel']:.2f} us ({t['launches']} launch), "
           f"plain {1e3 * t['plain']:.2f} us, bound {1e3 * b_ms:.2f} us "
@@ -3789,6 +3865,25 @@ def recurrent_model_timing(cuda, model, seed, smi):
         f"{cfg.name} decode_step B={RECUR_BATCH}", smi)
     times["decode"] = (ms, stats)
     del eng, cache
+    if cfg.name == DRY_DECODE_ARCH:
+        # the decode step read for the dry run: a cache of 24 positions
+        # (no attention layer: its size is the states') as init_cache
+        # makes it, int32 tokens as launch.specs makes them. A step leaves
+        # each conv tail a view of a (B, 4, C) window, so the step is read
+        # on a fresh cache, after a warm step on another.
+        from repro_torch.models import init_cache
+        cache = init_cache(cfg, RECUR_BATCH, 24, device=cuda)
+        batch = {"token": torch.as_tensor(tokens[:, 4], dtype=torch.int32)}
+        params = model.param_tree()
+        decode_step(model, batch["token"], cache)
+        cache = init_cache(cfg, RECUR_BATCH, 24, device=cuda)
+        out, reading = memory_reading(
+            lambda: decode_step(model, batch["token"], cache)[0],
+            (params, batch, cache))
+        del out
+        dry_step(f"a {cfg.name} decode step at B={RECUR_BATCH}", cfg,
+                 "decode", RECUR_BATCH, 24, reading)
+        del cache, batch, params
     return times
 
 
@@ -3796,7 +3891,7 @@ def recurrent_roofline(cfg, times, smi):
     """The roofline (`repro_torch.analysis`, H100 constants) of the long
     prefill beside its measured time. FLOPs: `model_flops_cell` (2 x the
     parameters past the embedding x tokens), plus the time mixing's own
-    work: the SSD scan's own operations (`ssd_scan_work`, at the TF32
+    work: the SSD scan's own operations (`bounds.ssd_scan_work`, at the TF32
     peak of the kernel's products, so counted at 989 / 495 of them in the
     bf16 compute term) or the local attention's 4 D flops a pair and head. Bytes: every weight read once,
     the embedding rows gathered and the logits written."""
@@ -3808,13 +3903,13 @@ def recurrent_roofline(cfg, times, smi):
     item = cfg.pdtype().itemsize
     model = model_flops_cell(cfg, dict(kind="prefill", batch=B, seq=S))
     if cfg.name == "mamba2-2.7b":
-        mix = kinds.count("ssd") * ssd_scan_work(
+        mix = kinds.count("ssd") * bounds.ssd_scan_work(
             B, S, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
             cfg.ssm_chunk) * (H100.peak_flops["bfloat16"]
                               / H100.peak_flops["tfloat32"])
     else:
         mix = (kinds.count("local_attn") * 4.0 * B * cfg.n_heads
-               * cfg.head_dim_ * attention_pairs(S, S, True,
+               * cfg.head_dim_ * bounds.attention_pairs(S, S, True,
                                                  cfg.local_window))
     nbytes = (total_params(cfg) * item
               + B * S * (cfg.d_model + cfg.padded_vocab) * item)
@@ -4168,7 +4263,7 @@ def flash_row(cuda, seed, smi, shape, what, sdpa_kw, **kw):
                  q, k, v, causal=True, **kw), 3),
              "sdpa": cuda_ms(lambda: F.scaled_dot_product_attention(
                  q, k, v, **sdpa_kw), 20)}
-        b_ms, b_by = attention_bound(q, k, v, True,
+        b_ms, b_by = bounds.attention_bound(q, k, v, True,
                                      prefix=kw.get("prefix_len", 0))
         print(f"  flash {kernel_lane(dt, dk, dv)} lane {what} B={B} H={H} "
               f"Hkv={Hkv} S=T={S} (Dk, Dv) = ({dk}, {dv}) {str(dt)[6:]}: "
@@ -4278,7 +4373,7 @@ def mla_timing(cuda, model, seed, smi):
     print_roofline(
         f"prefill B={B} S={S}",
         model_flops_cell(cfg, dict(kind="prefill", batch=B, seq=S))
-        + 2.0 * (dk + dv) * H * attention_pairs(S, S, True) * B * L,
+        + 2.0 * (dk + dv) * H * bounds.attention_pairs(S, S, True) * B * L,
         weights + B * S * (cfg.d_model + cfg.padded_vocab) * item,
         times[YI_PREFILL], smi)
     print_roofline(
@@ -4317,7 +4412,7 @@ def vlm_timing(cuda, model, seed, smi):
     print_roofline(
         f"prefill B=1 S={S}",
         model_flops_cell(cfg, dict(kind="prefill", batch=1, seq=S))
-        + 4.0 * H * D * attention_pairs(S, S, True, prefix=P)
+        + 4.0 * H * D * bounds.attention_pairs(S, S, True, prefix=P)
         * cfg.n_layers,
         total_params(cfg) * item + S * (cfg.d_model + cfg.padded_vocab)
         * item, times[(1, VLM_LONG_TEXT)], smi)
@@ -4617,20 +4712,6 @@ def flash_bwd_against_plain(cuda):
     return worst
 
 
-def flash_bwd_bound(q, k, v, causal=True, window=None):
-    """Least time (ms) for one backward call: the gradient's own work,
-    4 (Dk + Dv) flops an allowed (query, key) pair and head (dP = dO v^T,
-    dS k, dS^T q, P^T dO), at the peak for the operands' type, against q,
-    k, v, o, dO read and dq, dk, dv written once at the HBM rate."""
-    B, H, S, dk = q.shape
-    dv = v.shape[-1]
-    flops = 4.0 * B * H * (dk + dv) * attention_pairs(S, k.shape[2],
-                                                      causal, window)
-    nbytes = 2 * sum(t.numel() * t.element_size() for t in (q, k, v)) + \
-        2 * q.numel() // dk * dv * q.element_size()
-    return roofline_ms(flops, nbytes, str(q.dtype)[6:])
-
-
 def flash_bwd_timing(cuda, seed, smi):
     """The backward at its training shapes, causal: the tensor-core lane in
     bf16 at BWD_TIMED's shapes, and the CUDA-core lane at F32_BWD_TIMED's
@@ -4695,7 +4776,7 @@ def flash_bwd_timing(cuda, seed, smi):
                                              **sdpa_kw)
         t["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             os_, (qs, ks, vs), do, retain_graph=True), 5)
-        b_ms, b_by = flash_bwd_bound(q, k, v, window=window)
+        b_ms, b_by = bounds.flash_bwd_bound(q, k, v, window=window)
         print(f"  flash bwd {lane} lane, {what} {shape}: kernel "
               f"{t['kernel']:.4f} ms given the forward's lse "
               f"({t['no_lse']:.4f} ms without, rebuilt), plain "
@@ -4904,12 +4985,13 @@ def whisper_main_path(cuda, seed, smi):
     return launches, enc_ms
 
 
-def _train_step_probe(smi, profile_call=2):
+def _train_step_probe(smi, profile_call=2, reading=None, measure_call=3):
     """A wrapper of `launch.train.make_train_step` that times each step on
     the host around a synchronize, and runs call `profile_call` under
     torch.profiler: the step's device time and the share of it taken by
-    each group of STEP_KERNELS (the backward kernels). Returns (wrapper,
-    record)."""
+    each group of STEP_KERNELS (the backward kernels). Where `reading` is
+    a dict, call `measure_call` fills it with its `memory_reading`.
+    Returns (wrapper, record)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4953,6 +5035,14 @@ def _train_step_probe(smi, profile_call=2):
                 for name, t in sorted(by_name.items(),
                                       key=lambda kv: -kv[1])[:6]:
                     print(f"    {t / 1e3:8.3f} ms  {name}")
+            elif reading is not None and len(rec["ms"]) == measure_call:
+                # timed by the reading alone: its walks of the arguments
+                # and the counts stay out of the step's ms
+                out, r = memory_reading(lambda: step(state, batch),
+                                        (state, batch))
+                reading.update(r)
+                rec["ms"].append(r["ms"])
+                return out
             else:
                 out = step(state, batch)
                 torch.cuda.synchronize()
@@ -4966,13 +5056,14 @@ def percent(share):
     return "(not measured)" if share is None else f"{100 * share:.1f}%"
 
 
-def run_trainer(argv, smi):
-    """launch.train.main(argv) with each step timed (`_train_step_probe`).
+def run_trainer(argv, smi, reading=None):
+    """launch.train.main(argv) with each step timed (`_train_step_probe`;
+    `reading` filled with a warm step's `memory_reading` where given).
     Returns (losses, per-step ms, the median ms of the steps after the
     first that were not profiled, the backward kernels' shares of a
     profiled step's device time by STEP_KERNELS' groups, wall s)."""
     from repro_torch.launch import train
-    wrapped, rec = _train_step_probe(smi)
+    wrapped, rec = _train_step_probe(smi, reading=reading)
     real = train.make_train_step
     train.make_train_step = wrapped
     t0 = time.perf_counter()
@@ -5022,11 +5113,16 @@ def train_main_path(cuda, seed, smi):
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    reading = {}
     with tempfile.TemporaryDirectory() as ckpt:
         losses, ms, steady, shares, wall = run_trainer(
-            common + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], smi)
+            common + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt], smi,
+            reading)
         share = shares["flash backward"]
-        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # the run's peak: the step read for the dry run reset the
+        # allocator's, and kept the one before
+        peak = (max(torch.cuda.max_memory_allocated(), reading["prior"])
+                - base) / 1e9
         free_cuda()
         more, ms2, _, _, wall2 = run_trainer(
             common + ["--steps", str(TRAIN_STEPS + TRAIN_RESUME),
@@ -5047,6 +5143,11 @@ def train_main_path(cuda, seed, smi):
           f"{tokens / steady * 1e3:.0f} tokens/s; run walls {wall:.1f} s and"
           f" {wall2:.1f} s with the checkpoints; peak "
           f"{peak:.2f} GB allocated [{smi}]")
+    # the card's step 3 read for the dry run's train step (the launcher's
+    # batch, AdamW in float32)
+    from repro_torch.training.optimizer import OptConfig
+    dry_step(f"the {TRAIN_ARCH} train step {TRAIN_BATCH} x {TRAIN_SEQ}", cfg,
+             "train", TRAIN_BATCH, TRAIN_SEQ, reading, OptConfig())
     launches = flash_counts()
     steps = TRAIN_STEPS + TRAIN_RESUME
     check(launches["bwd"] == cfg.n_layers * steps
@@ -5148,10 +5249,6 @@ RGLRU_BWD_TIMED = (4096, 32768)
 # the flash backward at RecurrentGemma-2B's local attention in training:
 # (B, H, Hkv, S = T, D, window), bf16, causal: the tensor-core lane
 RG_FLASH_BWD = (1, 10, 1, 4096, 256, 2048)
-# float32 operations of the RG-LRU backward per element: the gates again
-# (two sigmoids, log a, a, a^2, m, dm/d(log a): ~18), the carry (2),
-# d(log a) (6), dga and dgi (10), du (2), the sums (4), the composites (3)
-RGLRU_BWD_FLOPS_PER_ELEMENT = 45
 # the train step's kernels reported apart in a profiled step: what ->
 # substrings of their kernels' names
 STEP_KERNELS = {"flash backward": ("flash_bwd",),
@@ -5205,18 +5302,6 @@ def rglru_bwd_against_plain(cuda):
           f"ones again after the {len(BWD_CASES)} cases")
     free_cuda()
     return worst
-
-
-def rglru_bwd_bound(u, h0=None):
-    """Least time (ms) of one RG-LRU backward: u, ga, gi, h and dh read and
-    du, dga and dgi written once (28 bytes an element with bf16 u), b_a,
-    b_i and lam read and their gradients written (and h0 read, dh0
-    written, where given), against ~45 float32 operations an element."""
-    n, W = u.numel(), u.shape[-1]
-    nbytes = 2 * n * (u.element_size() + 4 + 4) + 2 * n * 4 + 6 * W * 4
-    if h0 is not None:
-        nbytes += 2 * h0.numel() * 4
-    return roofline_ms(RGLRU_BWD_FLOPS_PER_ELEMENT * n, nbytes, "float32")
 
 
 def kernel_short_name(name):
@@ -5320,7 +5405,7 @@ def rglru_bwd_timing(cuda, seed, smi):
         t = rglru_bwd_times(cuda, seed, S)
         check(t["within"], f"rglru bwd at 1 x {S} x 2560 bf16: "
               f"{', '.join(f'{e:.3g}' for e in t['errs'])}")
-        b_ms, b_by = rglru_bwd_bound(*t["inputs"])
+        b_ms, b_by = bounds.rglru_bwd_bound(*t["inputs"])
         each = ", ".join(f"{k} {v['ms']:.4f} ms x {v['launches']:g} a "
                          f"call" for k, v in t["kernels"].items())
         print(f"  rglru bwd 1 x {S} x 2560, bf16 u: kernel "
@@ -5460,7 +5545,7 @@ def flash_bwd_window_timing(cuda, seed, smi):
              os_, (qs, ks, vs), do, retain_graph=True), 5),
          "sdpa_causal_bwd": cuda_ms(lambda: torch.autograd.grad(
              oc, (qc, kc, vc), do, retain_graph=True), 5)}
-    b_ms, b_by = flash_bwd_bound(q, k, v, window=window)
+    b_ms, b_by = bounds.flash_bwd_bound(q, k, v, window=window)
     print(f"  flash bwd wgmma lane, RecurrentGemma-2B B={B} H={H} Hkv={Hkv}"
           f" S=T={S} D={D} window {window} bf16: kernel {t['kernel']:.4f} "
           f"ms given the forward's lse ({t['no_lse']:.4f} ms without, "
@@ -5468,7 +5553,8 @@ def flash_bwd_window_timing(cuda, seed, smi):
           f"as a boolean mask) {t['sdpa_bwd']:.4f} ms, SDPA backward "
           f"is_causal without the window {t['sdpa_causal_bwd']:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}; "
-          f"{attention_pairs(S, S, True, window):,} pairs a head); kernel "
+          f"{bounds.attention_pairs(S, S, True, window):,} pairs a head); "
+          f"kernel "
           f"at {100 * b_ms / t['kernel']:.1f}% of bound, "
           f"{t['sdpa_bwd'] / t['kernel']:.3f}x the masked SDPA's speed, "
           f"{t['sdpa_causal_bwd'] / t['kernel']:.3f}x the causal SDPA's; "
@@ -5619,48 +5705,6 @@ SSD_BWD_TIMED = (1, 4096, 80, 64, 128, 256)
 # the plain backward's time, host- and allocator-bound (its many small
 # operations and their temporaries), is the median of this many reads
 SSD_BWD_PLAIN_READS = 7
-# the products the backward needs, in ssd_products' units, by the type of
-# their operands. Both operands bf16 (the tensor cores' bf16 rate): C B^T
-# again (cb) and dW = dy x^T (intra). An operand float32 (TF32's rate, the
-# tensor cores' rate for 32-bit operands): dB and dC's
-# intra-chunk terms dCB B and dCB^T C (cb each); W^T dy (intra); z = dy
-# h_in^T, whose sums with C and over the heads give both y's inter-chunk
-# term's dcum and dC's term (q N H more), and u = g B (inter each); the
-# chunk states again, r = sum_t exp(cum_t) dy_t^T C_t and x^T g for dB's
-# term over the heads (state each)
-SSD_BWD_PRODUCTS = {"bfloat16": dict(cb=1, intra=1),
-                    "tfloat32": dict(cb=2, intra=1, inter=2, state=3)}
-
-
-def ssd_bwd_work(B, S, H, P, N, Q):
-    """Operations of one SSD backward by the rate they are priced at
-    ("bfloat16", "tfloat32"), 2 flops a multiply-add: the products of
-    SSD_BWD_PRODUCTS over `ssd_products`' causal counts."""
-    mac = ssd_products(B, S, H, P, N, Q)
-    return {dtype: 2.0 * sum(n * mac[k] for k, n in counts.items())
-            for dtype, counts in SSD_BWD_PRODUCTS.items()}
-
-
-def ssd_bwd_bound(x, b, dt, chunk):
-    """Least time (ms) of one SSD backward with bf16 x: x, b, c, dt, a_log
-    and dy read once and dx, db, dc, ddt and da_log written once, against
-    the backward's own operations (`ssd_bwd_work`), each group at the
-    tensor cores' peak for its operands' type (bf16's, or TF32's where an
-    operand is float32), one group after the other. Returns (ms, "bytes" |
-    "operations")."""
-    from repro_torch.analysis.roofline import H100_HBM_BW, H100_PEAK_FLOPS
-    B, S, H, P = x.shape
-    N = b.shape[-1]
-    nbytes = (3 * x.numel() * x.element_size()
-              + 4 * b.numel() * b.element_size() + 2 * dt.numel() * 4
-              + 2 * H * 4)
-    work = ssd_bwd_work(B, S, H, P, N, min(chunk, S))
-    ops_s = sum(f / H100_PEAK_FLOPS[dtype] for dtype, f in work.items())
-    bytes_s = nbytes / H100_HBM_BW
-    return max(ops_s, bytes_s) * 1e3, ("bytes" if bytes_s >= ops_s
-                                       else "operations")
-
-
 def zero_ssd_counts():
     from repro_torch.kernels.ssd_scan import LAUNCHES
     for key in LAUNCHES:
@@ -5808,8 +5852,8 @@ def ssd_bwd_timing(cuda, seed, smi):
     check(all(e <= lim for e, lim in zip(errs, bwd_limits("bf16"))),
           f"ssd bwd at {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: "
           f"{', '.join(f'{e:.3g}' for e in errs)}")
-    b_ms, b_by = ssd_bwd_bound(*t["inputs"], Q)
-    parts = ssd_bwd_work(B, S, H, P, N, Q)
+    b_ms, b_by = bounds.ssd_bwd_bound(*t["inputs"], Q)
+    parts = bounds.ssd_bwd_work(B, S, H, P, N, Q)
     work = sum(parts.values())
     print(f"  ssd bwd {B} x {S} x {H} x {P} x {N}, Q = {Q}, bf16: kernel "
           f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms (median of "
@@ -6410,8 +6454,10 @@ def main(argv=None):
 
     with phase("timing: Mamba2-2.7B and RecurrentGemma-2B"):
         recur_rows = recurrent_kernel_timing(cuda, args.seed, smi)
-        for r in recur.values():
-            model = r.pop("model")
+        # DRY_DECODE_ARCH last: its step is read for the dry run with the
+        # other model freed
+        for arch in sorted(recur, key=lambda a: a == DRY_DECODE_ARCH):
+            model = recur[arch].pop("model")
             times = recurrent_model_timing(cuda, model, args.seed, smi)
             recurrent_roofline(model.cfg, times, smi)
             del model
@@ -6448,6 +6494,9 @@ def main(argv=None):
 
     with phase(f"main path: training {SSD_TRAIN_ARCH}"):
         mtrain_ssd, _ = mamba2_train_main_path(cuda, args.seed, smi)
+
+    with phase("dry run: every (arch x shape) cell on the meta device"):
+        dry_run_table(smi)
     lm_launches = {k: whisper_launches[k] + train_launches[k]
                    + wtrain_launches[k] + rtrain_flash[k]
                    for k in whisper_launches}

@@ -89,7 +89,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import build
+from .. import book, build
 from .ref import check_prefix, check_window
 
 MAX_HEAD_DIM = 256
@@ -151,6 +151,125 @@ def check_aligned(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary for "
                              f"the tensor-core lane (address "
                              f"{t.data_ptr():#x})")
+
+
+def _check_tensors(q: torch.Tensor, named) -> None:
+    """Each (name, tensor) of `named` on q's device (a CUDA one, or the
+    meta device), float32 or bfloat16 like q, 4-D and contiguous; raise
+    for one that is not."""
+    meta = q.is_meta
+    kind = "meta" if meta else "CUDA"
+    for name, t in named:
+        if not (t.is_meta if meta else t.is_cuda) or t.device != q.device:
+            raise ValueError(f"{name} must be a {kind} tensor on "
+                             f"{q.device}, got {t.device}")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must share q's dtype: {name} is "
+                            f"{t.dtype}, q is {q.dtype}")
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be 4-D (B, heads, seq, D)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dims(Dk: int, Dv: int) -> None:
+    for d in (Dk, Dv):
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+
+
+def _check_fwd(q, k, v):
+    """The forward's operand checks (`flash_attention`'s docstring);
+    returns (B, H, S, Dk, Hkv, T, Dv)."""
+    _check_tensors(q, (("q", q), ("k", k), ("v", v)))
+    B, H, S, Dk = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != Dk
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])
+            or Hkv == 0 or H % Hkv):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _check_dims(Dk, Dv)
+    return B, H, S, Dk, Hkv, T, Dv
+
+
+def _check_bwd(q, k, v, o, do, lse):
+    """The backward's operand checks (`flash_attention_bwd`'s docstring);
+    returns (B, H, S, Dk, Hkv, T, Dv)."""
+    _check_tensors(q, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
+    B, H, S, Dk = q.shape
+    _, Hkv, T, _ = k.shape
+    Dv = v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != Dk
+            or tuple(v.shape[:3]) != tuple(k.shape[:3])
+            or Hkv == 0 or H % Hkv
+            or tuple(o.shape) != (B, H, S, Dv) or do.shape != o.shape):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}")
+    if lse is not None and (lse.device != q.device
+                            or lse.dtype != torch.float32
+                            or tuple(lse.shape) != (B, H, S)
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
+                         f"{(B, H, S)} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    _check_dims(Dk, Dv)
+    return B, H, S, Dk, Hkv, T, Dv
+
+
+# the tensor-core backward's workspace: each head's rows (lse, then Delta)
+# padded to a multiple of this (kRowPad in flash_attention_bwd_wgmma.cu)
+BWD_ROW_PAD = 128
+# the SMs of an H100 SXM, for the workspace of a call counted on the meta
+# device (on the card the device's own count)
+H100_SMS = 132
+
+
+def bwd_head_splits(B: int, Hkv: int, G: int, T: int, D: int,
+                    sms: int) -> int:
+    """The tensor-core backward's head splits of its dk / dv launch
+    (`head_splits` in flash_attention_bwd_wgmma.cu): the least divisor s of
+    the group size G with at least two blocks an SM over the key tiles of
+    64 x consumers keys, else G."""
+    bk = 64 * (1 if D == 256 else 2)
+    tiles = -(-T // bk) * B * Hkv
+    for s in range(1, G):
+        if G % s == 0 and tiles * s >= 2 * sms:
+            return s
+    return G
+
+
+def bwd_workspace_numel(B: int, H: int, Hkv: int, S: int, T: int, Dk: int,
+                        Dv: int, lane: str,
+                        sms: Optional[int] = H100_SMS) -> int:
+    """float32 elements of the workspace `flash_attention_bwd` allocates on
+    `lane` (`bwd_lane`), both lanes' one formula: on the tensor-core lane
+    each row's lse and Delta (B H rows of S padded to BWD_ROW_PAD) and,
+    where the group's heads split over blocks, 2 x splits x B Hkv T Dk
+    float32 partials of dk and dv (flash_attention_bwd_wgmma_workspace_bytes
+    / 4, `sms` the card's SMs); on the CUDA-core lane each row's lse and
+    Delta, 2 B H S."""
+    if lane == "wgmma":
+        s_pad = -(-S // BWD_ROW_PAD) * BWD_ROW_PAD
+        n = 2 * B * H * s_pad
+        nsplit = bwd_head_splits(B, Hkv, H // Hkv, T, Dk, sms)
+        if nsplit > 1:
+            n += 2 * nsplit * B * Hkv * T * Dk
+        return n
+    return 2 * B * H * S
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a card, or of an H100 SXM on the meta device."""
+    if device.type == "meta":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -247,32 +366,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (o, lse) with lse (B, H, S) float32, each row's base-2 log-sum-exp of
     its scaled scores, log2(sum_j exp2(scale log2(e) q_i . k_j)), for the
     backward; o is the same, bit for bit, with and without it.
+
+    On meta tensors (the meta lane) it checks and allocates as on the card
+    and books its launch (`kernels.book`: "fwd", and "wgmma" on the
+    tensor-core lane, with `analysis.bounds.attention_cost`'s FLOPs and
+    bytes) in place of launching it.
     """
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
-                             f"got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"q, k and v must share a dtype: {name} is "
-                            f"{t.dtype}, q is {q.dtype}")
-        if t.ndim != 4:
-            raise ValueError(f"{name} must be 4-D (B, heads, seq, D)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    B, H, S, Dk = q.shape
-    _, Hkv, T, _ = k.shape
-    Dv = v.shape[3]
-    if (k.shape[0] != B or k.shape[3] != Dk
-            or tuple(v.shape[:3]) != tuple(k.shape[:3])
-            or Hkv == 0 or H % Hkv):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    for d in (Dk, Dv):
-        if not 1 <= d <= MAX_HEAD_DIM:
-            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    B, H, S, Dk, Hkv, T, Dv = _check_fwd(q, k, v)
     check_prefix(prefix_len)
     lane = kernel_lane(q.dtype, Dk, Dv)
     o = q.new_empty((B, H, S, Dv))
@@ -286,6 +386,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     win = 0 if window is None else int(window)  # 0: no window
     # the prefix only widens the causal mask
     prefix = min(int(prefix_len), T) if causal else 0
+    if q.is_meta:
+        from ...analysis.bounds import attention_cost, dtype_name
+        book("flash_attention", {"fwd": 1, "wgmma": int(lane == "wgmma")},
+             *attention_cost(B, H, S, T, Dk, Dv, Hkv, q.element_size(),
+                             dtype_name(q.dtype), causal, window, prefix))
+        return (o, lse) if return_lse else o
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if lane == "wgmma":
@@ -356,42 +462,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     place of rebuilding it. The lane is `bwd_lane(q.dtype, Dk, Dv)`;
     counted once in LAUNCHES["bwd"] (and in LAUNCHES["bwd_wgmma"] on the
     tensor-core lane), whatever its launches; a float32 workspace from
-    torch.empty."""
-    tensors = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
-    for name, t in tensors:
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
-                             f"got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"q, k, v, o and do must share a dtype: {name} "
-                            f"is {t.dtype}, q is {q.dtype}")
-        if t.ndim != 4:
-            raise ValueError(f"{name} must be 4-D (B, heads, seq, D)")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    B, H, S, Dk = q.shape
-    _, Hkv, T, _ = k.shape
-    Dv = v.shape[3]
-    if (k.shape[0] != B or k.shape[3] != Dk
-            or tuple(v.shape[:3]) != tuple(k.shape[:3])
-            or Hkv == 0 or H % Hkv
-            or tuple(o.shape) != (B, H, S, Dv) or do.shape != o.shape):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
-                         f"{tuple(o.shape)}, do {tuple(do.shape)}")
-    if lse is not None and (lse.device != q.device
-                            or lse.dtype != torch.float32
-                            or tuple(lse.shape) != (B, H, S)
-                            or not lse.is_contiguous()):
-        raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
-                         f"{(B, H, S)} tensor on {q.device}, got "
-                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
-    for d in (Dk, Dv):
-        if not 1 <= d <= MAX_HEAD_DIM:
-            raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    torch.empty (`bwd_workspace_numel`). On meta tensors the call
+    allocates as on the card (the workspace at an H100's SMs) and is
+    booked ("bwd", and "bwd_wgmma" on the tensor-core lane, with
+    `analysis.bounds.flash_bwd_cost`) in place of launched."""
+    B, H, S, Dk, Hkv, T, Dv = _check_bwd(q, k, v, o, do, lse)
     check_prefix(prefix_len)
     if B == 0 or S == 0 or T == 0:
         return tuple(torch.zeros_like(t) for t in (q, k, v))
@@ -401,15 +476,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prefix = min(int(prefix_len), T) if causal else 0
     lane = bwd_lane(q.dtype, Dk, Dv)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # the SMs size the tensor-core lane's head splits only
+    sms = _sm_count(q.device) if lane == "wgmma" else None
+    work = torch.empty(bwd_workspace_numel(B, H, Hkv, S, T, Dk, Dv, lane,
+                                           sms),
+                       dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        from ...analysis.bounds import dtype_name, flash_bwd_cost
+        book("flash_attention", {"bwd": 1, "bwd_wgmma": int(lane == "wgmma")},
+             *flash_bwd_cost(B, H, S, T, Dk, Dv, Hkv, q.element_size(),
+                             dtype_name(q.dtype), causal, window, prefix))
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if lane == "wgmma":
             check_aligned(q=q, k=k, v=v, o=o, do=do)
             lib = _bwd_wgmma_lib()
-            nbytes = lib.flash_attention_bwd_wgmma_workspace_bytes(
-                B, H, Hkv, S, T, Dk, Dv)
-            work = torch.empty(nbytes // 4, dtype=torch.float32,
-                               device=q.device)
             err = lib.flash_attention_bwd_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -418,8 +500,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 stream)
             error_string = lib.flash_attention_bwd_wgmma_error_string
         else:
-            work = torch.empty(2 * B * H * S, dtype=torch.float32,
-                               device=q.device)
             vec = _vec(Dk, Dv, q, k, v, o, do)
             lib = _bwd_lib()
             err = lib.flash_attention_bwd_launch(
@@ -437,3 +517,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lane == "wgmma":
         LAUNCHES["bwd_wgmma"] += 1
     return dq, dk, dv
+

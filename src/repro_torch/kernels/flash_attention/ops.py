@@ -3,8 +3,10 @@ plain versions, forward and backward.
 
 `impl`: "cuda" launches the hand-written kernels and needs CUDA tensors;
 "ref" runs the plain PyTorch versions on any device; "auto" picks "cuda"
-for CUDA tensors and "ref" for CPU tensors. A CUDA tensor under "auto"
-always goes to the kernels: there is no fallback.
+for CUDA tensors, "ref" for CPU tensors and "meta" for meta tensors (the
+counting lane of `launch.dryrun`: empty results, one booked launch). A
+CUDA tensor under "auto" always goes to the kernels: there is no
+fallback.
 
 Where q, k or v requires a gradient (and autograd is on), the call goes
 through `FlashAttention`, a torch.autograd.Function whose forward is the
@@ -26,10 +28,21 @@ from .. import resolve_impl
 from .flash_attention import flash_attention, flash_attention_bwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
+def _forward(impl: str):
+    """The forward of a lane (`kernels.resolve_impl`): the kernel's
+    wrapper, which books in place of launching on meta tensors, or the
+    plain version."""
+    return flash_attention_ref if impl == "ref" else flash_attention
+
+
+def _backward(impl: str):
+    """The backward of a lane."""
+    return flash_attention_bwd_ref if impl == "ref" else flash_attention_bwd
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: apply(q, k, v, causal, scale, window,
-    prefix_len, impl) with impl already resolved to "cuda" or "ref". Saves
+    prefix_len, impl) with impl already resolved to "cuda", "ref" or
+    "meta". Saves
     q, k, v, the output and each row's log-sum-exp (B, H, S) for the
     backward, which recomputes the scores (no (S, T) residual is kept)."""
 
@@ -37,8 +50,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, window, prefix_len, impl):
         kw = dict(causal=causal, scale=scale, window=window,
                   prefix_len=prefix_len)
-        fwd = flash_attention if impl == "cuda" else flash_attention_ref
-        o, lse = fwd(q, k, v, return_lse=True, **kw)
+        o, lse = _forward(impl)(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = kw
         ctx.impl = impl
@@ -47,9 +59,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd if ctx.impl == "cuda"
-               else flash_attention_bwd_ref)
-        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse=lse, **ctx.args)
+        dq, dk, dv = _backward(ctx.impl)(q, k, v, o, do.contiguous(),
+                                        lse=lse, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -67,6 +78,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, scale, window,
                                     prefix_len, impl)
-    fn = flash_attention if impl == "cuda" else flash_attention_ref
-    return fn(q, k, v, causal=causal, scale=scale, window=window,
-              prefix_len=prefix_len)
+    return _forward(impl)(q, k, v, causal=causal, scale=scale,
+                          window=window, prefix_len=prefix_len)

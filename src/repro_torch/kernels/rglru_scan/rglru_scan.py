@@ -32,20 +32,23 @@ spills, shared bytes and blocks an SM. `RGLRUScan` is the torch.autograd.Functio
 the forward and the backward.
 
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
-plain version on any device; "auto" picks "cuda" for CUDA tensors and
-"ref" for CPU tensors. A CUDA tensor under "auto" always goes to the
-kernel, and a failed build or launch raises: there is no fallback.
+plain version on any device; "auto" picks "cuda" for CUDA tensors, "ref"
+for CPU tensors and "meta" for meta tensors (the dry run's counting lane:
+the kernel's wrapper on meta tensors, which books its launch in place of
+launching it). A CUDA tensor under "auto" always goes to the kernel, and
+a failed build or launch raises: there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Optional, Tuple
 
 import torch
 
-from .. import build, resolve_impl
+from .. import book, build, resolve_impl
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 # Launches: one added for each kernel call, where it is launched, and
@@ -60,7 +63,8 @@ _FLAGS_LOCK = threading.Lock()
 def _check_operands(u, ga, gi, b_a, b_i, lam, h0, **more):
     """Raise on operands the kernels do not take: u (B, S, W) float32 or
     bfloat16; ga, gi and every (B, S, W) tensor of `more` float32, the
-    rest float32 of their shapes; all contiguous on u's CUDA device."""
+    rest float32 of their shapes; all contiguous on u's device, a CUDA one
+    or the meta device."""
     if u.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"u must be float32 or bfloat16, got {u.dtype}")
     f32 = dict(ga=ga, gi=gi, b_a=b_a, b_i=b_i, lam=lam, **more)
@@ -78,12 +82,54 @@ def _check_operands(u, ga, gi, b_a, b_i, lam, h0, **more):
         raise ValueError(
             f"shape mismatch: u {tuple(u.shape)}, "
             + ", ".join(f"{n} {tuple(t.shape)}" for n, t in f32.items()))
+    meta = u.is_meta
     for name, t in dict(u=u, **f32).items():
-        if not t.is_cuda or t.device != u.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {u.device}, "
-                             f"got {t.device}")
+        if not (t.is_meta if meta else t.is_cuda) or t.device != u.device:
+            raise ValueError(f"{name} must be a {'meta' if meta else 'CUDA'}"
+                             f" tensor on {u.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+# the kernels' steps a chunk, channels a block, chunks a fold batch of the
+# forward's segment count (kChunk, kCw, kG * kFold in rglru_scan.cu) and
+# the ticket's bytes (kTicketBytes)
+CHUNK, TILE_W, FOLD_CHUNKS, TICKET_BYTES = 64, 32, 64, 16
+
+
+def _chunks(S: int) -> tuple:
+    """(chunks, chunks a group, groups) of a sequence of S steps: chunks
+    of CHUNK steps, and past FOLD_CHUNKS chunks groups of ceil(sqrt(chunks))
+    (`group_size` in rglru_scan.cu)."""
+    nch = -(-S // CHUNK)
+    G = nch if nch <= FOLD_CHUNKS else math.isqrt(nch - 1) + 1
+    return nch, G, -(-nch // G)
+
+
+def scan_workspace_bytes(B: int, S: int, W: int) -> int:
+    """Bytes of the workspace a forward call allocates and fills with
+    ones: the ticket, then the chunks' and the groups' 64-bit composites
+    (B x (chunks + groups) x W); none at S = 1. The formula of
+    rglru_scan_workspace_bytes in rglru_scan.cu, for both lanes."""
+    if S <= 1:
+        return 0
+    nch, _, ngr = _chunks(S)
+    return TICKET_BYTES + 8 * B * (nch + ngr) * W
+
+
+def bwd_part_bytes(B: int, S: int, W: int) -> int:
+    """Bytes of the backward's partial sums a call allocates, (3, B,
+    chunks, W) float32 (rglru_scan_bwd_part_bytes), for both lanes."""
+    return 12 * B * -(-S // CHUNK) * W
+
+
+def bwd_flag_bytes(B: int, S: int, W: int) -> int:
+    """Bytes of the backward's flags, kept between calls (`bwd_flags`):
+    the ticket, the composites and the channel tiles' counts
+    (rglru_scan_bwd_flag_bytes)."""
+    nch, _, ngr = _chunks(S)
+    tiles = -(-W // TILE_W)
+    return TICKET_BYTES + 8 * B * (nch + ngr) * W + (4 * tiles + 15) // 16 * 16
 
 
 @functools.cache
@@ -130,18 +176,26 @@ def rglru_scan_kernel(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     """The RG-LRU on the card; the arguments and result of
     `rglru_scan_ref`. u: (B, S, W) float32 or bfloat16; ga, gi: (B, S, W)
     float32; b_a, b_i, lam: (W,) float32; h0: (B, W) float32 or None. All
-    contiguous on one CUDA device. Returns h (B, S, W) float32."""
+    contiguous on one CUDA device. Returns h (B, S, W) float32. On meta
+    tensors (the meta lane) it checks and allocates as on the card and
+    books its launch ("step" at S = 1, else "scan", with
+    `analysis.bounds.rglru_cost`) in place of launching it."""
     _check_operands(u, ga, gi, b_a, b_i, lam, h0)
     B, S, W = u.shape
     out = torch.empty((B, S, W), dtype=torch.float32, device=u.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    nbytes = lib.rglru_scan_workspace_bytes(B, S, W)
+    nbytes = scan_workspace_bytes(B, S, W)
     work = None
     if nbytes:
         # the ticket and the chunks' composites, all ones: unset
         work = torch.full((nbytes,), 255, dtype=torch.uint8, device=u.device)
+    if u.is_meta:
+        from ...analysis.bounds import rglru_cost
+        book("rglru_scan", {"step" if S == 1 else "scan": 1},
+             *rglru_cost(B, S, W, u.element_size(), h0 is not None))
+        return out
+    lib = _lib()
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.rglru_scan_launch(
@@ -164,9 +218,9 @@ def rglru_scan(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
     """h (B, S, W) float32 of the RG-LRU (`rglru_scan_ref` for the
     arguments), through the kernel ("cuda") or the plain version
     ("ref")."""
-    if resolve_impl(impl, u) == "cuda":
-        return rglru_scan_kernel(u, ga, gi, b_a, b_i, lam, h0)
-    return rglru_scan_ref(u, ga, gi, b_a, b_i, lam, h0)
+    fn = (rglru_scan_ref if resolve_impl(impl, u) == "ref"
+          else rglru_scan_kernel)
+    return fn(u, ga, gi, b_a, b_i, lam, h0)
 
 
 def bwd_flags(device: torch.device, stream: int,
@@ -200,7 +254,10 @@ def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
     `rglru_scan_bwd_ref`: the forward's operands (as `rglru_scan_kernel`
     takes them), its output h and the output's gradient dh, both (B, S,
     W) float32 and contiguous. Returns (du in u's dtype, dga, dgi, db_a,
-    db_i, dlam, dh0 or None). One launch, one count in "bwd"."""
+    db_i, dlam, dh0 or None). One launch, one count in "bwd". On meta
+    tensors the call allocates its partial sums (not its flags, which the
+    card keeps between calls, `bwd_flags`) and is booked ("bwd",
+    `analysis.bounds.rglru_bwd_cost`) in place of launched."""
     _check_operands(u, ga, gi, b_a, b_i, lam, h0, h=h, dh=dh)
     B, S, W = u.shape
     f32 = dict(dtype=torch.float32, device=u.device)
@@ -208,13 +265,17 @@ def rglru_scan_bwd_kernel(u: torch.Tensor, ga: torch.Tensor,
     dga, dgi = torch.empty((B, S, W), **f32), torch.empty((B, S, W), **f32)
     d_ba, d_bi, d_lam = (torch.empty((W,), **f32) for _ in range(3))
     dh0 = None if h0 is None else torch.empty((B, W), **f32)
+    part = torch.empty((bwd_part_bytes(B, S, W),), dtype=torch.uint8,
+                       device=u.device)
+    if u.is_meta:
+        from ...analysis.bounds import rglru_bwd_cost
+        book("rglru_scan", {"bwd": 1},
+             *rglru_bwd_cost(B, S, W, u.element_size(), h0 is not None))
+        return du, dga, dgi, d_ba, d_bi, d_lam, dh0
     lib = _lib()
-    part = torch.empty((lib.rglru_scan_bwd_part_bytes(B, S, W),),
-                       dtype=torch.uint8, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        flags = bwd_flags(u.device, stream,
-                          lib.rglru_scan_bwd_flag_bytes(B, S, W))
+        flags = bwd_flags(u.device, stream, bwd_flag_bytes(B, S, W))
         err = lib.rglru_scan_bwd_launch(
             *(t.data_ptr() for t in (u, ga, gi, b_a, b_i, lam)),
             None if h0 is None else h0.data_ptr(), h.data_ptr(),
@@ -237,14 +298,14 @@ def rglru_scan_bwd(u: torch.Tensor, ga: torch.Tensor, gi: torch.Tensor,
                    ) -> Tuple[Optional[torch.Tensor], ...]:
     """The RG-LRU's gradient (`rglru_scan_bwd_ref` for the arguments and
     results), through the kernel ("cuda") or the plain version ("ref")."""
-    fn = (rglru_scan_bwd_kernel if resolve_impl(impl, u) == "cuda"
-          else rglru_scan_bwd_ref)
+    fn = (rglru_scan_bwd_ref if resolve_impl(impl, u) == "ref"
+          else rglru_scan_bwd_kernel)
     return fn(u, ga, gi, b_a, b_i, lam, h, dh, h0)
 
 
 class RGLRUScan(torch.autograd.Function):
     """The RG-LRU with its gradient: apply(u, ga, gi, b_a, b_i, lam, h0,
-    impl) with impl already resolved to "cuda" or "ref". Saves the
+    impl) with impl already resolved to "cuda", "ref" or "meta". Saves the
     operands and the output h, which the backward reads for h_{t-1}; the
     backward is the kernel under "cuda" and the plain backward under
     "ref", and returns a gradient for every tensor input (dh0 None

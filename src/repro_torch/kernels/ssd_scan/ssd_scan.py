@@ -29,8 +29,10 @@ rings. A call adds one to "bwd".
 backward.
 
 `impl`: "cuda" launches the kernel and needs CUDA tensors; "ref" runs the
-plain version on any device; "auto" picks "cuda" for CUDA tensors and
-"ref" for CPU tensors. A CUDA tensor under "auto" always goes to the
+plain version on any device; "auto" picks "cuda" for CUDA tensors, "ref"
+for CPU tensors and "meta" for meta tensors (the dry run's counting lane:
+the kernel's wrapper on meta tensors, which books its launches in place
+of launching them). A CUDA tensor under "auto" always goes to the
 kernel, and a failed build or launch raises: there is no fallback.
 """
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import build, resolve_impl
+from .. import book, build, resolve_impl
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 # Launches: one added for each kernel launch, where it is launched, and
@@ -92,7 +94,8 @@ def _check_operands(x, b, c, dt, a_log, chunk, h0, dy=None,
                     dh_last=None) -> int:
     """Raise on operands the kernels do not take (`ssd_scan_kernel`'s
     docstring, and the backward's dy in x's dtype and shape, dh_last
-    float32 in h0's; each may be None). Returns the chunk length Q."""
+    float32 in h0's; each may be None), all on x's device, a CUDA one or
+    the meta device. Returns the chunk length Q."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if b.dtype != x.dtype or c.dtype != x.dtype:
@@ -124,17 +127,58 @@ def _check_operands(x, b, c, dt, a_log, chunk, h0, dy=None,
         raise ValueError(f"head dim {P}, state {N} and chunk {Q} must lie "
                          f"in [1, {MAX_HEAD_DIM}], [1, {MAX_STATE}] and "
                          f"[1, {MAX_CHUNK}]")
+    meta = x.is_meta
     tensors = dict(x=x, b=b, c=c, dt=dt, a_log=a_log, h0=h0, dy=dy,
                    dh_last=dh_last)
     for name, t in tensors.items():
         if t is None:
             continue
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, "
-                             f"got {t.device}")
+        if not (t.is_meta if meta else t.is_cuda) or t.device != x.device:
+            raise ValueError(f"{name} must be a {'meta' if meta else 'CUDA'}"
+                             f" tensor on {x.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return Q
+
+
+# the chunk kernels' rows of a chunk: Q rounded up to this (kPanel in
+# ssd_scan.cu); the backward's score-gradient head groups (kDcbGroups) and
+# heads a piece of its dB, dC launch (kDbcHeads)
+Q_PANEL, DCB_GROUPS, DBC_HEADS = 32, 2, 20
+
+
+def _q_stride(Q: int) -> int:
+    return -(-Q // Q_PANEL) * Q_PANEL
+
+
+def scan_workspace_bytes(B: int, S: int, H: int, P: int, N: int,
+                         Q: int) -> int:
+    """Bytes of the workspace a forward call allocates (P and N as the
+    kernel takes them, padded to multiples of 8): float32 chunk states
+    B x nc x H x P x N, C B^T B x nc x Qs x Qs and cum B x nc x H x Qs (Qs
+    the chunk rounded up to 32); none for the decode step (S = 1). The
+    formula of ssd_scan_workspace_bytes in ssd_scan.cu, for both lanes."""
+    if S <= 1:
+        return 0
+    nc, Qs = -(-S // Q), _q_stride(Q)
+    return 4 * B * nc * (H * P * N + Qs * Qs + H * Qs)
+
+
+def bwd_workspace_bytes(B: int, S: int, H: int, P: int, N: int,
+                        Q: int) -> int:
+    """Bytes of the backward's workspace, float32: the chunk states and
+    h_in (B x nc x H x P x N each), C B^T (B x nc x Qs x Qs), cum, dinter
+    and dtail (B x nc x H x Qs each), the score gradient's head groups
+    (DCB_GROUPS x B x nc x Qs x Qs), the dB, dC pieces (2 x pieces x B x S
+    x N, a piece of DBC_HEADS heads and one more) and the chunks' parts of
+    da_log (B x nc x H). The formula of ssd_scan_bwd_workspace_bytes, for
+    both lanes."""
+    nc, Qs = -(-S // Q), _q_stride(Q)
+    pieces = 1 + -(-H // DBC_HEADS)
+    floats = (2 * B * nc * H * P * N + B * nc * Qs * Qs + 3 * B * nc * H * Qs
+              + DCB_GROUPS * B * nc * Qs * Qs + 2 * pieces * B * S * N
+              + B * nc * H)
+    return 4 * floats
 
 
 # where each of a tensor's last axes lies, for `_tiled` and `_untiled`: P,
@@ -177,7 +221,12 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     `ssd_scan_ref`. x: (B, S, H, P) float32 or bfloat16 with P <= 64; b, c:
     (B, S, N) in x's dtype with N <= 128; dt: (B, S, H) and a_log: (H,)
     float32; h0: (B, H, P, N) float32 or None; chunks of min(chunk, S) <=
-    256 steps. All contiguous on one CUDA device."""
+    256 steps. All contiguous on one CUDA device.
+
+    On meta tensors (the meta lane) it checks, pads and allocates as on
+    the card and books its launches (`kernels.book`: at S = 1 one "step"
+    with `analysis.bounds.ssd_step_cost`, else three "scan" with
+    `ssd_scan_cost`) in place of launching them."""
     Q = _check_operands(x, b, c, dt, a_log, chunk, h0)
     B, S, H, P = x.shape
     N = b.shape[-1]
@@ -190,10 +239,13 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     Pk, Nk = x.shape[-1], b.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((B, H, Pk, Nk), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    nbytes = lib.ssd_scan_workspace_bytes(B, S, H, Pk, Nk, Q)
+    nbytes = scan_workspace_bytes(B, S, H, Pk, Nk, Q)
     work = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
             if nbytes else None)
+    if x.is_meta:
+        _book_scan(B, S, H, P, N, Q, x)
+        return (y, h) if S == 1 else tuple(_untiled(P, N, ("P", "PN"), y, h))
+    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
@@ -213,6 +265,18 @@ def ssd_scan_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return y, h
 
 
+def _book_scan(B, S, H, P, N, Q, x) -> None:
+    """Book a forward call on the meta lane as the card counts it."""
+    from ...analysis.bounds import ssd_scan_cost, ssd_step_cost
+    if S == 1:
+        book("ssd_scan", {"step": 1},
+             *ssd_step_cost(B, H, P, N, x.element_size()))
+    else:
+        book("ssd_scan", {"scan": 3},
+             *ssd_scan_cost(B, S, H, P, N, Q, x.element_size(),
+                            x.dtype == torch.bfloat16))
+
+
 def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              dt: torch.Tensor, a_log: torch.Tensor, chunk: int,
              h0: Optional[torch.Tensor] = None, impl: str = "auto"
@@ -220,9 +284,9 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """y (B, S, H, P) in x's dtype and the final state (B, H, P, N) float32
     of the chunked SSD scan (`ssd_scan_ref` for the arguments), through
     the kernel ("cuda") or the plain version ("ref")."""
-    if resolve_impl(impl, x) == "cuda":
-        return ssd_scan_kernel(x, b, c, dt, a_log, chunk, h0)
-    return ssd_scan_ref(x, b, c, dt, a_log, chunk, h0)
+    fn = (ssd_scan_ref if resolve_impl(impl, x) == "ref"
+          else ssd_scan_kernel)
+    return fn(x, b, c, dt, a_log, chunk, h0)
 
 
 def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -237,7 +301,9 @@ def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     or None, all contiguous. Returns (dx, db, dc, ddt, da_log, dh0 or
     None). Seven launches (the chunk states and C B^T again, their carry,
     the state gradient's carry, the heads' score gradient, dx and ddt, dB
-    and dC, their pieces' sum and da_log), one count in "bwd"."""
+    and dC, their pieces' sum and da_log), one count in "bwd". On meta
+    tensors the call is booked ("bwd", `analysis.bounds.ssd_bwd_cost`) in
+    place of launched, as `ssd_scan_kernel` does."""
     Q = _check_operands(x, b, c, dt, a_log, chunk, h0, dy=dy,
                         dh_last=dh_last)
     B, S, H, P = x.shape
@@ -253,9 +319,16 @@ def ssd_scan_bwd_kernel(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
     ddt, da = torch.empty_like(dt), torch.empty_like(a_log)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    lib = _lib()
-    work = torch.empty(lib.ssd_scan_bwd_workspace_bytes(B, S, H, Pk, Nk, Q),
+    work = torch.empty(bwd_workspace_bytes(B, S, H, Pk, Nk, Q),
                        dtype=torch.uint8, device=x.device)
+    if x.is_meta:
+        from ...analysis.bounds import ssd_bwd_cost
+        book("ssd_scan", {"bwd": 1},
+             *ssd_bwd_cost(B, S, H, P, N, Q, x.element_size(),
+                           x.dtype == torch.bfloat16))
+        return tuple(_untiled(P, N, ("P", "N", "N", None, None, "PN"),
+                              dx, db, dc, ddt, da, dh0))
+    lib = _lib()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -281,14 +354,15 @@ def ssd_scan_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  ) -> Tuple[Optional[torch.Tensor], ...]:
     """The SSD scan's gradient (`ssd_scan_bwd_ref` for the arguments and
     results), through the kernel ("cuda") or the plain version ("ref")."""
-    fn = (ssd_scan_bwd_kernel if resolve_impl(impl, x) == "cuda"
-          else ssd_scan_bwd_ref)
+    fn = (ssd_scan_bwd_ref if resolve_impl(impl, x) == "ref"
+          else ssd_scan_bwd_kernel)
     return fn(x, b, c, dt, a_log, chunk, dy, dh_last, h0)
 
 
 class SSDScan(torch.autograd.Function):
     """The SSD scan with its gradient: apply(x, b, c, dt, a_log, h0, chunk,
-    impl) -> (y, h_last), impl already resolved to "cuda" or "ref". Saves
+    impl) -> (y, h_last), impl already resolved to "cuda", "ref" or
+    "meta". Saves
     the operands only (the backward recomputes the chunk states); the
     backward is the kernel under "cuda" and the plain backward under
     "ref", takes dy and d h_last (None where unused), and returns a

@@ -133,6 +133,18 @@ class ModelConfig:
     def moe_layer(self, idx: int) -> bool:
         return (self.n_experts > 0) and (idx >= self.first_dense_layers)
 
+    def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
+        """Which of the dry run's shapes (`launch.specs.SHAPES`) run for
+        this arch, as the JAX package decides: the 500k-token decode only
+        for archs whose every layer is subquadratic in its history."""
+        if shape_name == "long_500k":
+            subquad = all(k in ("ssd", "rglru", "local_attn")
+                          for k in self.layer_kinds())
+            if not subquad:
+                return False, ("full-attention arch: 500k dense-KV decode "
+                               "is quadratic-history; skipped per DESIGN §5")
+        return True, ""
+
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 

@@ -2400,3 +2400,159 @@ def test_smoke_train_step_kernel_matches_plain(cuda, arch):
     for a, b in zip(gc, gr):
         scale = max(float(b.abs().max()), 1e-30)
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------------ the dry run's lanes
+# the caching allocator hands out a cached block whole where less than
+# this would be left over (kSmallSize): a call's bytes on the card may
+# exceed the sum of its rounded requests by less than this
+ALLOC_SPLIT = 1 << 20
+
+
+def _meta_growth(fn, *args, **kw):
+    """The live bytes the call adds on the meta lane at its peak over its
+    arguments (outputs, padded operands and workspaces), counted by
+    `analysis.count.StepCounter` as the card's allocator rounds them."""
+    from repro_torch.analysis.count import StepCounter
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+            for a in args]
+    kw = {k: v.to("meta") if isinstance(v, torch.Tensor) else v
+          for k, v in kw.items()}
+    counter = StepCounter()
+    counter.hold(meta, kw)
+    with counter:
+        out = fn(*meta, **kw)
+    del out
+    return counter.peak - counter.arguments
+
+
+def _card_growth(fn, *args, **kw):
+    """The bytes a call allocates on the card at its peak over what was
+    allocated before it, after a warm call (kept buffers made, the
+    allocator's blocks cached)."""
+    out = fn(*args, **kw)
+    del out
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak - before
+
+
+def _same_growth(fn, *args, **kw):
+    """A wrapper allocates on the meta lane what it allocates on the
+    card."""
+    card = _card_growth(fn, *args, **kw)
+    meta = _meta_growth(fn, *args, **kw)
+    assert 0 <= card - meta < ALLOC_SPLIT, (card, meta)
+    return card, meta
+
+
+@pytest.mark.parametrize("dtype,B,H,Hkv,S,dk,dv", [
+    (torch.bfloat16, 2, 6, 2, 300, 64, 64),
+    (torch.bfloat16, 1, 10, 1, 1024, 256, 256),     # heads split 10 ways
+    (torch.bfloat16, 1, 4, 4, 200, 192, 128),       # the CUDA-core bwd
+    (torch.float32, 2, 4, 2, 257, 64, 64)])
+def test_flash_meta_lane_allocates_as_the_card(cuda, dtype, B, H, Hkv, S,
+                                               dk, dv):
+    """The forward's and the backward's meta lanes allocate what their
+    calls allocate on the card: o and lse; dq, dk, dv and the backward's
+    workspace (its head splits' partials where the heads split)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_bwd)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, H, S, dk), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, S, dk), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, S, dv), generator=g, device=cuda).to(dtype)
+    _same_growth(flash_attention, q, k, v, return_lse=True)
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    _same_growth(flash_attention_bwd, q, k, v, o, do, lse=lse)
+
+
+@pytest.mark.parametrize("dtype,S,P,N,bwd", [
+    (torch.bfloat16, 300, 64, 128, True), (torch.float32, 300, 12, 10, True),
+    (torch.bfloat16, 1, 64, 128, False)])
+def test_ssd_meta_lane_allocates_as_the_card(cuda, dtype, S, P, N, bwd):
+    """The SSD scan's meta lanes allocate what its calls allocate on the
+    card: the outputs, the operands padded to multiples of 8, the
+    forward's and the backward's workspaces (none for the step)."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        ssd_scan_bwd_kernel, ssd_scan_kernel)
+    B, H, Q = 2, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((B, S, H, P), generator=g, device=cuda).to(dtype)
+    b = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    c = torch.randn((B, S, N), generator=g, device=cuda).to(dtype)
+    dt = torch.rand((B, S, H), generator=g, device=cuda) * 0.1
+    a_log = torch.randn((H,), generator=g, device=cuda)
+    h0 = torch.randn((B, H, P, N), generator=g, device=cuda)
+    _same_growth(ssd_scan_kernel, x, b, c, dt, a_log, Q, h0)
+    if bwd:
+        dy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+        _same_growth(ssd_scan_bwd_kernel, x, b, c, dt, a_log, Q, dy, None,
+                     h0)
+
+
+@pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 4200),
+                                     (torch.float32, 129),
+                                     (torch.bfloat16, 1)])
+def test_rglru_meta_lane_allocates_as_the_card(cuda, dtype, S):
+    """The RG-LRU's meta lanes allocate what its calls allocate on the
+    card: h and the forward's workspace of composites; the gradients and
+    the backward's partial sums (its flags are kept between calls, made
+    by the warm call)."""
+    from repro_torch.kernels.rglru_scan.rglru_scan import (
+        rglru_scan_bwd_kernel, rglru_scan_kernel)
+    B, W = 2, 160
+    g = torch.Generator(device=cuda).manual_seed(2)
+    u = torch.randn((B, S, W), generator=g, device=cuda).to(dtype)
+    ga, gi = (torch.randn((B, S, W), generator=g, device=cuda)
+              for _ in range(2))
+    b_a, b_i, lam = (torch.randn((W,), generator=g, device=cuda)
+                     for _ in range(3))
+    h0 = torch.randn((B, W), generator=g, device=cuda)
+    _same_growth(rglru_scan_kernel, u, ga, gi, b_a, b_i, lam, h0)
+    h = rglru_scan_kernel(u, ga, gi, b_a, b_i, lam, h0)
+    dh = torch.randn(h.shape, generator=g, device=cuda)
+    _same_growth(rglru_scan_bwd_kernel, u, ga, gi, b_a, b_i, lam, h, dh, h0)
+
+
+def test_workspace_formulas_equal_the_libraries(cuda):
+    """Each wrapper's workspace formula, the one source of its buffer's
+    size on both lanes, is the library's own at the main paths' shapes
+    and round them."""
+    import importlib
+    fa, lru, ssd = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+                    for m in ("flash_attention", "rglru_scan", "ssd_scan"))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lib = fa._bwd_wgmma_lib()
+    for B, H, Hkv, S, D in ((8, 15, 5, 2048, 64), (1, 32, 4, 2048, 128),
+                            (1, 10, 1, 4096, 256), (4, 8, 8, 448, 64),
+                            (1, 8, 1, 2048, 256), (3, 12, 4, 77, 128)):
+        assert 4 * fa.bwd_workspace_numel(B, H, Hkv, S, S, D, D, "wgmma",
+                                          sms) == \
+            lib.flash_attention_bwd_wgmma_workspace_bytes(B, H, Hkv, S, S,
+                                                          D, D)
+    lib = ssd._lib()
+    for B, S, H, P, N, Q in ((1, 4096, 80, 64, 128, 256),
+                             (4, 128, 80, 64, 128, 256),
+                             (1, 2048, 80, 64, 128, 256),
+                             (2, 300, 4, 16, 16, 64),
+                             (4, 1, 80, 64, 128, 256), (1, 257, 3, 8, 8, 32)):
+        assert ssd.scan_workspace_bytes(B, S, H, P, N, Q) == \
+            lib.ssd_scan_workspace_bytes(B, S, H, P, N, Q)
+        assert ssd.bwd_workspace_bytes(B, S, H, P, N, Q) == \
+            lib.ssd_scan_bwd_workspace_bytes(B, S, H, P, N, Q)
+    lib = lru._lib()
+    for B, S, W in ((1, 4096, 2560), (1, 32768, 2560), (4, 128, 2560),
+                    (4, 1, 2560), (2, 4161, 160), (1, 16384, 2560)):
+        assert lru.scan_workspace_bytes(B, S, W) == \
+            lib.rglru_scan_workspace_bytes(B, S, W)
+        assert lru.bwd_part_bytes(B, S, W) == \
+            lib.rglru_scan_bwd_part_bytes(B, S, W)
+        assert lru.bwd_flag_bytes(B, S, W) == \
+            lib.rglru_scan_bwd_flag_bytes(B, S, W)

@@ -57,6 +57,9 @@ def test_port_imports_without_jax_or_reference():
         "import repro_torch.training.optimizer\n"
         "import repro_torch.training.train_step\n"
         "import repro_torch.training.checkpoint\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.count\n"
+        "import repro_torch.analysis.bounds\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
